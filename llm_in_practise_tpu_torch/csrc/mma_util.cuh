@@ -1,0 +1,89 @@
+// Small device helpers shared by the port's hand-written sm_90a kernels:
+// cp.async copies, bf16 mma.sync m16n8k16 with f32 accumulators, ldmatrix,
+// and bf16 packing. Fragment layouts (PTX ISA, mma.m16n8k16, .bf16), with
+// g = lane / 4 and t = lane % 4:
+//   A (16 x 16, row):  a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
+//                      a2 = A[g][2t+8..2t+9], a3 = A[g+8][2t+8..2t+9]
+//   B (16 x 8, col):   b0 = B[2t..2t+1][g],   b1 = B[2t+8..2t+9][g]
+//   C (16 x 8, f32):   c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
+// Two C tiles side by side (columns 0-7 and 8-15) are, after packing to
+// bf16, exactly one A fragment: the flash kernels feed P and dS from
+// registers this way.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace port {
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices, transposed: lanes 8i..8i+7 give the row addresses
+// of matrix i; register i then holds (row 2t, col g) and (row 2t+1, col g)
+// of matrix i. On a row-major [k][n] tile that is a B fragment.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* smem_row) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// two f32 -> one register of two bf16 (round to nearest even); `lo` takes
+// the low 16 bits, i.e. the smaller index of the fragment pair
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// out_dtype codes shared with the Python wrappers: 0 f32, 1 bf16, 2 f16
+__device__ __forceinline__ void store_out(void* out, long i, float v,
+                                          int out_dtype) {
+  if (out_dtype == 1) {
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+  } else if (out_dtype == 2) {
+    static_cast<__half*>(out)[i] = __float2half_rn(v);
+  } else {
+    static_cast<float*>(out)[i] = v;
+  }
+}
+
+}  // namespace port

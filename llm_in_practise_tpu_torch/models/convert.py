@@ -7,6 +7,7 @@ and returns the port's flat state ``{name: tensor | NF4Tensor}``, byte
 for byte. Names map ``block_{i}/attn/q_proj/kernel`` to
 ``blocks.{i}.attn.q_proj.kernel`` and ``tok_embed/embedding`` to
 ``tok_embed.weight``; kernels keep their ``(in, out)`` layout.
+:func:`lora_from_jax` carries a JAX LoRA tree across the same way.
 """
 
 from __future__ import annotations
@@ -64,6 +65,18 @@ def port_name(flax_path: str) -> str:
     return ".".join(parts)
 
 
+def flax_path(name: str) -> str:
+    """The inverse of :func:`port_name`: ``blocks.3.attn.q_proj.kernel``
+    -> ``block_3/attn/q_proj/kernel``. LoRA target patterns written for
+    the JAX package match against this form."""
+    parts = name.split(".")
+    if parts == ["tok_embed", "weight"]:
+        return "tok_embed/embedding"
+    if parts[0] == "blocks":
+        parts = [f"block_{parts[1]}", *parts[2:]]
+    return "/".join(parts)
+
+
 def expected_names(cfg) -> set[str]:
     names = {"tok_embed.weight", "ln_f.scale"}
     if not cfg.tie_word_embeddings:
@@ -98,3 +111,20 @@ def params_from_jax(tree: Mapping, cfg) -> dict:
             f"param tree does not match the config: unknown {unknown[:8]}, "
             f"missing {missing[:8]}")
     return state
+
+
+def lora_from_jax(tree: Mapping, cfg) -> dict:
+    """A JAX LoRA tree ``{"block_i/attn/q_proj/kernel": {"a", "b"}}``
+    (numpy or torch leaves) -> the port's ``{port_name: {"a", "b"}}``,
+    byte for byte. Every key must name a kernel of ``cfg``'s model."""
+    want = expected_names(cfg)
+    out = {}
+    for path, ab in tree.items():
+        name = port_name(path)
+        if name not in want or not name.endswith(".kernel"):
+            raise ValueError(f"LoRA entry {path!r} names no kernel of the "
+                             "model")
+        if set(ab) != {"a", "b"}:
+            raise ValueError(f"LoRA entry {path!r} must hold 'a' and 'b'")
+        out[name] = {"a": to_tensor(ab["a"]), "b": to_tensor(ab["b"])}
+    return out

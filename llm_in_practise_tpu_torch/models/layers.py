@@ -1,6 +1,7 @@
-"""KV-cache helpers (port of ``llm_in_practise_tpu/models/layers.py:94-122``).
+"""Layer helpers (port of ``llm_in_practise_tpu/models/layers.py:73-122``).
 
-A cache is a list of per-layer dicts ``{"k", "v", "index"}``; k/v are
+:func:`remat_apply` runs a block under gradient checkpointing. A cache
+is a list of per-layer dicts ``{"k", "v", "index"}``; k/v are
 ``(slots, max_len, n_kv_head, head_dim)``, ``index`` is the write index,
 a scalar or a ``(slots,)`` vector (continuous batching: every slot at its
 own depth).
@@ -9,6 +10,19 @@ own depth).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+
+def remat_apply(block: torch.nn.Module, *args, **call_kwargs):
+    """Apply a transformer block under gradient checkpointing: its
+    activations are recomputed in the backward instead of saved. As in the
+    reference, the block's cache output is dropped (remat runs only on the
+    cache-free training forward). Non-reentrant, so inputs that need no
+    gradient (layer 0's embedding) and keyword arguments are fine."""
+    def run(*a):
+        return block(*a, **call_kwargs)[0]
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def cache_positions(index: torch.Tensor | int, batch: int, length: int, *,

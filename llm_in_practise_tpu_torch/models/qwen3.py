@@ -13,11 +13,17 @@ SwiGLU MLP, RMSNorm, no biases. The dtype rules follow the flax model:
 Unrolled layout only: ``scan_layers=True`` raises. Parameter names follow
 the flax paths with ``block_{i}`` written ``blocks.{i}`` (see
 :mod:`.convert`); kernels keep the JAX ``(in, out)`` layout.
+
+Attention goes through :func:`~..ops.attention.dot_product_attention`
+with ``cfg.attn_impl`` (``"flash"``, and ``"auto"`` on the card, take
+the flash kernels on the uncached path); ``cfg.remat`` checkpoints every block of the uncached
+forward (:func:`~.layers.remat_apply`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -25,8 +31,9 @@ from torch import nn
 
 from llm_in_practise_tpu_torch.core.device import resolve_device
 from llm_in_practise_tpu_torch.models import layers
+from llm_in_practise_tpu_torch.models.convert import expected_names
 from llm_in_practise_tpu_torch.ops import rope as rope_ops
-from llm_in_practise_tpu_torch.ops.attention import dense_attention
+from llm_in_practise_tpu_torch.ops.attention import dot_product_attention
 
 Cache = dict[str, Any]
 
@@ -181,7 +188,8 @@ class Qwen3Attention(nn.Module):
             cache = {"k": k_cache, "v": v_cache, "index": cache["index"] + l}
             k, v = k_cache.to(q.dtype), v_cache.to(q.dtype)
 
-        out = dense_attention(q, k, v, q_offset=q_offset)
+        out = dot_product_attention(q, k, v, q_offset=q_offset,
+                                    impl=cfg.attn_impl)
         out = out.reshape(b, l, cfg.n_head * cfg.head_dim)
         return self.out_proj(out), cache
 
@@ -236,10 +244,8 @@ class Qwen3(nn.Module):
             raise NotImplementedError(
                 "scan_layers=True is not ported: the PyTorch port runs the "
                 "unrolled layout (ROADMAP.md, queue A: later engine paths)")
-        if cfg.attn_impl not in ("auto", "dense"):
-            raise NotImplementedError(
-                f"attn_impl={cfg.attn_impl!r} is not ported: flash attention "
-                "waits for its Hopper kernel (ROADMAP.md, queue B)")
+        if cfg.attn_impl not in ("auto", "dense", "flash"):
+            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
         self.cfg = cfg
         device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
@@ -314,6 +320,12 @@ class Qwen3(nn.Module):
         new_caches: list[Cache] | None = [] if cache is not None else None
         for i, block in enumerate(self.blocks):
             layer_cache = cache[i] if cache is not None else None
+            if self.cfg.remat and cache is None:
+                # gradient checkpointing, as the reference's fine-tunes
+                # call gradient_checkpointing_enable
+                x = layers.remat_apply(block, x, rope_tables, cache=None,
+                                       positions=positions)
+                continue
             x, layer_cache = block(x, rope_tables, cache=layer_cache,
                                    positions=positions)
             if new_caches is not None:
@@ -325,3 +337,31 @@ class Qwen3(nn.Module):
         if cache is not None:
             return logits, new_caches
         return logits
+
+
+def init_params(cfg: Qwen3Config, generator: torch.Generator | None = None,
+                *, device=None, dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """A fresh state for :meth:`Qwen3.load_state`, drawn as flax draws it
+    (as a distribution; the numbers differ): the embedding N(0, 0.02),
+    every kernel lecun-normal (a normal truncated at two standard
+    deviations, scaled to variance 1/fan_in), norm scales 1. ``device``
+    defaults to the card; the generator must live on that device."""
+    device = resolve_device(device)
+    shapes = {n: tuple(p.shape) for n, p in
+              Qwen3(cfg, device="meta").named_parameters()}
+    state = {}
+    for name in sorted(expected_names(cfg)):
+        shape = shapes[name]
+        t = torch.empty(shape, device=device, dtype=dtype)
+        if name == "tok_embed.weight":
+            t.normal_(0.0, 0.02, generator=generator)
+        elif name.endswith(".kernel"):
+            # flax lecun_normal: truncated normal, std corrected for the
+            # truncation (0.87962566103423978 = std of N(0,1) cut at +-2)
+            std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978
+            nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+        else:
+            t.fill_(1.0)
+        state[name] = t
+    return state

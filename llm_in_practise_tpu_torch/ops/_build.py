@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/kernels/<name>-<hash>.so`` beside the package, with a plain C
-interface; the hash covers the source and the flags, so an edited source
-never loads a stale library. Builds happen at first use (or all at once,
+interface; the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
+library. Builds happen at first use (or all at once,
 in parallel, through :func:`build_all`), never at import. The build
 directory is listed in ``.gitignore``.
 """
@@ -29,12 +30,26 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # every kernel source and the C functions it exports: name -> (restype,
 # argtypes) per symbol
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)  # {batch, length, head}
 KERNELS: dict[str, dict[str, tuple]] = {
     "nf4_matmul": {
-        "nf4_matmul_launch": (
-            ctypes.c_int,
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
-        "nf4_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+        "nf4_matmul_launch": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+        "nf4_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "nf4_matmul_bwd": {
+        "nf4_matmul_bwd_launch": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+        "nf4_bwd_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_attention": {
+        "flash_fwd_launch": (
+            _I, [_P] * 5 + [_I] * 5 + [_STRIDES] * 3 + [ctypes.c_float, _P]),
+        "flash_bwd_dq_launch": (
+            _I, [_P] * 7 + [_I] * 5 + [_STRIDES] * 4 + [ctypes.c_float, _P]),
+        "flash_bwd_dkv_launch": (
+            _I, [_P] * 8 + [_I] * 5 + [_STRIDES] * 4 + [ctypes.c_float, _P]),
+        "flash_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
@@ -56,6 +71,8 @@ def source_path(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

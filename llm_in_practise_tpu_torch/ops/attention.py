@@ -1,10 +1,14 @@
-"""Dense causal attention (port of ``llm_in_practise_tpu/ops/attention.py``).
+"""Causal attention (port of ``llm_in_practise_tpu/ops/attention.py``).
 
 The JAX package computes cached prefill and decode attention in plain XLA
 (its flash kernel serves uncached training only), so the port writes it
 as plain tensor code: logits and softmax in f32, probabilities cast to
 v's dtype, GQA contracted against the KV heads directly (no repeat of
 K/V). Layout: q/k/v are ``(batch, length, heads, head_dim)``.
+
+:func:`dot_product_attention` is the models' entry point: uncached causal
+self-attention may take the flash kernels (:mod:`.flash_attention`),
+every cached path stays dense, as in the reference.
 
 In the contiguous KV layout every decode step reads the whole
 ``cache_len`` of every slot and masks what lies past the slot's depth,
@@ -14,6 +18,8 @@ exactly as the reference does.
 from __future__ import annotations
 
 import torch
+
+from llm_in_practise_tpu_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -61,3 +67,38 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, q_len, n_head, head_dim)
+
+
+def _flash_eligible(q, k, q_offset) -> bool:
+    """Uncached causal self-attention: the only case the flash path
+    covers (``ops/attention.py:160-164`` of the reference)."""
+    return (q_offset is None and k.shape[:2] == q.shape[:2]
+            and k.shape[3] == q.shape[3] and q.shape[2] % k.shape[2] == 0)
+
+
+def pick_impl(q, k, q_offset=None) -> str:
+    """``impl="auto"``: on a CUDA tensor the flash kernels for every
+    uncached causal call, at every length (the reference's
+    dense-below-L=512 rule is a v5e measurement); a dtype or head_dim the
+    kernels do not take raises there rather than running plain attention
+    on the card. On the CPU dense, as the JAX package's ``auto`` is off
+    the TPU."""
+    if q.device.type == "cuda" and _flash_eligible(q, k, q_offset):
+        return "flash"
+    return "dense"
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, q_offset: torch.Tensor | int | None = None,
+                          impl: str = "auto") -> torch.Tensor:
+    """Causal attention; ``impl`` is ``"auto"``, ``"dense"`` or
+    ``"flash"``. ``"flash"`` takes the flash path where it applies and
+    dense attention elsewhere (cached prefill, decode), as the reference
+    does."""
+    if impl not in ("auto", "dense", "flash"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "auto":
+        impl = pick_impl(q, k, q_offset)
+    if impl == "flash" and _flash_eligible(q, k, q_offset):
+        return flash_attention(q, k, v, causal=True)
+    return dense_attention(q, k, v, q_offset=q_offset)

@@ -1,13 +1,18 @@
 """Fused NF4 dequant-matmul: ``x @ dequant(W)`` with W streamed in 4 bits.
 
-Port of ``llm_in_practise_tpu/ops/nf4_matmul.py`` (forward). On a CUDA
-tensor :func:`nf4_matmul` launches the hand-written Hopper kernel in
-``csrc/nf4_matmul.cu`` or raises; on a CPU tensor it runs the plain
-version :func:`nf4_matmul_reference`, which does the same arithmetic
-(bf16 operands, f32 sums) in plain tensor ops. There is no fallback from
-the kernel to the plain version.
+Port of ``llm_in_practise_tpu/ops/nf4_matmul.py``, forward and backward.
+On a CUDA tensor :func:`nf4_matmul` launches the hand-written Hopper
+kernel in ``csrc/nf4_matmul.cu`` and :func:`nf4_matmul_backward` the one
+in ``csrc/nf4_matmul_bwd.cu`` (``dx = dy @ dequant(W)^T``), or raise; on a
+CPU tensor they run the plain versions :func:`nf4_matmul_reference` and
+:func:`nf4_matmul_backward_reference`, which do the same arithmetic (bf16
+operands, f32 sums) in plain tensor ops. There is no fallback from a
+kernel to its plain version.
 
-``nf4_matmul.launches`` counts the wrapper's kernel launches.
+The base is frozen (QLoRA): :class:`NF4Matmul` differentiates with
+respect to ``x`` only, and only where autograd asks for it.
+``nf4_matmul.launches`` and ``nf4_matmul_backward.launches`` count the
+kernel launches.
 """
 
 from __future__ import annotations
@@ -50,21 +55,21 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check(x: torch.Tensor, t: NF4Tensor) -> tuple[int, int]:
+def _check_weight(t: NF4Tensor, device: torch.device, what: str
+                  ) -> tuple[int, int]:
+    """(K, N) of a weight the kernels can read on ``device``."""
     if t.layout != "kblock":
         raise ValueError(
-            "the CUDA nf4_matmul takes kblock-layout weights only; got "
+            f"the CUDA {what} takes kblock-layout weights only; got "
             f"layout {t.layout!r} for shape {t.shape}")
     k, n = t.shape
-    if x.shape[-1] != k:
-        raise ValueError(f"x has K={x.shape[-1]}, weight has K={k}")
     if k % _BK or n % 2:
         raise ValueError(f"kernel needs K % 64 == 0 and even N, got {t.shape}")
     for name, a in (("packed", t.packed), ("absmax_q", t.absmax_q),
                     ("absmax_scale", t.absmax_scale),
                     ("absmax_offset", t.absmax_offset)):
-        if a.device != x.device:
-            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+        if a.device != device:
+            raise ValueError(f"{name} is on {a.device}, the input on {device}")
     if t.packed.dtype != torch.uint8 or t.absmax_q.dtype != torch.uint8:
         raise TypeError("packed and absmax_q must be uint8")
     if (t.absmax_scale.dtype != torch.float32
@@ -75,9 +80,23 @@ def _check(x: torch.Tensor, t: NF4Tensor) -> tuple[int, int]:
     return k, n
 
 
+def _check(x: torch.Tensor, t: NF4Tensor) -> tuple[int, int]:
+    k, n = _check_weight(t, x.device, "nf4_matmul")
+    if x.shape[-1] != k:
+        raise ValueError(f"x has K={x.shape[-1]}, weight has K={k}")
+    return k, n
+
+
 def nf4_matmul(x: torch.Tensor, t: NF4Tensor, out_dtype=None) -> torch.Tensor:
     """``x @ dequant(t)``. x: (..., K); t: kblock NF4Tensor of shape (K, N).
-    Returns (..., N) in ``out_dtype`` (default x's dtype)."""
+    Returns (..., N) in ``out_dtype`` (default x's dtype). Differentiable
+    in ``x`` (:class:`NF4Matmul`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return NF4Matmul.apply(x, t, out_dtype)
+    return _forward(x, t, out_dtype)
+
+
+def _forward(x: torch.Tensor, t: NF4Tensor, out_dtype=None) -> torch.Tensor:
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return nf4_matmul_reference(x, t, out_dtype)
@@ -119,3 +138,85 @@ def nf4_matmul(x: torch.Tensor, t: NF4Tensor, out_dtype=None) -> torch.Tensor:
 
 
 nf4_matmul.launches = 0
+
+
+def nf4_matmul_backward_reference(dy: torch.Tensor, t: NF4Tensor,
+                                  out_dtype=None) -> torch.Tensor:
+    """Plain version of the backward: ``dy @ dequant(t)^T`` with bf16
+    operands, f32 products and sums."""
+    out_dtype = out_dtype or dy.dtype
+    w = nf4.dequantize(t, torch.bfloat16).float()
+    return (dy.to(torch.bfloat16).float() @ w.T).to(out_dtype)
+
+
+def _check_backward(dy: torch.Tensor, t: NF4Tensor) -> tuple[int, int]:
+    k, n = _check_weight(t, dy.device, "nf4_matmul_backward")
+    if dy.shape[-1] != n:
+        raise ValueError(f"dy has N={dy.shape[-1]}, weight has N={n}")
+    if n % 64:
+        raise ValueError(f"the backward kernel needs N % 64 == 0, got {n}")
+    return k, n
+
+
+def nf4_matmul_backward(dy: torch.Tensor, t: NF4Tensor,
+                        out_dtype=None) -> torch.Tensor:
+    """``dx = dy @ dequant(t)^T``. dy: (..., N); t: kblock NF4Tensor of
+    shape (K, N). Returns (..., K) in ``out_dtype`` (default dy's dtype).
+    The CUDA kernel needs K % 64 == 0 and N % 64 == 0."""
+    out_dtype = out_dtype or dy.dtype
+    if dy.device.type == "cpu":
+        return nf4_matmul_backward_reference(dy, t, out_dtype)
+    if dy.device.type != "cuda":
+        raise ValueError(
+            f"nf4_matmul_backward runs on cuda or cpu, not {dy.device}")
+    if out_dtype not in _OUT_CODES:
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    k, n = _check_backward(dy, t)
+    lead = dy.shape[:-1]
+    dy2 = dy.reshape(-1, n).to(torch.bfloat16).contiguous()
+    if dy2.data_ptr() % 16:
+        dy2 = dy2.clone()
+    m = dy2.shape[0]
+    dx = torch.empty((m, k), dtype=out_dtype, device=dy.device)
+    if m == 0:
+        return dx.reshape(*lead, k)
+    packed = t.packed.contiguous()
+    absmax_q = t.absmax_q.contiguous()
+    absmax_scale = t.absmax_scale.contiguous()
+    offset = t.absmax_offset.reshape(1).contiguous()
+    lib = _build.load("nf4_matmul_bwd")
+    with torch.cuda.device(dy.device):
+        stream = torch.cuda.current_stream(dy.device).cuda_stream
+        err = lib.nf4_matmul_bwd_launch(
+            dy2.data_ptr(), packed.data_ptr(), absmax_q.data_ptr(),
+            absmax_scale.data_ptr(), offset.data_ptr(), dx.data_ptr(), m, k,
+            n, _OUT_CODES[out_dtype], stream)
+    if err != 0:
+        msg = lib.nf4_bwd_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"nf4_matmul_backward kernel launch failed (m={m}, k={k}, "
+            f"n={n}): cuda error {err}: {msg}")
+    nf4_matmul_backward.launches += 1
+    return dx.reshape(*lead, k)
+
+
+nf4_matmul_backward.launches = 0
+
+
+class NF4Matmul(torch.autograd.Function):
+    """``y = x @ dequant(W)`` with ``dx = dy @ dequant(W)^T``; the NF4
+    base is frozen storage, so it gets no gradient (the JAX package's
+    ``custom_vjp`` returns ``None`` for it too)."""
+
+    @staticmethod
+    def forward(ctx, x, t, out_dtype):
+        ctx.t = t
+        ctx.x_dtype = x.dtype
+        return _forward(x, t, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = nf4_matmul_backward(dy, ctx.t, ctx.x_dtype)
+        return dx, None, None

@@ -55,6 +55,13 @@ class NF4Tensor:
     shape: tuple[int, ...]
     layout: str = "flat"
 
+    @property
+    def nbytes(self) -> int:
+        """Stored bytes: packed codes, absmax bytes, their scales and the
+        f32 offset."""
+        return (self.packed.nbytes + self.absmax_q.nbytes
+                + self.absmax_scale.nbytes + 4)
+
     def to(self, device) -> "NF4Tensor":
         return NF4Tensor(
             self.packed.to(device), self.absmax_q.to(device),
@@ -155,3 +162,26 @@ def dequantize(t: NF4Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     w = (vals.reshape(-1, BLOCK) * absmax[:, None]).reshape(-1)
     n = int(np.prod(t.shape))
     return w[:n].reshape(t.shape).to(dtype)
+
+
+def quantize_tree(state: dict, predicate=None) -> dict:
+    """Quantize every 2-D tensor of a flat state ``{name: tensor}`` (or
+    those where ``predicate(name, tensor)`` holds) to NF4; other entries
+    pass through. The port's counterpart of the JAX ``quantize_tree`` over
+    a pytree."""
+    def is_target(name, leaf):
+        if predicate is not None:
+            return predicate(name, leaf)
+        return getattr(leaf, "ndim", 0) == 2
+
+    return {name: quantize(leaf) if is_target(name, leaf) else leaf
+            for name, leaf in state.items()}
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes held by a (possibly nested) dict of tensors and NF4Tensors."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, NF4Tensor):
+        return tree.nbytes
+    return int(tree.numel() * tree.element_size())

@@ -29,12 +29,46 @@ class NF4Linear(nn.Module):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = nf4_matmul(x.to(self.compute_dtype), self.weight,
-                       self.compute_dtype)
+        y = self.project(x.to(self.compute_dtype))
         return y if y.dtype == x.dtype else y.to(x.dtype)
+
+    def project(self, xc: torch.Tensor) -> torch.Tensor:
+        """The projection of ``xc`` (already in the compute dtype)."""
+        return nf4_matmul(xc, self.weight, self.compute_dtype)
 
     def extra_repr(self) -> str:
         return f"shape={self.weight.shape}, layout={self.weight.layout}"
+
+
+def swap_nf4_linears(model: nn.Module, state: dict, device,
+                     make_linear) -> dict:
+    """Replace each :class:`Dense` whose ``kernel`` in ``state`` is an
+    :class:`NF4Tensor` with ``make_linear(weight_on_device)``; returns the
+    rest of ``state``, moved to ``device``, for ``model.load_state``. A
+    quantized leaf that no ``Dense`` consumes raises."""
+    dense_state, unconsumed = {}, []
+    for name, value in state.items():
+        if not isinstance(value, NF4Tensor):
+            dense_state[name] = value.to(device)
+            continue
+        mod_path, _, attr = name.rpartition(".")
+        try:
+            mod = model.get_submodule(mod_path)
+        except AttributeError:
+            mod = None
+        if attr != "kernel" or not isinstance(mod, Dense):
+            unconsumed.append(name)
+            continue
+        parent_path, _, child = mod_path.rpartition(".")
+        setattr(model.get_submodule(parent_path), child,
+                make_linear(value.to(device)))
+    if unconsumed:
+        # a quantized leaf with no Dense to serve it would otherwise
+        # leave its module computing against a placeholder
+        raise ValueError(
+            "quantized kernels not served by an NF4Linear (module is "
+            f"not a Dense?): {sorted(unconsumed)}")
+    return dense_state
 
 
 class QuantizedModel(nn.Module):
@@ -57,29 +91,8 @@ class QuantizedModel(nn.Module):
                 "item 14)")
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
-        dense_state, unconsumed = {}, []
-        for name, value in state.items():
-            if not isinstance(value, NF4Tensor):
-                dense_state[name] = value.to(device)
-                continue
-            mod_path, _, attr = name.rpartition(".")
-            try:
-                mod = model.get_submodule(mod_path)
-            except AttributeError:
-                mod = None
-            if attr != "kernel" or not isinstance(mod, Dense):
-                unconsumed.append(name)
-                continue
-            parent_path, _, child = mod_path.rpartition(".")
-            parent = model.get_submodule(parent_path)
-            setattr(parent, child, NF4Linear(value.to(device), compute_dtype))
-        if unconsumed:
-            # a quantized leaf with no Dense to serve it would otherwise
-            # leave its module computing against a placeholder
-            raise ValueError(
-                "quantized kernels not served by an NF4Linear (module is "
-                f"not a Dense?): {sorted(unconsumed)}")
-        model.load_state(dense_state)
+        model.load_state(swap_nf4_linears(
+            model, state, device, lambda w: NF4Linear(w, compute_dtype)))
         self.model = model
 
     @property

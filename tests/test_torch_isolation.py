@@ -86,6 +86,29 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert Qwen3(cfg, device="cpu").device == torch.device("cpu")
 
 
+def test_training_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from llm_in_practise_tpu_torch.models.qwen3 import (
+        Qwen3,
+        init_params,
+        qwen3_config,
+    )
+    from llm_in_practise_tpu_torch.peft.fused import QLoRAModel
+    from llm_in_practise_tpu_torch.peft.lora import LoRAConfig
+    from llm_in_practise_tpu_torch.train import __main__ as train_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = qwen3_config(64, n_layer=1, hidden_size=64, intermediate_size=128,
+                       head_dim=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QLoRAModel(Qwen3(cfg, device="meta"), {}, {}, LoRAConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--steps", "1"])
+    state = init_params(cfg, device="cpu")
+    assert state["tok_embed.weight"].device == torch.device("cpu")
+
+
 def test_cli_rejects_unported_flags():
     from llm_in_practise_tpu_torch.serve.__main__ import (
         build_parser,
@@ -116,3 +139,26 @@ def test_nvcc_command_targets_sm90a_into_an_ignored_dir():
     with open(os.path.join(REPO, ".gitignore")) as f:
         ignored = {line.strip().rstrip("/") for line in f}
     assert "build" in ignored
+
+
+@pytest.mark.parametrize("name", ["nf4_matmul_bwd", "flash_attention"])
+def test_training_kernels_build_for_sm90a(name, tmp_path, monkeypatch):
+    from llm_in_practise_tpu_torch.ops import _build
+
+    cmd = _build.nvcc_command(name)
+    assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)
+    assert cmd[-1].endswith(os.path.join("csrc", f"{name}.cu"))
+    assert os.path.exists(cmd[-1]) and _build.KERNELS[name]
+    # the library name covers the shared headers: an edited header never
+    # loads a stale build
+    header = os.path.join(REPO, "llm_in_practise_tpu_torch", "csrc",
+                          "mma_util.cuh")
+    assert os.path.exists(header)
+    before = _build.library_path(name)
+    fake = tmp_path / "csrc"
+    fake.mkdir()
+    for f in _build.CSRC_DIR.iterdir():
+        (fake / f.name).write_bytes(f.read_bytes())
+    (fake / "mma_util.cuh").write_text(open(header).read() + "\n// edit\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", fake)
+    assert _build.library_path(name) != before

@@ -29,7 +29,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import FIXTURE, load_fixture_both, numpy_params
+from torch_port_util import (
+    FIXTURE,
+    load_fixture_both,
+    numpy_params,
+    tiny_port_model,
+)
 
 from llm_in_practise_tpu.models.qwen3 import Qwen3 as JaxQwen3
 from llm_in_practise_tpu.models.qwen3 import qwen3_config as jax_qwen3_config
@@ -112,8 +117,21 @@ def test_unported_layouts_raise():
         jax_qwen3_config(64, n_layer=1).to_dict())
     with pytest.raises(NotImplementedError, match="scan_layers"):
         Qwen3(cfg.replace(scan_layers=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="flash"):
-        Qwen3(cfg.replace(attn_impl="flash"), device="cpu")
+    # the flash layout is ported: it builds on the CPU (the kernels' plain
+    # versions) and gives the dense model's logits, with and without remat
+    dense = tiny_port_model(64, seed=3, n_layer=2)
+    state = {n: p.detach() for n, p in dense.named_parameters()}
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, 64, (2, 9)))
+    with torch.no_grad():
+        want = dense(ids)
+    for remat in (False, True):
+        flash = Qwen3(dense.cfg.replace(attn_impl="flash", remat=remat),
+                      device="cpu")
+        flash.load_state(state)
+        with torch.no_grad():
+            torch.testing.assert_close(flash(ids), want, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="attn_impl"):
+        Qwen3(cfg.replace(attn_impl="ring"), device="cpu")
 
 
 # ---------------------------------------------------------------- NF4 model
