@@ -12,29 +12,40 @@ Phases, in order; any failure exits non-zero:
    card at the shapes the serving path gives it, and time kernel, plain
    version and one library call (CUDA events, L2 flushed before every
    launch).
-4. Serve: a Qwen3-8B-width model (hidden 4096, inter 12288, 32/8 heads,
+4. The same for the int4 (W4A16) and int8 (W8A16) kernels, forward and
+   backward: every Qwen3-8B projection shape, M in {1, 8, 512, 8192} for
+   the forwards and M = 8192 for all four; int4 symmetric with group size
+   128 (GPTQModel's ``bits=4, group_size=128``) and asymmetric with group
+   size 32 and fractional zeros (AWQ's grid). A planted fault (one group's
+   scale zeroed in a copy of the weight) must read as a failure.
+5. Serve: a Qwen3-8B-width model (hidden 4096, inter 12288, 32/8 heads,
    head_dim 128, vocab 151936, tied embeddings) with random weights from a
-   seeded generator, every block projection quantized to NF4, behind the
-   port's OpenAI server on 127.0.0.1. Eight concurrent chat requests (four
-   streamed) run through the HTTP API; the kernels' launch counters are
-   zeroed just before and read just after, and must show the kernel ran
-   for every projection of every forward pass.
-5. Training kernels: the NF4 forward and backward at M = 8192 for every
+   seeded generator, every block projection quantized on the card (NF4,
+   then int4 RTN symmetric g128, then int8), behind the port's OpenAI
+   server on 127.0.0.1. Eight concurrent chat requests (four streamed)
+   run through the HTTP API; the kernels' launch counters are zeroed just
+   before and read just after, and must show the format's kernel ran for
+   every projection of every forward pass. Then whole-model logits of an
+   AWQ model (2 layers), kernels against plain versions.
+6. Training kernels: the NF4 forward and backward at M = 8192 for every
    Qwen3-8B projection shape, and the three flash kernels (forward, dK/dV,
    dQ) at batch 8 x 1024 tokens, 32/8 heads, plus a ragged length, each
    against its plain version (the flash outputs tile by tile, and a
    planted zeroed dV tile must read as a failure) and timed as in
    phase 3.
-6. Whole step: one QLoRA step at full width, 2 layers, batch 2 x 1024,
-   with the kernels and again with every kernel swapped for its plain
-   version; the loss and every LoRA gradient must agree.
-7. Train: QLoRA on Qwen3-8B (36 layers, NF4 base, LoRA r 8 on q/v_proj,
+7. Whole step: one QLoRA step at full width, 2 layers, batch 2 x 1024,
+   over an NF4, an int4 and an int8 base, with the kernels and again with
+   every kernel swapped for its plain version; the loss and every LoRA
+   gradient must agree, and each kernel's launches must equal the count
+   derived from the model.
+8. Train: QLoRA on Qwen3-8B (36 layers, NF4 base, LoRA r 8 on q/v_proj,
    remat on every block, fused cross-entropy over the tied embedding,
    AdamW lr 1e-4), batch 8 x 1024 random tokens: one warm-up step, then
    timed steps with the launch counters zeroed before and read after;
    every kernel's launches per step must equal the count derived from
    the model, and one more step is profiled.
-8. Print the kernel summary, the card, and the final status line.
+9. Print the kernel summary (all nine kernels), the card, and the final
+   status line.
 
 Needs the repository checkout beside it (it imports the port) and CUDA.
 """
@@ -51,7 +62,6 @@ import statistics
 import subprocess
 import sys
 import time
-import types
 import urllib.request
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
@@ -103,6 +113,13 @@ LSE_TOL = 1e-3           # absolute, natural-log units
 STEP_LOSS_TOL = 1e-3     # relative
 STEP_GRAD_TOL = 5e-2     # max|kernel - plain| <= STEP_GRAD_TOL * max|plain|
 STEP_LAYERS, STEP_BATCH = 2, 2
+# post-training-quantized formats: GPTQModel's QuantizeConfig(bits=4,
+# group_size=128) (reference Quantization/GPTQModel/
+# quantize_qwen3_4b_gptq.py:16-43), stored with RTN codes; AWQ's grid is
+# asymmetric with fractional zeros, checked at group size 32
+INT4_GS, AWQ_GS = 128, 32
+PTQ_CHECK_M = (1, 8, 512, TRAIN_M)
+AWQ_LAYERS = 2
 
 
 def log(*args):
@@ -133,12 +150,24 @@ def time_ms(fn, iters: int, flush) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def nf4_bound(m: int, k: int, n: int) -> tuple[float, str, int]:
-    """Least time on the card: every input read once (x bf16, packed
-    bytes, double-quantized absmax, its scales and offset), the output
-    written once, against 2*M*K*N bf16 tensor-core operations."""
-    nbytes = (m * k * 2 + k * n // 2 + k * n // 64
-              + 4 * -(-(k * n // 64) // 256) + 4 + m * n * 2)
+def weight_bytes(fmt: str, k: int, n: int, gs: int = INT4_GS) -> int:
+    """Stored bytes of one (K, N) weight: NF4 packed codes, absmax bytes,
+    their f32 scales and offset; int4 packed codes with f32 scale and zero
+    per group and column; int8 codes with an f32 scale per column."""
+    if fmt == "nf4":
+        return k * n // 2 + k * n // 64 + 4 * -(-(k * n // 64) // 256) + 4
+    if fmt == "int4":
+        return k * n // 2 + 2 * 4 * -(-k // gs) * n
+    return k * n + 4 * n
+
+
+def matmul_bound(m: int, k: int, n: int, wbytes: int
+                 ) -> tuple[float, str, int]:
+    """Least time on the card for ``x @ W`` or its ``dy @ W^T``: the bf16
+    activation read once (M x K or M x N), the stored weight read once, the
+    bf16 result written once (M x N or M x K), against 2*M*K*N bf16
+    tensor-core operations."""
+    nbytes = m * k * 2 + wbytes + m * n * 2
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = 2 * m * k * n / H100_BF16_OPS_PER_S
     if t_bytes >= t_ops:
@@ -174,7 +203,8 @@ def check_nf4_kernel(seed: int) -> dict:
             err = (out.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             ok = bool(torch.isfinite(out).all().item()) and err <= KERNEL_TOL * scale
-            bound_ms, bound_by, nbytes = nf4_bound(m, k, n)
+            bound_ms, bound_by, nbytes = matmul_bound(
+                m, k, n, weight_bytes("nf4", k, n))
             row = {
                 "kernel": "nf4_matmul", "M": m, "K": k, "N": n,
                 "split_k": split_k_for(m, k, n, sms),
@@ -218,13 +248,172 @@ def check_nf4_kernel(seed: int) -> dict:
     }
 
 
-def build_model(n_layer: int, seed: int):
+def quantize_weight(fmt: str, w, gen=None):
+    """One (K, N) weight in a serving format, by the port's codecs on the
+    card. AWQ stores the int4 codes of ``W * s`` (asymmetric, group size
+    32) with ``inv_scale = 1 / s`` for a random per-input-channel ``s``
+    drawn from ``gen``."""
+    import torch
+
+    from llm_in_practise_tpu_torch.quant import int4, int8, nf4
+    from llm_in_practise_tpu_torch.quant.awq import AWQTensor
+
+    if fmt == "nf4":
+        return nf4.quantize(w)
+    if fmt == "int4":
+        return int4.rtn_quantize(w, group_size=INT4_GS, sym=True)
+    if fmt == "int8":
+        return int8.quantize(w)
+    s = 0.5 + 1.5 * torch.rand(w.shape[0], device=w.device, generator=gen)
+    return AWQTensor(int4.rtn_quantize(w * s[:, None], group_size=AWQ_GS,
+                                       sym=False), 1.0 / s)
+
+
+def fractional_zero_int4(w, gs: int):
+    """Asymmetric int4 with fractional zero-points (AWQ's affine grid): the
+    RTN asymmetric parameters with 0.37 added to every zero."""
+    from llm_in_practise_tpu_torch.quant import int4
+
+    t = int4.rtn_quantize(w, group_size=gs, sym=False)
+    return int4.encode(w, t.scales, t.zeros + 0.37, gs)
+
+
+def check_ptq_kernels(seed: int, flush) -> dict:
+    """B6-B9 against their plain versions at every Qwen3-8B projection
+    shape (see the module doc), timed as phase 3 times B1; the library
+    yardstick is one torch.matmul on the weight dequantized to bf16
+    beforehand (for the int8 forward ``(x @ q.bf16) * scale``). Returns the
+    rows keyed ``(kernel, case, M, K, N)``."""
+    import dataclasses
+
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+    from llm_in_practise_tpu_torch.ops import int8_matmul as i8
+    from llm_in_practise_tpu_torch.quant import int4, int8
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 6)
+    rows = {}
+
+    def check(kernel, case, fn, plain, lib, inp, t, wbytes, k, n, planted):
+        m = inp.shape[0]
+        out = fn(inp, t, torch.bfloat16)
+        ref = plain(inp, t, torch.bfloat16)
+        torch.cuda.synchronize()
+        err, rel = _rel(out, ref)
+        ok = bool(torch.isfinite(out).all().item()) and rel <= KERNEL_TOL
+        bound_ms, bound_by, nbytes = matmul_bound(m, k, n, wbytes)
+        iters = (10, 3) if m == TRAIN_M else (20, 5)
+        row = {"kernel": kernel, "case": case, "M": m, "K": k, "N": n,
+               "max_abs_err": err, "max_rel_err": rel,
+               "tol": f"{KERNEL_TOL} * max|plain| (summation order; bf16 "
+                      "output rounding)",
+               "ms": time_ms(lambda: fn(inp, t, torch.bfloat16), iters[0],
+                             flush),
+               "plain_ms": time_ms(lambda: plain(inp, t, torch.bfloat16),
+                                   iters[1], flush),
+               "library_ms": time_ms(lib, iters[0], flush),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "ok": ok}
+        if planted is not None:
+            # the check must see a fault: one group's (or, for int8, one
+            # block of columns') scale zeroed in a copy of the weight
+            bad = fn(inp, planted, torch.bfloat16)
+            row["planted_zero_scale_rel_err"] = _rel(bad, ref)[1]
+            ok = row["ok"] = ok and row["planted_zero_scale_rel_err"] > \
+                KERNEL_TOL
+        log(json.dumps(row))
+        rows[(kernel, case, m, k, n)] = row
+        if not ok:
+            raise SystemExit(f"{kernel} ({case}) disagrees with its plain "
+                             f"version, or misses the planted fault, at "
+                             f"M={m} K={k} N={n}: {row}")
+
+    for k, n in sorted(set(PROJ_SHAPES.values())):
+        w = torch.randn(k, n, device=dev, generator=gen) * 0.02
+        plant = (k, n) == PROJ_SHAPES["q_proj"]
+        int4_cases = {"sym_g128": (int4.rtn_quantize(w, group_size=INT4_GS),
+                                   INT4_GS),
+                      "asym_g32_frac": (fractional_zero_int4(w, AWQ_GS),
+                                        AWQ_GS)}
+        t8 = int8.quantize(w)
+        del w
+        w8 = int8.decode(t8)  # library yardsticks only
+        q8 = t8.q.to(torch.bfloat16)
+        bad8 = dataclasses.replace(t8, scale=t8.scale.clone())
+        bad8.scale[:64] = 0
+        for m in PTQ_CHECK_M:
+            x = torch.randn(m, k, device=dev, generator=gen).to(
+                torch.bfloat16)
+            for case, (t, gs) in int4_cases.items():
+                if case != "sym_g128" and m not in (MAX_SLOTS, TRAIN_M):
+                    continue
+                w4 = int4.decode(t)
+                bad4 = None
+                if plant and m == MAX_SLOTS:
+                    bad4 = dataclasses.replace(t, scales=t.scales.clone())
+                    bad4.scales[0] = 0
+                check("int4_matmul", case, i4.int4_matmul,
+                      i4.int4_matmul_reference, lambda: torch.matmul(x, w4),
+                      x, t, weight_bytes("int4", k, n, gs), k, n, bad4)
+                del w4
+            check("int8_matmul", "per_channel", i8.int8_matmul,
+                  i8.int8_matmul_reference,
+                  lambda: torch.matmul(x, q8) * t8.scale, x, t8,
+                  weight_bytes("int8", k, n), k, n,
+                  bad8 if plant and m == MAX_SLOTS else None)
+            del x
+        dy = torch.randn(TRAIN_M, n, device=dev, generator=gen).to(
+            torch.bfloat16)
+        for case, (t, gs) in int4_cases.items():
+            w4 = int4.decode(t)
+            bad4 = None
+            if plant:
+                bad4 = dataclasses.replace(t, scales=t.scales.clone())
+                bad4.scales[0] = 0
+            check("int4_matmul_backward", case, i4.int4_matmul_backward,
+                  i4.int4_matmul_backward_reference,
+                  lambda: torch.matmul(dy, w4.T), dy, t,
+                  weight_bytes("int4", k, n, gs), k, n, bad4)
+            del w4
+        check("int8_matmul_backward", "per_channel", i8.int8_matmul_backward,
+              i8.int8_matmul_backward_reference,
+              lambda: torch.matmul(dy, w8.T), dy, t8,
+              weight_bytes("int8", k, n), k, n, bad8 if plant else None)
+        del dy, t8, w8, q8, bad8, int4_cases
+    return rows
+
+
+def ptq_summary(rows: dict, kernel: str, case: str, m: int) -> dict:
+    """One layer's 7 projections at M = ``m``, summed."""
+    step = [rows[(kernel, case, m, k, n)] for k, n in PROJ_SHAPES.values()]
+    what = "decode step" if m == MAX_SLOTS else "training"
+    return {
+        "at": f"one layer's 7 projections at M={m} ({what}), {case}",
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()
+                           if r["kernel"] == kernel),
+        "ms": sum(r["ms"] for r in step),
+        "plain_ms": sum(r["plain_ms"] for r in step),
+        "bound_ms": sum(r["bound_ms"] for r in step),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in step)
+        else "operations",
+        "library_ms": sum(r["library_ms"] for r in step),
+        "shapes_checked": sum(r["kernel"] == kernel for r in rows.values()),
+        "planted_fault_seen": all(
+            r["planted_zero_scale_rel_err"] > KERNEL_TOL
+            for r in rows.values()
+            if r["kernel"] == kernel and "planted_zero_scale_rel_err" in r),
+    }
+
+
+def build_model(fmt: str, n_layer: int, seed: int):
     """Qwen3-8B width, random weights from a seeded generator on the card,
-    block projections quantized to NF4 by the port's codec."""
+    block projections quantized to ``fmt`` by the port's codecs."""
     import torch
 
     from llm_in_practise_tpu_torch.models.qwen3 import Qwen3, Qwen3Config
-    from llm_in_practise_tpu_torch.quant import nf4
     from llm_in_practise_tpu_torch.serve.quantized import QuantizedModel
 
     dev = torch.device("cuda", 0)
@@ -246,45 +435,49 @@ def build_model(n_layer: int, seed: int):
             sub = "mlp" if name in ("gate_proj", "up_proj", "down_proj") \
                 else "attn"
             w = torch.randn(k, n, device=dev, generator=gen) * 0.02
-            state[f"{p}.{sub}.{name}.kernel"] = nf4.quantize(w)
+            state[f"{p}.{sub}.{name}.kernel"] = quantize_weight(fmt, w, gen)
     model = QuantizedModel(Qwen3(cfg, device="meta"), state, device=dev)
     return cfg, model
 
 
-def model_check(model, tok_ids) -> dict:
-    """Whole-model logits on a small input: kernels vs plain versions."""
+# the kernel that serves each format's projections
+SERVE_KERNEL = {"nf4": "nf4_matmul", "int4": "int4_matmul",
+                "awq": "int4_matmul", "int8": "int8_matmul"}
+
+
+def model_check(model, tok_ids, fmt: str) -> dict:
+    """Whole-model logits on a small input: kernels vs plain versions. The
+    kernel forward must launch the format's kernel once per projection."""
     import torch
 
-    from llm_in_practise_tpu_torch.ops.nf4_matmul import nf4_matmul_reference
-    from llm_in_practise_tpu_torch.serve.quantized import NF4Linear
-
-    def plain_forward(self, x):
-        y = nf4_matmul_reference(x.to(self.compute_dtype), self.weight,
-                                 self.compute_dtype)
-        return y.to(x.dtype)
-
+    counter = kernel_counters()[SERVE_KERNEL[fmt]]
     ids = torch.tensor([tok_ids], device=model.device)
     with torch.inference_mode():
+        counter.launches = 0
         got = model(ids).float()
-        linears = [m for m in model.modules() if isinstance(m, NF4Linear)]
-        for m in linears:
-            m.forward = types.MethodType(plain_forward, m)
+        launches = counter.launches
+        undo = plain_kernels()
         try:
             want = model(ids).float()
         finally:
-            for m in linears:
-                del m.forward
+            undo()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    res = {"shape": list(got.shape), "finite": bool(torch.isfinite(got).all()),
+    n_layer = model.config.n_layer
+    res = {"format": fmt, "shape": list(got.shape),
+           "finite": bool(torch.isfinite(got).all()),
            "max_abs_err": err, "max_rel_err": err / scale,
            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
                                  .float().mean()),
+           "kernel_launches": launches,
            "tol": f"{MODEL_TOL} * max|plain|: bf16 activations between "
                   "layers carry the kernels' summation-order differences "
                   "through every layer"}
-    if not res["finite"] or err > MODEL_TOL * scale:
-        raise SystemExit(f"model logits disagree with the plain path: {res}")
+    if (not res["finite"] or err > MODEL_TOL * scale
+            or launches != 7 * n_layer):
+        raise SystemExit(f"model logits disagree with the plain path, or "
+                         f"{SERVE_KERNEL[fmt]} did not serve all 7 x "
+                         f"{n_layer} projections: {res}")
     return res
 
 
@@ -314,14 +507,9 @@ def post_chat(base: str, body: dict) -> dict:
             "done": True, "wall_s": time.monotonic() - t0}
 
 
-def serve_phase(n_layer: int, seed: int, card: str) -> dict:
-    import torch
-
+def train_tokenizer():
     from llm_in_practise_tpu_torch.data.bpe import BPETokenizer
     from llm_in_practise_tpu_torch.data.sft import IM_END, IM_START
-    from llm_in_practise_tpu_torch.ops.nf4_matmul import nf4_matmul
-    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
-    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
 
     t0 = time.monotonic()
     # a reference text that PRs do not edit, so the prompts' token ids stay
@@ -334,13 +522,44 @@ def serve_phase(n_layer: int, seed: int, card: str) -> dict:
                              special_tokens=[IM_START, IM_END])
     log(f"tokenizer: BPE trained on SURVEY.md, vocab {tok.get_vocab_size()} "
         f"({time.monotonic() - t0:.1f}s)")
+    return tok
+
+
+MODEL_CHECK_TEXT = "The port serves Qwen3 on Hopper."
+
+
+def awq_check(tok, seed: int) -> dict:
+    """Whole-model logits of an AWQ model at full width, kernels against
+    plain versions: each projection runs B6 after the elementwise
+    ``x * inv_scale``."""
+    import torch
+
+    t0 = time.monotonic()
+    _, model = build_model("awq", AWQ_LAYERS, seed)
+    torch.cuda.synchronize()
+    log(f"model: Qwen3-8B width, {AWQ_LAYERS} layers, AWQ block projections, "
+        f"built and quantized in {time.monotonic() - t0:.1f}s")
+    res = model_check(model, tok.encode(MODEL_CHECK_TEXT), "awq")
+    log("awq model check:", json.dumps(res))
+    return res
+
+
+def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    kernel_name = SERVE_KERNEL[fmt]
+    counter = kernel_counters()[kernel_name]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    cfg, model = build_model(n_layer, seed)
+    cfg, model = build_model(fmt, n_layer, seed)
     torch.cuda.synchronize()
-    log(f"model: Qwen3-8B width, {n_layer} layers, NF4 block projections, "
+    log(f"model: Qwen3-8B width, {n_layer} layers, {fmt} block projections, "
         f"built and quantized in {time.monotonic() - t0:.1f}s")
-    mcheck = model_check(model, tok.encode("The port serves Qwen3 on Hopper."))
+    mcheck = model_check(model, tok.encode(MODEL_CHECK_TEXT), fmt)
     log("model check:", json.dumps(mcheck))
 
     engine = InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
@@ -355,7 +574,8 @@ def serve_phase(n_layer: int, seed: int, card: str) -> dict:
         return req
 
     engine.submit = recording_submit
-    server = OpenAIServer(engine, tok, model_name="qwen3-8b-nf4")
+    model_name = f"qwen3-8b-{fmt}"
+    server = OpenAIServer(engine, tok, model_name=model_name)
     port = server.serve(host="127.0.0.1", port=0, background=True)
     base = f"http://127.0.0.1:{port}"
     topics = ["the KV cache", "NF4 quantization", "continuous batching",
@@ -363,7 +583,7 @@ def serve_phase(n_layer: int, seed: int, card: str) -> dict:
               "the OpenAI API", "Hopper tensor cores"]
 
     def body(i, stream):
-        return {"model": "qwen3-8b-nf4", "temperature": 0.0,
+        return {"model": model_name, "temperature": 0.0,
                 "max_tokens": MAX_TOKENS, "stream": stream, "messages": [
                     {"role": "system", "content": "You are a helpful assistant."},
                     {"role": "user", "content": f"Explain {topics[i]} in a "
@@ -376,7 +596,7 @@ def serve_phase(n_layer: int, seed: int, card: str) -> dict:
         post_chat(base, body(0, False))  # warm-up, outside the counted run
         torch.cuda.synchronize()
         seen.clear()
-        nf4_matmul.launches = 0
+        zero_counters()
         steps0 = engine.decode_steps_run + engine.prefill_batches_run
         t_run = time.monotonic()
         with concurrent.futures.ThreadPoolExecutor(MAX_SLOTS) as pool:
@@ -385,7 +605,8 @@ def serve_phase(n_layer: int, seed: int, card: str) -> dict:
             results = [f.result() for f in futs]
         wall = time.monotonic() - t_run
         forwards = engine.decode_steps_run + engine.prefill_batches_run - steps0
-        launches = nf4_matmul.launches
+        counts = read_counters()
+        launches = counts[kernel_name]
         reqs = list(seen)
         # repeat request 0 alone, twice: greedy decoding is deterministic
         rep = []
@@ -407,9 +628,11 @@ def serve_phase(n_layer: int, seed: int, card: str) -> dict:
     if any(rq.n_generated < 1 for rq in reqs) or len(reqs) != MAX_SLOTS:
         raise SystemExit("engine saw a request produce no tokens")
     per_forward = 7 * n_layer
-    if launches == 0 or launches != per_forward * forwards:
-        raise SystemExit(f"nf4_matmul launches {launches} != 7 x {n_layer} "
-                         f"x {forwards} forward passes")
+    if (launches == 0 or launches != per_forward * forwards
+            or sum(counts.values()) != launches):
+        raise SystemExit(f"{kernel_name} launches {launches} != 7 x "
+                         f"{n_layer} x {forwards} forward passes, or another "
+                         f"kernel served this model: {counts}")
     if rep[0] != rep[1] or not rep[0]:
         raise SystemExit("the repeated greedy request changed its tokens")
     first = sorted(reqs, key=lambda r: r.uid)[0]
@@ -417,7 +640,8 @@ def serve_phase(n_layer: int, seed: int, card: str) -> dict:
     t_first = min(r.first_token_time for r in reqs)
     t_last = max(r.finish_time for r in reqs)
     out = {
-        "card": card, "layers": n_layer, "max_slots": MAX_SLOTS,
+        "card": card, "format": fmt, "layers": n_layer,
+        "max_slots": MAX_SLOTS,
         "cache_len": CACHE_LEN, "kv_dtype": "bfloat16",
         "requests": len(reqs), "streamed": MAX_SLOTS // 2,
         "completion_tokens": gen_tokens,
@@ -428,20 +652,21 @@ def serve_phase(n_layer: int, seed: int, card: str) -> dict:
         "tpot_p50_s": statistics.median(r.tpot_s for r in reqs
                                         if r.tpot_s is not None),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "forward_passes": forwards, "nf4_launches": launches,
-        "nf4_launches_per_forward": per_forward,
+        "forward_passes": forwards, "kernel": kernel_name,
+        "kernel_launches": launches, "kernel_launches_per_forward": per_forward,
         "repeat_identical": rep[0] == rep[1],
         "repeat_matches_batched_run": rep[0] == first.output_ids,
         "model_check": mcheck,
     }
     log("serve:", json.dumps(out))
     out["decode_profile"] = profile_decode(
-        engine, [r.prompt_ids for r in reqs])
+        engine, [r.prompt_ids for r in reqs], kernel_name)
     log("decode profile:", json.dumps(out["decode_profile"]))
     return {"launches": launches, "serve": out}
 
 
-def profile_decode(engine, prompts, steps: int = 16) -> dict:
+def profile_decode(engine, prompts, kernel_name: str, steps: int = 16
+                   ) -> dict:
     """Where a decode step's time goes, after the counted run: the wall
     time of ``steps`` engine steps over a full batch (no profiler), and the
     device time of their kernels (torch.profiler, a second window).
@@ -473,14 +698,14 @@ def profile_decode(engine, prompts, steps: int = 16) -> dict:
     if device_us == 0:
         return {"step_wall_ms": wall_ms, "device_ms": "not measured"}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    nf4_us = sum(e.self_device_time_total for e in kernels
-                 if "nf4_matmul" in e.key or "splitk_reduce" in e.key)
+    kernel_us = sum(e.self_device_time_total for e in kernels
+                    if kernel_name in e.key or "splitk_reduce" in e.key)
     return {
         "batch": len(prompts), "steps": steps,
         "step_wall_ms": wall_ms,
         "step_device_ms": device_us / 1e3 / steps,
         "device_busy_share": device_us / 1e3 / steps / wall_ms,
-        "nf4_share_of_device": nf4_us / device_us,
+        "kernel_share_of_device": kernel_us / device_us,
         "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
         "top_kernels_ms_per_step": {
             e.key[:60]: e.self_device_time_total / 1e3 / steps for e in top},
@@ -553,7 +778,8 @@ def check_train_nf4(seed: int, flush) -> dict:
             torch.bfloat16)
         dy = torch.randn(TRAIN_M, n, device=dev, generator=gen).to(
             torch.bfloat16)
-        bound_ms, bound_by, nbytes = nf4_bound(TRAIN_M, k, n)
+        bound_ms, bound_by, nbytes = matmul_bound(
+            TRAIN_M, k, n, weight_bytes("nf4", k, n))
         for kernel, fn, plain, lib, inp in (
                 ("nf4_matmul", nf4_matmul, nf4_matmul_reference,
                  lambda: torch.matmul(x, w_bf16), x),
@@ -729,11 +955,13 @@ def check_flash(seed: int, flush) -> dict:
     return out
 
 
-def build_qlora(n_layer: int, seed: int, *, lora_b_std: float = 0.0):
+def build_qlora(n_layer: int, seed: int, *, fmt: str = "nf4",
+                lora_b_std: float = 0.0):
     """QLoRA on a Qwen3-8B-width base with random weights from a seeded
-    generator on the card: the block kernels go through the port's
-    ``quantize_base`` layer by layer (the f32 weights of one layer exist at
-    a time), the embedding and norms stay bf16, LoRA factors come from
+    generator on the card: the block kernels are quantized layer by layer
+    (the f32 weights of one layer exist at a time; NF4 through the port's
+    ``quantize_base``, int4 and int8 through their codecs as a PTQ export
+    holds them), the embedding and norms stay bf16, LoRA factors come from
     ``init_lora`` (A ~ N(0, 0.02), B zeros unless ``lora_b_std``)."""
     import torch
 
@@ -763,7 +991,12 @@ def build_qlora(n_layer: int, seed: int, *, lora_b_std: float = 0.0):
                 else "attn"
             layer[f"{p}.{sub}.{name}.kernel"] = torch.randn(
                 k, n, device=dev, generator=gen) * 0.02
-        state.update(quantize_base(layer))
+        if fmt == "nf4":
+            state.update(quantize_base(layer))
+        else:
+            state.update({name: quantize_weight(fmt, v)
+                          if name.endswith(".kernel") else v
+                          for name, v in layer.items()})
     lcfg = LoRAConfig(r=LORA_R, alpha=LORA_ALPHA,
                       target_patterns=("q_proj", "v_proj"))
     lora = init_lora(state, lcfg, gen)
@@ -775,28 +1008,44 @@ def build_qlora(n_layer: int, seed: int, *, lora_b_std: float = 0.0):
     return cfg, model
 
 
-def plain_kernels():
-    """Swap every kernel of the training path for its plain version (as
-    ``model_check`` swaps ``NF4Linear.forward``); returns the undo."""
+def _plain_fn(fwd, bwd):
+    """A kernel wrapper's stand-in built from its plain versions: the
+    forward, and under autograd the backward where x needs a gradient."""
     import torch
 
-    import llm_in_practise_tpu_torch.ops.attention as attention
-    import llm_in_practise_tpu_torch.serve.quantized as quantized
-    from llm_in_practise_tpu_torch.ops import flash_attention as fa
-    from llm_in_practise_tpu_torch.ops import nf4_matmul as nm
-
-    class PlainNF4(torch.autograd.Function):
+    class Plain(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x, t, out_dtype):
             ctx.t, ctx.x_dtype = t, x.dtype
-            return nm.nf4_matmul_reference(x, t, out_dtype)
+            return fwd(x, t, out_dtype)
 
         @staticmethod
         def backward(ctx, dy):
             dx = None
             if ctx.needs_input_grad[0]:
-                dx = nm.nf4_matmul_backward_reference(dy, ctx.t, ctx.x_dtype)
+                dx = bwd(dy, ctx.t, ctx.x_dtype)
             return dx, None, None
+
+    def call(x, t, out_dtype=None):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return Plain.apply(x, t, out_dtype)
+        return fwd(x, t, out_dtype)
+
+    return call
+
+
+def plain_kernels():
+    """Swap every kernel of the serving and training paths for its plain
+    version (the quantized matmuls that ``serve/quantized.py`` dispatches
+    to, and flash attention); returns the undo."""
+    import torch
+
+    import llm_in_practise_tpu_torch.ops.attention as attention
+    import llm_in_practise_tpu_torch.serve.quantized as quantized
+    from llm_in_practise_tpu_torch.ops import flash_attention as fa
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+    from llm_in_practise_tpu_torch.ops import int8_matmul as i8
+    from llm_in_practise_tpu_torch.ops import nf4_matmul as nm
 
     class PlainFlash(torch.autograd.Function):
         @staticmethod
@@ -812,33 +1061,42 @@ def plain_kernels():
             return (*fa.flash_backward_reference(q, k, v, out, lse, dout,
                                                  ctx.scale), None)
 
-    def nf4_plain(x, t, out_dtype=None):
-        if torch.is_grad_enabled() and x.requires_grad:
-            return PlainNF4.apply(x, t, out_dtype)
-        return nm.nf4_matmul_reference(x, t, out_dtype)
-
     def flash_plain(q, k, v, *, causal=True, scale=None):
         return PlainFlash.apply(q, k, v, q.shape[-1] ** -0.5
                                 if scale is None else scale)
 
-    saved = (quantized.nf4_matmul, attention.flash_attention)
-    quantized.nf4_matmul, attention.flash_attention = nf4_plain, flash_plain
+    saved = (quantized.nf4_matmul, quantized.int4_matmul,
+             quantized.int8_matmul, attention.flash_attention)
+    quantized.nf4_matmul = _plain_fn(nm.nf4_matmul_reference,
+                                     nm.nf4_matmul_backward_reference)
+    quantized.int4_matmul = _plain_fn(i4.int4_matmul_reference,
+                                      i4.int4_matmul_backward_reference)
+    quantized.int8_matmul = _plain_fn(i8.int8_matmul_reference,
+                                      i8.int8_matmul_backward_reference)
+    attention.flash_attention = flash_plain
 
     def undo():
-        quantized.nf4_matmul, attention.flash_attention = saved
+        (quantized.nf4_matmul, quantized.int4_matmul, quantized.int8_matmul,
+         attention.flash_attention) = saved
 
     return undo
 
 
 def kernel_counters() -> dict:
     from llm_in_practise_tpu_torch.ops import flash_attention as fa
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+    from llm_in_practise_tpu_torch.ops import int8_matmul as i8
     from llm_in_practise_tpu_torch.ops import nf4_matmul as nm
 
     return {"nf4_matmul": nm.nf4_matmul,
             "nf4_matmul_backward": nm.nf4_matmul_backward,
             "flash_forward": fa.flash_forward,
             "flash_backward_dkv": fa.flash_backward_dkv,
-            "flash_backward_dq": fa.flash_backward_dq}
+            "flash_backward_dq": fa.flash_backward_dq,
+            "int4_matmul": i4.int4_matmul,
+            "int4_matmul_backward": i4.int4_matmul_backward,
+            "int8_matmul": i8.int8_matmul,
+            "int8_matmul_backward": i8.int8_matmul_backward}
 
 
 def zero_counters() -> None:
@@ -850,33 +1108,36 @@ def read_counters() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
-def expected_launches(n_layer: int) -> dict:
-    """Kernel launches of one QLoRA training step, derived from the model.
-    The 7 NF4 projections of a block run forward once, and again in the
-    remat recompute, except the last one: PyTorch's non-reentrant
-    checkpoint stops recomputing once every tensor the backward needs is
-    rebuilt, and down_proj saves none (the frozen NF4 weight is not a
-    saved tensor), so 13 per block. They run backward wherever their
-    input needs a gradient: everywhere but layer 0's q/k/v, whose input
-    (the frozen embedding) needs none. Attention runs forward twice and
-    backward once per block."""
-    return {"nf4_matmul": (7 + 6) * n_layer,
-            "nf4_matmul_backward": 7 * n_layer - 3,
-            "flash_forward": 2 * n_layer,
-            "flash_backward_dkv": n_layer,
-            "flash_backward_dq": n_layer}
+def expected_launches(n_layer: int, fmt: str = "nf4") -> dict:
+    """Kernel launches of one QLoRA training step over a ``fmt`` base,
+    derived from the model. The 7 quantized projections of a block run
+    forward once, and again in the remat recompute, except the last one:
+    PyTorch's non-reentrant checkpoint stops recomputing once every tensor
+    the backward needs is rebuilt, and down_proj saves none (the frozen
+    quantized weight is not a saved tensor), so 13 per block. They run
+    backward wherever their input needs a gradient: everywhere but layer
+    0's q/k/v, whose input (the frozen embedding) needs none. Attention
+    runs forward twice and backward once per block. Every other kernel
+    launches none."""
+    counts = dict.fromkeys(kernel_counters(), 0)
+    counts.update({f"{fmt}_matmul": (7 + 6) * n_layer,
+                   f"{fmt}_matmul_backward": 7 * n_layer - 3,
+                   "flash_forward": 2 * n_layer,
+                   "flash_backward_dkv": n_layer,
+                   "flash_backward_dq": n_layer})
+    return counts
 
 
-def step_check(seed: int) -> dict:
-    """One QLoRA step at full width, 2 layers, batch 2 x 1024, with the
-    kernels and with their plain versions: loss and LoRA gradients. The
-    LoRA B factors are drawn non-zero here, so every factor has a
-    gradient (with B = 0 the gradients of A vanish)."""
+def step_check(seed: int, fmt: str = "nf4") -> dict:
+    """One QLoRA step over a ``fmt`` base at full width, 2 layers, batch
+    2 x 1024, with the kernels and with their plain versions: loss and
+    LoRA gradients. The LoRA B factors are drawn non-zero here, so every
+    factor has a gradient (with B = 0 the gradients of A vanish)."""
     import torch
 
     from llm_in_practise_tpu_torch.train.step import make_fused_ce_loss
 
-    cfg, model = build_qlora(STEP_LAYERS, seed + 3, lora_b_std=0.02)
+    cfg, model = build_qlora(STEP_LAYERS, seed + 3, fmt=fmt, lora_b_std=0.02)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed + 4)
     x = torch.randint(0, cfg.vocab_size, (STEP_BATCH, TRAIN_SEQ),
@@ -901,10 +1162,11 @@ def step_check(seed: int) -> dict:
         plain_counts = read_counters()
     finally:
         undo()
-    want = expected_launches(STEP_LAYERS)
+    want = expected_launches(STEP_LAYERS, fmt)
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     grad_rel = [_rel(a, b)[1] for a, b in zip(grads_k, grads_p)]
-    res = {"layers": STEP_LAYERS, "batch": STEP_BATCH, "seq": TRAIN_SEQ,
+    res = {"base": fmt, "layers": STEP_LAYERS, "batch": STEP_BATCH,
+           "seq": TRAIN_SEQ,
            "loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
            "loss_rel_err": loss_rel, "grad_max_rel_err": max(grad_rel),
            "grads": len(grad_rel), "launches": counts,
@@ -917,8 +1179,9 @@ def step_check(seed: int) -> dict:
     if (not all(torch.isfinite(g).all() for g in grads_k)
             or loss_rel > STEP_LOSS_TOL or max(grad_rel) > STEP_GRAD_TOL
             or counts != want or any(plain_counts.values())):
-        raise SystemExit(f"QLoRA step with kernels disagrees with the "
-                         f"plain path (launches wanted {want}): {res}")
+        raise SystemExit(f"QLoRA step over {fmt} with kernels disagrees "
+                         f"with the plain path (launches wanted {want}): "
+                         f"{res}")
     del model
     return res
 
@@ -1071,24 +1334,50 @@ def main(argv=None) -> int:
         "| torch", torch.__version__, "cuda", torch.version.cuda)
     log(f"build: {_build.build_all():.1f}s (nvcc, sm_90a, "
         f"{len(_build.KERNELS)} sources)")
-    summary = check_nf4_kernel(args.seed)
-    served = serve_phase(N_LAYER, args.seed, card)
-    gc.collect()  # the serving model and engine go before training
-    torch.cuda.empty_cache()
 
+    def free():
+        gc.collect()  # a model and its engine go before the next phase
+        torch.cuda.empty_cache()
+
+    def phase_time(name, t0):
+        log(f"phase {name}: {time.monotonic() - t0:.1f}s")
+
+    t0 = time.monotonic()
+    summary = check_nf4_kernel(args.seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ptq_rows = check_ptq_kernels(args.seed, flush)
+    phase_time("kernel checks", t0)
+    tok = train_tokenizer()
+    served = {}
+    for fmt in ("nf4", "int4", "int8"):
+        t0 = time.monotonic()
+        served[fmt] = serve_phase(fmt, N_LAYER, args.seed, card, tok)
+        free()
+        phase_time(f"serve {fmt}", t0)
+    t0 = time.monotonic()
+    awq_res = awq_check(tok, args.seed)
+    free()
+    phase_time("awq", t0)
+
+    t0 = time.monotonic()
     nf4_rows = check_train_nf4(args.seed, flush)
     flash_rows = check_flash(args.seed, flush)
     del flush
-    step_res = step_check(args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_time("training kernels", t0)
+    steps = {}
+    for fmt in ("nf4", "int4", "int8"):
+        t0 = time.monotonic()
+        steps[fmt] = step_check(args.seed, fmt)
+        free()
+        phase_time(f"step check {fmt}", t0)
+    t0 = time.monotonic()
     trained = train_phase(N_LAYER, args.seed, card)
+    phase_time("train", t0)
     launches = trained["launches"]
 
-    summary["launches"] = served["launches"] + launches["nf4_matmul"]
-    summary["launches_by_path"] = {"serve": served["launches"],
-                                   "train": launches["nf4_matmul"]}
+    summary["launches"] = served["nf4"]["launches"] + launches["nf4_matmul"]
+    summary["launches_by_path"] = {"serve_nf4": served["nf4"]["launches"],
+                                   "train_nf4": launches["nf4_matmul"]}
     summary["train"] = layer_sum(nf4_rows, "nf4_matmul")
     csrc = "llm_in_practise_tpu_torch/csrc/"
     table = [summary, {
@@ -1097,7 +1386,8 @@ def main(argv=None) -> int:
         "replaces": "llm_in_practise_tpu/ops/nf4_matmul.py:111",
         "tpu_function": "_bwd_kernel (pallas_call at :194)",
         **layer_sum(nf4_rows, "nf4_matmul_backward"),
-        "launches": launches["nf4_matmul_backward"]}]
+        "launches": launches["nf4_matmul_backward"],
+        "launches_by_path": {"train_nf4": launches["nf4_matmul_backward"]}}]
     for name, line, fn in (
             ("flash_forward", 55, "_fwd_kernel (pallas_call at :101)"),
             ("flash_backward_dkv", 129,
@@ -1111,9 +1401,41 @@ def main(argv=None) -> int:
                       "replaces": f"llm_in_practise_tpu/ops/"
                                   f"flash_attention.py:{line}",
                       "tpu_function": fn, **row,
-                      "launches": launches[name]})
+                      "launches": launches[name],
+                      "launches_by_path": {"train_nf4": launches[name]}})
+    # B6-B9: launches on the PTQ serving runs and the PTQ step checks
+    for name, fmt, src, line, fn, decode in (
+            ("int4_matmul", "int4", "int4_matmul.cu", "int4_matmul.py:61",
+             "_fwd_kernel (pallas_call at :157)", True),
+            ("int4_matmul_backward", "int4", "int4_matmul.cu",
+             "int4_matmul.py:86", "_bwd_kernel (pallas_call at :196)", False),
+            ("int8_matmul", "int8", "int8_matmul.cu", "int8_matmul.py:50",
+             "_fwd_kernel (pallas_call at :137)", True),
+            ("int8_matmul_backward", "int8", "int8_matmul.cu",
+             "int8_matmul.py:69", "_bwd_kernel (pallas_call at :173)",
+             False)):
+        case = "sym_g128" if fmt == "int4" else "per_channel"
+        by_path = {f"step_{fmt}": steps[fmt]["launches"][name]}
+        if decode:
+            by_path = {f"serve_{fmt}": served[fmt]["launches"], **by_path}
+        row = ptq_summary(ptq_rows, name, case,
+                          MAX_SLOTS if decode else TRAIN_M)
+        if decode:
+            row["train"] = ptq_summary(ptq_rows, name, case, TRAIN_M)
+        table.append({"name": name, "route": "cuda", "source": csrc + src,
+                      "replaces": f"llm_in_practise_tpu/ops/{line}",
+                      "tpu_function": fn, **row,
+                      "launches": sum(by_path.values()),
+                      "launches_by_path": by_path})
+    if any(row["launches"] == 0 for row in table):
+        raise SystemExit("a kernel of a path launched no time: "
+                         f"{[(r['name'], r['launches']) for r in table]}")
     log("flash checks:", json.dumps(flash_rows["flash_forward"]["checks"]))
-    log("step check:", json.dumps(step_res))
+    log("step checks:", json.dumps(steps))
+    log("awq model check:", json.dumps(awq_res))
+    log("serving:", json.dumps({f: {k: v for k, v in r["serve"].items()
+                                    if k != "model_check"}
+                                for f, r in served.items()}))
     log(json.dumps({"kernels": table}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(card_line())

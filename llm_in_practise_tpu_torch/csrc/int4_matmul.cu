@@ -1,0 +1,482 @@
+// W4A16 int4 dequant-matmul for Hopper (sm_90a), forward and backward:
+//   y  = x  @ W     (int4_matmul_kernel)
+//   dx = dy @ W^T   (int4_matmul_bwd_kernel)
+// with W[k, n] = (code[k, n] - zero[k / gs, n]) * scale[k / gs, n].
+//
+// Replaces the TPU kernels llm_in_practise_tpu/ops/int4_matmul.py::_fwd_kernel
+// (launched by _int4_matmul_fwd through pl.pallas_call) and ::_bwd_kernel
+// (_int4_matmul_bwd). They compute the same functions with the same rounding
+// points, and are not carried over block by block: the TPU kernels split x
+// into even and odd K columns outside the kernel and return dx as two halves
+// interleaved afterwards, because Mosaic cannot unpack adjacent-K nibble
+// pairs; here the pairing is what the tensor cores want.
+//   - W is an Int4Tensor: packed (K/2, N) uint8 where byte [i, n] holds the
+//     codes of K rows 2i (high nibble) and 2i + 1 (low nibble) of column n;
+//     scales and zeros (K/gs, N) f32 (zeros may be fractional); groups of gs
+//     rows run along K.
+//   - x and dy are bf16 (the wrapper casts); each weight is (code - zero) *
+//     scale in f32, rounded once to bf16; products accumulate in f32; the
+//     output is written in the caller's dtype.
+//
+// Bound on the H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16): at decode
+// (M <= 8) the forward is bound by bytes, 0.5 byte of codes plus 8/gs bytes
+// of scale and zero per weight (0.5625 B at gs 128); at training widths
+// (M = 8192) both directions are bound by the 2*M*K*N tensor-core
+// operations.
+//
+// What the design does about that bound:
+//   - Forward: one packed byte holds rows k and k + 1 of one column, which is
+//     exactly the pair that one 32-bit B-fragment register of mma.sync
+//     m16n8k16 holds (b0 = B[2t..2t+1][g]); a byte becomes one bf16x2
+//     register with no shuffle, and the bf16 weight never exists in device
+//     or shared memory. Packed and x tiles stream through a cp.async ring.
+//   - Thin M leaves too few (M-tile, N-tile) blocks to keep 132 SMs busy:
+//     the wrapper splits K over grid.z (the NF4 kernel's split_k_for); each
+//     split writes f32 partials and a second kernel sums them in a fixed
+//     order (deterministic, no atomics).
+//   - Group parameters vary along K, and a 64-row chunk may span several
+//     groups (gs 32 spans two): each thread looks up the group of its
+//     fragment's row pair (both rows of a pair share a group, since gs is
+//     even) and reloads scale and zero only when the group changes; they
+//     come through L1 (8/gs bytes per weight against the codes' 0.5).
+//   - Backward: dx[m, k] = sum_n dy[m, n] * W[k, n]; the group is constant
+//     along the reduction, so each thread's scale/zero row is fixed. One
+//     packed byte gives two adjacent dx columns (2i and 2i + 1): the block
+//     runs two n8 tiles per warp, one over the even dx columns (high
+//     nibbles) and one over the odd ones (low nibbles), from the same bytes,
+//     and writes dx interleaved directly. A block owns a 64 x 64 dx tile and
+//     reduces over all of N inside the block (no atomics, deterministic).
+//   - The dequant uses __fsub_rn/__fmul_rn so nvcc cannot contract it into
+//     an FMA, which would round differently from the reference codec.
+//   - The M, N and K edges are masked (zero-filled tiles, guarded stores).
+// wgmma and TMA are left for a later version; this one uses mma.sync
+// m16n8k16 (bf16 in, f32 accumulate).
+
+#include "mma_util.cuh"
+
+namespace {
+
+using port::mma_bf16;
+using port::pack_bf16;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;       // 4 warps
+// forward
+constexpr int kBK = 64;             // K rows per chunk (32 packed rows)
+constexpr int kBN = 64;             // output columns per block, 16 per warp
+constexpr int kPStride = kBN + 16;  // smem bytes per packed row (bank spread)
+constexpr int kXStride = kBK + 8;   // smem bf16 per x row (bank spread)
+// backward
+constexpr int kBM = 64;               // dy rows per block
+constexpr int kBDX = 64;              // dx columns per block (32 packed rows)
+constexpr int kBR = 32;               // reduction (N) columns per chunk
+constexpr int kBStages = 3;
+constexpr int kBPStride = kBR + 16;   // smem bytes per packed row
+constexpr int kDStride = kBR + 8;     // smem bf16 per dy row
+
+// (code - zero) * scale in f32, each step rounded on its own
+__device__ __forceinline__ float deq(uint32_t code, float zero, float scale) {
+  return __fmul_rn(__fsub_rn(static_cast<float>(code), zero), scale);
+}
+
+// One block: rows [m0, m0 + 16*MT) of x against output columns
+// [n0, n0 + kBN), over the K chunks of split blockIdx.z. Warp w owns
+// columns n0 + 16w .. n0 + 16w + 15 as two n8 tiles.
+template <int MT, int STAGES>
+__global__ void __launch_bounds__(kThreads)
+int4_matmul_kernel(const bf16* __restrict__ x,
+                   const uint8_t* __restrict__ packed,
+                   const float* __restrict__ scales,
+                   const float* __restrict__ zeros, void* __restrict__ out,
+                   float* __restrict__ ws, int M, int K, int N, int gs,
+                   int n_groups, int split_k, int out_dtype) {
+  constexpr int BM = 16 * MT;
+  __shared__ __align__(16) uint8_t s_p[STAGES][(kBK / 2) * kPStride];
+  __shared__ __align__(16) bf16 s_x[STAGES][BM * kXStride];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // mma groupID
+  const int t = lane & 3;   // mma thread in group
+  const int KP = K >> 1;    // packed rows
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BM;
+  const int n_chunks = (K + kBK - 1) / kBK;
+  const int kc_begin =
+      static_cast<int>(static_cast<long>(blockIdx.z) * n_chunks / split_k);
+  const int kc_end =
+      static_cast<int>(static_cast<long>(blockIdx.z + 1) * n_chunks / split_k);
+  const int n_local = kc_end - kc_begin;
+  const bool p_vec = (N % 16) == 0;  // 16-byte aligned packed rows
+  const bool x_vec = (K % 8) == 0;   // 16-byte aligned x rows
+
+  auto load_stage = [&](int stage, int kc) {
+    const int k0 = kc * kBK;
+    const int kp0 = k0 >> 1;
+    // packed tile: 32 rows x kBN bytes; zeros past the K and N edges
+    for (int i = tid; i < (kBK / 2) * (kBN / 16); i += kThreads) {
+      const int r = i / (kBN / 16);
+      const int part = i % (kBN / 16);
+      const int row = kp0 + r;
+      const int col = n0 + part * 16;
+      uint8_t* dst = &s_p[stage][r * kPStride + part * 16];
+      if (p_vec) {
+        const bool ok = row < KP && col < N;
+        port::cp_async16(dst, packed + (ok ? static_cast<long>(row) * N + col
+                                            : 0),
+                         ok ? 16 : 0);
+      } else {
+        for (int b = 0; b < 16; ++b) {
+          dst[b] = (row < KP && col + b < N)
+                       ? packed[static_cast<long>(row) * N + col + b]
+                       : 0;
+        }
+      }
+    }
+    // x tile: BM rows x kBK bf16; zeros past the M and K edges
+    for (int i = tid; i < BM * (kBK / 8); i += kThreads) {
+      const int r = i / (kBK / 8);
+      const int part = i % (kBK / 8);
+      const int row = m0 + r;
+      const int col = k0 + part * 8;
+      bf16* dst = &s_x[stage][r * kXStride + part * 8];
+      if (x_vec) {
+        const bool ok = row < M && col < K;
+        port::cp_async16(dst, x + (ok ? static_cast<long>(row) * K + col : 0),
+                         ok ? 16 : 0);
+      } else {
+        for (int e = 0; e < 8; ++e) {
+          dst[e] = (row < M && col + e < K)
+                       ? x[static_cast<long>(row) * K + col + e]
+                       : __float2bfloat16_rn(0.0f);
+        }
+      }
+    }
+  };
+
+  float acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][h][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_local) load_stage(s, kc_begin + s);
+    port::cp_async_commit();
+  }
+
+  // this thread's B columns (one per n8 tile) and their group parameters
+  const int col0 = n0 + warp * 16 + g;
+  auto load_group = [&](int grp, float (&sc)[2], float (&zr)[2]) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int c = col0 + nt * 8;
+      const long j = static_cast<long>(grp) * N + c;
+      sc[nt] = c < N ? __ldg(scales + j) : 0.0f;
+      zr[nt] = c < N ? __ldg(zeros + j) : 0.0f;
+    }
+  };
+  int cur_a = -1, cur_b = -1;  // groups of the b0 and b1 row pairs
+  float sa[2], za[2], sb[2], zb[2];
+
+  for (int i = 0; i < n_local; ++i) {
+    port::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    {
+      const int nxt = i + STAGES - 1;
+      if (nxt < n_local) load_stage(nxt % STAGES, kc_begin + nxt);
+      port::cp_async_commit();
+    }
+    const int stage = i % STAGES;
+    const int k0 = (kc_begin + i) * kBK;
+    const uint8_t* sp = s_p[stage] + warp * 16 + g;
+    const bf16* sx = s_x[stage];
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      // K rows k0 + 16ks + 2t (+1) feed b0, the same + 8 feed b1; rows past
+      // K (zero x) take the last group
+      const int kr = k0 + ks * 16 + 2 * t;
+      const int ga = min(kr / gs, n_groups - 1);
+      const int gb = min((kr + 8) / gs, n_groups - 1);
+      if (ga != cur_a) {
+        load_group(ga, sa, za);
+        cur_a = ga;
+      }
+      if (gb != cur_b) {
+        if (gb == cur_a) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            sb[nt] = sa[nt];
+            zb[nt] = za[nt];
+          }
+        } else {
+          load_group(gb, sb, zb);
+        }
+        cur_b = gb;
+      }
+      uint32_t b[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const uint32_t p0 = sp[(ks * 8 + t) * kPStride + nt * 8];
+        const uint32_t p1 = sp[(ks * 8 + t + 4) * kPStride + nt * 8];
+        b[nt][0] = pack_bf16(deq(p0 >> 4, za[nt], sa[nt]),
+                             deq(p0 & 15, za[nt], sa[nt]));
+        b[nt][1] = pack_bf16(deq(p1 >> 4, zb[nt], sb[nt]),
+                             deq(p1 & 15, zb[nt], sb[nt]));
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const bf16* xa = sx + (mt * 16 + g) * kXStride + ks * 16 + 2 * t;
+        uint32_t a[4];
+        a[0] = port::ld_u32(xa);
+        a[1] = port::ld_u32(xa + 8 * kXStride);
+        a[2] = port::ld_u32(xa + 8);
+        a[3] = port::ld_u32(xa + 8 * kXStride + 8);
+        mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
+        mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
+      }
+    }
+  }
+  port::cp_async_wait<0>();
+
+  const long mn = static_cast<long>(M) * N;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + mt * 16 + g + (e >= 2 ? 8 : 0);
+        const int col = n0 + warp * 16 + nt * 8 + 2 * t + (e & 1);
+        if (row < M && col < N) {
+          const long o = static_cast<long>(row) * N + col;
+          if (split_k > 1) {
+            ws[blockIdx.z * mn + o] = acc[mt][nt][e];
+          } else {
+            port::store_out(out, o, acc[mt][nt][e], out_dtype);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Sum the split-K partials in split order and write the output dtype.
+__global__ void int4_splitk_reduce_kernel(const float* __restrict__ ws,
+                                          void* __restrict__ out, long mn,
+                                          int split_k, int out_dtype) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = 0.0f;
+  for (int z = 0; z < split_k; ++z) s += ws[z * mn + i];
+  port::store_out(out, i, s, out_dtype);
+}
+
+struct __align__(16) BwdStage {
+  uint8_t p[(kBDX / 2) * kBPStride];  // packed rows kp0 .. kp0 + 31
+  bf16 dy[kBM * kDStride];
+};
+
+// One block: the 64 x 64 tile dx[m0 .. m0+63, k0 .. k0+63], reducing over
+// all of N. Warp w owns packed rows kp0 + 8w .. kp0 + 8w + 7, i.e. dx
+// columns k0 + 16w .. k0 + 16w + 15: tile 0 the even ones (high nibbles),
+// tile 1 the odd ones (low nibbles); thread g of a warp reads packed row
+// kp0 + 8w + g, whose group is fixed.
+__global__ void __launch_bounds__(kThreads)
+int4_matmul_bwd_kernel(const bf16* __restrict__ dy,
+                       const uint8_t* __restrict__ packed,
+                       const float* __restrict__ scales,
+                       const float* __restrict__ zeros, void* __restrict__ dx,
+                       int M, int K, int N, int gs, int n_groups,
+                       int out_dtype) {
+  __shared__ BwdStage st[kBStages];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int KP = K >> 1;
+  const int k0 = blockIdx.x * kBDX;
+  const int kp0 = k0 >> 1;
+  const int m0 = blockIdx.y * kBM;
+  const int n_chunks = (N + kBR - 1) / kBR;
+
+  auto load_stage = [&](int s, int chunk) {
+    const int c0 = chunk * kBR;
+    BwdStage& S = st[s];
+    if (tid < (kBDX / 2) * (kBR / 16)) {  // packed: 32 rows x 32 bytes
+      const int r = tid >> 1;
+      const int part = tid & 1;
+      const int row = kp0 + r;
+      const int col = c0 + part * 16;
+      const bool ok = row < KP && col < N;
+      port::cp_async16(&S.p[r * kBPStride + part * 16],
+                       packed + (ok ? static_cast<long>(row) * N + col : 0),
+                       ok ? 16 : 0);
+    }
+    // dy: 64 rows x 32 columns; zeros past the M and N edges
+    for (int i = tid; i < kBM * (kBR / 8); i += kThreads) {
+      const int r = i / (kBR / 8);
+      const int part = i % (kBR / 8);
+      const int row = m0 + r;
+      const int col = c0 + part * 8;
+      const bool ok = row < M && col < N;
+      port::cp_async16(&S.dy[r * kDStride + part * 8],
+                       dy + (ok ? static_cast<long>(row) * N + col : 0),
+                       ok ? 16 : 0);
+    }
+  };
+
+  float acc[4][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][p][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kBStages - 1; ++s) {
+    if (s < n_chunks) load_stage(s, s);
+    port::cp_async_commit();
+  }
+
+  const int pr_local = warp * 8 + g;
+  // a packed row past K (zero-filled, its dx never stored) takes the last
+  // group, so the lookups stay in bounds
+  const int grp = min(2 * (kp0 + pr_local) / gs, n_groups - 1);
+  const float* srow = scales + static_cast<long>(grp) * N;
+  const float* zrow = zeros + static_cast<long>(grp) * N;
+
+  for (int i = 0; i < n_chunks; ++i) {
+    port::cp_async_wait<kBStages - 2>();
+    __syncthreads();
+    {
+      const int nxt = i + kBStages - 1;
+      if (nxt < n_chunks) load_stage(nxt % kBStages, nxt);
+      port::cp_async_commit();
+    }
+    const BwdStage& S = st[i % kBStages];
+    const int c0 = i * kBR;
+    const uint8_t* prow = &S.p[pr_local * kBPStride];
+#pragma unroll
+    for (int ks = 0; ks < kBR / 16; ++ks) {
+      const int nl = ks * 16 + 2 * t;  // reduction columns nl, nl+1, nl+8, nl+9
+      const int n = c0 + nl;
+      // N % 16 == 0, so n + 1 < N whenever n < N; 8-byte aligned pairs
+      const auto ld2 = [&](const float* row, int c) {
+        return c < N ? __ldg(reinterpret_cast<const float2*>(row + c))
+                     : make_float2(0.0f, 0.0f);
+      };
+      const float2 s01 = ld2(srow, n);
+      const float2 z01 = ld2(zrow, n);
+      const float2 s89 = ld2(srow, n + 8);
+      const float2 z89 = ld2(zrow, n + 8);
+      // bytes n, n+1 and n+8, n+9 of this thread's packed row
+      const uint32_t w01 = *reinterpret_cast<const uint16_t*>(prow + nl);
+      const uint32_t w89 = *reinterpret_cast<const uint16_t*>(prow + nl + 8);
+      uint32_t b[2][2];
+      // even dx column: high nibbles
+      b[0][0] = pack_bf16(deq((w01 >> 4) & 15, z01.x, s01.x),
+                          deq((w01 >> 12) & 15, z01.y, s01.y));
+      b[0][1] = pack_bf16(deq((w89 >> 4) & 15, z89.x, s89.x),
+                          deq((w89 >> 12) & 15, z89.y, s89.y));
+      // odd dx column: low nibbles
+      b[1][0] = pack_bf16(deq(w01 & 15, z01.x, s01.x),
+                          deq((w01 >> 8) & 15, z01.y, s01.y));
+      b[1][1] = pack_bf16(deq(w89 & 15, z89.x, s89.x),
+                          deq((w89 >> 8) & 15, z89.y, s89.y));
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const bf16* da = &S.dy[(mt * 16 + g) * kDStride + ks * 16 + 2 * t];
+        uint32_t a[4];
+        a[0] = port::ld_u32(da);
+        a[1] = port::ld_u32(da + 8 * kDStride);
+        a[2] = port::ld_u32(da + 8);
+        a[3] = port::ld_u32(da + 8 * kDStride + 8);
+        mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
+        mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
+      }
+    }
+  }
+  port::cp_async_wait<0>();
+
+  // accumulator column j of tile p is dx column k0 + 2 * (8w + j) + p
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + mt * 16 + g + (e >= 2 ? 8 : 0);
+        const int col = k0 + 2 * (warp * 8 + 2 * t + (e & 1)) + p;
+        if (row < M && col < K) {
+          port::store_out(dx, static_cast<long>(row) * K + col,
+                          acc[mt][p][e], out_dtype);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// Forward, on `stream`. x: (M, K) bf16, 16-byte aligned; packed: (K/2, N)
+// uint8; scales, zeros: (n_groups, N) f32; out: (M, N) in out_dtype (0 f32,
+// 1 bf16, 2 f16); ws: (split_k, M, N) f32 when split_k > 1. Requires
+// M >= 1, K even, gs even. Returns cudaGetLastError() after the launches
+// (0 on success).
+extern "C" int int4_matmul_launch(const void* x, const void* packed,
+                                  const void* scales, const void* zeros,
+                                  void* out, void* ws, int M, int K, int N,
+                                  int gs, int n_groups, int split_k,
+                                  int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 block(kThreads);
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* pb = static_cast<const uint8_t*>(packed);
+  const auto* sc = static_cast<const float*>(scales);
+  const auto* zr = static_cast<const float*>(zeros);
+  auto* wsf = static_cast<float*>(ws);
+  if (M <= 16) {
+    const dim3 grid((N + kBN - 1) / kBN, (M + 15) / 16, split_k);
+    int4_matmul_kernel<1, 4><<<grid, block, 0, s>>>(
+        xb, pb, sc, zr, out, wsf, M, K, N, gs, n_groups, split_k, out_dtype);
+  } else {
+    const dim3 grid((N + kBN - 1) / kBN, (M + 63) / 64, split_k);
+    int4_matmul_kernel<4, 3><<<grid, block, 0, s>>>(
+        xb, pb, sc, zr, out, wsf, M, K, N, gs, n_groups, split_k, out_dtype);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split_k == 1) return static_cast<int>(err);
+  const long mn = static_cast<long>(M) * N;
+  int4_splitk_reduce_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0,
+                              s>>>(wsf, out, mn, split_k, out_dtype);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Backward, on `stream`. dy: (M, N) bf16, 16-byte aligned; packed, scales,
+// zeros as for the forward; dx: (M, K) in out_dtype. Requires M >= 1, K
+// even, gs even, N % 16 == 0. Returns cudaGetLastError() after the launch.
+extern "C" int int4_matmul_bwd_launch(const void* dy, const void* packed,
+                                      const void* scales, const void* zeros,
+                                      void* dx, int M, int K, int N, int gs,
+                                      int n_groups, int out_dtype,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((K + kBDX - 1) / kBDX, (M + kBM - 1) / kBM);
+  int4_matmul_bwd_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const bf16*>(dy), static_cast<const uint8_t*>(packed),
+      static_cast<const float*>(scales), static_cast<const float*>(zeros), dx,
+      M, K, N, gs, n_groups, out_dtype);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* int4_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,10 +1,10 @@
 """Weights carried across from the JAX package's flax param trees.
 
 :func:`params_from_jax` takes a flax ``Qwen3`` param tree as nested dicts
-(numpy arrays, torch tensors, or NF4Tensor-like leaves with ``packed``,
-``absmax_q``, ``absmax_scale``, ``absmax_offset``, ``shape``, ``layout``)
-and returns the port's flat state ``{name: tensor | NF4Tensor}``, byte
-for byte. Names map ``block_{i}/attn/q_proj/kernel`` to
+(numpy arrays, torch tensors, or quantized leaves of the JAX package or
+the port: NF4Tensor, Int4Tensor, AWQTensor and Int8Tensor, recognised by
+their fields) and returns the port's flat state ``{name: tensor |
+quantized leaf}``, byte for byte. Names map ``block_{i}/attn/q_proj/kernel`` to
 ``blocks.{i}.attn.q_proj.kernel`` and ``tok_embed/embedding`` to
 ``tok_embed.weight``; kernels keep their ``(in, out)`` layout.
 :func:`lora_from_jax` carries a JAX LoRA tree across the same way.
@@ -17,6 +17,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from llm_in_practise_tpu_torch.quant.awq import AWQTensor
+from llm_in_practise_tpu_torch.quant.int4 import Int4Tensor
+from llm_in_practise_tpu_torch.quant.int8 import Int8Tensor
 from llm_in_practise_tpu_torch.quant.nf4 import NF4Tensor
 
 
@@ -30,10 +33,8 @@ def to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
-def is_nf4_like(leaf) -> bool:
-    return all(hasattr(leaf, f) for f in
-               ("packed", "absmax_q", "absmax_scale", "absmax_offset",
-                "shape", "layout"))
+def _has(leaf, *fields) -> bool:
+    return all(hasattr(leaf, f) for f in fields)
 
 
 def nf4_from_like(leaf) -> NF4Tensor:
@@ -42,6 +43,28 @@ def nf4_from_like(leaf) -> NF4Tensor:
         to_tensor(leaf.absmax_scale),
         to_tensor(leaf.absmax_offset).reshape(()),
         tuple(int(s) for s in leaf.shape), str(leaf.layout))
+
+
+def int4_from_like(leaf) -> Int4Tensor:
+    return Int4Tensor(
+        to_tensor(leaf.packed), to_tensor(leaf.scales), to_tensor(leaf.zeros),
+        int(leaf.group_size), tuple(int(s) for s in leaf.shape))
+
+
+def quant_from_like(leaf):
+    """A quantized leaf of either package as the port's leaf, byte for
+    byte; None for a plain array."""
+    if _has(leaf, "packed", "absmax_q", "absmax_scale", "absmax_offset",
+            "shape", "layout"):
+        return nf4_from_like(leaf)
+    if _has(leaf, "q", "inv_scale"):
+        return AWQTensor(int4_from_like(leaf.q), to_tensor(leaf.inv_scale))
+    if _has(leaf, "packed", "scales", "zeros", "group_size", "shape"):
+        return int4_from_like(leaf)
+    if _has(leaf, "q", "scale", "shape"):
+        return Int8Tensor(to_tensor(leaf.q), to_tensor(leaf.scale),
+                          tuple(int(s) for s in leaf.shape))
+    return None
 
 
 def flatten(tree: Mapping, prefix: str = "") -> dict:
@@ -102,8 +125,9 @@ def params_from_jax(tree: Mapping, cfg) -> dict:
             "the JAX package's unstack_layer_params first")
     state = {}
     for path, leaf in flatten(tree).items():
-        state[port_name(path)] = (nf4_from_like(leaf) if is_nf4_like(leaf)
-                                  else to_tensor(leaf))
+        quant = quant_from_like(leaf)
+        state[port_name(path)] = quant if quant is not None else to_tensor(
+            leaf)
     want = expected_names(cfg)
     unknown, missing = sorted(set(state) - want), sorted(want - set(state))
     if unknown or missing:

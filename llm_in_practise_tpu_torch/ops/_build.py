@@ -51,6 +51,16 @@ KERNELS: dict[str, dict[str, tuple]] = {
             _I, [_P] * 8 + [_I] * 5 + [_STRIDES] * 4 + [ctypes.c_float, _P]),
         "flash_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "int4_matmul": {
+        "int4_matmul_launch": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+        "int4_matmul_bwd_launch": (_I, [_P] * 5 + [_I] * 6 + [_P]),
+        "int4_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "int8_matmul": {
+        "int8_matmul_launch": (_I, [_P] * 5 + [_I] * 5 + [_P]),
+        "int8_matmul_bwd_launch": (_I, [_P] * 4 + [_I] * 4 + [_P]),
+        "int8_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

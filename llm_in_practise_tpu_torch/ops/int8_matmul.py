@@ -1,0 +1,191 @@
+"""Fused W8A16 int8 matmul: int8 weights streamed, scale after the sum.
+
+Port of ``llm_in_practise_tpu/ops/int8_matmul.py``, forward and backward.
+On a CUDA tensor :func:`int8_matmul` (``(x @ q) * scale``) and
+:func:`int8_matmul_backward` (``dx = bf16(dy * scale) @ q^T``) launch the
+hand-written Hopper kernels in ``csrc/int8_matmul.cu``, or raise; on a
+CPU tensor they run the plain versions :func:`int8_matmul_reference` and
+:func:`int8_matmul_backward_reference`, which do the same arithmetic with
+the same rounding points in plain tensor ops. There is no fallback from a
+kernel to its plain version.
+
+The JAX package routes int8 serving to XLA because of a TPU measurement;
+the port runs every int8 projection through the kernel (its time beside
+cuBLAS is in ``PERF.md``). The weight is a frozen export:
+:class:`Int8Matmul` differentiates with respect to ``x`` only.
+``int8_matmul.launches`` and ``int8_matmul_backward.launches`` count the
+kernel launches. Stacked (3-D) leaves are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from llm_in_practise_tpu_torch.ops import _build
+from llm_in_practise_tpu_torch.ops.int4_matmul import _aligned
+from llm_in_practise_tpu_torch.ops.nf4_matmul import (
+    _OUT_CODES,
+    _sm_count,
+    split_k_for,
+)
+from llm_in_practise_tpu_torch.quant.int8 import Int8Tensor
+
+
+def _two_d(t: Int8Tensor) -> None:
+    if t.q.ndim != 2:
+        raise NotImplementedError(
+            f"stacked int8 leaves (q of shape {tuple(t.q.shape)}) are not "
+            "ported; unstack the scan-layers tree first (ROADMAP.md queue A "
+            "item 7)")
+
+
+def int8_matmul_reference(x: torch.Tensor, t: Int8Tensor,
+                          out_dtype=None) -> torch.Tensor:
+    """Plain version: bf16 x, f32 sums, the scale on the f32 sum."""
+    _two_d(t)
+    out_dtype = out_dtype or x.dtype
+    y = x.to(torch.bfloat16).float() @ t.q.float()
+    return (y * t.scale).to(out_dtype)
+
+
+def int8_matmul_backward_reference(dy: torch.Tensor, t: Int8Tensor,
+                                   out_dtype=None) -> torch.Tensor:
+    """Plain version of the backward: ``bf16(f32(dy) * scale) @ q^T`` with
+    f32 sums."""
+    _two_d(t)
+    out_dtype = out_dtype or dy.dtype
+    dys = (dy.float() * t.scale).to(torch.bfloat16).float()
+    return (dys @ t.q.float().T).to(out_dtype)
+
+
+def _check_weight(t: Int8Tensor, device: torch.device) -> tuple[int, int]:
+    _two_d(t)
+    k, n = t.q.shape
+    for name, a in (("q", t.q), ("scale", t.scale)):
+        if a.device != device:
+            raise ValueError(f"{name} is on {a.device}, the input on {device}")
+    if t.q.dtype != torch.int8 or t.scale.dtype != torch.float32:
+        raise TypeError("q must be int8 and scale float32")
+    if tuple(t.scale.shape) != (n,):
+        raise ValueError(f"scale has shape {tuple(t.scale.shape)}, q "
+                         f"{tuple(t.q.shape)}")
+    return k, n
+
+
+def _error(lib, err: int, what: str, **shape) -> RuntimeError:
+    msg = lib.int8_cuda_error_string(err).decode()
+    dims = ", ".join(f"{k}={v}" for k, v in shape.items())
+    return RuntimeError(f"{what} kernel launch failed ({dims}): cuda error "
+                        f"{err}: {msg}")
+
+
+def int8_matmul(x: torch.Tensor, t: Int8Tensor, out_dtype=None
+                ) -> torch.Tensor:
+    """``(x @ q) * scale``. x: (..., K); t: 2-D Int8Tensor (K, N). Returns
+    (..., N) in ``out_dtype`` (default x's dtype). Differentiable in ``x``
+    (:class:`Int8Matmul`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return Int8Matmul.apply(x, t, out_dtype)
+    return _forward(x, t, out_dtype)
+
+
+def _forward(x: torch.Tensor, t: Int8Tensor, out_dtype=None) -> torch.Tensor:
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, t, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_matmul runs on cuda or cpu, not {x.device}")
+    if out_dtype not in _OUT_CODES:
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    k, n = _check_weight(t, x.device)
+    if x.shape[-1] != k:
+        raise ValueError(f"x has K={x.shape[-1]}, weight has K={k}")
+    lead = x.shape[:-1]
+    x2 = _aligned(x.reshape(-1, k).to(torch.bfloat16))
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out.reshape(*lead, n)
+    q, scale = _aligned(t.q), _aligned(t.scale)
+    split = split_k_for(m, k, n, _sm_count(x.device.index))
+    ws = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
+          if split > 1 else out)
+    lib = _build.load("int8_matmul")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.int8_matmul_launch(
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), m, k, n, split, _OUT_CODES[out_dtype], stream)
+    if err != 0:
+        raise _error(lib, err, "int8_matmul", m=m, k=k, n=n, split_k=split)
+    int8_matmul.launches += 1
+    return out.reshape(*lead, n)
+
+
+int8_matmul.launches = 0
+
+
+def int8_matmul_backward(dy: torch.Tensor, t: Int8Tensor, out_dtype=None
+                         ) -> torch.Tensor:
+    """``dx = bf16(f32(dy) * scale) @ q^T``. dy: (..., N); t: 2-D
+    Int8Tensor (K, N). Returns (..., K) in ``out_dtype`` (default dy's
+    dtype). The CUDA kernel needs N % 16 == 0."""
+    out_dtype = out_dtype or dy.dtype
+    if dy.device.type == "cpu":
+        return int8_matmul_backward_reference(dy, t, out_dtype)
+    if dy.device.type != "cuda":
+        raise ValueError(
+            f"int8_matmul_backward runs on cuda or cpu, not {dy.device}")
+    if out_dtype not in _OUT_CODES:
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    k, n = _check_weight(t, dy.device)
+    if dy.shape[-1] != n:
+        raise ValueError(f"dy has N={dy.shape[-1]}, weight has N={n}")
+    if n % 16:
+        raise ValueError(f"the backward kernel needs N % 16 == 0, got "
+                         f"shape {tuple(t.q.shape)}")
+    lead = dy.shape[:-1]
+    dy2 = dy.reshape(-1, n)
+    scale = _aligned(t.scale)
+    if dy2.dtype == torch.bfloat16:
+        scale_ptr = scale.data_ptr()  # the kernel scales each staged tile
+    else:  # the rounding point: scale in f32 first, then one bf16 rounding
+        dy2 = (dy2.float() * scale).to(torch.bfloat16)
+        scale_ptr = None
+    dy2 = _aligned(dy2)
+    m = dy2.shape[0]
+    dx = torch.empty((m, k), dtype=out_dtype, device=dy.device)
+    if m == 0:
+        return dx.reshape(*lead, k)
+    q = _aligned(t.q)
+    lib = _build.load("int8_matmul")
+    with torch.cuda.device(dy.device):
+        stream = torch.cuda.current_stream(dy.device).cuda_stream
+        err = lib.int8_matmul_bwd_launch(
+            dy2.data_ptr(), q.data_ptr(), scale_ptr, dx.data_ptr(), m, k, n,
+            _OUT_CODES[out_dtype], stream)
+    if err != 0:
+        raise _error(lib, err, "int8_matmul_backward", m=m, k=k, n=n)
+    int8_matmul_backward.launches += 1
+    return dx.reshape(*lead, k)
+
+
+int8_matmul_backward.launches = 0
+
+
+class Int8Matmul(torch.autograd.Function):
+    """``y = (x @ q) * scale`` with ``dx = bf16(dy * scale) @ q^T``; the
+    int8 weight is frozen storage and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, t, out_dtype):
+        ctx.t = t
+        ctx.x_dtype = x.dtype
+        return _forward(x, t, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = int8_matmul_backward(dy, ctx.t, ctx.x_dtype)
+        return dx, None, None

@@ -1,19 +1,21 @@
-"""Fused QLoRA training: the NF4 base streamed through the Hopper kernels.
+"""Fused QLoRA training: a quantized base streamed through Hopper kernels.
 
 Port of the training half of ``llm_in_practise_tpu/peft/fused.py``
 (``qlora_fused_apply`` with ``use_kernels=True``). Where the JAX package
 intercepts flax ``Dense`` calls, the port swaps modules, as
-``serve/quantized.py`` does (:func:`~..serve.quantized.swap_nf4_linears`):
-every :class:`~..models.qwen3.Dense` whose kernel is an
-:class:`~..quant.nf4.NF4Tensor` becomes a :class:`QLoRALinear`, the
-serving :class:`~..serve.quantized.NF4Linear` plus the LoRA delta,
+``serve/quantized.py`` does
+(:func:`~..serve.quantized.swap_quantized_linears`): every
+:class:`~..models.qwen3.Dense` whose kernel is a quantized leaf (NF4, or a
+PTQ export's int4, AWQ or int8) becomes a :class:`QLoRALinear`, the
+serving :class:`~..serve.quantized.QuantizedLinear` plus the LoRA delta,
 computing
 
-    ``y = nf4_matmul(x, W_nf4) + (x @ A) @ B * (alpha / r)``
+    ``y = fused_kernel_matmul(x, W_q) + (x @ A) @ B * (alpha / r)``
 
-so the 4-bit weight goes straight into the forward kernel and, in the
-backward, into the dx kernel (:class:`~..ops.nf4_matmul.NF4Matmul`); the
-bf16 base never exists in device memory in either direction. A LoRA
+so the packed weight goes straight into the forward kernel and, in the
+backward, into the dx kernel of its format (``NF4Matmul``,
+``Int4Matmul``, ``Int8Matmul``); the bf16 base never exists in device
+memory in either direction. A LoRA
 target whose kernel stays unquantized becomes a :class:`LoRADense`. Only
 the LoRA factors require grad; a quantized leaf that no Dense consumes
 raises.
@@ -31,10 +33,9 @@ from torch import nn
 from llm_in_practise_tpu_torch.core.device import resolve_device
 from llm_in_practise_tpu_torch.models.qwen3 import Dense
 from llm_in_practise_tpu_torch.peft.lora import LoRAConfig
-from llm_in_practise_tpu_torch.quant.nf4 import NF4Tensor
 from llm_in_practise_tpu_torch.serve.quantized import (
-    NF4Linear,
-    swap_nf4_linears,
+    QuantizedLinear,
+    swap_quantized_linears,
 )
 
 
@@ -43,12 +44,12 @@ def _lora_delta(x, a, b, scaling, compute_dtype):
         compute_dtype) * scaling
 
 
-class QLoRALinear(NF4Linear):
-    """An :class:`NF4Linear` plus, once :meth:`attach` gives it factors,
+class QLoRALinear(QuantizedLinear):
+    """A :class:`QuantizedLinear` plus, once :meth:`attach` gives it factors,
     ``(x @ A) @ B * scaling``, added in ``compute_dtype`` as the JAX
     interceptor adds it."""
 
-    def __init__(self, weight: NF4Tensor, compute_dtype: torch.dtype):
+    def __init__(self, weight, compute_dtype: torch.dtype):
         super().__init__(weight, compute_dtype)
         self.a: nn.Parameter | None = None
         self.b: nn.Parameter | None = None
@@ -88,10 +89,10 @@ class LoRADense(nn.Module):
 
 
 class QLoRAModel(nn.Module):
-    """A frozen (partly NF4) base with trainable LoRA factors.
+    """A frozen (partly quantized) base with trainable LoRA factors.
 
     ``model`` may be built on the ``meta`` device: every base parameter
-    comes from ``state`` (``{name: tensor | NF4Tensor}``, e.g. from
+    comes from ``state`` (``{name: tensor | quantized leaf}``, e.g. from
     :func:`~.qlora.quantize_base`), moved to ``device`` (default: the
     card). ``lora`` is :func:`~.lora.init_lora`'s dict; its factors become
     the only parameters that require grad (:meth:`lora_state` returns
@@ -106,7 +107,7 @@ class QLoRAModel(nn.Module):
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.lora_cfg = cfg
-        model.load_state(swap_nf4_linears(
+        model.load_state(swap_quantized_linears(
             model, state, device, lambda w: QLoRALinear(w, compute_dtype)))
         for p in model.parameters():
             p.requires_grad_(False)

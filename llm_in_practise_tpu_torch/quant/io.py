@@ -3,9 +3,12 @@
 Port of ``llm_in_practise_tpu/quant/io.py:142-181`` (reading side): one
 ``packed.npz`` with every component array plus a JSON ``manifest.json``
 naming each leaf's type and static fields. Read with numpy only and
-rebuilt as nested dicts of CPU torch tensors and
-:class:`~llm_in_practise_tpu_torch.quant.nf4.NF4Tensor` leaves, ready for
-:func:`llm_in_practise_tpu_torch.models.convert.params_from_jax`.
+rebuilt as nested dicts of CPU torch tensors and the port's quantized
+leaves (:class:`~.nf4.NF4Tensor`, :class:`~.int4.Int4Tensor`,
+:class:`~.awq.AWQTensor`, :class:`~.int8.Int8Tensor`), ready for
+:func:`llm_in_practise_tpu_torch.models.convert.params_from_jax`. A bf16
+component inside a quantized leaf (format 2's ``bf16_arrays``) reads back
+as bf16.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ import os
 import numpy as np
 import torch
 
+from llm_in_practise_tpu_torch.quant.awq import AWQTensor
+from llm_in_practise_tpu_torch.quant.int4 import Int4Tensor
+from llm_in_practise_tpu_torch.quant.int8 import Int8Tensor
 from llm_in_practise_tpu_torch.quant.nf4 import NF4Tensor
 
 _MAX_MANIFEST_FORMAT = 2
@@ -38,11 +44,16 @@ def _rebuild_leaf(entry: dict, key: str, arrays: dict,
         return NF4Tensor(arr("packed"), arr("absmax_q"), arr("absmax_scale"),
                          arr("absmax_offset").reshape(()),
                          shape=tuple(entry["shape"]), layout=entry["layout"])
-    if kind in ("int4", "awq", "int8"):
-        raise NotImplementedError(
-            f"{key}: packed {kind!r} leaves are not ported yet; the port "
-            "serves NF4 exports (ROADMAP.md, queue A: int4/AWQ/GPTQ and "
-            "int8 serving, item 11)")
+    if kind == "int4":
+        return Int4Tensor(arr("packed"), arr("scales"), arr("zeros"),
+                          group_size=entry["group_size"],
+                          shape=tuple(entry["shape"]))
+    if kind == "awq":
+        return AWQTensor(
+            _rebuild_leaf(entry["int4"], key, arrays, bf16_names),
+            arr("inv_scale"))
+    if kind == "int8":
+        return Int8Tensor(arr("q"), arr("scale"), shape=tuple(entry["shape"]))
     if kind != "array":
         raise ValueError(f"{key}: unknown packed leaf type {kind!r}")
     if entry.get("dtype") == "bfloat16" or key in bf16_names:

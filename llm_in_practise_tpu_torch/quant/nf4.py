@@ -179,9 +179,8 @@ def quantize_tree(state: dict, predicate=None) -> dict:
 
 
 def tree_nbytes(tree) -> int:
-    """Bytes held by a (possibly nested) dict of tensors and NF4Tensors."""
+    """Bytes held by a (possibly nested) dict of tensors and quantized
+    leaves (each has ``nbytes``)."""
     if isinstance(tree, dict):
         return sum(tree_nbytes(v) for v in tree.values())
-    if isinstance(tree, NF4Tensor):
-        return tree.nbytes
-    return int(tree.numel() * tree.element_size())
+    return int(tree.nbytes)

@@ -1,14 +1,17 @@
-"""Serve a packed NF4 Qwen3 export over the OpenAI API on the card.
+"""Serve a packed quantized Qwen3 export over the OpenAI API on the card.
 
     python -m llm_in_practise_tpu_torch.serve --quantized_dir DIR \\
         --tokenizer_path TOK.json [--device cpu] [--max_slots 8] \\
         [--cache_len 512] [--kv-cache-dtype bfloat16] [--port 8000]
 
 ``DIR`` holds the ``packed.npz`` + ``manifest.json`` that the JAX
-package's exporters write (``quant/io.py``); ``TOK.json`` is a BPE
-tokenizer saved by either package. The flags of the JAX package's
-``examples/serve_openai.py`` that this port does not have yet are
-accepted and raise ``NotImplementedError`` naming their ROADMAP.md item.
+package's exporters write (``quant/io.py``): NF4, GPTQ/RTN int4, AWQ,
+int8, or a tree that mixes them (the ``"mixed"`` preset: int8 MLP, NF4
+attention); each projection runs its format's Hopper kernel.
+``TOK.json`` is a BPE tokenizer saved by either package. The flags of
+the JAX package's ``examples/serve_openai.py`` that this port does not
+have yet are accepted and raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -51,7 +54,9 @@ _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m llm_in_practise_tpu_torch.serve")
     p.add_argument("--quantized_dir", required=True,
-                   help="packed NF4 export (packed.npz + manifest.json)")
+                   help="packed export (packed.npz + manifest.json) in nf4, "
+                        "int4 (GPTQ/RTN), awq, int8 or mixed format; the "
+                        "export's method is printed at load")
     p.add_argument("--tokenizer_path", required=True)
     p.add_argument("--model_name", default="qwen3-h100")
     p.add_argument("--host", default="0.0.0.0")
@@ -107,6 +112,8 @@ def build_server(args):
             f"model family {meta.get('family')!r} is not ported; the "
             "PyTorch server serves Qwen3 exports")
     cfg = Qwen3Config.from_dict(meta["config"])
+    print(f"packed model: {args.quantized_dir} ({meta.get('method')}, ppl "
+          f"{meta.get('ppl')})", flush=True)
     state = params_from_jax(tree, cfg)
     model = QuantizedModel(Qwen3(cfg, device="meta"), state, device=device)
     engine = InferenceEngine(

@@ -184,9 +184,24 @@ def test_cli_serves_a_packed_export_written_by_jax(tmp_path, served):
 
 
 def test_packed_int8_leaves_are_not_ported(tmp_path):
+    """2-D int8 leaves are ported: they read back byte for byte
+    (``tests/test_torch_ptq_serve.py`` serves them). Stacked 3-D leaves
+    (the scan layout) read back too, but the kernel path refuses them,
+    naming the ROADMAP.md item that ports the scan layout."""
     from llm_in_practise_tpu.quant import int8 as jax_int8
+    from llm_in_practise_tpu_torch.ops.int8_matmul import int8_matmul
 
-    w = np.random.default_rng(0).normal(size=(64, 32)).astype(np.float32)
-    jax_quant_io.save_packed(str(tmp_path), {"w": jax_int8.quantize(w)})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load_packed(str(tmp_path))
+    rng = np.random.default_rng(0)
+    flat = jax_int8.quantize(rng.normal(size=(64, 32)).astype(np.float32))
+    stacked = jax_int8.quantize(
+        rng.normal(size=(2, 64, 32)).astype(np.float32))
+    jax_quant_io.save_packed(str(tmp_path), {"w": flat, "s": stacked})
+    tree, _ = load_packed(str(tmp_path))
+    for key, want in (("w", flat), ("s", stacked)):
+        np.testing.assert_array_equal(tree[key].q.numpy(), np.asarray(want.q))
+        np.testing.assert_array_equal(tree[key].scale.numpy(),
+                                      np.asarray(want.scale))
+        assert tuple(tree[key].shape) == tuple(want.shape)
+    assert int8_matmul(torch.ones(3, 64), tree["w"]).shape == (3, 32)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        int8_matmul(torch.ones(3, 64), tree["s"])

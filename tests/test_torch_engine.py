@@ -25,13 +25,17 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import load_fixture_both, numpy_params, tiny_port_model
+from torch_port_util import (
+    load_fixture_both,
+    numpy_params,
+    run_jax_engine,
+    run_port_engine,
+    tiny_port_model,
+)
 
 from llm_in_practise_tpu.models.qwen3 import Qwen3 as JaxQwen3
 from llm_in_practise_tpu.models.qwen3 import qwen3_config as jax_qwen3_config
 from llm_in_practise_tpu.quant import nf4 as jax_nf4
-from llm_in_practise_tpu.serve.engine import InferenceEngine as JaxEngine
-from llm_in_practise_tpu.serve.engine import SamplingParams as JaxParams
 from llm_in_practise_tpu.serve.quantized import QuantizedModel as JaxQuantized
 from llm_in_practise_tpu_torch.models.convert import params_from_jax
 from llm_in_practise_tpu_torch.models.qwen3 import Qwen3, Qwen3Config
@@ -46,27 +50,6 @@ PROMPTS = [[3, 17, 42, 9, 88, 5, 61], [120, 7, 7, 33], [11, 90, 54, 2, 150,
 NEW_TOKENS = 12
 
 
-def _run_port(model, eos_id, prompts, params):
-    eng = InferenceEngine(model, max_slots=2, cache_len=64, eos_id=eos_id,
-                          cache_dtype=torch.float32)
-    reqs = [eng.submit(p, params) for p in prompts]
-    while eng.step():
-        pass
-    return [(r.result(), r.finish_reason) for r in reqs]
-
-
-def _run_jax(model, params, eos_id, prompts):
-    eng = JaxEngine(model, params, max_slots=2, cache_len=64, eos_id=eos_id,
-                    cache_dtype=jnp.float32, kv_layout="contiguous")
-    reqs = [eng.submit(p, JaxParams(greedy=True, max_tokens=NEW_TOKENS))
-            for p in prompts]
-    while eng.step():
-        pass
-    out = [(r.result(), r.finish_reason) for r in reqs]
-    eng.stop()
-    return out
-
-
 @pytest.fixture(scope="module")
 def fixture_models():
     return load_fixture_both()
@@ -77,11 +60,11 @@ def test_greedy_tokens_identical_to_jax_engine(fixture_models):
     greedy = SamplingParams(greedy=True, max_tokens=NEW_TOKENS)
     # pick an EOS that one stream reaches mid-way, so both finish reasons
     # ("stop" on EOS, "length" on the budget) occur
-    free = _run_port(pmodel, None, PROMPTS, greedy)
+    free = run_port_engine(pmodel, None, PROMPTS, greedy)
     eos = free[1][0][4]
-    port = _run_port(pmodel, eos, PROMPTS, greedy)
+    port = run_port_engine(pmodel, eos, PROMPTS, greedy)
 
-    jax_out = _run_jax(jmodel, jparams, eos, PROMPTS)
+    jax_out = run_jax_engine(jmodel, jparams, eos, PROMPTS, NEW_TOKENS)
 
     assert [t for t, _ in port] == [t for t, _ in jax_out]
     assert [f for _, f in port] == [f for _, f in jax_out]
@@ -102,10 +85,10 @@ def test_nf4_greedy_tokens_identical_to_jax_engine():
         Qwen3(cfg, device="meta"),
         params_from_jax(jax.tree.map(np.asarray, qtree), cfg),
         compute_dtype=torch.float32, device="cpu")
-    port = _run_port(pq, None, PROMPTS,
-                     SamplingParams(greedy=True, max_tokens=NEW_TOKENS))
-    jax_out = _run_jax(JaxQuantized(jmodel, compute_dtype=jnp.float32),
-                       qtree, None, PROMPTS)
+    port = run_port_engine(pq, None, PROMPTS,
+                           SamplingParams(greedy=True, max_tokens=NEW_TOKENS))
+    jax_out = run_jax_engine(JaxQuantized(jmodel, compute_dtype=jnp.float32),
+                             qtree, None, PROMPTS, NEW_TOKENS)
     assert port == jax_out
     assert all(f == "length" and len(t) == NEW_TOKENS for t, f in port)
 
@@ -113,7 +96,7 @@ def test_nf4_greedy_tokens_identical_to_jax_engine():
 def test_seeded_sampling_stays_in_top_k():
     model = tiny_port_model(256, seed=3)
     params = SamplingParams(temperature=1.0, top_k=5, max_tokens=10)
-    outs = _run_port(model, None, PROMPTS[:2], params)
+    outs = run_port_engine(model, None, PROMPTS[:2], params)
     for prompt, (toks, _) in zip(PROMPTS, outs):
         assert len(toks) == 10
         seq = torch.tensor([prompt + toks])
@@ -123,7 +106,7 @@ def test_seeded_sampling_stays_in_top_k():
             top5 = torch.topk(logits[len(prompt) - 1 + j], 5).indices.tolist()
             assert tok in top5
     # the same seed replays the same draws
-    assert _run_port(model, None, PROMPTS[:2], params) == outs
+    assert run_port_engine(model, None, PROMPTS[:2], params) == outs
 
 
 def test_slot_reuse_and_budget_bookkeeping():

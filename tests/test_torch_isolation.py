@@ -141,7 +141,8 @@ def test_nvcc_command_targets_sm90a_into_an_ignored_dir():
     assert "build" in ignored
 
 
-@pytest.mark.parametrize("name", ["nf4_matmul_bwd", "flash_attention"])
+@pytest.mark.parametrize("name", ["nf4_matmul_bwd", "flash_attention",
+                                  "int4_matmul", "int8_matmul"])
 def test_training_kernels_build_for_sm90a(name, tmp_path, monkeypatch):
     from llm_in_practise_tpu_torch.ops import _build
 

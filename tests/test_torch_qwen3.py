@@ -43,7 +43,10 @@ from llm_in_practise_tpu.quant import nf4 as jax_nf4
 from llm_in_practise_tpu.serve.quantized import QuantizedModel as JaxQuantized
 from llm_in_practise_tpu_torch.models.convert import params_from_jax
 from llm_in_practise_tpu_torch.models.qwen3 import Qwen3, Qwen3Config
-from llm_in_practise_tpu_torch.serve.quantized import NF4Linear, QuantizedModel
+from llm_in_practise_tpu_torch.serve.quantized import (
+    QuantizedLinear,
+    QuantizedModel,
+)
 
 
 @pytest.fixture(scope="module")
@@ -165,7 +168,7 @@ def nf4_pair():
 
 def test_quantized_model_matches_jax(nf4_pair):
     jq, qtree, pq = nf4_pair
-    n_nf4 = sum(isinstance(m, NF4Linear) for m in pq.modules())
+    n_nf4 = sum(isinstance(m, QuantizedLinear) for m in pq.modules())
     assert n_nf4 == 7 * NF4_CFG["n_layer"]
     ids = np.random.default_rng(1).integers(0, 512, (2, 6))
     want = np.asarray(jax.jit(lambda q, x: jq.apply({"params": q}, x))(

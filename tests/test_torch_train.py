@@ -289,28 +289,34 @@ def test_quantize_base_and_memory_report_match_jax(tiny_params):
             == jax_qlora.memory_report(params, jq))
 
 
-def test_remat_step_kernel_calls_match_the_derived_counts(monkeypatch):
-    """The per-step launch counts chip_smoke.py checks on the card, here
-    counted at the kernels' wrappers: NF4 forward 13 per block (the remat
-    recompute stops before down_proj, which saves no tensor), NF4
-    backward 7 per block less layer 0's q/k/v, flash forward twice and
-    backward once per block."""
+def _step_kernel_calls(monkeypatch, fmt: str, n_layer: int) -> dict:
+    """Kernel calls of one remat QLoRA step over a ``fmt`` base, counted at
+    the kernels' wrappers."""
     from llm_in_practise_tpu_torch.models.qwen3 import (
         Qwen3,
         init_params,
         qwen3_config,
     )
     from llm_in_practise_tpu_torch.ops import flash_attention as fa
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+    from llm_in_practise_tpu_torch.ops import int8_matmul as i8
     from llm_in_practise_tpu_torch.ops import nf4_matmul as nm
     from llm_in_practise_tpu_torch.peft.fused import QLoRAModel
+    from llm_in_practise_tpu_torch.quant import int4, int8
     from llm_in_practise_tpu_torch.train.step import make_fused_ce_loss
 
-    n_layer = 3
     cfg = qwen3_config(128, n_layer=n_layer, remat=True, attn_impl="flash",
                        head_dim=64, tie_word_embeddings=True)
     gen = torch.Generator().manual_seed(0)
-    state = qlora.quantize_base(init_params(cfg, gen, device="cpu"),
-                                min_size=1)
+    quantizer = {"nf4": lambda st: qlora.quantize_base(st, min_size=1),
+                 "int4": lambda st: {
+                     n: int4.rtn_quantize(v, group_size=64)
+                     if n.startswith("blocks.") and n.endswith(".kernel")
+                     else v for n, v in st.items()},
+                 "int8": lambda st: int8.quantize_tree(
+                     st, lambda n, v: n.startswith("blocks.")
+                     and n.endswith(".kernel"))}[fmt]
+    state = quantizer(init_params(cfg, gen, device="cpu"))
     lcfg = lora.LoRAConfig()
     model = QLoRAModel(Qwen3(cfg, device="meta"), state,
                        lora.init_lora(state, lcfg, gen), lcfg, device="cpu")
@@ -322,9 +328,11 @@ def test_remat_step_kernel_calls_match_the_derived_counts(monkeypatch):
             return fn(*args, **kwargs)
         return wrapper
 
-    monkeypatch.setattr(nm, "_forward", counting("fwd", nm._forward))
-    monkeypatch.setattr(nm, "nf4_matmul_backward",
-                        counting("bwd", nm.nf4_matmul_backward))
+    ops = {"nf4": nm, "int4": i4, "int8": i8}[fmt]
+    monkeypatch.setattr(ops, "_forward", counting("fwd", ops._forward))
+    backward = f"{fmt}_matmul_backward"
+    monkeypatch.setattr(ops, backward,
+                        counting("bwd", getattr(ops, backward)))
     monkeypatch.setattr(fa, "flash_forward",
                         counting("flash_fwd", fa.flash_forward))
     monkeypatch.setattr(fa, "flash_backward",
@@ -333,8 +341,29 @@ def test_remat_step_kernel_calls_match_the_derived_counts(monkeypatch):
     loss, _ = make_fused_ce_loss(chunk=16, vocab_chunk=64)(
         model, (x, x.roll(-1, 1)))
     loss.backward()
-    assert calls == {"fwd": 13 * n_layer, "bwd": 7 * n_layer - 3,
-                     "flash_fwd": 2 * n_layer, "flash_bwd": n_layer}
+    return calls
+
+
+def test_remat_step_kernel_calls_match_the_derived_counts(monkeypatch):
+    """The per-step launch counts chip_smoke.py checks on the card, here
+    counted at the kernels' wrappers: NF4 forward 13 per block (the remat
+    recompute stops before down_proj, which saves no tensor), NF4
+    backward 7 per block less layer 0's q/k/v, flash forward twice and
+    backward once per block."""
+    n_layer = 3
+    assert _step_kernel_calls(monkeypatch, "nf4", n_layer) == {
+        "fwd": 13 * n_layer, "bwd": 7 * n_layer - 3,
+        "flash_fwd": 2 * n_layer, "flash_bwd": n_layer}
+
+
+@pytest.mark.parametrize("fmt", ["int4", "int8"])
+def test_remat_step_kernel_calls_over_ptq_bases(monkeypatch, fmt):
+    """The same derived counts over the PTQ int4 and int8 bases, whose
+    forward and dx kernels (B6/B7, B8/B9) take the NF4 kernels' places."""
+    n_layer = 3
+    assert _step_kernel_calls(monkeypatch, fmt, n_layer) == {
+        "fwd": 13 * n_layer, "bwd": 7 * n_layer - 3,
+        "flash_fwd": 2 * n_layer, "flash_bwd": n_layer}
 
 
 # ---------------------------------------------------------------------- CLI

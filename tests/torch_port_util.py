@@ -69,3 +69,34 @@ def tiny_port_model(vocab_size: int, seed: int = 0, **cfg_kw):
         state[name] = torch.from_numpy(v.astype(np.float32))
     model.load_state(state)
     return model
+
+
+def run_port_engine(model, eos_id, prompts, params):
+    """Serve ``prompts`` at once through the port's engine (2 slots,
+    contiguous f32 KV): ``[(tokens, finish_reason)]``."""
+    import torch
+
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    eng = InferenceEngine(model, max_slots=2, cache_len=64, eos_id=eos_id,
+                          cache_dtype=torch.float32)
+    reqs = [eng.submit(p, params) for p in prompts]
+    while eng.step():
+        pass
+    return [(r.result(), r.finish_reason) for r in reqs]
+
+
+def run_jax_engine(model, params, eos_id, prompts, new_tokens):
+    """The same through the JAX engine, greedy, ``new_tokens`` each."""
+    from llm_in_practise_tpu.serve.engine import InferenceEngine as JaxEngine
+    from llm_in_practise_tpu.serve.engine import SamplingParams as JaxParams
+
+    eng = JaxEngine(model, params, max_slots=2, cache_len=64, eos_id=eos_id,
+                    cache_dtype=jnp.float32, kv_layout="contiguous")
+    reqs = [eng.submit(p, JaxParams(greedy=True, max_tokens=new_tokens))
+            for p in prompts]
+    while eng.step():
+        pass
+    out = [(r.result(), r.finish_reason) for r in reqs]
+    eng.stop()
+    return out
