@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero:
    the forwards and M = 8192 for all four; int4 symmetric with group size
    128 (GPTQModel's ``bits=4, group_size=128``) and asymmetric with group
    size 32 and fractional zeros (AWQ's grid). A planted fault (one group's
-   scale zeroed in a copy of the weight) must read as a failure.
+   scale zeroed in a copy of the weight) must read as a failure. The two
+   dx kernels also run at ragged shapes (``DX_EDGE_SHAPES``: M, K and N
+   off their tiles, int4 group sizes 32 and 2), and every dx launch is
+   repeated and must give the same bytes.
 5. Serve: a Qwen3-8B-width model (hidden 4096, inter 12288, 32/8 heads,
    head_dim 128, vocab 151936, tied embeddings) with random weights from a
    seeded generator, every block projection quantized on the card (NF4,
@@ -119,6 +122,13 @@ STEP_LAYERS, STEP_BATCH = 2, 2
 # asymmetric with fractional zeros, checked at group size 32
 INT4_GS, AWQ_GS = 128, 32
 PTQ_CHECK_M = (1, 8, 512, TRAIN_M)
+# ragged shapes for the dx kernels (M, K, N, int4 group size): M off the
+# 256-row tile on q_proj's shape, K off the 128-column tile (96 with
+# groups of 32, 10 with groups of 2), N off the 64-column stage (48, and
+# 1040 = 16 stages + 16 columns)
+DX_EDGE_SHAPES = ((17, 4096, 4096, INT4_GS), (8191, 4096, 4096, INT4_GS),
+                  (333, 96, 4096, 32), (333, 10, 4096, 2),
+                  (333, 4096, 48, INT4_GS), (333, 4096, 1040, INT4_GS))
 AWQ_LAYERS = 2
 
 
@@ -173,6 +183,25 @@ def matmul_bound(m: int, k: int, n: int, wbytes: int
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes", nbytes
     return t_ops * 1e3, "operations", nbytes
+
+
+def dx_resources() -> dict:
+    """Registers, spills and shared memory of the dx kernels (B7, B9 and
+    B9's scaling pass) as ptxas reported them in this process's build."""
+    from llm_in_practise_tpu_torch.ops import _build
+
+    out = {}
+    for src in ("int4_matmul", "int8_matmul"):
+        entry = None
+        for line in _build.ptxas_log.get(src, "").splitlines():
+            if "Compiling entry function" in line:
+                entry = next((lab for lab in ("Int4Dx", "Int8Dx",
+                                              "int8_scale_dy_kernel")
+                              if lab in line), None)
+            elif entry and ("spill" in line or "Used" in line):
+                out.setdefault(entry, []).append(line.split(":", 1)[-1]
+                                                 .strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def check_nf4_kernel(seed: int) -> dict:
@@ -278,6 +307,28 @@ def fractional_zero_int4(w, gs: int):
     return int4.encode(w, t.scales, t.zeros + 0.37, gs)
 
 
+def b9_product_only(dy, t):
+    """B9's launch without its scaling pass (dy taken as already scaled),
+    for the split of its time: a callable on the card."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import _build
+
+    lib = _build.load("int8_matmul")
+    m, n = dy.shape
+    k = t.q.shape[0]
+    dx = torch.empty((m, k), dtype=torch.bfloat16, device=dy.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.int8_matmul_bwd_launch(dy.data_ptr(), t.q.data_ptr(),
+                                         None, None, dx.data_ptr(), m, k, n,
+                                         1, stream)
+        if err:
+            raise SystemExit(f"B9 product launch failed: cuda error {err}")
+    return run
+
+
 def check_ptq_kernels(seed: int, flush) -> dict:
     """B6-B9 against their plain versions at every Qwen3-8B projection
     shape (see the module doc), timed as phase 3 times B1; the library
@@ -297,26 +348,38 @@ def check_ptq_kernels(seed: int, flush) -> dict:
     gen.manual_seed(seed + 6)
     rows = {}
 
-    def check(kernel, case, fn, plain, lib, inp, t, wbytes, k, n, planted):
+    def check(kernel, case, fn, plain, lib, inp, t, wbytes, k, n, planted,
+              edge=False):
         m = inp.shape[0]
         out = fn(inp, t, torch.bfloat16)
         ref = plain(inp, t, torch.bfloat16)
         torch.cuda.synchronize()
         err, rel = _rel(out, ref)
         ok = bool(torch.isfinite(out).all().item()) and rel <= KERNEL_TOL
-        bound_ms, bound_by, nbytes = matmul_bound(m, k, n, wbytes)
-        iters = (10, 3) if m == TRAIN_M else (20, 5)
         row = {"kernel": kernel, "case": case, "M": m, "K": k, "N": n,
                "max_abs_err": err, "max_rel_err": rel,
                "tol": f"{KERNEL_TOL} * max|plain| (summation order; bf16 "
-                      "output rounding)",
-               "ms": time_ms(lambda: fn(inp, t, torch.bfloat16), iters[0],
-                             flush),
-               "plain_ms": time_ms(lambda: plain(inp, t, torch.bfloat16),
-                                   iters[1], flush),
-               "library_ms": time_ms(lib, iters[0], flush),
-               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-               "ok": ok}
+                      "output rounding)"}
+        if kernel.endswith("_backward"):
+            # deterministic: each dx element is reduced in one block, in a
+            # fixed order, so a second launch gives the same bytes
+            row["repeat_equal"] = torch.equal(out, fn(inp, t,
+                                                      torch.bfloat16))
+            ok = ok and row["repeat_equal"]
+        if not edge:
+            bound_ms, bound_by, nbytes = matmul_bound(m, k, n, wbytes)
+            iters = (10, 3) if m == TRAIN_M else (20, 5)
+            row.update({
+                "ms": time_ms(lambda: fn(inp, t, torch.bfloat16), iters[0],
+                              flush),
+                "plain_ms": time_ms(lambda: plain(inp, t, torch.bfloat16),
+                                    iters[1], flush),
+                "library_ms": time_ms(lib, iters[0], flush),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes})
+            if kernel == "int8_matmul_backward":
+                row["product_ms"] = time_ms(b9_product_only(inp, t),
+                                            iters[0], flush)
+        row["ok"] = ok
         if planted is not None:
             # the check must see a fault: one group's (or, for int8, one
             # block of columns') scale zeroed in a copy of the weight
@@ -325,10 +388,12 @@ def check_ptq_kernels(seed: int, flush) -> dict:
             ok = row["ok"] = ok and row["planted_zero_scale_rel_err"] > \
                 KERNEL_TOL
         log(json.dumps(row))
-        rows[(kernel, case, m, k, n)] = row
+        rows[("edge", kernel, case, m, k, n) if edge
+             else (kernel, case, m, k, n)] = row
         if not ok:
             raise SystemExit(f"{kernel} ({case}) disagrees with its plain "
-                             f"version, or misses the planted fault, at "
+                             f"version, misses the planted fault or gives "
+                             f"other bytes on a second launch, at "
                              f"M={m} K={k} N={n}: {row}")
 
     for k, n in sorted(set(PROJ_SHAPES.values())):
@@ -383,14 +448,43 @@ def check_ptq_kernels(seed: int, flush) -> dict:
               lambda: torch.matmul(dy, w8.T), dy, t8,
               weight_bytes("int8", k, n), k, n, bad8 if plant else None)
         del dy, t8, w8, q8, bad8, int4_cases
+    # B7 and B9 at ragged shapes: M, K and N edges of the tiles (TMA's zero
+    # fill and the guarded stores), group sizes down to 2
+    for m, k, n, gs in DX_EDGE_SHAPES:
+        w = torch.randn(k, n, device=dev, generator=gen) * 0.02
+        dy = torch.randn(m, n, device=dev, generator=gen).to(torch.bfloat16)
+        cases = {"sym": int4.rtn_quantize(w, group_size=gs),
+                 "asym_frac": fractional_zero_int4(w, gs)}
+        for case, t in cases.items():
+            check("int4_matmul_backward", f"{case}_g{gs}",
+                  i4.int4_matmul_backward, i4.int4_matmul_backward_reference,
+                  None, dy, t, 0, k, n, None, edge=True)
+        check("int8_matmul_backward", "per_channel", i8.int8_matmul_backward,
+              i8.int8_matmul_backward_reference, None, dy, int8.quantize(w),
+              0, k, n, None, edge=True)
+        del w, dy, cases
     return rows
 
 
 def ptq_summary(rows: dict, kernel: str, case: str, m: int) -> dict:
-    """One layer's 7 projections at M = ``m``, summed."""
+    """One layer's 7 projections at M = ``m``, summed; for a dx kernel also
+    its ragged shapes and whether every repeated launch gave the same
+    bytes."""
     step = [rows[(kernel, case, m, k, n)] for k, n in PROJ_SHAPES.values()]
     what = "decode step" if m == MAX_SLOTS else "training"
+    extra = {}
+    if kernel.endswith("_backward"):
+        extra["edge_shapes"] = [
+            {f: r[f] for f in ("case", "M", "K", "N", "max_rel_err",
+                               "repeat_equal")}
+            for key, r in rows.items()
+            if key[0] == "edge" and r["kernel"] == kernel]
+        extra["repeat_equal_all"] = all(
+            r["repeat_equal"] for r in rows.values() if r["kernel"] == kernel)
+        if "product_ms" in step[0]:  # B9: the product without the scaling
+            extra["product_ms"] = sum(r["product_ms"] for r in step)
     return {
+        **extra,
         "at": f"one layer's 7 projections at M={m} ({what}), {case}",
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()
                            if r["kernel"] == kernel),
@@ -1334,6 +1428,8 @@ def main(argv=None) -> int:
         "| torch", torch.__version__, "cuda", torch.version.cuda)
     log(f"build: {_build.build_all():.1f}s (nvcc, sm_90a, "
         f"{len(_build.KERNELS)} sources)")
+    resources = dx_resources()
+    log("dx kernels (ptxas):", json.dumps(resources))
 
     def free():
         gc.collect()  # a model and its engine go before the next phase
@@ -1422,6 +1518,9 @@ def main(argv=None) -> int:
                           MAX_SLOTS if decode else TRAIN_M)
         if decode:
             row["train"] = ptq_summary(ptq_rows, name, case, TRAIN_M)
+        else:
+            row["ptxas"] = {k: v for k, v in resources.items()
+                            if k.lower().startswith(fmt)}
         table.append({"name": name, "route": "cuda", "source": csrc + src,
                       "replaces": f"llm_in_practise_tpu/ops/{line}",
                       "tpu_function": fn, **row,

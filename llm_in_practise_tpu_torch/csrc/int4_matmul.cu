@@ -1,6 +1,6 @@
 // W4A16 int4 dequant-matmul for Hopper (sm_90a), forward and backward:
 //   y  = x  @ W     (int4_matmul_kernel)
-//   dx = dy @ W^T   (int4_matmul_bwd_kernel)
+//   dx = dy @ W^T   (dx_wgmma_kernel<Int4Dx>)
 // with W[k, n] = (code[k, n] - zero[k / gs, n]) * scale[k / gs, n].
 //
 // Replaces the TPU kernels llm_in_practise_tpu/ops/int4_matmul.py::_fwd_kernel
@@ -22,7 +22,7 @@
 // (M <= 8) the forward is bound by bytes, 0.5 byte of codes plus 8/gs bytes
 // of scale and zero per weight (0.5625 B at gs 128); at training widths
 // (M = 8192) both directions are bound by the 2*M*K*N tensor-core
-// operations.
+// operations (3.196 ms for one Qwen3-8B layer's 7 projections).
 //
 // What the design does about that bound:
 //   - Forward: one packed byte holds rows k and k + 1 of one column, which is
@@ -39,19 +39,26 @@
 //     fragment's row pair (both rows of a pair share a group, since gs is
 //     even) and reloads scale and zero only when the group changes; they
 //     come through L1 (8/gs bytes per weight against the codes' 0.5).
-//   - Backward: dx[m, k] = sum_n dy[m, n] * W[k, n]; the group is constant
-//     along the reduction, so each thread's scale/zero row is fixed. One
-//     packed byte gives two adjacent dx columns (2i and 2i + 1): the block
-//     runs two n8 tiles per warp, one over the even dx columns (high
-//     nibbles) and one over the odd ones (low nibbles), from the same bytes,
-//     and writes dx interleaved directly. A block owns a 64 x 64 dx tile and
-//     reduces over all of N inside the block (no atomics, deterministic).
+//   - Backward: the shared wgmma mainloop of dx_wgmma.cuh (TMA ring, one
+//     producer warp, two consumer warpgroups on a 128 x 256 tile of dx^T,
+//     reducing over all of N in the block: deterministic) with the Int4Dx
+//     policy. dx[m, k] = sum_n dy[m, n] * W[k, n]: the group is constant
+//     along the reduction, so each thread's scale/zero row is fixed, and
+//     the scales and zeros of the block's groups are staged in the ring
+//     beside the codes (512 bytes per stage at gs 128). One 16-bit load of
+//     bytes (n, n + 1) of packed row i gives the A pair of dx column 2i
+//     (high nibbles) and of 2i + 1 (low nibbles): fragment rows g and g + 8
+//     are mapped to those two columns and the epilogue undoes it. The
+//     mma.sync design it replaced (64 x 64 tile, 4 warps, scale and zero
+//     from L1 on every k16 step) took 25.49 ms for one layer's 7
+//     projections at M = 8192, 6.5x cuBLAS on a dequantized weight (NVIDIA
+//     H100 80GB HBM3, 700 W).
 //   - The dequant uses __fsub_rn/__fmul_rn so nvcc cannot contract it into
 //     an FMA, which would round differently from the reference codec.
-//   - The M, N and K edges are masked (zero-filled tiles, guarded stores).
-// wgmma and TMA are left for a later version; this one uses mma.sync
-// m16n8k16 (bf16 in, f32 accumulate).
+//   - The M, N and K edges are masked (forward: zero-filled tiles and
+//     guarded stores; backward: TMA's zero fill and guarded stores).
 
+#include "dx_wgmma.cuh"
 #include "mma_util.cuh"
 
 namespace {
@@ -61,18 +68,10 @@ using port::pack_bf16;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;       // 4 warps
-// forward
 constexpr int kBK = 64;             // K rows per chunk (32 packed rows)
 constexpr int kBN = 64;             // output columns per block, 16 per warp
 constexpr int kPStride = kBN + 16;  // smem bytes per packed row (bank spread)
 constexpr int kXStride = kBK + 8;   // smem bf16 per x row (bank spread)
-// backward
-constexpr int kBM = 64;               // dy rows per block
-constexpr int kBDX = 64;              // dx columns per block (32 packed rows)
-constexpr int kBR = 32;               // reduction (N) columns per chunk
-constexpr int kBStages = 3;
-constexpr int kBPStride = kBR + 16;   // smem bytes per packed row
-constexpr int kDStride = kBR + 8;     // smem bf16 per dy row
 
 // (code - zero) * scale in f32, each step rounded on its own
 __device__ __forceinline__ float deq(uint32_t code, float zero, float scale) {
@@ -276,154 +275,78 @@ __global__ void int4_splitk_reduce_kernel(const float* __restrict__ ws,
   port::store_out(out, i, s, out_dtype);
 }
 
-struct __align__(16) BwdStage {
-  uint8_t p[(kBDX / 2) * kBPStride];  // packed rows kp0 .. kp0 + 31
-  bf16 dy[kBM * kDStride];
-};
+// B7's decode policy for the dx mainloop (dx_wgmma.cuh). The weight tile
+// is 64 packed rows x 64 bytes (TMA, 64-byte swizzle), i.e. dx columns
+// k0 .. k0 + 127; then the g_rows group rows of scales and of zeros that
+// cover those columns, 64 f32 columns each (zero past N and past the last
+// group). Thread g of warp w in warpgroup wg reads packed row
+// P = 32 wg + 8 w + g: fragment row g is dx column k0 + 2P (high nibbles),
+// row g + 8 is k0 + 2P + 1 (low nibbles), one group for both (gs is even).
+struct Int4Dx {
+  static constexpr uint32_t kWBytes = (dxw::kTileK / 2) * dxw::kChunk;
 
-// One block: the 64 x 64 tile dx[m0 .. m0+63, k0 .. k0+63], reducing over
-// all of N. Warp w owns packed rows kp0 + 8w .. kp0 + 8w + 7, i.e. dx
-// columns k0 + 16w .. k0 + 16w + 15: tile 0 the even ones (high nibbles),
-// tile 1 the odd ones (low nibbles); thread g of a warp reads packed row
-// kp0 + 8w + g, whose group is fixed.
-__global__ void __launch_bounds__(kThreads)
-int4_matmul_bwd_kernel(const bf16* __restrict__ dy,
-                       const uint8_t* __restrict__ packed,
-                       const float* __restrict__ scales,
-                       const float* __restrict__ zeros, void* __restrict__ dx,
-                       int M, int K, int N, int gs, int n_groups,
-                       int out_dtype) {
-  __shared__ BwdStage st[kBStages];
+  __device__ static uint32_t tx_bytes(const dxw::DxArgs& args) {
+    return kWBytes + 2 * args.g_rows * dxw::kChunk * 4;
+  }
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int KP = K >> 1;
-  const int k0 = blockIdx.x * kBDX;
-  const int kp0 = k0 >> 1;
-  const int m0 = blockIdx.y * kBM;
-  const int n_chunks = (N + kBR - 1) / kBR;
+  __device__ static void load(uint8_t* w, const CUtensorMap* tm_packed,
+                              const CUtensorMap* tm_scales,
+                              const CUtensorMap* tm_zeros, uint64_t* bar,
+                              int c0, int k0, const dxw::DxArgs& args) {
+    const int g0 = k0 / args.gs;
+    uint8_t* aux = w + kWBytes;
+    dxw::tma_load_2d(w, tm_packed, bar, c0, k0 / 2);
+    dxw::tma_load_2d(aux, tm_scales, bar, c0, g0);
+    dxw::tma_load_2d(aux + args.g_rows * dxw::kChunk * 4, tm_zeros, bar, c0,
+                     g0);
+  }
 
-  auto load_stage = [&](int s, int chunk) {
-    const int c0 = chunk * kBR;
-    BwdStage& S = st[s];
-    if (tid < (kBDX / 2) * (kBR / 16)) {  // packed: 32 rows x 32 bytes
-      const int r = tid >> 1;
-      const int part = tid & 1;
-      const int row = kp0 + r;
-      const int col = c0 + part * 16;
-      const bool ok = row < KP && col < N;
-      port::cp_async16(&S.p[r * kBPStride + part * 16],
-                       packed + (ok ? static_cast<long>(row) * N + col : 0),
-                       ok ? 16 : 0);
+  __device__ static int k_local(int wg, int warp, int g, int hi) {
+    return 64 * wg + 16 * warp + 2 * g + hi;
+  }
+
+  // (code - zero) * scale in f32, each step rounded on its own (no FMA
+  // contraction), as the codec does; 2^23 + code, less 2^23, is the code
+  // exactly
+  static __device__ __forceinline__ float deq(uint32_t code, float zero,
+                                              float scale) {
+    const float c = __uint_as_float(0x4B000000u | code) - 8388608.0f;
+    return __fmul_rn(__fsub_rn(c, zero), scale);
+  }
+
+  struct State {
+    int prow, t, sc_off, zr_off;
+    __device__ State(const dxw::DxArgs& args, int k0, int wg, int warp,
+                     int g, int t_)
+        : prow(32 * wg + 8 * warp + g), t(t_) {
+      // a packed row past K (zero codes, its dx never stored) may lie past
+      // the staged groups when g_rows was cut to n_groups: clamp it
+      const int grp = min((k0 + 2 * prow) / args.gs - k0 / args.gs,
+                          args.g_rows - 1);
+      sc_off = grp * dxw::kChunk;
+      zr_off = (args.g_rows + grp) * dxw::kChunk;
     }
-    // dy: 64 rows x 32 columns; zeros past the M and N edges
-    for (int i = tid; i < kBM * (kBR / 8); i += kThreads) {
-      const int r = i / (kBR / 8);
-      const int part = i % (kBR / 8);
-      const int row = m0 + r;
-      const int col = c0 + part * 8;
-      const bool ok = row < M && col < N;
-      port::cp_async16(&S.dy[r * kDStride + part * 8],
-                       dy + (ok ? static_cast<long>(row) * N + col : 0),
-                       ok ? 16 : 0);
+
+    // bytes (n, n + 1) of the packed row: high nibbles give fragment row g,
+    // low nibbles row g + 8
+    __device__ void decode(const uint8_t* w, const float* aux, int ks,
+                           uint32_t (&a)[4]) const {
+      const int c = 16 * ks + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // columns c, c + 1, then c + 8, c + 9
+        const int n = c + 8 * h;
+        const uint32_t b = *reinterpret_cast<const uint16_t*>(
+            w + dxw::sw64(prow, n));
+        const float2 s = *reinterpret_cast<const float2*>(aux + sc_off + n);
+        const float2 z = *reinterpret_cast<const float2*>(aux + zr_off + n);
+        a[2 * h] = dxw::pack2(deq((b >> 4) & 15, z.x, s.x),
+                              deq((b >> 12) & 15, z.y, s.y));
+        a[2 * h + 1] = dxw::pack2(deq(b & 15, z.x, s.x),
+                                  deq((b >> 8) & 15, z.y, s.y));
+      }
     }
   };
-
-  float acc[4][2][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][p][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kBStages - 1; ++s) {
-    if (s < n_chunks) load_stage(s, s);
-    port::cp_async_commit();
-  }
-
-  const int pr_local = warp * 8 + g;
-  // a packed row past K (zero-filled, its dx never stored) takes the last
-  // group, so the lookups stay in bounds
-  const int grp = min(2 * (kp0 + pr_local) / gs, n_groups - 1);
-  const float* srow = scales + static_cast<long>(grp) * N;
-  const float* zrow = zeros + static_cast<long>(grp) * N;
-
-  for (int i = 0; i < n_chunks; ++i) {
-    port::cp_async_wait<kBStages - 2>();
-    __syncthreads();
-    {
-      const int nxt = i + kBStages - 1;
-      if (nxt < n_chunks) load_stage(nxt % kBStages, nxt);
-      port::cp_async_commit();
-    }
-    const BwdStage& S = st[i % kBStages];
-    const int c0 = i * kBR;
-    const uint8_t* prow = &S.p[pr_local * kBPStride];
-#pragma unroll
-    for (int ks = 0; ks < kBR / 16; ++ks) {
-      const int nl = ks * 16 + 2 * t;  // reduction columns nl, nl+1, nl+8, nl+9
-      const int n = c0 + nl;
-      // N % 16 == 0, so n + 1 < N whenever n < N; 8-byte aligned pairs
-      const auto ld2 = [&](const float* row, int c) {
-        return c < N ? __ldg(reinterpret_cast<const float2*>(row + c))
-                     : make_float2(0.0f, 0.0f);
-      };
-      const float2 s01 = ld2(srow, n);
-      const float2 z01 = ld2(zrow, n);
-      const float2 s89 = ld2(srow, n + 8);
-      const float2 z89 = ld2(zrow, n + 8);
-      // bytes n, n+1 and n+8, n+9 of this thread's packed row
-      const uint32_t w01 = *reinterpret_cast<const uint16_t*>(prow + nl);
-      const uint32_t w89 = *reinterpret_cast<const uint16_t*>(prow + nl + 8);
-      uint32_t b[2][2];
-      // even dx column: high nibbles
-      b[0][0] = pack_bf16(deq((w01 >> 4) & 15, z01.x, s01.x),
-                          deq((w01 >> 12) & 15, z01.y, s01.y));
-      b[0][1] = pack_bf16(deq((w89 >> 4) & 15, z89.x, s89.x),
-                          deq((w89 >> 12) & 15, z89.y, s89.y));
-      // odd dx column: low nibbles
-      b[1][0] = pack_bf16(deq(w01 & 15, z01.x, s01.x),
-                          deq((w01 >> 8) & 15, z01.y, s01.y));
-      b[1][1] = pack_bf16(deq(w89 & 15, z89.x, s89.x),
-                          deq((w89 >> 8) & 15, z89.y, s89.y));
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* da = &S.dy[(mt * 16 + g) * kDStride + ks * 16 + 2 * t];
-        uint32_t a[4];
-        a[0] = port::ld_u32(da);
-        a[1] = port::ld_u32(da + 8 * kDStride);
-        a[2] = port::ld_u32(da + 8);
-        a[3] = port::ld_u32(da + 8 * kDStride + 8);
-        mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
-        mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
-      }
-    }
-  }
-  port::cp_async_wait<0>();
-
-  // accumulator column j of tile p is dx column k0 + 2 * (8w + j) + p
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + mt * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = k0 + 2 * (warp * 8 + 2 * t + (e & 1)) + p;
-        if (row < M && col < K) {
-          port::store_out(dx, static_cast<long>(row) * K + col,
-                          acc[mt][p][e], out_dtype);
-        }
-      }
-    }
-  }
-}
-
+};
 }  // namespace
 
 // Forward, on `stream`. x: (M, K) bf16, 16-byte aligned; packed: (K/2, N)
@@ -461,22 +384,43 @@ extern "C" int int4_matmul_launch(const void* x, const void* packed,
 }
 
 // Backward, on `stream`. dy: (M, N) bf16, 16-byte aligned; packed, scales,
-// zeros as for the forward; dx: (M, K) in out_dtype. Requires M >= 1, K
-// even, gs even, N % 16 == 0. Returns cudaGetLastError() after the launch.
+// zeros as for the forward, 16-byte aligned; dx: (M, K) in out_dtype.
+// Requires M >= 1, K even, gs even, N % 16 == 0 (the TMA row strides, N,
+// 2N and 4N bytes, must be 16-byte multiples). Returns the first CUDA error
+// of the descriptor encoding and the launch (0 on success).
 extern "C" int int4_matmul_bwd_launch(const void* dy, const void* packed,
                                       const void* scales, const void* zeros,
                                       void* dx, int M, int K, int N, int gs,
                                       int n_groups, int out_dtype,
                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((K + kBDX - 1) / kBDX, (M + kBM - 1) / kBM);
-  int4_matmul_bwd_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const bf16*>(dy), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<const float*>(zeros), dx,
-      M, K, N, gs, n_groups, out_dtype);
-  return static_cast<int>(cudaGetLastError());
+  // group rows that cover any 128 dx columns starting at a multiple of 128
+  int g_rows = gs % dxw::kTileK == 0   ? 1
+               : dxw::kTileK % gs == 0 ? dxw::kTileK / gs
+                                       : (dxw::kTileK - 1) / gs + 2;
+  if (g_rows > n_groups) g_rows = n_groups;
+  CUtensorMap tm_dy, tm_p, tm_s, tm_z;
+  cudaError_t err = dxw::encode_dy(&tm_dy, dy, M, N);
+  if (err == cudaSuccess) {
+    err = dxw::encode_2d(&tm_p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed,
+                         K / 2, N, dxw::kTileK / 2, dxw::kChunk,
+                         CU_TENSOR_MAP_SWIZZLE_64B);
+  }
+  if (err == cudaSuccess) {
+    err = dxw::encode_2d(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales,
+                         n_groups, N, g_rows, dxw::kChunk,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err == cudaSuccess) {
+    err = dxw::encode_2d(&tm_z, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, zeros,
+                         n_groups, N, g_rows, dxw::kChunk,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int aux = (2 * g_rows * dxw::kChunk * 4 + 1023) / 1024 * 1024;
+  const dxw::DxArgs args = {dx, M, K, N, out_dtype, gs, g_rows, aux};
+  return static_cast<int>(dxw::launch_dx<Int4Dx>(
+      tm_dy, tm_p, tm_s, tm_z, args, static_cast<cudaStream_t>(stream)));
 }
-
 extern "C" const char* int4_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

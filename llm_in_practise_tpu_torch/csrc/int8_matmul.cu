@@ -1,6 +1,7 @@
 // W8A16 int8 matmul for Hopper (sm_90a), forward and backward:
 //   y  = (x @ q) * scale[n]              (int8_matmul_kernel)
-//   dx = bf16(dy * scale[n]) @ q^T       (int8_matmul_bwd_kernel)
+//   dx = bf16(dy * scale[n]) @ q^T       (int8_scale_dy_kernel, then
+//                                         dx_wgmma_kernel<Int8Dx>)
 //
 // Replaces the TPU kernels llm_in_practise_tpu/ops/int8_matmul.py::_fwd_kernel
 // (launched by _int8_matmul_fwd through pl.pallas_call) and ::_bwd_kernel
@@ -14,13 +15,14 @@
 //     to the caller's dtype.
 //   - Backward: dys = bf16(f32(dy) * scale) first (the JAX package scales in
 //     f32 outside its kernel and rounds to bf16 inside it), then
-//     dx = dys @ q^T with f32 sums. With a bf16 dy the kernel scales each
-//     staged dy tile in shared memory; the wrapper forms dys itself for any
+//     dx = dys @ q^T with f32 sums. With a bf16 dy a first kernel forms dys
+//     once, into the wrapper's scratch; the wrapper forms dys itself for any
 //     other dy dtype and passes no scale.
 //
 // Bound on the H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16): at decode
 // (M <= 8) the forward is bound by bytes, 1 byte per weight; at training
-// widths (M = 8192) both directions by the 2*M*K*N tensor-core operations.
+// widths (M = 8192) both directions by the 2*M*K*N tensor-core operations
+// (3.196 ms for one Qwen3-8B layer's 7 projections).
 //
 // What the design does about that bound:
 //   - Forward: the pair (k, k + 1) of one column, which one 32-bit B-fragment
@@ -30,15 +32,23 @@
 //     never exists in device memory. A cp.async ring keeps several chunks in
 //     flight; thin M splits K over grid.z as the NF4 and int4 kernels do,
 //     with a deterministic second pass that sums and applies the scale.
-//   - Backward: for fixed k the pair (n, n + 1) is two adjacent bytes of q,
-//     which is the reduction pair the fragment wants: one 16-bit shared
-//     load per register. A block owns a 64 x 64 dx tile and reduces over
-//     all of N inside the block (no atomics, deterministic). The scale is
-//     applied once per staged dy element, not once per warp that reads it.
-//   - The M, N and K edges are masked (zero-filled tiles, guarded stores).
-// wgmma and TMA are left for a later version; this one uses mma.sync
-// m16n8k16 (bf16 in, f32 accumulate).
+//   - Backward: the shared wgmma mainloop of dx_wgmma.cuh (TMA ring, one
+//     producer warp, two consumer warpgroups on a 128 x 256 tile of dx^T,
+//     deterministic) with the Int8Dx policy: for fixed k the pair (n, n + 1)
+//     is two adjacent bytes of q, the reduction pair an A fragment wants, so
+//     one 16-bit shared load and one bf16x2 convert give a register. The
+//     scale is applied by a pass over dy before the product (one read and
+//     one write of dy, about 0.4 ms of bytes per layer at M = 8192): scaling
+//     each staged dy tile inside the mainloop repeats that work for every
+//     128-column block of dx (32 to 96 times) and measured slower. The
+//     mma.sync design it replaced (64 x 64 tile, 4 warps, a 32-column
+//     cp.async ring) took 27.54 ms for one layer's 7 projections at
+//     M = 8192, 6.9x cuBLAS on a dequantized weight (NVIDIA H100 80GB HBM3,
+//     700 W).
+//   - The M, N and K edges are masked (forward: zero-filled tiles and
+//     guarded stores; backward: TMA's zero fill and guarded stores).
 
+#include "dx_wgmma.cuh"
 #include "mma_util.cuh"
 
 namespace {
@@ -48,18 +58,10 @@ using port::pack_bf16;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;       // 4 warps
-// forward
 constexpr int kBK = 64;             // K rows per chunk
 constexpr int kBN = 64;             // output columns per block, 16 per warp
 constexpr int kQStride = kBN + 16;  // smem bytes per q row (bank spread)
 constexpr int kXStride = kBK + 8;   // smem bf16 per x row (bank spread)
-// backward
-constexpr int kBM = 64;               // dy rows per block
-constexpr int kBDX = 64;              // dx columns (q rows) per block
-constexpr int kBR = 32;               // reduction (N) columns per chunk
-constexpr int kBStages = 3;
-constexpr int kBQStride = kBR + 16;   // smem bytes per q row
-constexpr int kDStride = kBR + 8;     // smem bf16 per dy row
 
 __device__ __forceinline__ float i8f(int8_t v) {
   return static_cast<float>(v);
@@ -223,140 +225,97 @@ __global__ void int8_splitk_reduce_kernel(const float* __restrict__ ws,
   port::store_out(out, i, __fmul_rn(s, scale[i % N]), out_dtype);
 }
 
-struct __align__(16) BwdStage {
-  int8_t q[kBDX * kBQStride];  // q rows k0 .. k0+63, 32 columns
-  bf16 dy[kBM * kDStride];
-  float scale[kBR];
-};
+// dys = bf16(f32(dy) * scale[n]), B9's rounding point, once per element
+// before the product. Thread x of the grid owns 8 columns (16 bytes) of
+// kScaleRows rows at a time, loads in flight together, and keeps their scales
+// in registers. N % 8 == 0.
+constexpr int kScaleRows = 4;
 
-// One block: the 64 x 64 tile dx[m0 .. m0+63, k0 .. k0+63], reducing over
-// all of N. Warp w owns dx columns k0 + 16w .. k0 + 16w + 15 as two n8
-// tiles. `scale` is null when the wrapper has already scaled dy.
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_bwd_kernel(const bf16* __restrict__ dy,
-                       const int8_t* __restrict__ q,
-                       const float* __restrict__ scale, void* __restrict__ dx,
-                       int M, int K, int N, int out_dtype) {
-  __shared__ BwdStage st[kBStages];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int k0 = blockIdx.x * kBDX;
-  const int m0 = blockIdx.y * kBM;
-  const int n_chunks = (N + kBR - 1) / kBR;
-
-  auto load_stage = [&](int s, int chunk) {
-    const int c0 = chunk * kBR;
-    BwdStage& S = st[s];
-    {  // q: 64 rows x 32 bytes, one 16-byte copy per thread
-      const int r = tid >> 1;
-      const int part = tid & 1;
-      const int row = k0 + r;
-      const int col = c0 + part * 16;
-      const bool ok = row < K && col < N;
-      port::cp_async16(&S.q[r * kBQStride + part * 16],
-                       q + (ok ? static_cast<long>(row) * N + col : 0),
-                       ok ? 16 : 0);
-    }
-    // dy: 64 rows x 32 columns; zeros past the M and N edges
-    for (int i = tid; i < kBM * (kBR / 8); i += kThreads) {
-      const int r = i / (kBR / 8);
-      const int part = i % (kBR / 8);
-      const int row = m0 + r;
-      const int col = c0 + part * 8;
-      const bool ok = row < M && col < N;
-      port::cp_async16(&S.dy[r * kDStride + part * 8],
-                       dy + (ok ? static_cast<long>(row) * N + col : 0),
-                       ok ? 16 : 0);
-    }
-    if (scale != nullptr && tid < kBR / 4) {  // 32 scales, 4 per copy
-      const int col = c0 + tid * 4;
-      const bool ok = col < N;
-      port::cp_async16(&S.scale[tid * 4], scale + (ok ? col : 0),
-                       ok ? 16 : 0);
-    }
+__global__ void int8_scale_dy_kernel(const uint4* __restrict__ dy,
+                                     const float* __restrict__ scale,
+                                     uint4* __restrict__ dys, int M,
+                                     int row_chunks) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= row_chunks) return;
+  const float4 s0 = __ldg(reinterpret_cast<const float4*>(scale) + 2 * j);
+  const float4 s1 = __ldg(reinterpret_cast<const float4*>(scale) + 2 * j + 1);
+  // bf16 -> f32 is a shift, so the only converting instruction is the pack
+  const auto mul = [](uint32_t u, float a, float b) {
+    return dxw::pack2(__fmul_rn(__uint_as_float(u << 16), a),
+                      __fmul_rn(__uint_as_float(u & 0xFFFF0000u), b));
   };
-
-  float acc[4][2][4];
+  for (int r0 = blockIdx.y * kScaleRows; r0 < M;
+       r0 += gridDim.y * kScaleRows) {
+    uint4 v[kScaleRows];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kBStages - 1; ++s) {
-    if (s < n_chunks) load_stage(s, s);
-    port::cp_async_commit();
-  }
-
-  for (int i = 0; i < n_chunks; ++i) {
-    port::cp_async_wait<kBStages - 2>();
-    __syncthreads();
-    {
-      const int nxt = i + kBStages - 1;
-      if (nxt < n_chunks) load_stage(nxt % kBStages, nxt);
-      port::cp_async_commit();
-    }
-    BwdStage& S = st[i % kBStages];
-    if (scale != nullptr) {
-      // dys = bf16(f32(dy) * scale), once per staged element
-      for (int j = tid; j < kBM * (kBR / 2); j += kThreads) {
-        const int r = j / (kBR / 2);
-        const int c = 2 * (j % (kBR / 2));
-        __nv_bfloat162* p =
-            reinterpret_cast<__nv_bfloat162*>(&S.dy[r * kDStride + c]);
-        const float2 v = __bfloat1622float2(*p);
-        *p = __floats2bfloat162_rn(__fmul_rn(v.x, S.scale[c]),
-                                   __fmul_rn(v.y, S.scale[c + 1]));
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int ks = 0; ks < kBR / 16; ++ks) {
-      const int c = ks * 16 + 2 * t;  // reduction columns c, c+1, c+8, c+9
-      uint32_t b[2][2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int8_t* qrow = &S.q[(warp * 16 + nt * 8 + g) * kBQStride];
-        b[nt][0] = pack_bf16(i8f(qrow[c]), i8f(qrow[c + 1]));
-        b[nt][1] = pack_bf16(i8f(qrow[c + 8]), i8f(qrow[c + 9]));
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* da = &S.dy[(mt * 16 + g) * kDStride + c];
-        uint32_t a[4];
-        a[0] = port::ld_u32(da);
-        a[1] = port::ld_u32(da + 8 * kDStride);
-        a[2] = port::ld_u32(da + 8);
-        a[3] = port::ld_u32(da + 8 * kDStride + 8);
-        mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
-        mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
+    for (int u = 0; u < kScaleRows; ++u) {
+      if (r0 + u < M) {
+        v[u] = __ldg(dy + static_cast<long>(r0 + u) * row_chunks + j);
       }
     }
-  }
-  port::cp_async_wait<0>();
-
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + mt * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = k0 + warp * 16 + nt * 8 + 2 * t + (e & 1);
-        if (row < M && col < K) {
-          port::store_out(dx, static_cast<long>(row) * K + col,
-                          acc[mt][nt][e], out_dtype);
-        }
+    for (int u = 0; u < kScaleRows; ++u) {
+      if (r0 + u < M) {
+        v[u].x = mul(v[u].x, s0.x, s0.y);
+        v[u].y = mul(v[u].y, s0.z, s0.w);
+        v[u].z = mul(v[u].z, s1.x, s1.y);
+        v[u].w = mul(v[u].w, s1.z, s1.w);
+        dys[static_cast<long>(r0 + u) * row_chunks + j] = v[u];
       }
     }
   }
 }
+
+// B9's decode policy for the dx mainloop (dx_wgmma.cuh). The weight tile
+// is 128 q rows x 64 bytes (TMA, 64-byte swizzle, so the 16-bit fragment
+// loads of 8 rows fall in 8 different bank pairs); fragment row r of warp
+// w in warpgroup wg is q row k0 + 64 wg + 16 w + r.
+struct Int8Dx {
+  static constexpr uint32_t kWBytes = dxw::kTileK * dxw::kChunk;
+
+  __device__ static uint32_t tx_bytes(const dxw::DxArgs&) { return kWBytes; }
+
+  __device__ static void load(uint8_t* w, const CUtensorMap* tm_w,
+                              const CUtensorMap*, const CUtensorMap*,
+                              uint64_t* bar, int c0, int k0,
+                              const dxw::DxArgs&) {
+    dxw::tma_load_2d(w, tm_w, bar, c0, k0);
+  }
+
+  __device__ static int k_local(int wg, int warp, int g, int hi) {
+    return 64 * wg + 16 * warp + g + 8 * hi;
+  }
+
+  // two int8 (the low 16 bits of v) -> bf16x2, exactly: each byte, offset
+  // by 128, becomes the low mantissa byte of 2^23, then 2^23 + 128 goes
+  static __device__ __forceinline__ uint32_t s8x2(uint32_t v) {
+    const uint32_t u = v ^ 0x8080u;
+    const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440));
+    const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441));
+    return dxw::pack2(lo - 8388736.0f, hi - 8388736.0f);
+  }
+
+  struct State {
+    int row, t;
+    __device__ State(const dxw::DxArgs&, int, int wg, int warp, int g,
+                     int t_)
+        : row(64 * wg + 16 * warp + g), t(t_) {}
+
+    // bytes (n, n + 1) of one q row are the fragment pair
+    __device__ void decode(const uint8_t* w, const float*, int ks,
+                           uint32_t (&a)[4]) const {
+      const int c = 16 * ks + 2 * t;
+      const auto ld = [&](int r, int col) {
+        return static_cast<uint32_t>(
+            *reinterpret_cast<const uint16_t*>(w + dxw::sw64(r, col)));
+      };
+      a[0] = s8x2(ld(row, c));
+      a[1] = s8x2(ld(row + 8, c));
+      a[2] = s8x2(ld(row, c + 8));
+      a[3] = s8x2(ld(row + 8, c + 8));
+    }
+  };
+};
 
 }  // namespace
 
@@ -392,19 +351,38 @@ extern "C" int int8_matmul_launch(const void* x, const void* q,
 }
 
 // Backward, on `stream`. dy: (M, N) bf16, 16-byte aligned; q: (K, N) int8;
-// scale: (N,) f32, 16-byte aligned, or null when dy is already scaled; dx:
-// (M, K) in out_dtype. Requires M >= 1, N % 16 == 0. Returns
-// cudaGetLastError() after the launch.
+// scale: (N,) f32, 16-byte aligned, or null when dy is already scaled; dys:
+// (M, N) bf16 scratch for the scaled dy when scale is given, else unused;
+// dx: (M, K) in out_dtype. Requires M >= 1, N % 16 == 0 (the TMA row
+// strides, N and 2N bytes, must be 16-byte multiples). Returns the first
+// CUDA error of the launches and the descriptor encoding (0 on success).
 extern "C" int int8_matmul_bwd_launch(const void* dy, const void* q,
-                                      const void* scale, void* dx, int M,
-                                      int K, int N, int out_dtype,
+                                      const void* scale, void* dys, void* dx,
+                                      int M, int K, int N, int out_dtype,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((K + kBDX - 1) / kBDX, (M + kBM - 1) / kBM);
-  int8_matmul_bwd_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const bf16*>(dy), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), dx, M, K, N, out_dtype);
-  return static_cast<int>(cudaGetLastError());
+  if (scale != nullptr) {
+    const int row_chunks = N / 8;
+    const int row_groups = (M + kScaleRows - 1) / kScaleRows;
+    const dim3 grid((row_chunks + 255) / 256,
+                    row_groups < 1024 ? row_groups : 1024);
+    int8_scale_dy_kernel<<<grid, 256, 0, s>>>(
+        static_cast<const uint4*>(dy), static_cast<const float*>(scale),
+        static_cast<uint4*>(dys), M, row_chunks);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dy = dys;
+  }
+  CUtensorMap tm_dy, tm_q;
+  cudaError_t err = dxw::encode_dy(&tm_dy, dy, M, N);
+  if (err == cudaSuccess) {
+    err = dxw::encode_2d(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, K, N,
+                         dxw::kTileK, dxw::kChunk, CU_TENSOR_MAP_SWIZZLE_64B);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dxw::DxArgs args = {dx, M, K, N, out_dtype, 0, 0, 0};
+  return static_cast<int>(
+      dxw::launch_dx<Int8Dx>(tm_dy, tm_q, tm_q, tm_q, args, s));
 }
 
 extern "C" const char* int8_cuda_error_string(int err) {

@@ -26,7 +26,10 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # sm_90a, not sm_90: wgmma and setmaxnreg exist only for the "a" target
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+# -Xptxas -v: each kernel's registers, spills and shared memory, kept in
+# ``ptxas_log`` for the sources built in this process
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # every kernel source and the C functions it exports: name -> (restype,
 # argtypes) per symbol
@@ -58,13 +61,14 @@ KERNELS: dict[str, dict[str, tuple]] = {
     },
     "int8_matmul": {
         "int8_matmul_launch": (_I, [_P] * 5 + [_I] * 5 + [_P]),
-        "int8_matmul_bwd_launch": (_I, [_P] * 4 + [_I] * 4 + [_P]),
+        "int8_matmul_bwd_launch": (_I, [_P] * 5 + [_I] * 4 + [_P]),
         "int8_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+ptxas_log: dict[str, str] = {}  # source name -> nvcc output of its build
 
 
 def nvcc_path() -> str:
@@ -117,6 +121,7 @@ def _finish(name: str, proc, tmp: Path, final: Path) -> None:
             f"nvcc failed for {source_path(name)} (exit {proc.returncode}):"
             f"\n{output}")
     os.replace(tmp, final)  # atomic: a concurrent builder sees all or none
+    ptxas_log[name] = output
 
 
 def build_all() -> float:

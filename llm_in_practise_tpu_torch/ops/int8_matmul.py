@@ -147,23 +147,28 @@ def int8_matmul_backward(dy: torch.Tensor, t: Int8Tensor, out_dtype=None
     lead = dy.shape[:-1]
     dy2 = dy.reshape(-1, n)
     scale = _aligned(t.scale)
-    if dy2.dtype == torch.bfloat16:
-        scale_ptr = scale.data_ptr()  # the kernel scales each staged tile
-    else:  # the rounding point: scale in f32 first, then one bf16 rounding
+    # the rounding point: scale in f32 first, then one bf16 rounding; the
+    # launch does it for a bf16 dy (into the scratch dys), the wrapper here
+    # for any other dtype
+    prescaled = dy2.dtype != torch.bfloat16
+    if prescaled:
         dy2 = (dy2.float() * scale).to(torch.bfloat16)
-        scale_ptr = None
     dy2 = _aligned(dy2)
     m = dy2.shape[0]
     dx = torch.empty((m, k), dtype=out_dtype, device=dy.device)
     if m == 0:
         return dx.reshape(*lead, k)
+    scale_ptr, dys_ptr = None, None
+    if not prescaled:
+        dys = torch.empty((m, n), dtype=torch.bfloat16, device=dy.device)
+        scale_ptr, dys_ptr = scale.data_ptr(), dys.data_ptr()
     q = _aligned(t.q)
     lib = _build.load("int8_matmul")
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream(dy.device).cuda_stream
         err = lib.int8_matmul_bwd_launch(
-            dy2.data_ptr(), q.data_ptr(), scale_ptr, dx.data_ptr(), m, k, n,
-            _OUT_CODES[out_dtype], stream)
+            dy2.data_ptr(), q.data_ptr(), scale_ptr, dys_ptr, dx.data_ptr(),
+            m, k, n, _OUT_CODES[out_dtype], stream)
     if err != 0:
         raise _error(lib, err, "int8_matmul_backward", m=m, k=k, n=n)
     int8_matmul_backward.launches += 1
