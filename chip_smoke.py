@@ -17,10 +17,14 @@ Phases, in order; any failure exits non-zero:
    the forwards and M = 8192 for all four; int4 symmetric with group size
    128 (GPTQModel's ``bits=4, group_size=128``) and asymmetric with group
    size 32 and fractional zeros (AWQ's grid). A planted fault (one group's
-   scale zeroed in a copy of the weight) must read as a failure. The two
-   dx kernels also run at ragged shapes (``DX_EDGE_SHAPES``: M, K and N
-   off their tiles, int4 group sizes 32 and 2), and every dx launch is
-   repeated and must give the same bytes.
+   scale zeroed in a copy of the weight) must read as a failure, on both
+   int4 forward routes. The dx kernels and both int4 forward routes also
+   run at ragged shapes (``DX_EDGE_SHAPES``, ``FWD_EDGE_SHAPES``: M, K and
+   N off their tiles, int4 group sizes 32 and 2), and every launch of a dx
+   kernel or an int4 forward is repeated and must give the same bytes.
+   Then the int4 forward's crossover table: both routes (split-K and the
+   wgmma mainloop) on one layer's 7 projections at ``CROSSOVER_M``, beside
+   the row count from which ``ops/int4_matmul.py::_route`` takes wgmma.
 5. Serve: a Qwen3-8B-width model (hidden 4096, inter 12288, 32/8 heads,
    head_dim 128, vocab 151936, tied embeddings) with random weights from a
    seeded generator, every block projection quantized on the card (NF4,
@@ -28,14 +32,17 @@ Phases, in order; any failure exits non-zero:
    server on 127.0.0.1. Eight concurrent chat requests (four streamed)
    run through the HTTP API; the kernels' launch counters are zeroed just
    before and read just after, and must show the format's kernel ran for
-   every projection of every forward pass. Then whole-model logits of an
-   AWQ model (2 layers), kernels against plain versions.
+   every projection of every forward pass (for int4, on the route that
+   ``_route`` picks for each pass's row count). Then whole-model logits of
+   an AWQ model (2 layers), kernels against plain versions.
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
-   Qwen3-8B projection shape, and the three flash kernels (forward, dK/dV,
-   dQ) at batch 8 x 1024 tokens, 32/8 heads, plus a ragged length, each
-   against its plain version (the flash outputs tile by tile, and a
-   planted zeroed dV tile must read as a failure) and timed as in
-   phase 3.
+   Qwen3-8B projection shape (the backward also at ragged shapes,
+   ``NF4_DX_EDGE_SHAPES``, every launch repeated for the same bytes, and
+   with a planted zeroed absmax block that must read as a failure), and
+   the three flash kernels (forward, dK/dV, dQ) at batch 8 x 1024 tokens,
+   32/8 heads, plus a ragged length, each against its plain version (the
+   flash outputs tile by tile, and a planted zeroed dV tile must read as a
+   failure) and timed as in phase 3.
 7. Whole step: one QLoRA step at full width, 2 layers, batch 2 x 1024,
    over an NF4, an int4 and an int8 base, with the kernels and again with
    every kernel swapped for its plain version; the loss and every LoRA
@@ -129,6 +136,27 @@ PTQ_CHECK_M = (1, 8, 512, TRAIN_M)
 DX_EDGE_SHAPES = ((17, 4096, 4096, INT4_GS), (8191, 4096, 4096, INT4_GS),
                   (333, 96, 4096, 32), (333, 10, 4096, 2),
                   (333, 4096, 48, INT4_GS), (333, 4096, 1040, INT4_GS))
+# ragged shapes for the int4 forward, both routes where they take the
+# shape (M, K, N, group size): M off the 256-row tile, K off the 64-row
+# stage (96 with groups of 32; 10 with groups of 2, which only the split-K
+# kernel takes: 2K bytes is no 16-byte multiple), N off the 128-column
+# tile (48, and 1040 = 8 tiles + 16 columns)
+FWD_EDGE_SHAPES = ((17, 4096, 4096, INT4_GS), (333, 4096, 4096, INT4_GS),
+                   (8191, 4096, 4096, INT4_GS), (333, 96, 4096, 32),
+                   (333, 10, 4096, 2), (333, 4096, 48, INT4_GS),
+                   (333, 4096, 1040, INT4_GS))
+# ragged shapes for the NF4 dx kernel (M, K, N): K off the 128-column tile
+# (192), N/2 off the 64-column stage (N = 192 and 1088: the last high-half
+# stage straddles into the low half, and a 64-column absmax run crosses a
+# 256-value scale block), M off the 256-row tile
+NF4_DX_EDGE_SHAPES = ((17, 4096, 4096), (8191, 4096, 4096), (333, 192, 4096),
+                      (333, 4096, 192), (333, 4096, 1088), (33, 192, 192))
+# the int4 forward's crossover table: both routes at these row counts
+CROSSOVER_M = (16, 64, 128, 256, 512, 1024, 8192)
+# readings of the kernels this run replaces, per layer's 7 projections at
+# M = 8192 (PERF.md, mma.sync designs; NVIDIA H100 80GB HBM3, 700 W):
+# printed beside this run's times, never measured here
+EARLIER_MS = {"nf4_matmul_backward": 20.85, "int4_matmul": 22.95}
 AWQ_LAYERS = 2
 
 
@@ -185,19 +213,19 @@ def matmul_bound(m: int, k: int, n: int, wbytes: int
     return t_ops * 1e3, "operations", nbytes
 
 
-def dx_resources() -> dict:
-    """Registers, spills and shared memory of the dx kernels (B7, B9 and
-    B9's scaling pass) as ptxas reported them in this process's build."""
+def qmm_resources() -> dict:
+    """Registers, spills and shared memory of the kernels on the wgmma
+    mainloop (B2, B6's wgmma route, B7, B9) and B9's scaling pass, as
+    ptxas reported them in this process's build."""
     from llm_in_practise_tpu_torch.ops import _build
 
+    labels = ("Int4Fwd", "Int4Dx", "Int8Dx", "Nf4Dx", "int8_scale_dy_kernel")
     out = {}
-    for src in ("int4_matmul", "int8_matmul"):
+    for src in ("int4_matmul", "int8_matmul", "nf4_matmul_bwd"):
         entry = None
         for line in _build.ptxas_log.get(src, "").splitlines():
             if "Compiling entry function" in line:
-                entry = next((lab for lab in ("Int4Dx", "Int8Dx",
-                                              "int8_scale_dy_kernel")
-                              if lab in line), None)
+                entry = next((lab for lab in labels if lab in line), None)
             elif entry and ("spill" in line or "Used" in line):
                 out.setdefault(entry, []).append(line.split(":", 1)[-1]
                                                  .strip())
@@ -349,8 +377,11 @@ def check_ptq_kernels(seed: int, flush) -> dict:
     rows = {}
 
     def check(kernel, case, fn, plain, lib, inp, t, wbytes, k, n, planted,
-              edge=False):
+              edge=False, route=None):
         m = inp.shape[0]
+        if route is not None:  # an int4 forward route forced (edge shapes)
+            def fn(a, w, dtype):
+                return i4._forward(a, w, dtype, route=route)
         out = fn(inp, t, torch.bfloat16)
         ref = plain(inp, t, torch.bfloat16)
         torch.cuda.synchronize()
@@ -360,9 +391,12 @@ def check_ptq_kernels(seed: int, flush) -> dict:
                "max_abs_err": err, "max_rel_err": rel,
                "tol": f"{KERNEL_TOL} * max|plain| (summation order; bf16 "
                       "output rounding)"}
-        if kernel.endswith("_backward"):
-            # deterministic: each dx element is reduced in one block, in a
-            # fixed order, so a second launch gives the same bytes
+        if kernel == "int4_matmul":
+            row["route"] = route or i4._route(m, k, n, t.group_size)
+        if kernel.endswith("_backward") or kernel == "int4_matmul":
+            # deterministic: each output element is reduced in one block (or
+            # its split-K partials summed) in a fixed order, so a second
+            # launch gives the same bytes
             row["repeat_equal"] = torch.equal(out, fn(inp, t,
                                                       torch.bfloat16))
             ok = ok and row["repeat_equal"]
@@ -417,7 +451,7 @@ def check_ptq_kernels(seed: int, flush) -> dict:
                     continue
                 w4 = int4.decode(t)
                 bad4 = None
-                if plant and m == MAX_SLOTS:
+                if plant and m in (MAX_SLOTS, TRAIN_M):  # both routes
                     bad4 = dataclasses.replace(t, scales=t.scales.clone())
                     bad4.scales[0] = 0
                 check("int4_matmul", case, i4.int4_matmul,
@@ -463,7 +497,78 @@ def check_ptq_kernels(seed: int, flush) -> dict:
               i8.int8_matmul_backward_reference, None, dy, int8.quantize(w),
               0, k, n, None, edge=True)
         del w, dy, cases
+    # B6 at ragged shapes on both routes (wgmma where it takes the shape)
+    for m, k, n, gs in FWD_EDGE_SHAPES:
+        w = torch.randn(k, n, device=dev, generator=gen) * 0.02
+        x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+        cases = {"sym": int4.rtn_quantize(w, group_size=gs),
+                 "asym_frac": fractional_zero_int4(w, gs)}
+        for route in ("splitk", "wgmma"):
+            if route == "wgmma" and not i4._wgmma_shape(k, n, gs):
+                continue
+            for case, t in cases.items():
+                check("int4_matmul", f"{case}_g{gs}@{route}", None,
+                      i4.int4_matmul_reference, None, x, t, 0, k, n, None,
+                      edge=True, route=route)
+        del w, x, cases
     return rows
+
+
+def int4_crossover(seed: int, flush) -> dict:
+    """Both int4 forward routes on one layer's 7 Qwen3-8B projections
+    (symmetric, group size 128) at every row count of ``CROSSOVER_M``:
+    device times summed over the layer (L2 flushed before each launch),
+    every launch held to its plain version. ``measured_from_M`` is the
+    smallest row count from which the wgmma route is faster at every
+    larger one in the table; ``_route`` takes wgmma from
+    ``WGMMA_MIN_M``."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+    from llm_in_practise_tpu_torch.quant import int4
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+    weights = {kn: int4.rtn_quantize(
+        torch.randn(*kn, device=dev, generator=gen) * 0.02,
+        group_size=INT4_GS) for kn in sorted(set(PROJ_SHAPES.values()))}
+    table = []
+    for m in CROSSOVER_M:
+        xs = {k: torch.randn(m, k, device=dev, generator=gen).to(
+            torch.bfloat16) for k in {k for k, _ in PROJ_SHAPES.values()}}
+        ms = {"wgmma": 0.0, "splitk": 0.0}
+        worst = 0.0
+        for k, n in PROJ_SHAPES.values():
+            t, x = weights[(k, n)], xs[k]
+            ref = i4.int4_matmul_reference(x, t, torch.bfloat16)
+            for route in ms:
+                def run(route=route, x=x, t=t):
+                    return i4._forward(x, t, torch.bfloat16, route=route)
+
+                out = run()
+                rel = _rel(out, ref)[1]
+                if not bool(torch.isfinite(out).all()) or rel > KERNEL_TOL:
+                    raise SystemExit(f"int4_matmul ({route}) disagrees with "
+                                     f"its plain version at M={m} K={k} "
+                                     f"N={n}: {rel}")
+                worst = max(worst, rel)
+                ms[route] += time_ms(run, 5 if m == TRAIN_M else 10, flush)
+            del ref
+        row = {"M": m, "wgmma_ms": ms["wgmma"], "splitk_ms": ms["splitk"],
+               "faster": min(ms, key=ms.get), "max_rel_err": worst,
+               "routed": i4._route(m, *PROJ_SHAPES["q_proj"], INT4_GS)}
+        log("int4 crossover:", json.dumps(row))
+        table.append(row)
+        del xs
+    measured = None
+    for row in reversed(table):
+        if row["faster"] != "wgmma":
+            break
+        measured = row["M"]
+    return {"at": "one layer's 7 projections, sym g128", "table": table,
+            "measured_from_M": measured, "route_from_M": i4.WGMMA_MIN_M,
+            "route_agrees": all(r["routed"] == r["faster"] for r in table)}
 
 
 def ptq_summary(rows: dict, kernel: str, case: str, m: int) -> dict:
@@ -473,7 +578,7 @@ def ptq_summary(rows: dict, kernel: str, case: str, m: int) -> dict:
     step = [rows[(kernel, case, m, k, n)] for k, n in PROJ_SHAPES.values()]
     what = "decode step" if m == MAX_SLOTS else "training"
     extra = {}
-    if kernel.endswith("_backward"):
+    if kernel.endswith("_backward") or kernel == "int4_matmul":
         extra["edge_shapes"] = [
             {f: r[f] for f in ("case", "M", "K", "N", "max_rel_err",
                                "repeat_equal")}
@@ -481,6 +586,8 @@ def ptq_summary(rows: dict, kernel: str, case: str, m: int) -> dict:
             if key[0] == "edge" and r["kernel"] == kernel]
         extra["repeat_equal_all"] = all(
             r["repeat_equal"] for r in rows.values() if r["kernel"] == kernel)
+    if kernel == "int4_matmul":
+        extra["route"] = step[0]["route"]
         if "product_ms" in step[0]:  # B9: the product without the scaling
             extra["product_ms"] = sum(r["product_ms"] for r in step)
     return {
@@ -668,6 +775,15 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
         return req
 
     engine.submit = recording_submit
+    prefill_rows = []  # rows of each prefill pass: the int4 route's input
+    prefill = engine._prefill_batch
+
+    def recording_prefill(batch):
+        prefill_rows.append(len(batch) * max(len(r.prompt_ids)
+                                             for _, r in batch))
+        return prefill(batch)
+
+    engine._prefill_batch = recording_prefill
     model_name = f"qwen3-8b-{fmt}"
     server = OpenAIServer(engine, tok, model_name=model_name)
     port = server.serve(host="127.0.0.1", port=0, background=True)
@@ -690,6 +806,7 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
         post_chat(base, body(0, False))  # warm-up, outside the counted run
         torch.cuda.synchronize()
         seen.clear()
+        prefill_rows.clear()
         zero_counters()
         steps0 = engine.decode_steps_run + engine.prefill_batches_run
         t_run = time.monotonic()
@@ -700,6 +817,8 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
         wall = time.monotonic() - t_run
         forwards = engine.decode_steps_run + engine.prefill_batches_run - steps0
         counts = read_counters()
+        routes = read_int4_routes()
+        passes = list(prefill_rows)
         launches = counts[kernel_name]
         reqs = list(seen)
         # repeat request 0 alone, twice: greedy decoding is deterministic
@@ -729,6 +848,18 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
                          f"kernel served this model: {counts}")
     if rep[0] != rep[1] or not rep[0]:
         raise SystemExit("the repeated greedy request changed its tokens")
+    route_check = None
+    if fmt == "int4":
+        # prefill passes take the route _route picks for their rows; decode
+        # passes (at most MAX_SLOTS rows) the split-K kernel
+        want = n_layer * int4_wgmma_launches(
+            passes, PROJ_SHAPES.values())
+        route_check = {"launches_by_route": routes, "wgmma_expected": want,
+                       "prefill_rows": passes}
+        if routes != {"wgmma": want, "splitk": launches - want}:
+            raise SystemExit(f"int4_matmul routes {routes} != {want} wgmma "
+                             f"launches for prefill passes of {passes} rows "
+                             f"and the rest split-K")
     first = sorted(reqs, key=lambda r: r.uid)[0]
     gen_tokens = sum(r.n_generated for r in reqs)
     t_first = min(r.first_token_time for r in reqs)
@@ -752,11 +883,15 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
         "repeat_matches_batched_run": rep[0] == first.output_ids,
         "model_check": mcheck,
     }
+    if route_check is not None:
+        out["int4_routes"] = route_check
     log("serve:", json.dumps(out))
     out["decode_profile"] = profile_decode(
         engine, [r.prompt_ids for r in reqs], kernel_name)
     log("decode profile:", json.dumps(out["decode_profile"]))
-    return {"launches": launches, "serve": out}
+    return {"launches": launches, "serve": out,
+            "routes": route_check["launches_by_route"] if route_check
+            else None}
 
 
 def profile_decode(engine, prompts, kernel_name: str, steps: int = 16
@@ -850,7 +985,11 @@ def tile_err(got, want) -> dict:
 
 def check_train_nf4(seed: int, flush) -> dict:
     """The NF4 forward and backward kernels at M = 8192 for every Qwen3-8B
-    projection shape."""
+    projection shape; the backward also at ``NF4_DX_EDGE_SHAPES``, every
+    backward launch repeated for the same bytes, and on q_proj's shape a
+    planted fault (the first 64-column absmax block of absmax row 0
+    zeroed in a copy of the weight) that must read as a failure."""
+
     import torch
 
     from llm_in_practise_tpu_torch.ops.nf4_matmul import (
@@ -885,8 +1024,13 @@ def check_train_nf4(seed: int, flush) -> dict:
             torch.cuda.synchronize()
             err, rel = _rel(out, ref)
             ok = bool(torch.isfinite(out).all().item()) and rel <= KERNEL_TOL
+            extra = {}
+            if kernel == "nf4_matmul_backward":
+                extra = nf4_dx_extra(out, fn, inp, t, ref,
+                                     (k, n) == PROJ_SHAPES["q_proj"])
+                ok = ok and extra["ok"]
             row = {
-                "kernel": kernel, "M": TRAIN_M, "K": k, "N": n,
+                "kernel": kernel, "M": TRAIN_M, "K": k, "N": n, **extra,
                 "max_abs_err": err, "max_rel_err": rel,
                 "tol": f"{KERNEL_TOL} * max|plain| (summation order; bf16 "
                        "output rounding)",
@@ -895,16 +1039,58 @@ def check_train_nf4(seed: int, flush) -> dict:
                     lambda: plain(inp, t, torch.bfloat16), 3, flush),
                 "library_ms": time_ms(lib, 10, flush),
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-                "ok": ok,
             }
+            row["ok"] = ok
             log(json.dumps(row))
             rows[(kernel, k, n)] = row
             if not ok:
-                raise SystemExit(f"{kernel} disagrees with its plain version "
-                                 f"at M={TRAIN_M} K={k} N={n}: {rel}")
+                raise SystemExit(f"{kernel} disagrees with its plain version, "
+                                 f"misses the planted fault or gives other "
+                                 f"bytes on a second launch, at M={TRAIN_M} "
+                                 f"K={k} N={n}: {row}")
             del out, ref
         del t, w_bf16, x, dy
+    for m, k, n in NF4_DX_EDGE_SHAPES:
+        t = nf4.quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02)
+        dy = torch.randn(m, n, device=dev, generator=gen).to(torch.bfloat16)
+        out = nf4_matmul_backward(dy, t, torch.bfloat16)
+        ref = nf4_matmul_backward_reference(dy, t, torch.bfloat16)
+        torch.cuda.synchronize()
+        err, rel = _rel(out, ref)
+        row = {"kernel": "nf4_matmul_backward", "M": m, "K": k, "N": n,
+               "max_abs_err": err, "max_rel_err": rel,
+               **nf4_dx_extra(out, nf4_matmul_backward, dy, t, ref, False)}
+        row["ok"] = (bool(torch.isfinite(out).all().item())
+                     and rel <= KERNEL_TOL and row["ok"])
+        log(json.dumps(row))
+        rows[("edge", "nf4_matmul_backward", m, k, n)] = row
+        if not row["ok"]:
+            raise SystemExit(f"nf4_matmul_backward disagrees with its plain "
+                             f"version or gives other bytes on a second "
+                             f"launch at M={m} K={k} N={n}: {row}")
+        del t, dy, out, ref
     return rows
+
+
+def nf4_dx_extra(out, fn, dy, t, ref, plant: bool) -> dict:
+    """B2's repeat (the same bytes from a second launch) and, if ``plant``,
+    its planted fault: the first absmax block (64 rows x 64 columns of the
+    high half) zeroed in a copy of the weight must move dx by more than
+    KERNEL_TOL * max|plain|."""
+    import dataclasses
+
+    import torch
+
+    res = {"repeat_equal": torch.equal(out, fn(dy, t, torch.bfloat16))}
+    res["ok"] = res["repeat_equal"]
+    if plant:
+        bad = dataclasses.replace(t, absmax_q=t.absmax_q.clone())
+        bad.absmax_q[:64] = 0
+        res["planted_zero_absmax_rel_err"] = _rel(
+            fn(dy, bad, torch.bfloat16), ref)[1]
+        res["ok"] = res["ok"] and \
+            res["planted_zero_absmax_rel_err"] > KERNEL_TOL
+    return res
 
 
 def layer_sum(rows: dict, kernel: str) -> dict:
@@ -1194,12 +1380,33 @@ def kernel_counters() -> dict:
 
 
 def zero_counters() -> None:
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+
     for fn in kernel_counters().values():
         fn.launches = 0
+    for route in i4.int4_matmul.launches_by_route:
+        i4.int4_matmul.launches_by_route[route] = 0
 
 
 def read_counters() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def read_int4_routes() -> dict:
+    """The int4 forward's launches by route since the last zero."""
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+
+    return dict(i4.int4_matmul.launches_by_route)
+
+
+def int4_wgmma_launches(rows_per_pass, shapes) -> int:
+    """Launches that ``_route`` sends to the wgmma kernel when forward
+    passes of ``rows_per_pass`` rows each run the projections ``shapes``
+    ((K, N) pairs, one launch each)."""
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+
+    return sum(i4._route(m, k, n, INT4_GS) == "wgmma"
+               for m in rows_per_pass for k, n in shapes)
 
 
 def expected_launches(n_layer: int, fmt: str = "nf4") -> dict:
@@ -1249,6 +1456,7 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
     zero_counters()
     loss_k, grads_k = run()
     counts = read_counters()
+    routes = read_int4_routes()
     undo = plain_kernels()
     try:
         zero_counters()
@@ -1257,6 +1465,13 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
     finally:
         undo()
     want = expected_launches(STEP_LAYERS, fmt)
+    # the int4 forwards see batch x seq rows: 7 projections, then the remat
+    # recompute of all but down_proj, per layer
+    m = STEP_BATCH * TRAIN_SEQ
+    shapes = list(PROJ_SHAPES.values())
+    wgmma = STEP_LAYERS * int4_wgmma_launches([m], shapes + shapes[:-1]) \
+        if fmt == "int4" else 0
+    want_routes = {"wgmma": wgmma, "splitk": want["int4_matmul"] - wgmma}
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     grad_rel = [_rel(a, b)[1] for a, b in zip(grads_k, grads_p)]
     res = {"base": fmt, "layers": STEP_LAYERS, "batch": STEP_BATCH,
@@ -1264,6 +1479,7 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
            "loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
            "loss_rel_err": loss_rel, "grad_max_rel_err": max(grad_rel),
            "grads": len(grad_rel), "launches": counts,
+           "int4_launches_by_route": routes,
            "plain_launches": plain_counts,
            "tol": f"loss {STEP_LOSS_TOL} relative, each LoRA gradient "
                   f"{STEP_GRAD_TOL} * max|plain|: bf16 activations carry "
@@ -1272,10 +1488,11 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
     log("step check:", json.dumps(res))
     if (not all(torch.isfinite(g).all() for g in grads_k)
             or loss_rel > STEP_LOSS_TOL or max(grad_rel) > STEP_GRAD_TOL
-            or counts != want or any(plain_counts.values())):
+            or counts != want or any(plain_counts.values())
+            or routes != want_routes):
         raise SystemExit(f"QLoRA step over {fmt} with kernels disagrees "
-                         f"with the plain path (launches wanted {want}): "
-                         f"{res}")
+                         f"with the plain path (launches wanted {want}, "
+                         f"int4 routes {want_routes}): {res}")
     del model
     return res
 
@@ -1428,8 +1645,8 @@ def main(argv=None) -> int:
         "| torch", torch.__version__, "cuda", torch.version.cuda)
     log(f"build: {_build.build_all():.1f}s (nvcc, sm_90a, "
         f"{len(_build.KERNELS)} sources)")
-    resources = dx_resources()
-    log("dx kernels (ptxas):", json.dumps(resources))
+    resources = qmm_resources()
+    log("wgmma mainloop kernels (ptxas):", json.dumps(resources))
 
     def free():
         gc.collect()  # a model and its engine go before the next phase
@@ -1442,6 +1659,8 @@ def main(argv=None) -> int:
     summary = check_nf4_kernel(args.seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     ptq_rows = check_ptq_kernels(args.seed, flush)
+    crossover = int4_crossover(args.seed, flush)
+    log("int4 crossover:", json.dumps(crossover))
     phase_time("kernel checks", t0)
     tok = train_tokenizer()
     served = {}
@@ -1476,12 +1695,22 @@ def main(argv=None) -> int:
                                    "train_nf4": launches["nf4_matmul"]}
     summary["train"] = layer_sum(nf4_rows, "nf4_matmul")
     csrc = "llm_in_practise_tpu_torch/csrc/"
+    b2 = [r for r in nf4_rows.values()
+          if r["kernel"] == "nf4_matmul_backward"]
     table = [summary, {
         "name": "nf4_matmul_backward", "route": "cuda",
         "source": csrc + "nf4_matmul_bwd.cu",
         "replaces": "llm_in_practise_tpu/ops/nf4_matmul.py:111",
         "tpu_function": "_bwd_kernel (pallas_call at :194)",
         **layer_sum(nf4_rows, "nf4_matmul_backward"),
+        "edge_shapes": [{f: r[f] for f in ("M", "K", "N", "max_rel_err",
+                                           "repeat_equal")}
+                        for key, r in nf4_rows.items() if key[0] == "edge"],
+        "repeat_equal_all": all(r["repeat_equal"] for r in b2),
+        "planted_fault_seen": all(r["planted_zero_absmax_rel_err"] >
+                                  KERNEL_TOL for r in b2
+                                  if "planted_zero_absmax_rel_err" in r),
+        "ptxas": {k: v for k, v in resources.items() if k == "Nf4Dx"},
         "launches": launches["nf4_matmul_backward"],
         "launches_by_path": {"train_nf4": launches["nf4_matmul_backward"]}}]
     for name, line, fn in (
@@ -1518,7 +1747,14 @@ def main(argv=None) -> int:
                           MAX_SLOTS if decode else TRAIN_M)
         if decode:
             row["train"] = ptq_summary(ptq_rows, name, case, TRAIN_M)
-        else:
+        if name == "int4_matmul":
+            row["ptxas"] = {k: v for k, v in resources.items()
+                            if k == "Int4Fwd"}
+            row["crossover"] = crossover
+            row["launches_by_route"] = {
+                "serve_int4": served["int4"]["routes"],
+                "step_int4": steps["int4"]["int4_launches_by_route"]}
+        elif not decode:
             row["ptxas"] = {k: v for k, v in resources.items()
                             if k.lower().startswith(fmt)}
         table.append({"name": name, "route": "cuda", "source": csrc + src,
@@ -1535,6 +1771,11 @@ def main(argv=None) -> int:
     log("serving:", json.dumps({f: {k: v for k, v in r["serve"].items()
                                     if k != "model_check"}
                                 for f, r in served.items()}))
+    log("earlier readings, not measured in this run (PERF.md; mma.sync "
+        "designs, NVIDIA H100 80GB HBM3, 700 W), ms per layer's 7 "
+        f"projections at M={TRAIN_M}: {json.dumps(EARLIER_MS)}; this run: "
+        + json.dumps({r["name"]: (r.get("train") or r)["ms"] for r in table
+                      if r["name"] in EARLIER_MS}))
     log(json.dumps({"kernels": table}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(card_line())

@@ -1,6 +1,7 @@
 // W4A16 int4 dequant-matmul for Hopper (sm_90a), forward and backward:
-//   y  = x  @ W     (int4_matmul_kernel)
-//   dx = dy @ W^T   (dx_wgmma_kernel<Int4Dx>)
+//   y  = x  @ W     (qmm_wgmma_kernel<Int4Fwd> at prefill and training row
+//                    counts; int4_matmul_kernel, split over K, at decode)
+//   dx = dy @ W^T   (qmm_wgmma_kernel<Int4Dx>)
 // with W[k, n] = (code[k, n] - zero[k / gs, n]) * scale[k / gs, n].
 //
 // Replaces the TPU kernels llm_in_practise_tpu/ops/int4_matmul.py::_fwd_kernel
@@ -25,40 +26,44 @@
 // operations (3.196 ms for one Qwen3-8B layer's 7 projections).
 //
 // What the design does about that bound:
-//   - Forward: one packed byte holds rows k and k + 1 of one column, which is
-//     exactly the pair that one 32-bit B-fragment register of mma.sync
-//     m16n8k16 holds (b0 = B[2t..2t+1][g]); a byte becomes one bf16x2
-//     register with no shuffle, and the bf16 weight never exists in device
-//     or shared memory. Packed and x tiles stream through a cp.async ring.
-//   - Thin M leaves too few (M-tile, N-tile) blocks to keep 132 SMs busy:
-//     the wrapper splits K over grid.z (the NF4 kernel's split_k_for); each
-//     split writes f32 partials and a second kernel sums them in a fixed
-//     order (deterministic, no atomics).
-//   - Group parameters vary along K, and a 64-row chunk may span several
-//     groups (gs 32 spans two): each thread looks up the group of its
-//     fragment's row pair (both rows of a pair share a group, since gs is
-//     even) and reloads scale and zero only when the group changes; they
-//     come through L1 (8/gs bytes per weight against the codes' 0.5).
-//   - Backward: the shared wgmma mainloop of dx_wgmma.cuh (TMA ring, one
-//     producer warp, two consumer warpgroups on a 128 x 256 tile of dx^T,
-//     reducing over all of N in the block: deterministic) with the Int4Dx
-//     policy. dx[m, k] = sum_n dy[m, n] * W[k, n]: the group is constant
-//     along the reduction, so each thread's scale/zero row is fixed, and
-//     the scales and zeros of the block's groups are staged in the ring
-//     beside the codes (512 bytes per stage at gs 128). One 16-bit load of
-//     bytes (n, n + 1) of packed row i gives the A pair of dx column 2i
-//     (high nibbles) and of 2i + 1 (low nibbles): fragment rows g and g + 8
-//     are mapped to those two columns and the epilogue undoes it. The
-//     mma.sync design it replaced (64 x 64 tile, 4 warps, scale and zero
-//     from L1 on every k16 step) took 25.49 ms for one layer's 7
-//     projections at M = 8192, 6.5x cuBLAS on a dequantized weight (NVIDIA
-//     H100 80GB HBM3, 700 W).
+//   - Both directions at large M run on the shared wgmma mainloop of
+//     qmm_wgmma.cuh (TMA ring, one producer thread, two consumer
+//     warpgroups on a 128 x 256 tile of the transposed output, reducing in
+//     the block: deterministic), with the weight decoded from staged bytes
+//     straight into register A fragments: the bf16 weight never exists in
+//     device or shared memory.
+//   - Forward (Int4Fwd), y^T = W^T . x^T: one packed byte holds rows k and
+//     k + 1 of one column, which is exactly one A register; the chunk's
+//     group rows of scales and zeros are staged in the ring beside the
+//     codes (1 row at gs >= 64, 64 / gs below). The mma.sync design it
+//     replaced at these row counts (64 x 64 tiles, 4 warps, cp.async ring,
+//     scale and zero reloaded through L1 whenever the group changed) took
+//     22.95 ms for one layer's 7 projections at M = 8192, 5.8x cuBLAS on a
+//     dequantized weight (NVIDIA H100 80GB HBM3, 700 W).
+//   - Thin M (decode) leaves a 256-row tile mostly empty and too few blocks
+//     to fill 132 SMs: int4_matmul_kernel (mma.sync m16n8k16 on 16-row
+//     tiles, the byte as one B register) splits K over grid.z (the NF4
+//     kernel's split_k_for); each split writes f32 partials and a second
+//     kernel sums them in a fixed order (deterministic, no atomics). Each
+//     thread looks up the group of its fragment's row pair and reloads scale
+//     and zero only when the group changes. The wrapper picks the route by
+//     shape (ops/int4_matmul.py::_route).
+//   - Backward (Int4Dx), dx^T = W . dy^T: the group is constant along the
+//     reduction, so each thread's scale/zero row is fixed, and the scales
+//     and zeros of the block's groups are staged in the ring beside the
+//     codes (512 bytes per stage at gs 128). One 16-bit load of bytes
+//     (n, n + 1) of packed row i gives the A pair of dx column 2i (high
+//     nibbles) and of 2i + 1 (low nibbles): fragment rows g and g + 8 are
+//     mapped to those two columns and the epilogue undoes it. The mma.sync
+//     design it replaced took 25.49 ms for one layer's 7 projections at
+//     M = 8192, 6.5x cuBLAS on a dequantized weight (NVIDIA H100 80GB HBM3,
+//     700 W).
 //   - The dequant uses __fsub_rn/__fmul_rn so nvcc cannot contract it into
 //     an FMA, which would round differently from the reference codec.
-//   - The M, N and K edges are masked (forward: zero-filled tiles and
-//     guarded stores; backward: TMA's zero fill and guarded stores).
+//   - The M, N and K edges are masked (split-K: zero-filled tiles and
+//     guarded stores; wgmma: TMA's zero fill and guarded stores).
 
-#include "dx_wgmma.cuh"
+#include "qmm_wgmma.cuh"
 #include "mma_util.cuh"
 
 namespace {
@@ -275,33 +280,35 @@ __global__ void int4_splitk_reduce_kernel(const float* __restrict__ ws,
   port::store_out(out, i, s, out_dtype);
 }
 
-// B7's decode policy for the dx mainloop (dx_wgmma.cuh). The weight tile
+// B7's decode policy for the quantized-matmul mainloop (qmm_wgmma.cuh), as
+// dx^T = W . dy^T. The weight tile
 // is 64 packed rows x 64 bytes (TMA, 64-byte swizzle), i.e. dx columns
 // k0 .. k0 + 127; then the g_rows group rows of scales and of zeros that
 // cover those columns, 64 f32 columns each (zero past N and past the last
 // group). Thread g of warp w in warpgroup wg reads packed row
 // P = 32 wg + 8 w + g: fragment row g is dx column k0 + 2P (high nibbles),
 // row g + 8 is k0 + 2P + 1 (low nibbles), one group for both (gs is even).
-struct Int4Dx {
-  static constexpr uint32_t kWBytes = (dxw::kTileK / 2) * dxw::kChunk;
+struct Int4Dx : qmm::LinearChunks {
+  static constexpr uint32_t kWBytes = (qmm::kTileCols / 2) * qmm::kChunk;
 
-  __device__ static uint32_t tx_bytes(const dxw::DxArgs& args) {
-    return kWBytes + 2 * args.g_rows * dxw::kChunk * 4;
+  __device__ static uint32_t tx_bytes(const qmm::QmmArgs& args) {
+    return kWBytes + 2 * args.g_rows * qmm::kChunk * 4;
   }
 
   __device__ static void load(uint8_t* w, const CUtensorMap* tm_packed,
                               const CUtensorMap* tm_scales,
                               const CUtensorMap* tm_zeros, uint64_t* bar,
-                              int c0, int k0, const dxw::DxArgs& args) {
+                              int i, int k0, const qmm::QmmArgs& args) {
+    const int c0 = i * qmm::kChunk;
     const int g0 = k0 / args.gs;
     uint8_t* aux = w + kWBytes;
-    dxw::tma_load_2d(w, tm_packed, bar, c0, k0 / 2);
-    dxw::tma_load_2d(aux, tm_scales, bar, c0, g0);
-    dxw::tma_load_2d(aux + args.g_rows * dxw::kChunk * 4, tm_zeros, bar, c0,
+    qmm::tma_load_2d(w, tm_packed, bar, c0, k0 / 2);
+    qmm::tma_load_2d(aux, tm_scales, bar, c0, g0);
+    qmm::tma_load_2d(aux + args.g_rows * qmm::kChunk * 4, tm_zeros, bar, c0,
                      g0);
   }
 
-  __device__ static int k_local(int wg, int warp, int g, int hi) {
+  __device__ static int col_local(int wg, int warp, int g, int hi) {
     return 64 * wg + 16 * warp + 2 * g + hi;
   }
 
@@ -316,33 +323,106 @@ struct Int4Dx {
 
   struct State {
     int prow, t, sc_off, zr_off;
-    __device__ State(const dxw::DxArgs& args, int k0, int wg, int warp,
+    __device__ State(const qmm::QmmArgs& args, int k0, int wg, int warp,
                      int g, int t_)
         : prow(32 * wg + 8 * warp + g), t(t_) {
       // a packed row past K (zero codes, its dx never stored) may lie past
       // the staged groups when g_rows was cut to n_groups: clamp it
       const int grp = min((k0 + 2 * prow) / args.gs - k0 / args.gs,
                           args.g_rows - 1);
-      sc_off = grp * dxw::kChunk;
-      zr_off = (args.g_rows + grp) * dxw::kChunk;
+      sc_off = grp * qmm::kChunk;
+      zr_off = (args.g_rows + grp) * qmm::kChunk;
     }
 
     // bytes (n, n + 1) of the packed row: high nibbles give fragment row g,
     // low nibbles row g + 8
-    __device__ void decode(const uint8_t* w, const float* aux, int ks,
+    __device__ void decode(const uint8_t* w, const float* aux, int, int ks,
                            uint32_t (&a)[4]) const {
       const int c = 16 * ks + 2 * t;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // columns c, c + 1, then c + 8, c + 9
         const int n = c + 8 * h;
         const uint32_t b = *reinterpret_cast<const uint16_t*>(
-            w + dxw::sw64(prow, n));
+            w + qmm::sw64(prow, n));
         const float2 s = *reinterpret_cast<const float2*>(aux + sc_off + n);
         const float2 z = *reinterpret_cast<const float2*>(aux + zr_off + n);
-        a[2 * h] = dxw::pack2(deq((b >> 4) & 15, z.x, s.x),
+        a[2 * h] = qmm::pack2(deq((b >> 4) & 15, z.x, s.x),
                               deq((b >> 12) & 15, z.y, s.y));
-        a[2 * h + 1] = dxw::pack2(deq(b & 15, z.x, s.x),
+        a[2 * h + 1] = qmm::pack2(deq(b & 15, z.x, s.x),
                                   deq((b >> 8) & 15, z.y, s.y));
+      }
+    }
+  };
+};
+// B6's decode policy for the same mainloop at prefill and training row
+// counts, as y^T = W^T . x^T: A is W^T, its rows the output columns n, its
+// reduction k. A stage holds 64 k: 32 packed rows x 128 bytes (TMA,
+// 128-byte swizzle) for output columns n0 .. n0 + 127, then the g_rows
+// group rows of scales and of zeros that cover those 64 k, 128 f32 columns
+// each. One packed byte holds the adjacent-K pair (2 kp, 2 kp + 1) of one
+// column, which is exactly one A register: fragment rows g and g + 8 of
+// warp w in warpgroup wg are the adjacent columns n0 + C and n0 + C + 1,
+// C = 64 wg + 16 w + 2 g, so one 16-bit load of bytes (C, C + 1) of packed
+// row kp gives a[0] and a[1], and packed row kp + 4 gives a[2] and a[3].
+// A thread's two columns are fixed; only the group row varies, with the
+// stage and the k16 step. Group sizes: a multiple of 64 (one group row per
+// stage) or a divisor of 64 (64 / gs rows); the wrapper routes the others
+// to the split-K kernel.
+struct Int4Fwd : qmm::LinearChunks {
+  static constexpr uint32_t kWBytes = (qmm::kChunk / 2) * qmm::kTileCols;
+
+  __device__ static uint32_t tx_bytes(const qmm::QmmArgs& args) {
+    return kWBytes + 2 * args.g_rows * qmm::kTileCols * 4;
+  }
+
+  __device__ static void load(uint8_t* w, const CUtensorMap* tm_packed,
+                              const CUtensorMap* tm_scales,
+                              const CUtensorMap* tm_zeros, uint64_t* bar,
+                              int i, int n0, const qmm::QmmArgs& args) {
+    const int k0 = i * qmm::kChunk;
+    const int g0 = k0 / args.gs;
+    uint8_t* aux = w + kWBytes;
+    qmm::tma_load_2d(w, tm_packed, bar, n0, k0 / 2);
+    qmm::tma_load_2d(aux, tm_scales, bar, n0, g0);
+    qmm::tma_load_2d(aux + args.g_rows * qmm::kTileCols * 4, tm_zeros, bar,
+                     n0, g0);
+  }
+
+  __device__ static int col_local(int wg, int warp, int g, int hi) {
+    return 64 * wg + 16 * warp + 2 * g + hi;
+  }
+
+  struct State {
+    int col, t, lg, last, zr_off;
+    __device__ State(const qmm::QmmArgs& args, int, int wg, int warp, int g,
+                     int t_)
+        : col(64 * wg + 16 * warp + 2 * g),
+          t(t_),
+          lg(0),
+          // a k past K (zero x) may lie past the staged group rows when
+          // g_rows was cut to n_groups: clamp it
+          last(args.g_rows - 1),
+          zr_off(args.g_rows * qmm::kTileCols) {
+      // k offset in the stage >> lg is the staged group row: log2(gs)
+      // below 64, 6 (always row 0) from 64 up
+      for (int v = min(args.gs, qmm::kChunk); v > 1; v >>= 1) ++lg;
+    }
+
+    __device__ void decode(const uint8_t* w, const float* aux, int, int ks,
+                           uint32_t (&a)[4]) const {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // k 16 ks + 2t (+1), then the same + 8
+        const int kp = 8 * ks + t + 4 * h;
+        const uint32_t b = *reinterpret_cast<const uint16_t*>(
+            w + qmm::sw128(kp, col));
+        const int grp = min((16 * ks + 2 * t + 8 * h) >> lg, last);
+        const int o = grp * qmm::kTileCols + col;
+        const float2 s = *reinterpret_cast<const float2*>(aux + o);
+        const float2 z = *reinterpret_cast<const float2*>(aux + zr_off + o);
+        a[2 * h] = qmm::pack2(Int4Dx::deq((b >> 4) & 15, z.x, s.x),
+                              Int4Dx::deq(b & 15, z.x, s.x));
+        a[2 * h + 1] = qmm::pack2(Int4Dx::deq((b >> 12) & 15, z.y, s.y),
+                                  Int4Dx::deq((b >> 8) & 15, z.y, s.y));
       }
     }
   };
@@ -383,6 +463,50 @@ extern "C" int int4_matmul_launch(const void* x, const void* packed,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Forward on the wgmma mainloop (Int4Fwd), on `stream`: the route for
+// prefill and training row counts. x: (M, K) bf16, 16-byte aligned; packed,
+// scales, zeros as for int4_matmul_launch, 16-byte aligned; out: (M, N) in
+// out_dtype. Requires M >= 1, K % 8 == 0 and N % 16 == 0 (the TMA row
+// strides, 2K, N and 4N bytes, must be 16-byte multiples), gs even with
+// gs % 64 == 0 or 64 % gs == 0. Returns the first CUDA error of the
+// descriptor encoding and the launch (0 on success).
+extern "C" int int4_matmul_wgmma_launch(const void* x, const void* packed,
+                                        const void* scales, const void* zeros,
+                                        void* out, int M, int K, int N, int gs,
+                                        int n_groups, int out_dtype,
+                                        void* stream) {
+  if (M < 1 || K % 8 || N % 16 || gs < 2 || gs % 2 ||
+      (gs % qmm::kChunk && qmm::kChunk % gs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // group rows that cover any 64 k starting at a multiple of 64
+  int g_rows = gs >= qmm::kChunk ? 1 : qmm::kChunk / gs;
+  if (g_rows > n_groups) g_rows = n_groups;
+  CUtensorMap tm_x, tm_p, tm_s, tm_z;
+  cudaError_t err = qmm::encode_act(&tm_x, x, M, K);
+  if (err == cudaSuccess) {
+    err = qmm::encode_2d(&tm_p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed,
+                         K / 2, N, qmm::kChunk / 2, qmm::kTileCols,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err == cudaSuccess) {
+    err = qmm::encode_2d(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales,
+                         n_groups, N, g_rows, qmm::kTileCols,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err == cudaSuccess) {
+    err = qmm::encode_2d(&tm_z, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, zeros,
+                         n_groups, N, g_rows, qmm::kTileCols,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int aux = (2 * g_rows * qmm::kTileCols * 4 + 1023) / 1024 * 1024;
+  const qmm::QmmArgs args = {out, M, N, K, out_dtype, gs, g_rows, aux,
+                             nullptr};
+  return static_cast<int>(qmm::launch_qmm<Int4Fwd>(
+      tm_x, tm_p, tm_s, tm_z, args, static_cast<cudaStream_t>(stream)));
+}
+
 // Backward, on `stream`. dy: (M, N) bf16, 16-byte aligned; packed, scales,
 // zeros as for the forward, 16-byte aligned; dx: (M, K) in out_dtype.
 // Requires M >= 1, K even, gs even, N % 16 == 0 (the TMA row strides, N,
@@ -394,31 +518,32 @@ extern "C" int int4_matmul_bwd_launch(const void* dy, const void* packed,
                                       int n_groups, int out_dtype,
                                       void* stream) {
   // group rows that cover any 128 dx columns starting at a multiple of 128
-  int g_rows = gs % dxw::kTileK == 0   ? 1
-               : dxw::kTileK % gs == 0 ? dxw::kTileK / gs
-                                       : (dxw::kTileK - 1) / gs + 2;
+  int g_rows = gs % qmm::kTileCols == 0   ? 1
+               : qmm::kTileCols % gs == 0 ? qmm::kTileCols / gs
+                                          : (qmm::kTileCols - 1) / gs + 2;
   if (g_rows > n_groups) g_rows = n_groups;
   CUtensorMap tm_dy, tm_p, tm_s, tm_z;
-  cudaError_t err = dxw::encode_dy(&tm_dy, dy, M, N);
+  cudaError_t err = qmm::encode_act(&tm_dy, dy, M, N);
   if (err == cudaSuccess) {
-    err = dxw::encode_2d(&tm_p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed,
-                         K / 2, N, dxw::kTileK / 2, dxw::kChunk,
+    err = qmm::encode_2d(&tm_p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed,
+                         K / 2, N, qmm::kTileCols / 2, qmm::kChunk,
                          CU_TENSOR_MAP_SWIZZLE_64B);
   }
   if (err == cudaSuccess) {
-    err = dxw::encode_2d(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales,
-                         n_groups, N, g_rows, dxw::kChunk,
+    err = qmm::encode_2d(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales,
+                         n_groups, N, g_rows, qmm::kChunk,
                          CU_TENSOR_MAP_SWIZZLE_NONE);
   }
   if (err == cudaSuccess) {
-    err = dxw::encode_2d(&tm_z, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, zeros,
-                         n_groups, N, g_rows, dxw::kChunk,
+    err = qmm::encode_2d(&tm_z, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, zeros,
+                         n_groups, N, g_rows, qmm::kChunk,
                          CU_TENSOR_MAP_SWIZZLE_NONE);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int aux = (2 * g_rows * dxw::kChunk * 4 + 1023) / 1024 * 1024;
-  const dxw::DxArgs args = {dx, M, K, N, out_dtype, gs, g_rows, aux};
-  return static_cast<int>(dxw::launch_dx<Int4Dx>(
+  const int aux = (2 * g_rows * qmm::kChunk * 4 + 1023) / 1024 * 1024;
+  const qmm::QmmArgs args = {dx, M, K, N, out_dtype, gs, g_rows, aux,
+                             nullptr};
+  return static_cast<int>(qmm::launch_qmm<Int4Dx>(
       tm_dy, tm_p, tm_s, tm_z, args, static_cast<cudaStream_t>(stream)));
 }
 extern "C" const char* int4_cuda_error_string(int err) {

@@ -1,7 +1,7 @@
 // W8A16 int8 matmul for Hopper (sm_90a), forward and backward:
 //   y  = (x @ q) * scale[n]              (int8_matmul_kernel)
 //   dx = bf16(dy * scale[n]) @ q^T       (int8_scale_dy_kernel, then
-//                                         dx_wgmma_kernel<Int8Dx>)
+//                                         qmm_wgmma_kernel<Int8Dx>)
 //
 // Replaces the TPU kernels llm_in_practise_tpu/ops/int8_matmul.py::_fwd_kernel
 // (launched by _int8_matmul_fwd through pl.pallas_call) and ::_bwd_kernel
@@ -32,7 +32,7 @@
 //     never exists in device memory. A cp.async ring keeps several chunks in
 //     flight; thin M splits K over grid.z as the NF4 and int4 kernels do,
 //     with a deterministic second pass that sums and applies the scale.
-//   - Backward: the shared wgmma mainloop of dx_wgmma.cuh (TMA ring, one
+//   - Backward: the shared wgmma mainloop of qmm_wgmma.cuh (TMA ring, one
 //     producer warp, two consumer warpgroups on a 128 x 256 tile of dx^T,
 //     deterministic) with the Int8Dx policy: for fixed k the pair (n, n + 1)
 //     is two adjacent bytes of q, the reduction pair an A fragment wants, so
@@ -48,7 +48,7 @@
 //   - The M, N and K edges are masked (forward: zero-filled tiles and
 //     guarded stores; backward: TMA's zero fill and guarded stores).
 
-#include "dx_wgmma.cuh"
+#include "qmm_wgmma.cuh"
 #include "mma_util.cuh"
 
 namespace {
@@ -241,7 +241,7 @@ __global__ void int8_scale_dy_kernel(const uint4* __restrict__ dy,
   const float4 s1 = __ldg(reinterpret_cast<const float4*>(scale) + 2 * j + 1);
   // bf16 -> f32 is a shift, so the only converting instruction is the pack
   const auto mul = [](uint32_t u, float a, float b) {
-    return dxw::pack2(__fmul_rn(__uint_as_float(u << 16), a),
+    return qmm::pack2(__fmul_rn(__uint_as_float(u << 16), a),
                       __fmul_rn(__uint_as_float(u & 0xFFFF0000u), b));
   };
   for (int r0 = blockIdx.y * kScaleRows; r0 < M;
@@ -266,23 +266,24 @@ __global__ void int8_scale_dy_kernel(const uint4* __restrict__ dy,
   }
 }
 
-// B9's decode policy for the dx mainloop (dx_wgmma.cuh). The weight tile
-// is 128 q rows x 64 bytes (TMA, 64-byte swizzle, so the 16-bit fragment
-// loads of 8 rows fall in 8 different bank pairs); fragment row r of warp
-// w in warpgroup wg is q row k0 + 64 wg + 16 w + r.
-struct Int8Dx {
-  static constexpr uint32_t kWBytes = dxw::kTileK * dxw::kChunk;
+// B9's decode policy for the quantized-matmul mainloop (qmm_wgmma.cuh),
+// as dx^T = q . dys^T. The weight tile is 128 q rows x 64 bytes (TMA,
+// 64-byte swizzle, so the 16-bit fragment loads of 8 rows fall in 8
+// different bank pairs); fragment row r of warp w in warpgroup wg is q row
+// k0 + 64 wg + 16 w + r.
+struct Int8Dx : qmm::LinearChunks {
+  static constexpr uint32_t kWBytes = qmm::kTileCols * qmm::kChunk;
 
-  __device__ static uint32_t tx_bytes(const dxw::DxArgs&) { return kWBytes; }
+  __device__ static uint32_t tx_bytes(const qmm::QmmArgs&) { return kWBytes; }
 
   __device__ static void load(uint8_t* w, const CUtensorMap* tm_w,
                               const CUtensorMap*, const CUtensorMap*,
-                              uint64_t* bar, int c0, int k0,
-                              const dxw::DxArgs&) {
-    dxw::tma_load_2d(w, tm_w, bar, c0, k0);
+                              uint64_t* bar, int i, int k0,
+                              const qmm::QmmArgs&) {
+    qmm::tma_load_2d(w, tm_w, bar, i * qmm::kChunk, k0);
   }
 
-  __device__ static int k_local(int wg, int warp, int g, int hi) {
+  __device__ static int col_local(int wg, int warp, int g, int hi) {
     return 64 * wg + 16 * warp + g + 8 * hi;
   }
 
@@ -292,22 +293,22 @@ struct Int8Dx {
     const uint32_t u = v ^ 0x8080u;
     const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440));
     const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441));
-    return dxw::pack2(lo - 8388736.0f, hi - 8388736.0f);
+    return qmm::pack2(lo - 8388736.0f, hi - 8388736.0f);
   }
 
   struct State {
     int row, t;
-    __device__ State(const dxw::DxArgs&, int, int wg, int warp, int g,
+    __device__ State(const qmm::QmmArgs&, int, int wg, int warp, int g,
                      int t_)
         : row(64 * wg + 16 * warp + g), t(t_) {}
 
     // bytes (n, n + 1) of one q row are the fragment pair
-    __device__ void decode(const uint8_t* w, const float*, int ks,
+    __device__ void decode(const uint8_t* w, const float*, int, int ks,
                            uint32_t (&a)[4]) const {
       const int c = 16 * ks + 2 * t;
       const auto ld = [&](int r, int col) {
         return static_cast<uint32_t>(
-            *reinterpret_cast<const uint16_t*>(w + dxw::sw64(r, col)));
+            *reinterpret_cast<const uint16_t*>(w + qmm::sw64(r, col)));
       };
       a[0] = s8x2(ld(row, c));
       a[1] = s8x2(ld(row + 8, c));
@@ -374,15 +375,16 @@ extern "C" int int8_matmul_bwd_launch(const void* dy, const void* q,
     dy = dys;
   }
   CUtensorMap tm_dy, tm_q;
-  cudaError_t err = dxw::encode_dy(&tm_dy, dy, M, N);
+  cudaError_t err = qmm::encode_act(&tm_dy, dy, M, N);
   if (err == cudaSuccess) {
-    err = dxw::encode_2d(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, K, N,
-                         dxw::kTileK, dxw::kChunk, CU_TENSOR_MAP_SWIZZLE_64B);
+    err = qmm::encode_2d(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, K, N,
+                         qmm::kTileCols, qmm::kChunk,
+                         CU_TENSOR_MAP_SWIZZLE_64B);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dxw::DxArgs args = {dx, M, K, N, out_dtype, 0, 0, 0};
+  const qmm::QmmArgs args = {dx, M, K, N, out_dtype, 0, 0, 0, nullptr};
   return static_cast<int>(
-      dxw::launch_dx<Int8Dx>(tm_dy, tm_q, tm_q, tm_q, args, s));
+      qmm::launch_qmm<Int8Dx>(tm_dy, tm_q, tm_q, tm_q, args, s));
 }
 
 extern "C" const char* int8_cuda_error_string(int err) {

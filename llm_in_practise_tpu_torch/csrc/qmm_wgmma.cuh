@@ -1,56 +1,75 @@
-// The shared Hopper mainloop of the quantized dx kernels (sm_90a):
-//   dx = dy @ W^T,  dy (M, N) bf16,  W (K, N) held as quantized bytes,
-// computed transposed, dx^T = W . dy^T, one (kTileK x kBM) tile of dx^T per
-// block, reducing over all of N inside the block in a fixed order (no
-// atomics, no split of N: deterministic).
+// The shared Hopper mainloop of the quantized matmuls (sm_90a): a product
+// whose A operand is a quantized weight and whose B operand is a bf16
+// activation,
+//   out^T = A . act^T,  act (M, red) bf16,  A (cols, red) decoded from
+//   quantized bytes,  out (M, cols),
+// one (kTileCols x kBM) tile of out^T per block, reducing over all of `red`
+// inside the block in a fixed order (no atomics, no split of the reduction:
+// deterministic). Both directions of a quantized linear layer have this
+// shape:
+//   - dx = dy @ W^T, W (K, N): dx^T = W . dy^T. A is W (rows k, the output
+//     columns; reduction n), the activation is dy; cols = K, red = N.
+//   - y = x @ W: y^T = W^T . x^T. A is W^T (rows n, the output columns;
+//     reduction k), the activation is x; cols = N, red = K.
 //
 //   - A operand (64 x 16 per consumer warpgroup, from registers: the RS form
-//     of wgmma.mma_async): the weight tile. Its reduction dimension n is
-//     contiguous in memory, so it is a K-major A; the consumer threads decode
-//     it straight from the raw bytes staged in shared memory into A
-//     fragments. No bf16 copy of W exists in device or shared memory.
-//   - B operand (from shared memory): dy, kChunk = 64 reduction columns per
-//     stage (128 bytes of bf16 per row), in the 128-byte-swizzled layout that
-//     TMA writes and the wgmma descriptor reads.
+//     of wgmma.mma_async): the weight tile. The consumer threads decode it
+//     straight from the raw bytes staged in shared memory into A fragments.
+//     No bf16 copy of the weight exists in device or shared memory.
+//   - B operand (from shared memory): the activation, kChunk = 64 reduction
+//     columns per stage (128 bytes of bf16 per row), in the 128-byte-swizzled
+//     layout that TMA writes and the wgmma descriptor reads.
 //   - One producer thread keeps a ring of up to kMaxStages stages (as deep
 //     as shared memory allows) full with TMA (cp.async.bulk.tensor) behind
-//     full/empty mbarrier pairs; two consumer
-//     warpgroups (setmaxnreg gives them the registers) each own 64 rows of
-//     dx^T (64 dx columns) x kBM dx rows, with f32 accumulators. Stage i's
-//     decode overlaps stage i-1's products (wgmma.wait_group 1).
-//   - TMA's out-of-bounds zero fill masks the M, N and K edges of every
-//     operand; the epilogue stages the tile through shared memory and writes
-//     dx row-major (16-byte stores where the row allows), rounded once to the
-//     caller's dtype.
+//     full/empty mbarrier pairs; two consumer warpgroups (setmaxnreg gives
+//     them the registers) each own 64 rows of out^T (64 output columns) x
+//     kBM output rows, with f32 accumulators. Stage i's decode overlaps
+//     stage i-1's products (wgmma.wait_group 1).
+//   - TMA's out-of-bounds zero fill masks the M and reduction edges of the
+//     activation and the edges of the staged weight bytes; the epilogue
+//     stages the tile through shared memory and writes the output row-major
+//     (16-byte stores where the row allows), rounded once to the caller's
+//     dtype.
 //
-// A decode policy turns the staged raw bytes (and whatever else it stages in
-// the same ring, such as group scales and zeros) into A fragments:
+// A decode policy says which reduction columns each stage holds and turns
+// the staged raw bytes (and whatever else it stages in the same ring, such
+// as group scales and zeros) into A fragments:
 //
 //   struct Policy {
 //     static constexpr uint32_t kWBytes;  // staged weight bytes per stage
-//     __device__ static uint32_t tx_bytes(const DxArgs&);  // TMA bytes of
+//     __device__ static uint32_t tx_bytes(const QmmArgs&);  // TMA bytes of
 //                                         // weight + aux per stage
+//     __device__ static int n_chunks(const QmmArgs&);  // stages of one
+//                                         // block's reduction
+//     __device__ static int act_col(int i, const QmmArgs&);  // first
+//                                         // activation column of stage i
 //     __device__ static void load(uint8_t* w, const CUtensorMap* tm_w,
 //                                 const CUtensorMap* tm_aux0,
 //                                 const CUtensorMap* tm_aux1, uint64_t* bar,
-//                                 int c0, int k0, const DxArgs&);
-//     __device__ static int k_local(int wg, int warp, int g, int hi);
+//                                 int i, int c0, const QmmArgs&);
+//     __device__ static int col_local(int wg, int warp, int g, int hi);
 //     struct State {  // one per consumer thread
-//       __device__ State(const DxArgs&, int k0, int wg, int warp, int g,
+//       __device__ State(const QmmArgs&, int c0, int wg, int warp, int g,
 //                        int t);
-//       __device__ void decode(const uint8_t* w, const float* aux, int ks,
-//                              uint32_t (&a)[4]) const;
+//       __device__ void decode(const uint8_t* w, const float* aux, int i,
+//                              int ks, uint32_t (&a)[4]) const;
 //     };
 //   };
+//
+// c0 is the block's first output column, i the stage's index in the
+// reduction (a policy may walk the reduction in any order: the NF4 dx policy
+// takes the high-nibble half of N, then the low one); LinearChunks is the
+// plain order, act_col(i) = i * kChunk.
 //
 // Fragment layouts (PTX ISA, wgmma .m64nNk16 .bf16), g = lane / 4,
 // t = lane % 4, warp w of the warpgroup holding rows 16w .. 16w + 15:
 //   A (registers): a[0] = A[16w+g][2t..2t+1],   a[1] = A[16w+g+8][2t..2t+1],
 //                  a[2] = A[16w+g][2t+8..2t+9], a[3] = A[16w+g+8][2t+8..2t+9]
 //   D (f32, N = 128): d[4j + e] = D[16w + g + 8(e/2)][8j + 2t + e%2]
-// k_local maps (warpgroup, warp, g, e/2) to the dx column of an A row, so a
-// policy may permute the rows (int4 maps rows g and g+8 to the two nibbles
-// of one packed byte) and the epilogue undoes it.
+// col_local maps (warpgroup, warp, g, e/2) to the output column of an A row,
+// so a policy may permute the rows (int4 maps rows g and g+8 to the two
+// nibbles of one packed byte, or to two adjacent columns) and the epilogue
+// undoes it.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached
@@ -62,26 +81,38 @@
 
 #include <type_traits>
 
-namespace dxw {
+namespace qmm {
 
 constexpr int kConsumers = 256;             // two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
-constexpr int kTileK = 128;                 // dx columns per block
-constexpr int kNB = 2;                      // 128-row halves of the dx rows
-constexpr int kBM = 128 * kNB;              // dx rows per block
+constexpr int kTileCols = 128;              // output columns per block
+constexpr int kNB = 2;                      // 128-row halves of the rows
+constexpr int kBM = 128 * kNB;              // output rows per block
 constexpr int kChunk = 64;                  // reduction columns per stage
 constexpr int kMaxStages = 4;
-constexpr int kOutStride = kTileK + 4;      // f32 per staged dx row
-constexpr uint32_t kDyBytes = kBM * kChunk * 2;
+constexpr int kOutStride = kTileCols + 4;   // f32 per staged output row
+constexpr uint32_t kActBytes = kBM * kChunk * 2;
 
-struct DxArgs {
-  void* dx;       // (M, K) in out_dtype (0 f32, 1 bf16, 2 f16)
-  int M, K, N;
+struct QmmArgs {
+  void* out;           // (M, cols) in out_dtype (0 f32, 1 bf16, 2 f16)
+  int M;               // rows of the activation and of the output
+  int cols;            // output columns, the rows of A (dx: K, forward: N)
+  int red;             // reduction length (dx: N, forward: K)
   int out_dtype;
-  int gs;         // int4: group size along K
-  int g_rows;     // int4: group rows staged per stage
-  int aux_bytes;  // staged bytes per stage besides dy and the weight
-  int stages;     // ring depth, 2 .. kMaxStages (set by launch_dx)
+  int gs;              // int4: group size along K
+  int g_rows;          // int4: group rows staged per stage
+  int aux_bytes;       // staged bytes per stage besides the activation and
+                       // the weight
+  const float* param;  // NF4: the absmax offset (one f32 on the device)
+  int stages;          // ring depth, 2 .. kMaxStages (set by launch_qmm)
+};
+
+// the plain walk over the reduction: stage i holds columns i * kChunk ..
+struct LinearChunks {
+  __device__ static int n_chunks(const QmmArgs& args) {
+    return (args.red + kChunk - 1) / kChunk;
+  }
+  __device__ static int act_col(int i, const QmmArgs&) { return i * kChunk; }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -131,6 +162,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// box at element c0 of a 1-D tensor map into shared memory
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
 }
 
@@ -197,27 +238,33 @@ __device__ __forceinline__ int sw64(int row, int col) {
   return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
 }
 
+// byte offset of (row, col) in a tile of 128-byte rows written by TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk bits 4-6 ^= address bits 7-9
+__device__ __forceinline__ int sw128(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+
 template <class Policy>
 __host__ __device__ constexpr uint32_t stage_bytes(int aux_bytes) {
-  return kDyBytes + Policy::kWBytes + aux_bytes;
+  return kActBytes + Policy::kWBytes + aux_bytes;
 }
 
 template <class Policy>
 __global__ void __launch_bounds__(kThreads, 1)
-dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
-                const __grid_constant__ CUtensorMap tm_w,
-                const __grid_constant__ CUtensorMap tm_aux0,
-                const __grid_constant__ CUtensorMap tm_aux1,
-                const DxArgs args) {
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_act,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const __grid_constant__ CUtensorMap tm_aux0,
+                 const __grid_constant__ CUtensorMap tm_aux1,
+                 const QmmArgs args) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxStages];
   __shared__ __align__(8) uint64_t empty[kMaxStages];
   // the 128-byte swizzle repeats every 1024 bytes: stages start there
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t st_bytes = stage_bytes<Policy>(args.aux_bytes);
-  const int k0 = blockIdx.x * kTileK;
+  const int c0 = blockIdx.x * kTileCols;
   const int m0 = blockIdx.y * kBM;
-  const int n_chunks = (args.N + kChunk - 1) / kChunk;
+  const int n_chunks = Policy::n_chunks(args);
   const int n_st = args.stages;
 
   if (threadIdx.x == 0) {
@@ -233,15 +280,15 @@ dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
   if (wg == 2) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == kConsumers) {  // one thread issues every copy
-      const uint32_t tx = kDyBytes + Policy::tx_bytes(args);
+      const uint32_t tx = kActBytes + Policy::tx_bytes(args);
       for (int i = 0; i < n_chunks; ++i) {
         const int s = i % n_st;
         if (i >= n_st) mbar_wait(&empty[s], ((i / n_st) - 1) & 1);
         uint8_t* st = smem + s * st_bytes;
         mbar_expect_tx(&full[s], tx);
-        tma_load_2d(st, &tm_dy, &full[s], i * kChunk, m0);
-        Policy::load(st + kDyBytes, &tm_w, &tm_aux0, &tm_aux1, &full[s],
-                     i * kChunk, k0, args);
+        tma_load_2d(st, &tm_act, &full[s], Policy::act_col(i, args), m0);
+        Policy::load(st + kActBytes, &tm_w, &tm_aux0, &tm_aux1, &full[s], i,
+                     c0, args);
       }
     }
   } else {  // consumers
@@ -251,7 +298,7 @@ dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
     const int lane = tid & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const typename Policy::State ps(args, k0, wg, warp, g, t);
+    const typename Policy::State ps(args, c0, wg, warp, g, t);
 
     float acc[kNB][64];
 #pragma unroll
@@ -268,10 +315,10 @@ dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
       mbar_wait(&full[s], (i / n_st) & 1);
       const uint8_t* st = smem + s * st_bytes;
       const float* aux =
-          reinterpret_cast<const float*>(st + kDyBytes + Policy::kWBytes);
+          reinterpret_cast<const float*>(st + kActBytes + Policy::kWBytes);
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        ps.decode(st + kDyBytes, aux, ks, a[P][ks]);
+        ps.decode(st + kActBytes, aux, i, ks, a[P][ks]);
       }
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb)
@@ -284,7 +331,7 @@ dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
 #pragma unroll
         for (int nb = 0; nb < kNB; ++nb)
           // +32 bytes per k16 step inside the swizzle atom, +16 KB per
-          // 128 dy rows
+          // 128 activation rows
           wgmma_m64n128k16_rs(acc[nb], a[P][ks],
                               desc + ((nb * 16384 + ks * 32) >> 4));
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -311,7 +358,7 @@ dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
 #pragma unroll
       for (int r = 0; r < 64; ++r) fence_operand(acc[nb][r]);
 
-    // epilogue: dx^T from the accumulators into a row-major f32 dx tile in
+    // epilogue: out^T from the accumulators into a row-major f32 tile in
     // shared memory (the ring is free once both warpgroups are here)
     consumer_sync();
     float* so = reinterpret_cast<float*>(smem);
@@ -322,33 +369,35 @@ dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int m = nb * 128 + 8 * j + 2 * t + (e & 1);
-          so[m * kOutStride + Policy::k_local(wg, warp, g, e >> 1)] =
+          so[m * kOutStride + Policy::col_local(wg, warp, g, e >> 1)] =
               acc[nb][4 * j + e];
         }
     consumer_sync();
-    // 8 dx columns per thread and step; 16-byte stores where the row allows
-    const int K = args.K;
-    const bool vec = (K % 8) == 0;
-    for (int c = tid; c < kBM * (kTileK / 8); c += kConsumers) {
-      const int r = c / (kTileK / 8);
-      const int kc = (c % (kTileK / 8)) * 8;
+    // 8 output columns per thread and step; 16-byte stores where the row
+    // allows
+    const int C = args.cols;
+    const bool vec = (C % 8) == 0;
+    for (int c = tid; c < kBM * (kTileCols / 8); c += kConsumers) {
+      const int r = c / (kTileCols / 8);
+      const int cc = (c % (kTileCols / 8)) * 8;
       const int m = m0 + r;
-      const int k = k0 + kc;
-      if (m >= args.M || k >= K) continue;
-      const float* src = so + r * kOutStride + kc;
+      const int col = c0 + cc;
+      if (m >= args.M || col >= C) continue;
+      const float* src = so + r * kOutStride + cc;
       const float4 lo = *reinterpret_cast<const float4*>(src);
       const float4 hi = *reinterpret_cast<const float4*>(src + 4);
       const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      const long o = static_cast<long>(m) * K + k;
-      if (vec && k + 8 <= K) {
+      const long o = static_cast<long>(m) * C + col;
+      if (vec && col + 8 <= C) {
         if (args.out_dtype == 0) {
-          auto* p = reinterpret_cast<float4*>(static_cast<float*>(args.dx) + o);
+          auto* p =
+              reinterpret_cast<float4*>(static_cast<float*>(args.out) + o);
           p[0] = lo;
           p[1] = hi;
         } else if (args.out_dtype == 1) {
           uint4 u = {pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
                      pack2(v[6], v[7])};
-          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(args.dx) +
+          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(args.out) +
                                     o) = u;
         } else {
           uint4 u;
@@ -360,19 +409,19 @@ dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
           u.y = *reinterpret_cast<uint32_t*>(&h[1]);
           u.z = *reinterpret_cast<uint32_t*>(&h[2]);
           u.w = *reinterpret_cast<uint32_t*>(&h[3]);
-          *reinterpret_cast<uint4*>(static_cast<__half*>(args.dx) + o) = u;
+          *reinterpret_cast<uint4*>(static_cast<__half*>(args.out) + o) = u;
         }
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          if (k + e >= K) break;
+          if (col + e >= C) break;
           if (args.out_dtype == 1) {
-            static_cast<__nv_bfloat16*>(args.dx)[o + e] =
+            static_cast<__nv_bfloat16*>(args.out)[o + e] =
                 __float2bfloat16_rn(v[e]);
           } else if (args.out_dtype == 2) {
-            static_cast<__half*>(args.dx)[o + e] = __float2half_rn(v[e]);
+            static_cast<__half*>(args.out)[o + e] = __float2half_rn(v[e]);
           } else {
-            static_cast<float*>(args.dx)[o + e] = v[e];
+            static_cast<float*>(args.out)[o + e] = v[e];
           }
         }
       }
@@ -434,18 +483,42 @@ inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// dy (M, N) bf16 in boxes of (kBM rows, kChunk columns), 128-byte swizzle
-inline cudaError_t encode_dy(CUtensorMap* map, const void* dy, int M, int N) {
-  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dy, M, N,
+// a vector of `len` f32 copied in boxes of `box` elements (box * 4 a
+// multiple of 16) from 16-byte-aligned starts (a box at another start
+// faults); out-of-bounds elements read as zeros
+inline cudaError_t encode_1d_f32(CUtensorMap* map, const void* base, long len,
+                                 int box) {
+  EncodeTiledFn fn;
+  const cudaError_t err = encode_tiled_fn(&fn);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(len)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(len) * 4};  // unread
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t unit[1] = {1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                        const_cast<void*>(base), dims, strides, boxes, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the activation (M, red) bf16 in boxes of (kBM rows, kChunk columns),
+// 128-byte swizzle
+inline cudaError_t encode_act(CUtensorMap* map, const void* act, int M,
+                              int red) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, act, M, red,
                    kBM, kChunk, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // the ring as deep as shared memory allows, up to kMaxStages
 template <class Policy>
-inline cudaError_t launch_dx(const CUtensorMap& tm_dy, const CUtensorMap& tm_w,
-                             const CUtensorMap& tm_aux0,
-                             const CUtensorMap& tm_aux1, DxArgs args,
-                             cudaStream_t stream) {
+inline cudaError_t launch_qmm(const CUtensorMap& tm_act,
+                              const CUtensorMap& tm_w,
+                              const CUtensorMap& tm_aux0,
+                              const CUtensorMap& tm_aux1, QmmArgs args,
+                              cudaStream_t stream) {
   constexpr size_t kSmem = 232448 - 1024 - 256;  // less alignment, barriers
   const size_t stage = stage_bytes<Policy>(args.aux_bytes);
   const size_t out = static_cast<size_t>(kBM) * kOutStride * 4;
@@ -454,16 +527,16 @@ inline cudaError_t launch_dx(const CUtensorMap& tm_dy, const CUtensorMap& tm_w,
   if (args.stages < 2 || out > kSmem) return cudaErrorInvalidConfiguration;
   const size_t ring = args.stages * stage;
   const size_t smem = (ring > out ? ring : out) + 1024;  // + alignment
-  const auto kernel = dx_wgmma_kernel<Policy>;
+  const auto kernel = qmm_wgmma_kernel<Policy>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((args.K + kTileK - 1) / kTileK,
+  const dim3 grid((args.cols + kTileCols - 1) / kTileCols,
                   (args.M + kBM - 1) / kBM);
-  kernel<<<grid, kThreads, smem, stream>>>(tm_dy, tm_w, tm_aux0, tm_aux1,
+  kernel<<<grid, kThreads, smem, stream>>>(tm_act, tm_w, tm_aux0, tm_aux1,
                                            args);
   return cudaGetLastError();
 }
 
-}  // namespace dxw
+}  // namespace qmm

@@ -3,7 +3,10 @@
 Port of ``llm_in_practise_tpu/ops/int4_matmul.py``, forward and backward.
 On a CUDA tensor :func:`int4_matmul` (``x @ W``) and
 :func:`int4_matmul_backward` (``dx = dy @ W^T``) launch the hand-written
-Hopper kernels in ``csrc/int4_matmul.cu``, or raise; on a CPU tensor
+Hopper kernels in ``csrc/int4_matmul.cu``, or raise; the forward has two
+kernels, picked by shape (:func:`_route`): the split-K ``mma.sync``
+kernel for decode row counts and the ``wgmma`` mainloop of
+``csrc/qmm_wgmma.cuh`` for prefill and training ones. On a CPU tensor
 they run the plain versions :func:`int4_matmul_reference` and
 :func:`int4_matmul_backward_reference`, which do the same arithmetic
 (bf16 operands, the weight ``(code - zero) * scale`` in f32 rounded once
@@ -13,7 +16,8 @@ kernel to its plain version.
 The weight is a frozen export: :class:`Int4Matmul` differentiates with
 respect to ``x`` only, and only where autograd asks for it.
 ``int4_matmul.launches`` and ``int4_matmul_backward.launches`` count the
-kernel launches.
+kernel launches, and ``int4_matmul.launches_by_route`` the forward's by
+route.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from llm_in_practise_tpu_torch.ops import _build
 from llm_in_practise_tpu_torch.ops.nf4_matmul import (
     _OUT_CODES,
+    _aligned,
     _sm_count,
     split_k_for,
 )
@@ -74,13 +79,6 @@ def _check_weight(t: Int4Tensor, device: torch.device, what: str
     return k, n, n_groups
 
 
-def _aligned(a: torch.Tensor) -> torch.Tensor:
-    """``a`` contiguous at a 16-byte aligned address (the kernels' 16-byte
-    copies need it)."""
-    a = a.contiguous()
-    return a if a.data_ptr() % 16 == 0 else a.clone()
-
-
 def _error(lib, err: int, what: str, **shape) -> RuntimeError:
     msg = lib.int4_cuda_error_string(err).decode()
     dims = ", ".join(f"{k}={v}" for k, v in shape.items())
@@ -98,7 +96,34 @@ def int4_matmul(x: torch.Tensor, t: Int4Tensor, out_dtype=None
     return _forward(x, t, out_dtype)
 
 
-def _forward(x: torch.Tensor, t: Int4Tensor, out_dtype=None) -> torch.Tensor:
+# The forward's smallest row count on the wgmma route, from chip_smoke's
+# crossover table (one layer's 7 Qwen3-8B projections, NVIDIA H100 80GB
+# HBM3, 700 W): the split-K kernel wins at M = 16 and 64, ties at 128
+# (0.524 against 0.535 ms), and loses from 256 up (0.906 against 0.537 ms
+# at 256, 23.1 against 5.32 ms at 8192).
+WGMMA_MIN_M = 256
+
+
+def _wgmma_shape(k: int, n: int, gs: int) -> bool:
+    """Whether the wgmma forward takes the shape: TMA row strides of 2K (x),
+    N (codes) and 4N (scales, zeros) bytes in 16-byte multiples, and whole
+    group rows per 64-row stage."""
+    return k % 8 == 0 and n % 16 == 0 and (gs % 64 == 0 or 64 % gs == 0)
+
+
+def _route(m: int, k: int, n: int, gs: int) -> str:
+    """The forward kernel for ``(m, k) @ (k, n)`` at group size ``gs``:
+    "wgmma" (``qmm_wgmma_kernel<Int4Fwd>``) for the shapes it takes at
+    ``m >= WGMMA_MIN_M``, else "splitk" (``int4_matmul_kernel``, split
+    over K)."""
+    return "wgmma" if m >= WGMMA_MIN_M and _wgmma_shape(k, n, gs) \
+        else "splitk"
+
+
+def _forward(x: torch.Tensor, t: Int4Tensor, out_dtype=None,
+             route: str | None = None) -> torch.Tensor:
+    """The forward; ``route`` overrides :func:`_route` (to time both
+    kernels at one shape)."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return int4_matmul_reference(x, t, out_dtype)
@@ -109,32 +134,47 @@ def _forward(x: torch.Tensor, t: Int4Tensor, out_dtype=None) -> torch.Tensor:
     k, n, n_groups = _check_weight(t, x.device, "int4_matmul")
     if x.shape[-1] != k:
         raise ValueError(f"x has K={x.shape[-1]}, weight has K={k}")
+    gs = t.group_size
     lead = x.shape[:-1]
     x2 = _aligned(x.reshape(-1, k).to(torch.bfloat16))
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
+    route = route or _route(m, k, n, gs)
+    if route == "wgmma" and not _wgmma_shape(k, n, gs):
+        raise ValueError(f"the wgmma forward needs K % 8 == 0, N % 16 == 0 "
+                         f"and gs % 64 == 0 or 64 % gs == 0; got shape "
+                         f"{tuple(t.shape)} with group_size {gs}")
     packed, scales, zeros = (_aligned(a) for a in (t.packed, t.scales,
                                                    t.zeros))
-    split = split_k_for(m, k, n, _sm_count(x.device.index))
-    ws = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
-          if split > 1 else out)
     lib = _build.load("int4_matmul")
+    split = 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.int4_matmul_launch(
-            x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-            zeros.data_ptr(), out.data_ptr(), ws.data_ptr(), m, k, n,
-            t.group_size, n_groups, split, _OUT_CODES[out_dtype], stream)
+        if route == "wgmma":
+            err = lib.int4_matmul_wgmma_launch(
+                x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                zeros.data_ptr(), out.data_ptr(), m, k, n, gs, n_groups,
+                _OUT_CODES[out_dtype], stream)
+        else:
+            split = split_k_for(m, k, n, _sm_count(x.device.index))
+            ws = (torch.empty((split, m, n), dtype=torch.float32,
+                              device=x.device) if split > 1 else out)
+            err = lib.int4_matmul_launch(
+                x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                zeros.data_ptr(), out.data_ptr(), ws.data_ptr(), m, k, n,
+                gs, n_groups, split, _OUT_CODES[out_dtype], stream)
     if err != 0:
-        raise _error(lib, err, "int4_matmul", m=m, k=k, n=n,
-                     group_size=t.group_size, split_k=split)
+        raise _error(lib, err, f"int4_matmul ({route})", m=m, k=k, n=n,
+                     group_size=gs, split_k=split)
     int4_matmul.launches += 1
+    int4_matmul.launches_by_route[route] += 1
     return out.reshape(*lead, n)
 
 
 int4_matmul.launches = 0
+int4_matmul.launches_by_route = {"wgmma": 0, "splitk": 0}
 
 
 def int4_matmul_backward(dy: torch.Tensor, t: Int4Tensor, out_dtype=None

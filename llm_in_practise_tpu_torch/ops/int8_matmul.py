@@ -22,9 +22,9 @@ from __future__ import annotations
 import torch
 
 from llm_in_practise_tpu_torch.ops import _build
-from llm_in_practise_tpu_torch.ops.int4_matmul import _aligned
 from llm_in_practise_tpu_torch.ops.nf4_matmul import (
     _OUT_CODES,
+    _aligned,
     _sm_count,
     split_k_for,
 )

@@ -3,7 +3,8 @@
 Port of ``llm_in_practise_tpu/ops/nf4_matmul.py``, forward and backward.
 On a CUDA tensor :func:`nf4_matmul` launches the hand-written Hopper
 kernel in ``csrc/nf4_matmul.cu`` and :func:`nf4_matmul_backward` the one
-in ``csrc/nf4_matmul_bwd.cu`` (``dx = dy @ dequant(W)^T``), or raise; on a
+in ``csrc/nf4_matmul_bwd.cu`` (``dx = dy @ dequant(W)^T``, on the shared
+wgmma mainloop ``csrc/qmm_wgmma.cuh``), or raise; on a
 CPU tensor they run the plain versions :func:`nf4_matmul_reference` and
 :func:`nf4_matmul_backward_reference`, which do the same arithmetic (bf16
 operands, f32 sums) in plain tensor ops. There is no fallback from a
@@ -50,6 +51,13 @@ def split_k_for(m: int, k: int, n: int, sm_count: int) -> int:
     return max(1, min(math.ceil(target / blocks), (k // _BK) // 4))
 
 
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a`` contiguous at a 16-byte aligned address (the kernels' 16-byte
+    copies and TMA descriptors need it)."""
+    a = a.contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -75,8 +83,11 @@ def _check_weight(t: NF4Tensor, device: torch.device, what: str
     if (t.absmax_scale.dtype != torch.float32
             or t.absmax_offset.dtype != torch.float32):
         raise TypeError("absmax_scale and absmax_offset must be float32")
-    if tuple(t.packed.shape) != (k, n // 2) or t.absmax_q.numel() != k // _BK * n:
-        raise ValueError("packed/absmax_q sizes do not match the shape")
+    if (tuple(t.packed.shape) != (k, n // 2)
+            or t.absmax_q.numel() != k // _BK * n
+            or t.absmax_scale.numel() != -(-(k // _BK * n) // nf4.SCALE_BLOCK)):
+        raise ValueError(
+            "packed/absmax_q/absmax_scale sizes do not match the shape")
     return k, n
 
 
@@ -173,16 +184,13 @@ def nf4_matmul_backward(dy: torch.Tensor, t: NF4Tensor,
         raise TypeError(f"unsupported out_dtype {out_dtype}")
     k, n = _check_backward(dy, t)
     lead = dy.shape[:-1]
-    dy2 = dy.reshape(-1, n).to(torch.bfloat16).contiguous()
-    if dy2.data_ptr() % 16:
-        dy2 = dy2.clone()
+    dy2 = _aligned(dy.reshape(-1, n).to(torch.bfloat16))
     m = dy2.shape[0]
     dx = torch.empty((m, k), dtype=out_dtype, device=dy.device)
     if m == 0:
         return dx.reshape(*lead, k)
-    packed = t.packed.contiguous()
-    absmax_q = t.absmax_q.contiguous()
-    absmax_scale = t.absmax_scale.contiguous()
+    packed, absmax_q, absmax_scale = (
+        _aligned(a) for a in (t.packed, t.absmax_q, t.absmax_scale))
     offset = t.absmax_offset.reshape(1).contiguous()
     lib = _build.load("nf4_matmul_bwd")
     with torch.cuda.device(dy.device):

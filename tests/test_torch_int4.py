@@ -199,3 +199,58 @@ def test_cuda_path_refuses_odd_shapes(k, gs, match):
     t = port_int4.rtn_quantize(w, group_size=gs)
     with pytest.raises(ValueError, match=match):
         port_mm._check_weight(t, torch.device("cpu"), "int4_matmul")
+
+
+def _chip_smoke():
+    """chip_smoke.py's module (its top level imports only the standard
+    library), for the shapes it runs on the card."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (M, K, N, group size) -> the forward kernel chip_smoke's shapes take
+_ROUTES = {
+    # decode and the crossover table's split-K side
+    (1, 4096, 4096, 128): "splitk", (8, 4096, 12288, 128): "splitk",
+    (8, 12288, 4096, 128): "splitk", (16, 4096, 1024, 128): "splitk",
+    (64, 4096, 4096, 128): "splitk", (128, 12288, 4096, 128): "splitk",
+    (17, 4096, 4096, 128): "splitk", (255, 4096, 4096, 128): "splitk",
+    # from WGMMA_MIN_M up: prefill, the int4 step (2 x 1024 rows), training
+    (256, 4096, 4096, 128): "wgmma", (512, 4096, 1024, 128): "wgmma",
+    (1024, 4096, 12288, 128): "wgmma", (2048, 12288, 4096, 128): "wgmma",
+    (8192, 4096, 4096, 32): "wgmma", (8191, 4096, 4096, 128): "wgmma",
+    # ragged shapes: K 96 at gs 32, N 48 and 1040 take wgmma; K 10 (2K
+    # bytes no 16-byte multiple) stays on split-K
+    (333, 4096, 4096, 128): "wgmma",
+    (333, 96, 4096, 32): "wgmma", (333, 4096, 48, 128): "wgmma",
+    (333, 4096, 1040, 128): "wgmma", (333, 10, 4096, 2): "splitk",
+    # shapes the wgmma forward does not take, at any M
+    (8192, 4096, 40, 128): "splitk", (8192, 4100, 4096, 128): "splitk",
+    (8192, 4096, 4096, 96): "splitk", (8192, 4096, 4096, 2): "wgmma",
+}
+
+
+@pytest.mark.parametrize("m,k,n,gs", sorted(_ROUTES))
+def test_route_table(m, k, n, gs):
+    assert port_mm._route(m, k, n, gs) == _ROUTES[(m, k, n, gs)]
+
+
+def test_route_table_covers_the_chip_smoke_shapes():
+    cs = _chip_smoke()
+    assert port_mm.WGMMA_MIN_M == 256
+    shapes = set(cs.PROJ_SHAPES.values())
+    for m in cs.CHECK_M + cs.CROSSOVER_M + cs.PTQ_CHECK_M:
+        for k, n in shapes:
+            want = "wgmma" if m >= port_mm.WGMMA_MIN_M else "splitk"
+            assert port_mm._route(m, k, n, cs.INT4_GS) == want, (m, k, n)
+    # every ragged forward shape is in the table above
+    assert set(cs.FWD_EDGE_SHAPES) <= set(_ROUTES)
+    assert port_mm._route(cs.STEP_BATCH * cs.TRAIN_SEQ, 4096, 4096,
+                          cs.INT4_GS) == "wgmma"

@@ -32,19 +32,32 @@ def _close(got, want):
     assert np.max(np.abs(got - want)) <= REL * np.max(np.abs(want))
 
 
-@pytest.mark.parametrize("m,k,n", [(128, 256, 512), (256, 512, 256)])
+@pytest.mark.parametrize("m,k,n", [(128, 256, 512), (256, 512, 256),
+                                   (33, 192, 192), (17, 256, 320)])
 def test_backward_matches_jax_kernel(m, k, n):
+    """The Pallas kernel where its ``_plan`` takes the shape; where it does
+    not (N % 128 == 64: N/2 is no multiple of 128, the shapes on which the
+    CUDA kernel's last high-half stage straddles into the low half), the
+    JAX package's fallback, ``dy @ dequantize(t)^T`` in dy's dtype. The
+    fallback multiplies an f32 dy, so dy is given in bf16 values there:
+    the port's dx takes bf16 operands, as the kernel does."""
     rng = np.random.default_rng(10)
     w = rng.normal(0, 0.02, (k, n)).astype(np.float32)
     dy = rng.normal(0, 1, (m, n)).astype(np.float32)
     jt = jax_nf4.quantize(w)
     plan = _plan(jt, None, m)
-    assert plan is not None  # the Pallas kernel, not the dequant fallback
-    bm, bnh, bk = plan
-    packed, absmax3 = _layout_arrays(jt)
-    want = np.asarray(_call_bwd(jnp.asarray(dy), packed, absmax3, bm=bm,
-                                bnh=bnh, bk=bk, out_dtype=jnp.float32,
-                                interpret=True))
+    assert (plan is None) == (n % 128 == 64)
+    if plan is None:
+        dy = torch.from_numpy(dy).to(torch.bfloat16).float().numpy()
+        _, vjp = jax.vjp(lambda a: jax_nf4_matmul(a, jt),
+                         jnp.zeros((m, k), jnp.float32))
+        want = np.asarray(vjp(jnp.asarray(dy))[0])
+    else:
+        bm, bnh, bk = plan
+        packed, absmax3 = _layout_arrays(jt)
+        want = np.asarray(_call_bwd(jnp.asarray(dy), packed, absmax3, bm=bm,
+                                    bnh=bnh, bk=bk, out_dtype=jnp.float32,
+                                    interpret=True))
     t = _carry(jt)
     _close(port_mm.nf4_matmul_backward_reference(
         torch.from_numpy(dy), t, torch.float32).numpy(), want)
@@ -52,6 +65,8 @@ def test_backward_matches_jax_kernel(m, k, n):
     x = torch.zeros(m, k, requires_grad=True)
     port_mm.nf4_matmul(x, t).backward(torch.from_numpy(dy))
     _close(x.grad.numpy(), want)
+    # the CUDA kernel takes the shape (K % 64 == 0, N % 64 == 0)
+    assert port_mm._check_backward(torch.zeros(m, n), t) == (k, n)
 
 
 def test_autograd_matches_jax_vjp():
