@@ -8,23 +8,25 @@ Phases, in order; any failure exits non-zero:
 1. Identify the card (``nvidia-smi`` name and power limit).
 2. Build every CUDA kernel of the port from ``llm_in_practise_tpu_torch/csrc``
    (one nvcc per source, all started together).
-3. Check the NF4 forward kernel against its plain PyTorch version on the
-   card at the shapes the serving path gives it, and time kernel, plain
-   version and one library call (CUDA events, L2 flushed before every
+3. Check the NF4 forward kernels against their plain PyTorch version on
+   the card at the shapes the serving path gives them, and time kernel,
+   plain version and one library call (CUDA events, L2 flushed before every
    launch).
 4. The same for the int4 (W4A16) and int8 (W8A16) kernels, forward and
    backward: every Qwen3-8B projection shape, M in {1, 8, 512, 8192} for
    the forwards and M = 8192 for all four; int4 symmetric with group size
    128 (GPTQModel's ``bits=4, group_size=128``) and asymmetric with group
    size 32 and fractional zeros (AWQ's grid). A planted fault (one group's
-   scale zeroed in a copy of the weight) must read as a failure, on both
-   int4 forward routes. The dx kernels and both int4 forward routes also
-   run at ragged shapes (``DX_EDGE_SHAPES``, ``FWD_EDGE_SHAPES``: M, K and
-   N off their tiles, int4 group sizes 32 and 2), and every launch of a dx
-   kernel or an int4 forward is repeated and must give the same bytes.
-   Then the int4 forward's crossover table: both routes (split-K and the
-   wgmma mainloop) on one layer's 7 projections at ``CROSSOVER_M``, beside
-   the row count from which ``ops/int4_matmul.py::_route`` takes wgmma.
+   scale, or for int8 a block of columns' or at M = 8192 one column's
+   scale, zeroed in a copy of the weight) must read as a failure, on both
+   forward routes. The dx kernels and both forward routes of int4 and
+   int8 also run at ragged shapes (``DX_EDGE_SHAPES``, ``FWD_EDGE_SHAPES``,
+   ``INT8_FWD_EDGE_SHAPES``: M, K and N off their tiles, int4 group sizes
+   32 and 2), and every launch of a dx kernel or a forward is repeated and
+   must give the same bytes. Then the forward crossover tables of NF4,
+   int4 and int8: both routes (split-K and the wgmma mainloop) on one
+   layer's 7 projections at ``CROSSOVER_M``, beside the row count from
+   which each wrapper's ``_route`` takes wgmma.
 5. Serve: a Qwen3-8B-width model (hidden 4096, inter 12288, 32/8 heads,
    head_dim 128, vocab 151936, tied embeddings) with random weights from a
    seeded generator, every block projection quantized on the card (NF4,
@@ -36,9 +38,11 @@ Phases, in order; any failure exits non-zero:
    ``_route`` picks for each pass's row count). Then whole-model logits of
    an AWQ model (2 layers), kernels against plain versions.
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
-   Qwen3-8B projection shape (the backward also at ragged shapes,
-   ``NF4_DX_EDGE_SHAPES``, every launch repeated for the same bytes, and
-   with a planted zeroed absmax block that must read as a failure), and
+   Qwen3-8B projection shape (both also at ragged shapes,
+   ``NF4_FWD_EDGE_SHAPES`` on both forward routes and
+   ``NF4_DX_EDGE_SHAPES``, every launch repeated for the same bytes, with
+   a planted zeroed absmax block that must read as a failure, and the
+   forward on a weight whose arrays start off 16-byte alignment), and
    the three flash kernels (forward, dK/dV, dQ) at batch 8 x 1024 tokens,
    32/8 heads, plus a ragged length, each against its plain version (the
    flash outputs tile by tile, and a planted zeroed dV tile must read as a
@@ -46,14 +50,15 @@ Phases, in order; any failure exits non-zero:
 7. Whole step: one QLoRA step at full width, 2 layers, batch 2 x 1024,
    over an NF4, an int4 and an int8 base, with the kernels and again with
    every kernel swapped for its plain version; the loss and every LoRA
-   gradient must agree, and each kernel's launches must equal the count
-   derived from the model.
+   gradient must agree, and each kernel's launches (the forwards' per
+   route) must equal the count derived from the model.
 8. Train: QLoRA on Qwen3-8B (36 layers, NF4 base, LoRA r 8 on q/v_proj,
    remat on every block, fused cross-entropy over the tied embedding,
    AdamW lr 1e-4), batch 8 x 1024 random tokens: one warm-up step, then
    timed steps with the launch counters zeroed before and read after;
    every kernel's launches per step must equal the count derived from
-   the model, and one more step is profiled.
+   the model (every NF4 forward on the wgmma route), and one more step is
+   profiled.
 9. Print the kernel summary (all nine kernels), the card, and the final
    status line.
 
@@ -145,19 +150,42 @@ FWD_EDGE_SHAPES = ((17, 4096, 4096, INT4_GS), (333, 4096, 4096, INT4_GS),
                    (8191, 4096, 4096, INT4_GS), (333, 96, 4096, 32),
                    (333, 10, 4096, 2), (333, 4096, 48, INT4_GS),
                    (333, 4096, 1040, INT4_GS))
+# ragged shapes for the NF4 forward, both routes where the wgmma one takes
+# the shape (M, K, N): M below the route threshold (17) and off the 256-row
+# tile (333, 8191), a single 64-row stage (K = 64), N/2 % 64 == 32 (192:
+# the last block's byte columns past N/2 are dropped), a low-half absmax run
+# across a 256-value scale block (1088), and N % 32 != 0 (200), which only
+# the split-K kernel takes
+NF4_FWD_EDGE_SHAPES = ((17, 4096, 4096), (333, 4096, 4096),
+                       (8191, 4096, 4096), (333, 64, 4096), (333, 4096, 192),
+                       (333, 4096, 1088), (333, 4096, 200))
+# the same for the int8 forward: K off the 64-row stage (96), N off the
+# 128-column tile (48, and 1040 = 8 tiles + 16 columns), and K = 10 (2K
+# bytes no 16-byte multiple), which only the split-K kernel takes
+INT8_FWD_EDGE_SHAPES = ((333, 4096, 4096), (8191, 4096, 4096),
+                        (333, 96, 4096), (333, 4096, 48), (333, 4096, 1040),
+                        (333, 10, 4096))
 # ragged shapes for the NF4 dx kernel (M, K, N): K off the 128-column tile
 # (192), N/2 off the 64-column stage (N = 192 and 1088: the last high-half
 # stage straddles into the low half, and a 64-column absmax run crosses a
 # 256-value scale block), M off the 256-row tile
 NF4_DX_EDGE_SHAPES = ((17, 4096, 4096), (8191, 4096, 4096), (333, 192, 4096),
                       (333, 4096, 192), (333, 4096, 1088), (33, 192, 192))
-# the int4 forward's crossover table: both routes at these row counts
+# the forward crossover tables (NF4, int4, int8): both routes at these row
+# counts
 CROSSOVER_M = (16, 64, 128, 256, 512, 1024, 8192)
-# readings of the kernels this run replaces, per layer's 7 projections at
-# M = 8192 (PERF.md, mma.sync designs; NVIDIA H100 80GB HBM3, 700 W):
-# printed beside this run's times, never measured here
-EARLIER_MS = {"nf4_matmul_backward": 20.85, "int4_matmul": 22.95}
+FWD_FORMATS = ("nf4", "int4", "int8")
+# readings of the kernels the wgmma routes replaced, per layer's 7
+# projections at M = 8192 (PERF.md, mma.sync designs; NVIDIA H100 80GB HBM3,
+# 700 W): printed beside this run's times, never measured here
+EARLIER_MS = {"nf4_matmul": 18.86, "nf4_matmul_backward": 20.85,
+              "int4_matmul": 22.95, "int8_matmul": 18.48}
 AWQ_LAYERS = 2
+# each kernel's entries in the ptxas report (qmm_resources)
+PTXAS_LABELS = {"nf4_matmul": ("Nf4Fwd",), "nf4_matmul_backward": ("Nf4Dx",),
+                "int4_matmul": ("Int4Fwd",), "int4_matmul_backward": ("Int4Dx",),
+                "int8_matmul": ("Int8Fwd",),
+                "int8_matmul_backward": ("Int8Dx", "int8_scale_dy_kernel")}
 
 
 def log(*args):
@@ -215,21 +243,44 @@ def matmul_bound(m: int, k: int, n: int, wbytes: int
 
 def qmm_resources() -> dict:
     """Registers, spills and shared memory of the kernels on the wgmma
-    mainloop (B2, B6's wgmma route, B7, B9) and B9's scaling pass, as
-    ptxas reported them in this process's build."""
+    mainloop (B1's, B6's and B8's wgmma routes, B2, B7, B9) and B9's
+    scaling pass, as ptxas reported them in this process's build, and
+    whether ptxas warned C7515 (wgmma serialized) for each."""
     from llm_in_practise_tpu_torch.ops import _build
 
-    labels = ("Int4Fwd", "Int4Dx", "Int8Dx", "Nf4Dx", "int8_scale_dy_kernel")
+    labels = ("Nf4Fwd", "Int4Fwd", "Int8Fwd", "Int4Dx", "Int8Dx", "Nf4Dx",
+              "int8_scale_dy_kernel")
     out = {}
-    for src in ("int4_matmul", "int8_matmul", "nf4_matmul_bwd"):
+    for src in ("nf4_matmul", "int4_matmul", "int8_matmul",
+                "nf4_matmul_bwd"):
         entry = None
         for line in _build.ptxas_log.get(src, "").splitlines():
-            if "Compiling entry function" in line:
-                entry = next((lab for lab in labels if lab in line), None)
+            named = next((lab for lab in labels if lab in line), None)
+            if "C7515" in line and named:
+                out.setdefault(named, {"ptxas": [], "c7515": False})
+                out[named]["c7515"] = True
+            elif "Compiling entry function" in line:
+                entry = named
             elif entry and ("spill" in line or "Used" in line):
-                out.setdefault(entry, []).append(line.split(":", 1)[-1]
-                                                 .strip())
-    return {k: "; ".join(v) for k, v in out.items()}
+                out.setdefault(entry, {"ptxas": [], "c7515": False})
+                out[entry]["ptxas"].append(line.split(":", 1)[-1].strip())
+    return {k: {"ptxas": "; ".join(v["ptxas"]), "c7515": v["c7515"]}
+            for k, v in out.items()}
+
+
+def fwd_op(fmt: str):
+    """A forward format's wrapper module, its plain version and its route
+    for (m, k, n) (int4 at ``INT4_GS``)."""
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+    from llm_in_practise_tpu_torch.ops import int8_matmul as i8
+    from llm_in_practise_tpu_torch.ops import nf4_matmul as nm
+
+    if fmt == "nf4":
+        return nm, nm.nf4_matmul_reference, nm._route
+    if fmt == "int8":
+        return i8, i8.int8_matmul_reference, i8._route
+    return (i4, i4.int4_matmul_reference,
+            lambda m, k, n: i4._route(m, k, n, INT4_GS))
 
 
 def check_nf4_kernel(seed: int) -> dict:
@@ -237,6 +288,7 @@ def check_nf4_kernel(seed: int) -> dict:
     import torch
 
     from llm_in_practise_tpu_torch.ops.nf4_matmul import (
+        _route,
         nf4_matmul,
         nf4_matmul_reference,
         split_k_for,
@@ -264,7 +316,7 @@ def check_nf4_kernel(seed: int) -> dict:
                 m, k, n, weight_bytes("nf4", k, n))
             row = {
                 "kernel": "nf4_matmul", "M": m, "K": k, "N": n,
-                "split_k": split_k_for(m, k, n, sms),
+                "route": _route(m, k, n), "split_k": split_k_for(m, k, n, sms),
                 "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
                 "tol": f"{KERNEL_TOL} * max|plain| (summation order; bf16 "
                        "output rounding)",
@@ -376,12 +428,14 @@ def check_ptq_kernels(seed: int, flush) -> dict:
     gen.manual_seed(seed + 6)
     rows = {}
 
+    fwd_mod = {"int4_matmul": i4, "int8_matmul": i8}
+
     def check(kernel, case, fn, plain, lib, inp, t, wbytes, k, n, planted,
               edge=False, route=None):
         m = inp.shape[0]
-        if route is not None:  # an int4 forward route forced (edge shapes)
+        if route is not None:  # a forward route forced (edge shapes)
             def fn(a, w, dtype):
-                return i4._forward(a, w, dtype, route=route)
+                return fwd_mod[kernel]._forward(a, w, dtype, route=route)
         out = fn(inp, t, torch.bfloat16)
         ref = plain(inp, t, torch.bfloat16)
         torch.cuda.synchronize()
@@ -393,13 +447,13 @@ def check_ptq_kernels(seed: int, flush) -> dict:
                       "output rounding)"}
         if kernel == "int4_matmul":
             row["route"] = route or i4._route(m, k, n, t.group_size)
-        if kernel.endswith("_backward") or kernel == "int4_matmul":
-            # deterministic: each output element is reduced in one block (or
-            # its split-K partials summed) in a fixed order, so a second
-            # launch gives the same bytes
-            row["repeat_equal"] = torch.equal(out, fn(inp, t,
-                                                      torch.bfloat16))
-            ok = ok and row["repeat_equal"]
+        elif kernel == "int8_matmul":
+            row["route"] = route or i8._route(m, k, n)
+        # deterministic: each output element is reduced in one block (or
+        # its split-K partials summed) in a fixed order, so a second launch
+        # gives the same bytes
+        row["repeat_equal"] = torch.equal(out, fn(inp, t, torch.bfloat16))
+        ok = ok and row["repeat_equal"]
         if not edge:
             bound_ms, bound_by, nbytes = matmul_bound(m, k, n, wbytes)
             iters = (10, 3) if m == TRAIN_M else (20, 5)
@@ -416,7 +470,8 @@ def check_ptq_kernels(seed: int, flush) -> dict:
         row["ok"] = ok
         if planted is not None:
             # the check must see a fault: one group's (or, for int8, one
-            # block of columns') scale zeroed in a copy of the weight
+            # block of columns' or one column's) scale zeroed in a copy of
+            # the weight
             bad = fn(inp, planted, torch.bfloat16)
             row["planted_zero_scale_rel_err"] = _rel(bad, ref)[1]
             ok = row["ok"] = ok and row["planted_zero_scale_rel_err"] > \
@@ -443,6 +498,8 @@ def check_ptq_kernels(seed: int, flush) -> dict:
         q8 = t8.q.to(torch.bfloat16)
         bad8 = dataclasses.replace(t8, scale=t8.scale.clone())
         bad8.scale[:64] = 0
+        bad8_col = dataclasses.replace(t8, scale=t8.scale.clone())
+        bad8_col.scale[0] = 0
         for m in PTQ_CHECK_M:
             x = torch.randn(m, k, device=dev, generator=gen).to(
                 torch.bfloat16)
@@ -462,7 +519,8 @@ def check_ptq_kernels(seed: int, flush) -> dict:
                   i8.int8_matmul_reference,
                   lambda: torch.matmul(x, q8) * t8.scale, x, t8,
                   weight_bytes("int8", k, n), k, n,
-                  bad8 if plant and m == MAX_SLOTS else None)
+                  None if not plant else bad8 if m == MAX_SLOTS
+                  else bad8_col if m == TRAIN_M else None)
             del x
         dy = torch.randn(TRAIN_M, n, device=dev, generator=gen).to(
             torch.bfloat16)
@@ -481,7 +539,7 @@ def check_ptq_kernels(seed: int, flush) -> dict:
               i8.int8_matmul_backward_reference,
               lambda: torch.matmul(dy, w8.T), dy, t8,
               weight_bytes("int8", k, n), k, n, bad8 if plant else None)
-        del dy, t8, w8, q8, bad8, int4_cases
+        del dy, t8, w8, q8, bad8, bad8_col, int4_cases
     # B7 and B9 at ragged shapes: M, K and N edges of the tiles (TMA's zero
     # fill and the guarded stores), group sizes down to 2
     for m, k, n, gs in DX_EDGE_SHAPES:
@@ -511,28 +569,37 @@ def check_ptq_kernels(seed: int, flush) -> dict:
                       i4.int4_matmul_reference, None, x, t, 0, k, n, None,
                       edge=True, route=route)
         del w, x, cases
+    # B8 at ragged shapes on both routes (wgmma where it takes the shape)
+    for m, k, n in INT8_FWD_EDGE_SHAPES:
+        t = int8.quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02)
+        x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+        for route in ("splitk", "wgmma"):
+            if route == "wgmma" and not i8._wgmma_shape(k, n):
+                continue
+            check("int8_matmul", f"per_channel@{route}", None,
+                  i8.int8_matmul_reference, None, x, t, 0, k, n, None,
+                  edge=True, route=route)
+        del t, x
     return rows
 
 
-def int4_crossover(seed: int, flush) -> dict:
-    """Both int4 forward routes on one layer's 7 Qwen3-8B projections
-    (symmetric, group size 128) at every row count of ``CROSSOVER_M``:
-    device times summed over the layer (L2 flushed before each launch),
-    every launch held to its plain version. ``measured_from_M`` is the
-    smallest row count from which the wgmma route is faster at every
-    larger one in the table; ``_route`` takes wgmma from
-    ``WGMMA_MIN_M``."""
+def fwd_crossover(fmt: str, seed: int, flush) -> dict:
+    """Both forward routes of ``fmt`` (NF4, int4 symmetric with group size
+    128, or int8) on one layer's 7 Qwen3-8B projections at every row count
+    of ``CROSSOVER_M``: device times summed over the layer (L2 flushed
+    before each launch), every launch held to its plain version.
+    ``measured_from_M`` is the smallest row count from which the wgmma
+    route is faster at every larger one in the table; the wrapper's
+    ``_route`` takes wgmma from its ``WGMMA_MIN_M``."""
     import torch
 
-    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
-    from llm_in_practise_tpu_torch.quant import int4
-
+    mod, plain, route_of = fwd_op(fmt)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(seed + 7)
-    weights = {kn: int4.rtn_quantize(
-        torch.randn(*kn, device=dev, generator=gen) * 0.02,
-        group_size=INT4_GS) for kn in sorted(set(PROJ_SHAPES.values()))}
+    gen.manual_seed(seed + {"int4": 7, "nf4": 10, "int8": 11}[fmt])
+    weights = {kn: quantize_weight(
+        fmt, torch.randn(*kn, device=dev, generator=gen) * 0.02)
+        for kn in sorted(set(PROJ_SHAPES.values()))}
     table = []
     for m in CROSSOVER_M:
         xs = {k: torch.randn(m, k, device=dev, generator=gen).to(
@@ -541,24 +608,24 @@ def int4_crossover(seed: int, flush) -> dict:
         worst = 0.0
         for k, n in PROJ_SHAPES.values():
             t, x = weights[(k, n)], xs[k]
-            ref = i4.int4_matmul_reference(x, t, torch.bfloat16)
+            ref = plain(x, t, torch.bfloat16)
             for route in ms:
                 def run(route=route, x=x, t=t):
-                    return i4._forward(x, t, torch.bfloat16, route=route)
+                    return mod._forward(x, t, torch.bfloat16, route=route)
 
                 out = run()
                 rel = _rel(out, ref)[1]
                 if not bool(torch.isfinite(out).all()) or rel > KERNEL_TOL:
-                    raise SystemExit(f"int4_matmul ({route}) disagrees with "
-                                     f"its plain version at M={m} K={k} "
-                                     f"N={n}: {rel}")
+                    raise SystemExit(f"{fmt} forward ({route}) disagrees "
+                                     f"with its plain version at M={m} "
+                                     f"K={k} N={n}: {rel}")
                 worst = max(worst, rel)
                 ms[route] += time_ms(run, 5 if m == TRAIN_M else 10, flush)
             del ref
         row = {"M": m, "wgmma_ms": ms["wgmma"], "splitk_ms": ms["splitk"],
                "faster": min(ms, key=ms.get), "max_rel_err": worst,
-               "routed": i4._route(m, *PROJ_SHAPES["q_proj"], INT4_GS)}
-        log("int4 crossover:", json.dumps(row))
+               "routed": route_of(m, *PROJ_SHAPES["q_proj"])}
+        log(f"{fmt} crossover:", json.dumps(row))
         table.append(row)
         del xs
     measured = None
@@ -566,9 +633,24 @@ def int4_crossover(seed: int, flush) -> dict:
         if row["faster"] != "wgmma":
             break
         measured = row["M"]
-    return {"at": "one layer's 7 projections, sym g128", "table": table,
-            "measured_from_M": measured, "route_from_M": i4.WGMMA_MIN_M,
+    at = "sym g128" if fmt == "int4" else "kblock" if fmt == "nf4" \
+        else "per-channel"
+    return {"at": f"one layer's 7 projections, {fmt} {at}", "table": table,
+            "measured_from_M": measured, "route_from_M": mod.WGMMA_MIN_M,
             "route_agrees": all(r["routed"] == r["faster"] for r in table)}
+
+
+def edge_summary(rows: dict, kernel: str) -> dict:
+    """A kernel's ragged-shape checks and whether every one of its launches
+    repeated to the same bytes."""
+    return {
+        "edge_shapes": [
+            {f: r.get(f) for f in ("case", "M", "K", "N", "max_rel_err",
+                                   "repeat_equal")}
+            for key, r in rows.items()
+            if key[0] == "edge" and r["kernel"] == kernel],
+        "repeat_equal_all": all(r["repeat_equal"] for r in rows.values()
+                                if r["kernel"] == kernel)}
 
 
 def ptq_summary(rows: dict, kernel: str, case: str, m: int) -> dict:
@@ -577,19 +659,9 @@ def ptq_summary(rows: dict, kernel: str, case: str, m: int) -> dict:
     bytes."""
     step = [rows[(kernel, case, m, k, n)] for k, n in PROJ_SHAPES.values()]
     what = "decode step" if m == MAX_SLOTS else "training"
-    extra = {}
-    if kernel.endswith("_backward") or kernel == "int4_matmul":
-        extra["edge_shapes"] = [
-            {f: r[f] for f in ("case", "M", "K", "N", "max_rel_err",
-                               "repeat_equal")}
-            for key, r in rows.items()
-            if key[0] == "edge" and r["kernel"] == kernel]
-        extra["repeat_equal_all"] = all(
-            r["repeat_equal"] for r in rows.values() if r["kernel"] == kernel)
-    if kernel == "int4_matmul":
-        extra["route"] = step[0]["route"]
-        if "product_ms" in step[0]:  # B9: the product without the scaling
-            extra["product_ms"] = sum(r["product_ms"] for r in step)
+    extra = edge_summary(rows, kernel)
+    if "product_ms" in step[0]:  # B9: the product without the scaling
+        extra["product_ms"] = sum(r["product_ms"] for r in step)
     return {
         **extra,
         "at": f"one layer's 7 projections at M={m} ({what}), {case}",
@@ -775,7 +847,7 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
         return req
 
     engine.submit = recording_submit
-    prefill_rows = []  # rows of each prefill pass: the int4 route's input
+    prefill_rows = []  # rows of each prefill pass: the forward route's input
     prefill = engine._prefill_batch
 
     def recording_prefill(batch):
@@ -817,7 +889,7 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
         wall = time.monotonic() - t_run
         forwards = engine.decode_steps_run + engine.prefill_batches_run - steps0
         counts = read_counters()
-        routes = read_int4_routes()
+        routes = read_routes()[kernel_name]
         passes = list(prefill_rows)
         launches = counts[kernel_name]
         reqs = list(seen)
@@ -848,18 +920,15 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
                          f"kernel served this model: {counts}")
     if rep[0] != rep[1] or not rep[0]:
         raise SystemExit("the repeated greedy request changed its tokens")
-    route_check = None
-    if fmt == "int4":
-        # prefill passes take the route _route picks for their rows; decode
-        # passes (at most MAX_SLOTS rows) the split-K kernel
-        want = n_layer * int4_wgmma_launches(
-            passes, PROJ_SHAPES.values())
-        route_check = {"launches_by_route": routes, "wgmma_expected": want,
-                       "prefill_rows": passes}
-        if routes != {"wgmma": want, "splitk": launches - want}:
-            raise SystemExit(f"int4_matmul routes {routes} != {want} wgmma "
-                             f"launches for prefill passes of {passes} rows "
-                             f"and the rest split-K")
+    # prefill passes take the route the wrapper's _route picks for their
+    # rows; decode passes (at most MAX_SLOTS rows) the split-K kernel
+    want = n_layer * wgmma_launches(fmt, passes, PROJ_SHAPES.values())
+    route_check = {"launches_by_route": routes, "wgmma_expected": want,
+                   "prefill_rows": passes}
+    if routes != {"wgmma": want, "splitk": launches - want}:
+        raise SystemExit(f"{kernel_name} routes {routes} != {want} wgmma "
+                         f"launches for prefill passes of {passes} rows and "
+                         f"the rest split-K")
     first = sorted(reqs, key=lambda r: r.uid)[0]
     gen_tokens = sum(r.n_generated for r in reqs)
     t_first = min(r.first_token_time for r in reqs)
@@ -883,15 +952,12 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
         "repeat_matches_batched_run": rep[0] == first.output_ids,
         "model_check": mcheck,
     }
-    if route_check is not None:
-        out["int4_routes"] = route_check
+    out["routes"] = route_check
     log("serve:", json.dumps(out))
     out["decode_profile"] = profile_decode(
         engine, [r.prompt_ids for r in reqs], kernel_name)
     log("decode profile:", json.dumps(out["decode_profile"]))
-    return {"launches": launches, "serve": out,
-            "routes": route_check["launches_by_route"] if route_check
-            else None}
+    return {"launches": launches, "serve": out, "routes": routes}
 
 
 def profile_decode(engine, prompts, kernel_name: str, steps: int = 16
@@ -985,25 +1051,40 @@ def tile_err(got, want) -> dict:
 
 def check_train_nf4(seed: int, flush) -> dict:
     """The NF4 forward and backward kernels at M = 8192 for every Qwen3-8B
-    projection shape; the backward also at ``NF4_DX_EDGE_SHAPES``, every
-    backward launch repeated for the same bytes, and on q_proj's shape a
-    planted fault (the first 64-column absmax block of absmax row 0
-    zeroed in a copy of the weight) that must read as a failure."""
+    projection shape (the forward on the route ``_route`` picks); the
+    forward also at ``NF4_FWD_EDGE_SHAPES`` on both routes and on a weight
+    whose arrays start off 16-byte alignment, the backward at
+    ``NF4_DX_EDGE_SHAPES``; every launch repeated for the same bytes, and
+    on q_proj's shape a planted fault (the first 64-column absmax block of
+    absmax row 0 zeroed in a copy of the weight) that must read as a
+    failure in both directions."""
 
     import torch
 
-    from llm_in_practise_tpu_torch.ops.nf4_matmul import (
-        nf4_matmul,
-        nf4_matmul_backward,
-        nf4_matmul_backward_reference,
-        nf4_matmul_reference,
-    )
+    from llm_in_practise_tpu_torch.ops import nf4_matmul as nm
     from llm_in_practise_tpu_torch.quant import nf4
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     rows = {}
+
+    def held(kernel, key, out, fn, inp, t, ref, plant=False, **fields):
+        """One launch against its plain version, with nf4_extra's repeat
+        and planted fault; fails the run unless all hold."""
+        torch.cuda.synchronize()
+        err, rel = _rel(out, ref)
+        row = {"kernel": kernel, **fields, "max_abs_err": err,
+               "max_rel_err": rel, **nf4_extra(out, fn, inp, t, ref, plant)}
+        row["ok"] = (bool(torch.isfinite(out).all().item())
+                     and rel <= KERNEL_TOL and row["ok"])
+        rows[key] = row
+        if not row["ok"]:
+            raise SystemExit(f"{kernel} disagrees with its plain version, "
+                             f"misses the planted fault or gives other bytes "
+                             f"on a second launch: {row}")
+        return row
+
     for k, n in sorted(set(PROJ_SHAPES.values())):
         t = nf4.quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02)
         w_bf16 = nf4.dequantize(t, torch.bfloat16)  # library yardstick only
@@ -1014,24 +1095,19 @@ def check_train_nf4(seed: int, flush) -> dict:
         bound_ms, bound_by, nbytes = matmul_bound(
             TRAIN_M, k, n, weight_bytes("nf4", k, n))
         for kernel, fn, plain, lib, inp in (
-                ("nf4_matmul", nf4_matmul, nf4_matmul_reference,
+                ("nf4_matmul", nm.nf4_matmul, nm.nf4_matmul_reference,
                  lambda: torch.matmul(x, w_bf16), x),
-                ("nf4_matmul_backward", nf4_matmul_backward,
-                 nf4_matmul_backward_reference,
+                ("nf4_matmul_backward", nm.nf4_matmul_backward,
+                 nm.nf4_matmul_backward_reference,
                  lambda: torch.matmul(dy, w_bf16.T), dy)):
             out = fn(inp, t, torch.bfloat16)
             ref = plain(inp, t, torch.bfloat16)
-            torch.cuda.synchronize()
-            err, rel = _rel(out, ref)
-            ok = bool(torch.isfinite(out).all().item()) and rel <= KERNEL_TOL
-            extra = {}
-            if kernel == "nf4_matmul_backward":
-                extra = nf4_dx_extra(out, fn, inp, t, ref,
-                                     (k, n) == PROJ_SHAPES["q_proj"])
-                ok = ok and extra["ok"]
-            row = {
-                "kernel": kernel, "M": TRAIN_M, "K": k, "N": n, **extra,
-                "max_abs_err": err, "max_rel_err": rel,
+            fields = {"M": TRAIN_M, "K": k, "N": n}
+            if kernel == "nf4_matmul":
+                fields["route"] = nm._route(TRAIN_M, k, n)
+            row = held(kernel, (kernel, k, n), out, fn, inp, t, ref,
+                       (k, n) == PROJ_SHAPES["q_proj"], **fields)
+            row.update({
                 "tol": f"{KERNEL_TOL} * max|plain| (summation order; bf16 "
                        "output rounding)",
                 "ms": time_ms(lambda: fn(inp, t, torch.bfloat16), 10, flush),
@@ -1039,55 +1115,83 @@ def check_train_nf4(seed: int, flush) -> dict:
                     lambda: plain(inp, t, torch.bfloat16), 3, flush),
                 "library_ms": time_ms(lib, 10, flush),
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            }
-            row["ok"] = ok
+            })
             log(json.dumps(row))
-            rows[(kernel, k, n)] = row
-            if not ok:
-                raise SystemExit(f"{kernel} disagrees with its plain version, "
-                                 f"misses the planted fault or gives other "
-                                 f"bytes on a second launch, at M={TRAIN_M} "
-                                 f"K={k} N={n}: {row}")
             del out, ref
         del t, w_bf16, x, dy
+    for m, k, n in NF4_FWD_EDGE_SHAPES:
+        t = nf4.quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02)
+        x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+        ref = nm.nf4_matmul_reference(x, t, torch.bfloat16)
+        # the same weight with packed, absmax_q and absmax_scale at starts
+        # off 16-byte alignment: the wrapper must align them
+        shifted = nf4_offset_views(t) if (k, n) == (4096, 4096) else None
+        for route in ("splitk", "wgmma"):
+            if route == "wgmma" and not nm._wgmma_shape(k, n):
+                continue
+
+            def fn(a, w, dtype, route=route):
+                return nm._forward(a, w, dtype, route=route)
+
+            for case, w in (("kblock", t), ("offset_views", shifted)):
+                if w is None:
+                    continue
+                row = held("nf4_matmul", ("edge", "nf4_matmul",
+                                          f"{case}@{route}", m, k, n),
+                           fn(x, w, torch.bfloat16), fn, x, w, ref,
+                           case=f"{case}@{route}", M=m, K=k, N=n)
+                log(json.dumps(row))
+        del t, x, ref, shifted
     for m, k, n in NF4_DX_EDGE_SHAPES:
         t = nf4.quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02)
         dy = torch.randn(m, n, device=dev, generator=gen).to(torch.bfloat16)
-        out = nf4_matmul_backward(dy, t, torch.bfloat16)
-        ref = nf4_matmul_backward_reference(dy, t, torch.bfloat16)
-        torch.cuda.synchronize()
-        err, rel = _rel(out, ref)
-        row = {"kernel": "nf4_matmul_backward", "M": m, "K": k, "N": n,
-               "max_abs_err": err, "max_rel_err": rel,
-               **nf4_dx_extra(out, nf4_matmul_backward, dy, t, ref, False)}
-        row["ok"] = (bool(torch.isfinite(out).all().item())
-                     and rel <= KERNEL_TOL and row["ok"])
+        row = held("nf4_matmul_backward",
+                   ("edge", "nf4_matmul_backward", "kblock", m, k, n),
+                   nm.nf4_matmul_backward(dy, t, torch.bfloat16),
+                   nm.nf4_matmul_backward, dy, t,
+                   nm.nf4_matmul_backward_reference(dy, t, torch.bfloat16),
+                   case="kblock", M=m, K=k, N=n)
         log(json.dumps(row))
-        rows[("edge", "nf4_matmul_backward", m, k, n)] = row
-        if not row["ok"]:
-            raise SystemExit(f"nf4_matmul_backward disagrees with its plain "
-                             f"version or gives other bytes on a second "
-                             f"launch at M={m} K={k} N={n}: {row}")
-        del t, dy, out, ref
+        del t, dy
     return rows
 
 
-def nf4_dx_extra(out, fn, dy, t, ref, plant: bool) -> dict:
-    """B2's repeat (the same bytes from a second launch) and, if ``plant``,
-    its planted fault: the first absmax block (64 rows x 64 columns of the
-    high half) zeroed in a copy of the weight must move dx by more than
-    KERNEL_TOL * max|plain|."""
+def nf4_offset_views(t):
+    """A copy of NF4 weight ``t`` whose packed and absmax_q bytes start 1
+    byte, and whose absmax_scale starts 4 bytes, past a 16-byte boundary:
+    views into larger buffers, as a slice of a bigger allocation gives."""
     import dataclasses
 
     import torch
 
-    res = {"repeat_equal": torch.equal(out, fn(dy, t, torch.bfloat16))}
+    def shifted(a, pad):
+        buf = torch.empty(a.numel() + pad, dtype=a.dtype, device=a.device)
+        view = buf[pad:].view(a.shape)
+        view.copy_(a)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    return dataclasses.replace(t, packed=shifted(t.packed, 1),
+                               absmax_q=shifted(t.absmax_q, 1),
+                               absmax_scale=shifted(t.absmax_scale, 1))
+
+
+def nf4_extra(out, fn, inp, t, ref, plant: bool) -> dict:
+    """B1's or B2's repeat (the same bytes from a second launch) and, if
+    ``plant``, its planted fault: the first absmax block (64 rows x 64
+    columns of the high half) zeroed in a copy of the weight must move the
+    result by more than KERNEL_TOL * max|plain|."""
+    import dataclasses
+
+    import torch
+
+    res = {"repeat_equal": torch.equal(out, fn(inp, t, torch.bfloat16))}
     res["ok"] = res["repeat_equal"]
     if plant:
         bad = dataclasses.replace(t, absmax_q=t.absmax_q.clone())
         bad.absmax_q[:64] = 0
         res["planted_zero_absmax_rel_err"] = _rel(
-            fn(dy, bad, torch.bfloat16), ref)[1]
+            fn(inp, bad, torch.bfloat16), ref)[1]
         res["ok"] = res["ok"] and \
             res["planted_zero_absmax_rel_err"] > KERNEL_TOL
     return res
@@ -1380,32 +1484,32 @@ def kernel_counters() -> dict:
 
 
 def zero_counters() -> None:
-    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
-
-    for fn in kernel_counters().values():
+    counters = kernel_counters()
+    for fn in counters.values():
         fn.launches = 0
-    for route in i4.int4_matmul.launches_by_route:
-        i4.int4_matmul.launches_by_route[route] = 0
+    for fmt in FWD_FORMATS:
+        routes = counters[f"{fmt}_matmul"].launches_by_route
+        for route in routes:
+            routes[route] = 0
 
 
 def read_counters() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
-def read_int4_routes() -> dict:
-    """The int4 forward's launches by route since the last zero."""
-    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+def read_routes() -> dict:
+    """Each forward kernel's launches by route since the last zero."""
+    counters = kernel_counters()
+    return {f"{fmt}_matmul": dict(counters[f"{fmt}_matmul"].launches_by_route)
+            for fmt in FWD_FORMATS}
 
-    return dict(i4.int4_matmul.launches_by_route)
 
-
-def int4_wgmma_launches(rows_per_pass, shapes) -> int:
-    """Launches that ``_route`` sends to the wgmma kernel when forward
-    passes of ``rows_per_pass`` rows each run the projections ``shapes``
-    ((K, N) pairs, one launch each)."""
-    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
-
-    return sum(i4._route(m, k, n, INT4_GS) == "wgmma"
+def wgmma_launches(fmt: str, rows_per_pass, shapes) -> int:
+    """Launches that ``fmt``'s ``_route`` sends to the wgmma kernel when
+    forward passes of ``rows_per_pass`` rows each run the projections
+    ``shapes`` ((K, N) pairs, one launch each)."""
+    route_of = fwd_op(fmt)[2]
+    return sum(route_of(m, k, n) == "wgmma"
                for m in rows_per_pass for k, n in shapes)
 
 
@@ -1456,7 +1560,7 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
     zero_counters()
     loss_k, grads_k = run()
     counts = read_counters()
-    routes = read_int4_routes()
+    routes = read_routes()[f"{fmt}_matmul"]
     undo = plain_kernels()
     try:
         zero_counters()
@@ -1465,13 +1569,12 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
     finally:
         undo()
     want = expected_launches(STEP_LAYERS, fmt)
-    # the int4 forwards see batch x seq rows: 7 projections, then the remat
+    # the forwards see batch x seq rows: 7 projections, then the remat
     # recompute of all but down_proj, per layer
-    m = STEP_BATCH * TRAIN_SEQ
     shapes = list(PROJ_SHAPES.values())
-    wgmma = STEP_LAYERS * int4_wgmma_launches([m], shapes + shapes[:-1]) \
-        if fmt == "int4" else 0
-    want_routes = {"wgmma": wgmma, "splitk": want["int4_matmul"] - wgmma}
+    wgmma = STEP_LAYERS * wgmma_launches(fmt, [STEP_BATCH * TRAIN_SEQ],
+                                         shapes + shapes[:-1])
+    want_routes = {"wgmma": wgmma, "splitk": want[f"{fmt}_matmul"] - wgmma}
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     grad_rel = [_rel(a, b)[1] for a, b in zip(grads_k, grads_p)]
     res = {"base": fmt, "layers": STEP_LAYERS, "batch": STEP_BATCH,
@@ -1479,7 +1582,7 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
            "loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
            "loss_rel_err": loss_rel, "grad_max_rel_err": max(grad_rel),
            "grads": len(grad_rel), "launches": counts,
-           "int4_launches_by_route": routes,
+           "launches_by_route": routes,
            "plain_launches": plain_counts,
            "tol": f"loss {STEP_LOSS_TOL} relative, each LoRA gradient "
                   f"{STEP_GRAD_TOL} * max|plain|: bf16 activations carry "
@@ -1492,7 +1595,7 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
             or routes != want_routes):
         raise SystemExit(f"QLoRA step over {fmt} with kernels disagrees "
                          f"with the plain path (launches wanted {want}, "
-                         f"int4 routes {want_routes}): {res}")
+                         f"{fmt} forward routes {want_routes}): {res}")
     del model
     return res
 
@@ -1558,7 +1661,12 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
     b_nonzero = all(bool(b.abs().max() > 0) for b in lora_b)
     torch.cuda.reset_peak_memory_stats()
     per_step = expected_launches(n_layer)
-    walls, step_counts = [], []
+    # every NF4 forward sees batch x seq rows: the wgmma route's
+    shapes = list(PROJ_SHAPES.values())
+    wgmma = n_layer * wgmma_launches("nf4", [TRAIN_M], shapes + shapes[:-1])
+    route_per_step = {"wgmma": wgmma,
+                      "splitk": per_step["nf4_matmul"] - wgmma}
+    walls, step_counts, step_routes = [], [], []
     for _ in range(TRAIN_STEPS):
         zero_counters()
         t0 = time.monotonic()
@@ -1566,6 +1674,7 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
         losses.append(metrics["loss"].item())  # syncs the step
         walls.append(time.monotonic() - t0)
         step_counts.append(read_counters())
+        step_routes.append(read_routes()["nf4_matmul"])
     counts = {k: sum(c[k] for c in step_counts) for k in per_step}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1587,6 +1696,8 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
         "max_memory_allocated_gib": peak_gib,
         "launches": counts, "launches_per_step_expected": per_step,
         "launches_per_step_equal": all(c == per_step for c in step_counts),
+        "nf4_routes_per_step": step_routes,
+        "nf4_routes_per_step_expected": route_per_step,
         "lora_b_nonzero_after_step_1": b_nonzero,
     }
     log("train:", json.dumps(out))
@@ -1597,6 +1708,9 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
     if not all(c == per_step for c in step_counts):
         raise SystemExit(f"kernel launches per step {step_counts} != "
                          f"{per_step} for {n_layer} layers")
+    if not all(r == route_per_step for r in step_routes):
+        raise SystemExit(f"nf4_matmul routes per step {step_routes} != "
+                         f"{route_per_step}")
     # one more step under the profiler: where the device time goes
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1622,7 +1736,7 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
                                for e in top},
         }
     log("train profile:", json.dumps(out["profile"]))
-    return {"launches": counts, "train": out}
+    return {"launches": counts, "routes": step_routes, "train": out}
 
 
 def main(argv=None) -> int:
@@ -1659,8 +1773,10 @@ def main(argv=None) -> int:
     summary = check_nf4_kernel(args.seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     ptq_rows = check_ptq_kernels(args.seed, flush)
-    crossover = int4_crossover(args.seed, flush)
-    log("int4 crossover:", json.dumps(crossover))
+    crossovers = {}
+    for fmt in FWD_FORMATS:
+        crossovers[fmt] = fwd_crossover(fmt, args.seed, flush)
+        log(f"{fmt} crossover:", json.dumps(crossovers[fmt]))
     phase_time("kernel checks", t0)
     tok = train_tokenizer()
     served = {}
@@ -1690,29 +1806,52 @@ def main(argv=None) -> int:
     phase_time("train", t0)
     launches = trained["launches"]
 
-    summary["launches"] = served["nf4"]["launches"] + launches["nf4_matmul"]
-    summary["launches_by_path"] = {"serve_nf4": served["nf4"]["launches"],
-                                   "train_nf4": launches["nf4_matmul"]}
-    summary["train"] = layer_sum(nf4_rows, "nf4_matmul")
     csrc = "llm_in_practise_tpu_torch/csrc/"
+
+    def ptxas(name):
+        return {k: v for k, v in resources.items() if k in PTXAS_LABELS[name]}
+
+    def fwd_routes(fmt, decode_m, by_route):
+        """Which route each summarised row count took, the crossover table
+        and the launches per route of each path."""
+        route_of = fwd_op(fmt)[2]
+        return {"fwd_route": {f"M={m}": route_of(m, *PROJ_SHAPES["q_proj"])
+                              for m in (decode_m, TRAIN_M)},
+                "crossover": crossovers[fmt], "launches_by_route": by_route}
+
+    b1 = [r for r in nf4_rows.values() if r["kernel"] == "nf4_matmul"]
     b2 = [r for r in nf4_rows.values()
           if r["kernel"] == "nf4_matmul_backward"]
+    train_routes = {route: sum(r[route] for r in trained["routes"])
+                    for route in trained["routes"][0]}
+    summary.update({
+        "train": layer_sum(nf4_rows, "nf4_matmul"),
+        **edge_summary(nf4_rows, "nf4_matmul"),
+        "planted_fault_seen": all(r["planted_zero_absmax_rel_err"] >
+                                  KERNEL_TOL for r in b1
+                                  if "planted_zero_absmax_rel_err" in r),
+        "ptxas": ptxas("nf4_matmul"),
+        **fwd_routes("nf4", MAX_SLOTS, {
+            "serve_nf4": served["nf4"]["routes"],
+            "step_nf4": steps["nf4"]["launches_by_route"],
+            "train_nf4": train_routes}),
+        "launches": served["nf4"]["launches"] + launches["nf4_matmul"],
+        "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
+                             "train_nf4": launches["nf4_matmul"]}})
     table = [summary, {
-        "name": "nf4_matmul_backward", "route": "cuda",
+        "name": "nf4_matmul_backward",
         "source": csrc + "nf4_matmul_bwd.cu",
         "replaces": "llm_in_practise_tpu/ops/nf4_matmul.py:111",
         "tpu_function": "_bwd_kernel (pallas_call at :194)",
         **layer_sum(nf4_rows, "nf4_matmul_backward"),
-        "edge_shapes": [{f: r[f] for f in ("M", "K", "N", "max_rel_err",
-                                           "repeat_equal")}
-                        for key, r in nf4_rows.items() if key[0] == "edge"],
-        "repeat_equal_all": all(r["repeat_equal"] for r in b2),
+        **edge_summary(nf4_rows, "nf4_matmul_backward"),
         "planted_fault_seen": all(r["planted_zero_absmax_rel_err"] >
                                   KERNEL_TOL for r in b2
                                   if "planted_zero_absmax_rel_err" in r),
-        "ptxas": {k: v for k, v in resources.items() if k == "Nf4Dx"},
+        "ptxas": ptxas("nf4_matmul_backward"),
         "launches": launches["nf4_matmul_backward"],
-        "launches_by_path": {"train_nf4": launches["nf4_matmul_backward"]}}]
+        "launches_by_path": {"train_nf4": launches["nf4_matmul_backward"]},
+        "route": "cuda"}]
     for name, line, fn in (
             ("flash_forward", 55, "_fwd_kernel (pallas_call at :101)"),
             ("flash_backward_dkv", 129,
@@ -1721,13 +1860,14 @@ def main(argv=None) -> int:
              "_bwd_dq_kernel (pallas_call at :248)")):
         row = dict(flash_rows[name])
         row.pop("checks")
-        table.append({"name": name, "route": "cuda",
+        table.append({"name": name,
                       "source": csrc + "flash_attention.cu",
                       "replaces": f"llm_in_practise_tpu/ops/"
                                   f"flash_attention.py:{line}",
                       "tpu_function": fn, **row,
                       "launches": launches[name],
-                      "launches_by_path": {"train_nf4": launches[name]}})
+                      "launches_by_path": {"train_nf4": launches[name]},
+                      "route": "cuda"})
     # B6-B9: launches on the PTQ serving runs and the PTQ step checks
     for name, fmt, src, line, fn, decode in (
             ("int4_matmul", "int4", "int4_matmul.cu", "int4_matmul.py:61",
@@ -1745,23 +1885,17 @@ def main(argv=None) -> int:
             by_path = {f"serve_{fmt}": served[fmt]["launches"], **by_path}
         row = ptq_summary(ptq_rows, name, case,
                           MAX_SLOTS if decode else TRAIN_M)
+        row["ptxas"] = ptxas(name)
         if decode:
             row["train"] = ptq_summary(ptq_rows, name, case, TRAIN_M)
-        if name == "int4_matmul":
-            row["ptxas"] = {k: v for k, v in resources.items()
-                            if k == "Int4Fwd"}
-            row["crossover"] = crossover
-            row["launches_by_route"] = {
-                "serve_int4": served["int4"]["routes"],
-                "step_int4": steps["int4"]["int4_launches_by_route"]}
-        elif not decode:
-            row["ptxas"] = {k: v for k, v in resources.items()
-                            if k.lower().startswith(fmt)}
-        table.append({"name": name, "route": "cuda", "source": csrc + src,
+            row.update(fwd_routes(fmt, MAX_SLOTS, {
+                f"serve_{fmt}": served[fmt]["routes"],
+                f"step_{fmt}": steps[fmt]["launches_by_route"]}))
+        table.append({"name": name, "source": csrc + src,
                       "replaces": f"llm_in_practise_tpu/ops/{line}",
                       "tpu_function": fn, **row,
                       "launches": sum(by_path.values()),
-                      "launches_by_path": by_path})
+                      "launches_by_path": by_path, "route": "cuda"})
     if any(row["launches"] == 0 for row in table):
         raise SystemExit("a kernel of a path launched no time: "
                          f"{[(r['name'], r['launches']) for r in table]}")

@@ -288,7 +288,7 @@ __global__ void int4_splitk_reduce_kernel(const float* __restrict__ ws,
 // group). Thread g of warp w in warpgroup wg reads packed row
 // P = 32 wg + 8 w + g: fragment row g is dx column k0 + 2P (high nibbles),
 // row g + 8 is k0 + 2P + 1 (low nibbles), one group for both (gs is even).
-struct Int4Dx : qmm::LinearChunks {
+struct Int4Dx : qmm::LinearChunks, qmm::LinearCols {
   static constexpr uint32_t kWBytes = (qmm::kTileCols / 2) * qmm::kChunk;
 
   __device__ static uint32_t tx_bytes(const qmm::QmmArgs& args) {
@@ -368,7 +368,7 @@ struct Int4Dx : qmm::LinearChunks {
 // stage and the k16 step. Group sizes: a multiple of 64 (one group row per
 // stage) or a divisor of 64 (64 / gs rows); the wrapper routes the others
 // to the split-K kernel.
-struct Int4Fwd : qmm::LinearChunks {
+struct Int4Fwd : qmm::LinearChunks, qmm::LinearCols {
   static constexpr uint32_t kWBytes = (qmm::kChunk / 2) * qmm::kTileCols;
 
   __device__ static uint32_t tx_bytes(const qmm::QmmArgs& args) {

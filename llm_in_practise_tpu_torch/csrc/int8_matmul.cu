@@ -1,5 +1,8 @@
 // W8A16 int8 matmul for Hopper (sm_90a), forward and backward:
-//   y  = (x @ q) * scale[n]              (int8_matmul_kernel)
+//   y  = (x @ q) * scale[n]              (qmm_wgmma_kernel<Int8Fwd> at
+//                                         prefill and training row counts;
+//                                         int8_matmul_kernel, split over K,
+//                                         at decode)
 //   dx = bf16(dy * scale[n]) @ q^T       (int8_scale_dy_kernel, then
 //                                         qmm_wgmma_kernel<Int8Dx>)
 //
@@ -25,13 +28,24 @@
 // (3.196 ms for one Qwen3-8B layer's 7 projections).
 //
 // What the design does about that bound:
-//   - Forward: the pair (k, k + 1) of one column, which one 32-bit B-fragment
-//     register of mma.sync m16n8k16 holds, lies N bytes apart in row-major
-//     q; the tile is staged in shared memory (16-byte cp.async copies,
-//     coalesced rows) and the pairs are built there, so the bf16 weight
-//     never exists in device memory. A cp.async ring keeps several chunks in
-//     flight; thin M splits K over grid.z as the NF4 and int4 kernels do,
-//     with a deterministic second pass that sums and applies the scale.
+//   - Forward from the wrapper's row threshold up
+//     (ops/int8_matmul.py::_route): the shared wgmma mainloop of
+//     qmm_wgmma.cuh as y^T = q^T . x^T with the Int8Fwd policy: q staged by
+//     TMA, the pair (k, k + 1) of one column built from two 16-bit shared
+//     loads with one byte_perm and converted exactly to bf16x2, straight
+//     into register A fragments; the mainloop's epilogue multiplies each f32
+//     sum by its column's scale (QmmArgs::col_scale) before the one
+//     rounding. The mma.sync split-K kernel took 18.48 ms for one layer's 7
+//     projections at M = 8192, 3.5x cuBLAS on a dequantized weight (NVIDIA
+//     H100 80GB HBM3, 700 W).
+//   - Forward at decode: the pair (k, k + 1) of one column, which one 32-bit
+//     B-fragment register of mma.sync m16n8k16 holds, lies N bytes apart in
+//     row-major q; the tile is staged in shared memory (16-byte cp.async
+//     copies, coalesced rows) and the pairs are built there, so the bf16
+//     weight never exists in device memory. A cp.async ring keeps several
+//     chunks in flight; thin M splits K over grid.z as the NF4 and int4
+//     kernels do, with a deterministic second pass that sums and applies
+//     the scale.
 //   - Backward: the shared wgmma mainloop of qmm_wgmma.cuh (TMA ring, one
 //     producer warp, two consumer warpgroups on a 128 x 256 tile of dx^T,
 //     deterministic) with the Int8Dx policy: for fixed k the pair (n, n + 1)
@@ -45,8 +59,8 @@
 //     cp.async ring) took 27.54 ms for one layer's 7 projections at
 //     M = 8192, 6.9x cuBLAS on a dequantized weight (NVIDIA H100 80GB HBM3,
 //     700 W).
-//   - The M, N and K edges are masked (forward: zero-filled tiles and
-//     guarded stores; backward: TMA's zero fill and guarded stores).
+//   - The M, N and K edges are masked (split-K: zero-filled tiles and
+//     guarded stores; wgmma: TMA's zero fill and guarded stores).
 
 #include "qmm_wgmma.cuh"
 #include "mma_util.cuh"
@@ -271,7 +285,7 @@ __global__ void int8_scale_dy_kernel(const uint4* __restrict__ dy,
 // 64-byte swizzle, so the 16-bit fragment loads of 8 rows fall in 8
 // different bank pairs); fragment row r of warp w in warpgroup wg is q row
 // k0 + 64 wg + 16 w + r.
-struct Int8Dx : qmm::LinearChunks {
+struct Int8Dx : qmm::LinearChunks, qmm::LinearCols {
   static constexpr uint32_t kWBytes = qmm::kTileCols * qmm::kChunk;
 
   __device__ static uint32_t tx_bytes(const qmm::QmmArgs&) { return kWBytes; }
@@ -318,6 +332,54 @@ struct Int8Dx : qmm::LinearChunks {
   };
 };
 
+// B8's decode policy for the same mainloop at prefill and training row
+// counts, as y^T = q^T . x^T: A is q^T, its rows the output columns n, its
+// reduction k. A stage holds q rows k0 .. k0 + 63 x columns n0 .. n0 + 127
+// (TMA, 128-byte swizzle). Fragment rows g and g + 8 of warp w in
+// warpgroup wg are the adjacent columns C = 64 wg + 16 w + 2 g and C + 1
+// (as Int4Fwd): one 16-bit load of q row k gives both columns at k, one of
+// row k + 1 the other half of each pair, and byte_perm pairs them by
+// column. The column scale goes on the f32 sum in the epilogue
+// (QmmArgs::col_scale), the JAX kernel's rounding point.
+struct Int8Fwd : qmm::LinearChunks, qmm::LinearCols {
+  static constexpr uint32_t kWBytes = qmm::kChunk * qmm::kTileCols;
+
+  __device__ static uint32_t tx_bytes(const qmm::QmmArgs&) { return kWBytes; }
+
+  __device__ static void load(uint8_t* w, const CUtensorMap* tm_q,
+                              const CUtensorMap*, const CUtensorMap*,
+                              uint64_t* bar, int i, int n0,
+                              const qmm::QmmArgs&) {
+    qmm::tma_load_2d(w, tm_q, bar, n0, i * qmm::kChunk);
+  }
+
+  __device__ static int col_local(int wg, int warp, int g, int hi) {
+    return 64 * wg + 16 * warp + 2 * g + hi;
+  }
+
+  struct State {
+    int col, t;
+    __device__ State(const qmm::QmmArgs&, int, int wg, int warp, int g,
+                     int t_)
+        : col(64 * wg + 16 * warp + 2 * g), t(t_) {}
+
+    __device__ void decode(const uint8_t* w, const float*, int, int ks,
+                           uint32_t (&a)[4]) const {
+      const auto ld = [&](int r) {
+        return static_cast<uint32_t>(
+            *reinterpret_cast<const uint16_t*>(w + qmm::sw128(r, col)));
+      };
+      const int r = 16 * ks + 2 * t;
+      const uint32_t r0 = ld(r), r1 = ld(r + 1), r8 = ld(r + 8),
+                     r9 = ld(r + 9);
+      a[0] = Int8Dx::s8x2(__byte_perm(r0, r1, 0x0040));  // column C
+      a[1] = Int8Dx::s8x2(__byte_perm(r0, r1, 0x0051));  // column C + 1
+      a[2] = Int8Dx::s8x2(__byte_perm(r8, r9, 0x0040));
+      a[3] = Int8Dx::s8x2(__byte_perm(r8, r9, 0x0051));
+    }
+  };
+};
+
 }  // namespace
 
 // Forward, on `stream`. x: (M, K) bf16, 16-byte aligned; q: (K, N) int8;
@@ -349,6 +411,33 @@ extern "C" int int8_matmul_launch(const void* x, const void* q,
   int8_splitk_reduce_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0,
                               s>>>(wsf, sc, out, mn, N, split_k, out_dtype);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Forward on the wgmma mainloop (Int8Fwd), on `stream`: the route for
+// prefill and training row counts. x: (M, K) bf16, q: (K, N) int8, both
+// 16-byte aligned; scale: (N,) f32; out: (M, N) in out_dtype. Requires
+// M >= 1, K % 8 == 0 and N % 16 == 0 (the TMA row strides, 2K and N bytes,
+// must be 16-byte multiples). Returns the first CUDA error of the
+// descriptor encoding and the launch (0 on success).
+extern "C" int int8_matmul_wgmma_launch(const void* x, const void* q,
+                                        const void* scale, void* out, int M,
+                                        int K, int N, int out_dtype,
+                                        void* stream) {
+  if (M < 1 || K % 8 || N % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tm_x, tm_q;
+  cudaError_t err = qmm::encode_act(&tm_x, x, M, K);
+  if (err == cudaSuccess) {
+    err = qmm::encode_2d(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, K, N,
+                         qmm::kChunk, qmm::kTileCols,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const qmm::QmmArgs args = {out, M, N, K, out_dtype, 0, 0, 0, nullptr, 0,
+                             static_cast<const float*>(scale)};
+  return static_cast<int>(qmm::launch_qmm<Int8Fwd>(
+      tm_x, tm_q, tm_q, tm_q, args, static_cast<cudaStream_t>(stream)));
 }
 
 // Backward, on `stream`. dy: (M, N) bf16, 16-byte aligned; q: (K, N) int8;

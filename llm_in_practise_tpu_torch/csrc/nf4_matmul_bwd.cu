@@ -44,26 +44,15 @@
 //     at its 32nd column: the stage holds 8 scales from a 16-byte-aligned
 //     index at or below the run's first scale block, and columns 0-31 and
 //     32-63 each take one.
-//   - The decode arithmetic is exactly the forward kernel's (__fsub_rn,
+//   - The decode arithmetic is the forward kernels' own (nf4_codec.cuh:
 //     __fmul_rn, __fadd_rn, then one rounding to bf16), so the kernel
-//     differs from its plain version only in summation order. The 16-entry
-//     codebook sits in shared memory (16 distinct words in 16 banks; equal
-//     indices broadcast), not in __constant__ memory, whose reads serialise
-//     on divergent indices.
+//     differs from its plain version only in summation order; the codebook
+//     sits in shared memory.
 
+#include "nf4_codec.cuh"
 #include "qmm_wgmma.cuh"
 
 namespace {
-
-// the codebook's source; each block copies it to s_code once
-__constant__ float kNF4[16] = {
-    -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
-    -0.28444138169288635f, -0.18477343022823334f, -0.09105003625154495f, 0.0f,
-    0.07958029955625534f, 0.16093020141124725f, 0.24611230194568634f,
-    0.33791524171829224f, 0.44070982933044434f, 0.5626170039176941f,
-    0.7229568362236023f, 1.0f};
-
-__shared__ float s_code[16];
 
 // B2's decode policy. A stage: the weight tile, 128 packed rows x 64 bytes
 // (TMA, 64-byte swizzle, so the 16-bit fragment loads of 8 rows fall in 8
@@ -73,7 +62,7 @@ __shared__ float s_code[16];
 // or below the run's first scale block (TMA faults with an illegal
 // instruction on a box whose innermost start is not 16-byte aligned). Fragment row r of warp w in
 // warpgroup wg is dx column k0 + 64 wg + 16 w + r, in absmax row kb0 + wg.
-struct Nf4Dx {
+struct Nf4Dx : qmm::LinearCols {
   static constexpr uint32_t kWBytes = qmm::kTileCols * qmm::kChunk;
   static constexpr int kScaleOff = 128;  // bytes into the aux area
 
@@ -133,7 +122,7 @@ struct Nf4Dx {
           nh(args.red / 2),
           hc(half_chunks(args)),
           offset(*args.param) {
-      if (threadIdx.x < 16) s_code[threadIdx.x] = kNF4[threadIdx.x];
+      nf4::fill_codebook();
       qmm::consumer_sync();
     }
 
@@ -156,20 +145,16 @@ struct Nf4Dx {
       const auto ld = [](const uint8_t* p) {
         return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p));
       };
-      // (q - 128) * scale + offset, each step rounded on its own; 2^23 + q,
-      // less 2^23 + 128, is q - 128 exactly
-      const auto absmax = [&](uint32_t q) {
-        const float d = __uint_as_float(0x4B000000u | q) - 8388736.0f;
-        return __fadd_rn(__fmul_rn(d, scale), offset);
-      };
       const uint32_t q0 = ld(aux + 64 * wg + c);
       const uint32_t q8 = ld(aux + 64 * wg + c + 8);
-      const float am[4] = {absmax(q0 & 255), absmax(q0 >> 8),
-                           absmax(q8 & 255), absmax(q8 >> 8)};
+      const float am[4] = {nf4::absmax(q0 & 255, scale, offset),
+                           nf4::absmax(q0 >> 8, scale, offset),
+                           nf4::absmax(q8 & 255, scale, offset),
+                           nf4::absmax(q8 >> 8, scale, offset)};
       const int sh = low ? 0 : 4;
       const auto pair = [&](uint32_t p, int j) {  // bytes c, c + 1 of a row
-        return qmm::pack2(__fmul_rn(s_code[(p >> sh) & 15], am[j]),
-                          __fmul_rn(s_code[(p >> (8 + sh)) & 15], am[j + 1]));
+        return qmm::pack2(nf4::weight((p >> sh) & 15, am[j]),
+                          nf4::weight((p >> (8 + sh)) & 15, am[j + 1]));
       };
       a[0] = pair(ld(w + qmm::sw64(row, c)), 0) & live;
       a[1] = pair(ld(w + qmm::sw64(row + 8, c)), 0) & live;

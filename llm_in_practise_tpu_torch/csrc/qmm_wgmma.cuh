@@ -48,6 +48,9 @@
 //                                 const CUtensorMap* tm_aux1, uint64_t* bar,
 //                                 int i, int c0, const QmmArgs&);
 //     __device__ static int col_local(int wg, int warp, int g, int hi);
+//     __device__ static int out_col(int block_x, int cc, const QmmArgs&);
+//                                         // the output column of tile
+//                                         // column cc, or -1 past the edge
 //     struct State {  // one per consumer thread
 //       __device__ State(const QmmArgs&, int c0, int wg, int warp, int g,
 //                        int t);
@@ -59,7 +62,13 @@
 // c0 is the block's first output column, i the stage's index in the
 // reduction (a policy may walk the reduction in any order: the NF4 dx policy
 // takes the high-nibble half of N, then the low one); LinearChunks is the
-// plain order, act_col(i) = i * kChunk.
+// plain order, act_col(i) = i * kChunk. out_col places the tile's columns in
+// the output (the NF4 forward's tile is two ranges of 64, one in each half of
+// N); it maps each run of 8 tile columns from a multiple of 8 to contiguous
+// output columns (or to -1 from some column of the run on), and LinearCols
+// is the plain map, c0 + cc below cols. Where QmmArgs::col_scale is set, the
+// epilogue multiplies each f32 sum by its output column's factor before the
+// one rounding to the output dtype (the int8 forward's per-column scale).
 //
 // Fragment layouts (PTX ISA, wgmma .m64nNk16 .bf16), g = lane / 4,
 // t = lane % 4, warp w of the warpgroup holding rows 16w .. 16w + 15:
@@ -105,6 +114,8 @@ struct QmmArgs {
                        // the weight
   const float* param;  // NF4: the absmax offset (one f32 on the device)
   int stages;          // ring depth, 2 .. kMaxStages (set by launch_qmm)
+  const float* col_scale;  // per output column f32 factor on the sum, or
+                           // null (int8 forward: its column scale)
 };
 
 // the plain walk over the reduction: stage i holds columns i * kChunk ..
@@ -113,6 +124,14 @@ struct LinearChunks {
     return (args.red + kChunk - 1) / kChunk;
   }
   __device__ static int act_col(int i, const QmmArgs&) { return i * kChunk; }
+};
+
+// the plain map of tile columns to output columns: c0 + cc, up to cols
+struct LinearCols {
+  __device__ static int out_col(int block_x, int cc, const QmmArgs& args) {
+    const int col = block_x * kTileCols + cc;
+    return col < args.cols ? col : -1;
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -381,19 +400,29 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_act,
       const int r = c / (kTileCols / 8);
       const int cc = (c % (kTileCols / 8)) * 8;
       const int m = m0 + r;
-      const int col = c0 + cc;
-      if (m >= args.M || col >= C) continue;
+      const int col = Policy::out_col(blockIdx.x, cc, args);
+      if (m >= args.M || col < 0) continue;
+      // the run's live columns: all 8 where the map keeps them in the output
+      const bool whole = Policy::out_col(blockIdx.x, cc + 7, args) == col + 7;
       const float* src = so + r * kOutStride + cc;
       const float4 lo = *reinterpret_cast<const float4*>(src);
       const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      if (args.col_scale != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int ce = whole ? col + e : Policy::out_col(blockIdx.x, cc + e,
+                                                           args);
+          if (ce >= 0) v[e] = __fmul_rn(v[e], args.col_scale[ce]);
+        }
+      }
       const long o = static_cast<long>(m) * C + col;
-      if (vec && col + 8 <= C) {
+      if (vec && whole && (col % 8) == 0) {
         if (args.out_dtype == 0) {
           auto* p =
               reinterpret_cast<float4*>(static_cast<float*>(args.out) + o);
-          p[0] = lo;
-          p[1] = hi;
+          p[0] = make_float4(v[0], v[1], v[2], v[3]);
+          p[1] = make_float4(v[4], v[5], v[6], v[7]);
         } else if (args.out_dtype == 1) {
           uint4 u = {pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
                      pack2(v[6], v[7])};
@@ -414,14 +443,16 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_act,
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          if (col + e >= C) break;
+          const int ce = Policy::out_col(blockIdx.x, cc + e, args);
+          if (ce < 0) break;
+          const long oe = static_cast<long>(m) * C + ce;
           if (args.out_dtype == 1) {
-            static_cast<__nv_bfloat16*>(args.out)[o + e] =
+            static_cast<__nv_bfloat16*>(args.out)[oe] =
                 __float2bfloat16_rn(v[e]);
           } else if (args.out_dtype == 2) {
-            static_cast<__half*>(args.out)[o + e] = __float2half_rn(v[e]);
+            static_cast<__half*>(args.out)[oe] = __float2half_rn(v[e]);
           } else {
-            static_cast<float*>(args.out)[o + e] = v[e];
+            static_cast<float*>(args.out)[oe] = v[e];
           }
         }
       }

@@ -27,6 +27,7 @@ import torch
 from llm_in_practise_tpu_torch.ops import _build
 from llm_in_practise_tpu_torch.ops.nf4_matmul import (
     _OUT_CODES,
+    ROUTES,
     _aligned,
     _sm_count,
     split_k_for,
@@ -120,6 +121,20 @@ def _route(m: int, k: int, n: int, gs: int) -> str:
         else "splitk"
 
 
+def _checked_route(m: int, k: int, n: int, gs: int, route: str | None
+                   ) -> str:
+    """``route`` if the shape takes it, :func:`_route`'s pick if None."""
+    if route is None:
+        return _route(m, k, n, gs)
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "wgmma" and not _wgmma_shape(k, n, gs):
+        raise ValueError(f"the wgmma forward needs K % 8 == 0, N % 16 == 0 "
+                         f"and gs % 64 == 0 or 64 % gs == 0; got K={k}, "
+                         f"N={n} with group_size {gs}")
+    return route
+
+
 def _forward(x: torch.Tensor, t: Int4Tensor, out_dtype=None,
              route: str | None = None) -> torch.Tensor:
     """The forward; ``route`` overrides :func:`_route` (to time both
@@ -141,11 +156,7 @@ def _forward(x: torch.Tensor, t: Int4Tensor, out_dtype=None,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
-    route = route or _route(m, k, n, gs)
-    if route == "wgmma" and not _wgmma_shape(k, n, gs):
-        raise ValueError(f"the wgmma forward needs K % 8 == 0, N % 16 == 0 "
-                         f"and gs % 64 == 0 or 64 % gs == 0; got shape "
-                         f"{tuple(t.shape)} with group_size {gs}")
+    route = _checked_route(m, k, n, gs, route)
     packed, scales, zeros = (_aligned(a) for a in (t.packed, t.scales,
                                                    t.zeros))
     lib = _build.load("int4_matmul")
@@ -174,7 +185,7 @@ def _forward(x: torch.Tensor, t: Int4Tensor, out_dtype=None,
 
 
 int4_matmul.launches = 0
-int4_matmul.launches_by_route = {"wgmma": 0, "splitk": 0}
+int4_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def int4_matmul_backward(dy: torch.Tensor, t: Int4Tensor, out_dtype=None

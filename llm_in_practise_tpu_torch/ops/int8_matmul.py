@@ -3,8 +3,11 @@
 Port of ``llm_in_practise_tpu/ops/int8_matmul.py``, forward and backward.
 On a CUDA tensor :func:`int8_matmul` (``(x @ q) * scale``) and
 :func:`int8_matmul_backward` (``dx = bf16(dy * scale) @ q^T``) launch the
-hand-written Hopper kernels in ``csrc/int8_matmul.cu``, or raise; on a
-CPU tensor they run the plain versions :func:`int8_matmul_reference` and
+hand-written Hopper kernels in ``csrc/int8_matmul.cu``, or raise; the
+forward has two kernels, picked by shape (:func:`_route`): the split-K
+``mma.sync`` kernel for decode row counts and the ``wgmma`` mainloop of
+``csrc/qmm_wgmma.cuh`` for prefill and training ones. On a CPU tensor
+they run the plain versions :func:`int8_matmul_reference` and
 :func:`int8_matmul_backward_reference`, which do the same arithmetic with
 the same rounding points in plain tensor ops. There is no fallback from a
 kernel to its plain version.
@@ -14,7 +17,8 @@ the port runs every int8 projection through the kernel (its time beside
 cuBLAS is in ``PERF.md``). The weight is a frozen export:
 :class:`Int8Matmul` differentiates with respect to ``x`` only.
 ``int8_matmul.launches`` and ``int8_matmul_backward.launches`` count the
-kernel launches. Stacked (3-D) leaves are not ported.
+kernel launches, and ``int8_matmul.launches_by_route`` the forward's by
+route. Stacked (3-D) leaves are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from llm_in_practise_tpu_torch.ops import _build
 from llm_in_practise_tpu_torch.ops.nf4_matmul import (
     _OUT_CODES,
+    ROUTES,
     _aligned,
     _sm_count,
     split_k_for,
@@ -89,7 +94,44 @@ def int8_matmul(x: torch.Tensor, t: Int8Tensor, out_dtype=None
     return _forward(x, t, out_dtype)
 
 
-def _forward(x: torch.Tensor, t: Int8Tensor, out_dtype=None) -> torch.Tensor:
+# The forward's smallest row count on the wgmma route, from chip_smoke's
+# crossover table (one layer's 7 Qwen3-8B projections, NVIDIA H100 80GB
+# HBM3, 700 W): the split-K kernel wins at M = 16, 64 and 128 (0.502
+# against 0.516 ms at 128) and loses from 256 up (0.799 against 0.528 ms
+# at 256, 18.25 against 5.24 ms at 8192).
+WGMMA_MIN_M = 256
+
+
+def _wgmma_shape(k: int, n: int) -> bool:
+    """Whether the wgmma forward takes the shape: TMA row strides of 2K (x)
+    and N (q) bytes in 16-byte multiples."""
+    return k % 8 == 0 and n % 16 == 0
+
+
+def _route(m: int, k: int, n: int) -> str:
+    """The forward kernel for ``(m, k) @ (k, n)``: "wgmma"
+    (``qmm_wgmma_kernel<Int8Fwd>``) for the shapes it takes at
+    ``m >= WGMMA_MIN_M``, else "splitk" (``int8_matmul_kernel``, split over
+    K)."""
+    return "wgmma" if m >= WGMMA_MIN_M and _wgmma_shape(k, n) else "splitk"
+
+
+def _checked_route(m: int, k: int, n: int, route: str | None) -> str:
+    """``route`` if the shape takes it, :func:`_route`'s pick if None."""
+    if route is None:
+        return _route(m, k, n)
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "wgmma" and not _wgmma_shape(k, n):
+        raise ValueError(f"the wgmma forward needs K % 8 == 0 and "
+                         f"N % 16 == 0; got K={k}, N={n}")
+    return route
+
+
+def _forward(x: torch.Tensor, t: Int8Tensor, out_dtype=None,
+             route: str | None = None) -> torch.Tensor:
+    """The forward; ``route`` overrides :func:`_route` (to time both
+    kernels at one shape)."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return int8_matmul_reference(x, t, out_dtype)
@@ -106,23 +148,34 @@ def _forward(x: torch.Tensor, t: Int8Tensor, out_dtype=None) -> torch.Tensor:
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
+    route = _checked_route(m, k, n, route)
     q, scale = _aligned(t.q), _aligned(t.scale)
-    split = split_k_for(m, k, n, _sm_count(x.device.index))
-    ws = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
-          if split > 1 else out)
     lib = _build.load("int8_matmul")
+    split = 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.int8_matmul_launch(
-            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), m, k, n, split, _OUT_CODES[out_dtype], stream)
+        if route == "wgmma":
+            err = lib.int8_matmul_wgmma_launch(
+                x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), m, k, n, _OUT_CODES[out_dtype], stream)
+        else:
+            split = split_k_for(m, k, n, _sm_count(x.device.index))
+            ws = (torch.empty((split, m, n), dtype=torch.float32,
+                              device=x.device) if split > 1 else out)
+            err = lib.int8_matmul_launch(
+                x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), m, k, n, split,
+                _OUT_CODES[out_dtype], stream)
     if err != 0:
-        raise _error(lib, err, "int8_matmul", m=m, k=k, n=n, split_k=split)
+        raise _error(lib, err, f"int8_matmul ({route})", m=m, k=k, n=n,
+                     split_k=split)
     int8_matmul.launches += 1
+    int8_matmul.launches_by_route[route] += 1
     return out.reshape(*lead, n)
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def int8_matmul_backward(dy: torch.Tensor, t: Int8Tensor, out_dtype=None

@@ -2,18 +2,21 @@
 
 Port of ``llm_in_practise_tpu/ops/nf4_matmul.py``, forward and backward.
 On a CUDA tensor :func:`nf4_matmul` launches the hand-written Hopper
-kernel in ``csrc/nf4_matmul.cu`` and :func:`nf4_matmul_backward` the one
-in ``csrc/nf4_matmul_bwd.cu`` (``dx = dy @ dequant(W)^T``, on the shared
-wgmma mainloop ``csrc/qmm_wgmma.cuh``), or raise; on a
-CPU tensor they run the plain versions :func:`nf4_matmul_reference` and
-:func:`nf4_matmul_backward_reference`, which do the same arithmetic (bf16
-operands, f32 sums) in plain tensor ops. There is no fallback from a
-kernel to its plain version.
+kernels in ``csrc/nf4_matmul.cu`` and :func:`nf4_matmul_backward` the one
+in ``csrc/nf4_matmul_bwd.cu`` (``dx = dy @ dequant(W)^T``), or raise; the
+forward has two kernels, picked by shape (:func:`_route`): the split-K
+``mma.sync`` kernel for decode row counts and the ``wgmma`` mainloop of
+``csrc/qmm_wgmma.cuh`` (which the backward runs on too) for prefill and
+training ones. On a CPU tensor they run the plain versions
+:func:`nf4_matmul_reference` and :func:`nf4_matmul_backward_reference`,
+which do the same arithmetic (bf16 operands, f32 sums) in plain tensor
+ops. There is no fallback from a kernel to its plain version.
 
 The base is frozen (QLoRA): :class:`NF4Matmul` differentiates with
 respect to ``x`` only, and only where autograd asks for it.
 ``nf4_matmul.launches`` and ``nf4_matmul_backward.launches`` count the
-kernel launches.
+kernel launches, and ``nf4_matmul.launches_by_route`` the forward's by
+route.
 """
 
 from __future__ import annotations
@@ -107,7 +110,47 @@ def nf4_matmul(x: torch.Tensor, t: NF4Tensor, out_dtype=None) -> torch.Tensor:
     return _forward(x, t, out_dtype)
 
 
-def _forward(x: torch.Tensor, t: NF4Tensor, out_dtype=None) -> torch.Tensor:
+# The forward's smallest row count on the wgmma route, from chip_smoke's
+# crossover table (one layer's 7 Qwen3-8B projections, NVIDIA H100 80GB
+# HBM3, 700 W): the split-K kernel wins at M = 16, 64 and 128 (0.478
+# against 0.517 ms at 128) and loses from 256 up (0.744 against 0.514 ms
+# at 256, 19.03 against 5.14 ms at 8192).
+WGMMA_MIN_M = 256
+ROUTES = ("wgmma", "splitk")
+
+
+def _wgmma_shape(k: int, n: int) -> bool:
+    """Whether the wgmma forward takes the shape: K % 64 == 0 (one absmax
+    row per 64-row stage; every kblock leaf has it) and N % 32 == 0 (the
+    low half's packed columns and absmax runs, N/2 bytes in, must start
+    16-byte aligned for TMA)."""
+    return k % _BK == 0 and n % 32 == 0
+
+
+def _route(m: int, k: int, n: int) -> str:
+    """The forward kernel for ``(m, k) @ (k, n)``: "wgmma"
+    (``qmm_wgmma_kernel<Nf4Fwd>``) for the shapes it takes at
+    ``m >= WGMMA_MIN_M``, else "splitk" (``nf4_matmul_kernel``, split over
+    K)."""
+    return "wgmma" if m >= WGMMA_MIN_M and _wgmma_shape(k, n) else "splitk"
+
+
+def _checked_route(m: int, k: int, n: int, route: str | None) -> str:
+    """``route`` if the shape takes it, :func:`_route`'s pick if None."""
+    if route is None:
+        return _route(m, k, n)
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "wgmma" and not _wgmma_shape(k, n):
+        raise ValueError(f"the wgmma forward needs K % 64 == 0 and "
+                         f"N % 32 == 0; got K={k}, N={n}")
+    return route
+
+
+def _forward(x: torch.Tensor, t: NF4Tensor, out_dtype=None,
+             route: str | None = None) -> torch.Tensor:
+    """The forward; ``route`` overrides :func:`_route` (to time both
+    kernels at one shape)."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return nf4_matmul_reference(x, t, out_dtype)
@@ -117,38 +160,44 @@ def _forward(x: torch.Tensor, t: NF4Tensor, out_dtype=None) -> torch.Tensor:
         raise TypeError(f"unsupported out_dtype {out_dtype}")
     k, n = _check(x, t)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).to(torch.bfloat16).contiguous()
-    if x2.data_ptr() % 16:
-        x2 = x2.clone()
+    x2 = _aligned(x.reshape(-1, k).to(torch.bfloat16))
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
-    packed = t.packed.contiguous()
-    absmax_q = t.absmax_q.contiguous()
-    absmax_scale = t.absmax_scale.contiguous()
+    route = _checked_route(m, k, n, route)
+    packed, absmax_q, absmax_scale = (
+        _aligned(a) for a in (t.packed, t.absmax_q, t.absmax_scale))
     offset = t.absmax_offset.reshape(1).contiguous()
-    split = split_k_for(m, k, n, _sm_count(x.device.index))
-    ws = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
-          if split > 1 else out)
-
     lib = _build.load("nf4_matmul")
+    split = 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nf4_matmul_launch(
-            x2.data_ptr(), packed.data_ptr(), absmax_q.data_ptr(),
-            absmax_scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), m, k, n, split, _OUT_CODES[out_dtype], stream)
+        if route == "wgmma":
+            err = lib.nf4_matmul_wgmma_launch(
+                x2.data_ptr(), packed.data_ptr(), absmax_q.data_ptr(),
+                absmax_scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
+                m, k, n, _OUT_CODES[out_dtype], stream)
+        else:
+            split = split_k_for(m, k, n, _sm_count(x.device.index))
+            ws = (torch.empty((split, m, n), dtype=torch.float32,
+                              device=x.device) if split > 1 else out)
+            err = lib.nf4_matmul_launch(
+                x2.data_ptr(), packed.data_ptr(), absmax_q.data_ptr(),
+                absmax_scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), m, k, n, split, _OUT_CODES[out_dtype], stream)
     if err != 0:
         msg = lib.nf4_cuda_error_string(err).decode()
         raise RuntimeError(
-            f"nf4_matmul kernel launch failed (m={m}, k={k}, n={n}, "
-            f"split_k={split}): cuda error {err}: {msg}")
+            f"nf4_matmul ({route}) kernel launch failed (m={m}, k={k}, "
+            f"n={n}, split_k={split}): cuda error {err}: {msg}")
     nf4_matmul.launches += 1
+    nf4_matmul.launches_by_route[route] += 1
     return out.reshape(*lead, n)
 
 
 nf4_matmul.launches = 0
+nf4_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def nf4_matmul_backward_reference(dy: torch.Tensor, t: NF4Tensor,
