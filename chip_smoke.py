@@ -19,14 +19,20 @@ Phases, in order; any failure exits non-zero:
    size 32 and fractional zeros (AWQ's grid). A planted fault (one group's
    scale, or for int8 a block of columns' or at M = 8192 one column's
    scale, zeroed in a copy of the weight) must read as a failure, on both
-   forward routes. The dx kernels and both forward routes of int4 and
+   forward routes. The dx kernels and every forward route of int4 and
    int8 also run at ragged shapes (``DX_EDGE_SHAPES``, ``FWD_EDGE_SHAPES``,
    ``INT8_FWD_EDGE_SHAPES``: M, K and N off their tiles, int4 group sizes
    32 and 2), and every launch of a dx kernel or a forward is repeated and
-   must give the same bytes. Then the forward crossover tables of NF4,
-   int4 and int8: both routes (split-K and the wgmma mainloop) on one
-   layer's 7 projections at ``CROSSOVER_M``, beside the row count from
-   which each wrapper's ``_route`` takes wgmma.
+   must give the same bytes; int4's thin-M route must reproduce the
+   codec's bf16 weights bit for bit (unit-vector rows of x) and give the
+   same bytes over repeated launches of every instantiation. Then the
+   forward crossover tables of NF4, int4 and int8: every route (NF4 and
+   int8: split-K and the wgmma mainloop; int4: the thin-M kernel and the
+   wgmma mainloop) on one layer's 7 projections at ``CROSSOVER_M`` (int4
+   also at M = 1 and 8), beside the row count from which each wrapper's
+   ``_route`` takes wgmma; and the three forwards' device time at decode
+   row counts (``DECODE_M``: kernel self time under torch.profiler, beside
+   the event time), each against its library call.
 5. Serve: a Qwen3-8B-width model (hidden 4096, inter 12288, 32/8 heads,
    head_dim 128, vocab 151936, tied embeddings) with random weights from a
    seeded generator, every block projection quantized on the card (NF4,
@@ -34,19 +40,24 @@ Phases, in order; any failure exits non-zero:
    server on 127.0.0.1. Eight concurrent chat requests (four streamed)
    run through the HTTP API; the kernels' launch counters are zeroed just
    before and read just after, and must show the format's kernel ran for
-   every projection of every forward pass (for int4, on the route that
-   ``_route`` picks for each pass's row count). Then whole-model logits of
-   an AWQ model (2 layers), kernels against plain versions.
+   every projection of every forward pass, on the route that ``_route``
+   picks for each pass's row count. Then whole-model logits of an AWQ
+   model (2 layers), kernels against plain versions, and a greedy
+   generation for 8 prompts on it through the engine (every decode
+   projection on int4's thin-M route).
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
    Qwen3-8B projection shape (both also at ragged shapes,
    ``NF4_FWD_EDGE_SHAPES`` on both forward routes and
    ``NF4_DX_EDGE_SHAPES``, every launch repeated for the same bytes, with
    a planted zeroed absmax block that must read as a failure, and the
    forward on a weight whose arrays start off 16-byte alignment), and
-   the three flash kernels (forward, dK/dV, dQ) at batch 8 x 1024 tokens,
-   32/8 heads, plus a ragged length, each against its plain version (the
-   flash outputs tile by tile, and a planted zeroed dV tile must read as a
-   failure) and timed as in phase 3.
+   the three flash kernels (forward, dK/dV, dQ) at ``FLASH_SHAPES`` (batch
+   8 x 1024 tokens, 32/8 heads; a ragged length; head_dim 64 with a GQA
+   group of 1; q, k, v as strided views of one fused tensor, whose
+   forward must give the bytes of contiguous copies), each against its
+   plain version (the flash outputs tile by tile, every forward repeated
+   for the same bytes, and a planted zeroed dV tile must read as a
+   failure) and timed as in phase 3 at the training shape.
 7. Whole step: one QLoRA step at full width, 2 layers, batch 2 x 1024,
    over an NF4, an int4 and an int8 base, with the kernels and again with
    every kernel swapped for its plain version; the loss and every LoRA
@@ -171,21 +182,39 @@ INT8_FWD_EDGE_SHAPES = ((333, 4096, 4096), (8191, 4096, 4096),
 # 256-value scale block), M off the 256-row tile
 NF4_DX_EDGE_SHAPES = ((17, 4096, 4096), (8191, 4096, 4096), (333, 192, 4096),
                       (333, 4096, 192), (333, 4096, 1088), (33, 192, 192))
-# the forward crossover tables (NF4, int4, int8): both routes at these row
-# counts
+# the forward crossover tables (NF4, int4, int8): every route at these row
+# counts (int4 also at the decode row counts 1 and 8)
 CROSSOVER_M = (16, 64, 128, 256, 512, 1024, 8192)
+INT4_CROSSOVER_M = (1, 8) + CROSSOVER_M
 FWD_FORMATS = ("nf4", "int4", "int8")
+# decode row counts whose device time (torch.profiler, kernel self time)
+# the kernel table reports beside the event time
+DECODE_M = (1, MAX_SLOTS, 16)
+# flash checks (B, L, H, Hkv, D, layout): the training shape, a ragged
+# length, head_dim 64 with a GQA group of 1, and q, k, v as strided views
+# of one fused (B, L, H + 2 Hkv, D) tensor
+FLASH_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128, "contiguous"),
+                (2, 1000, 32, 8, 128, "contiguous"),
+                (2, 300, 8, 8, 64, "contiguous"),
+                (2, 1000, 32, 8, 128, "fused_views"))
 # readings of the kernels the wgmma routes replaced, per layer's 7
 # projections at M = 8192 (PERF.md, mma.sync designs; NVIDIA H100 80GB HBM3,
 # 700 W): printed beside this run's times, never measured here
 EARLIER_MS = {"nf4_matmul": 18.86, "nf4_matmul_backward": 20.85,
               "int4_matmul": 22.95, "int8_matmul": 18.48}
 AWQ_LAYERS = 2
+# the thin-M int4 kernel's instantiations (8 MT rows of x per block; gs %
+# 16 == 0 or not), as ptxas names them
+THIN_LABELS = tuple(f"int4_thin_kernelILi{mt}ELb{u}E" for mt in (1, 2, 4, 8, 16)
+                    for u in (1, 0))
+FLASH_FWD_LABELS = ("flash_fwd_kernelILi128E", "flash_fwd_kernelILi64E")
 # each kernel's entries in the ptxas report (qmm_resources)
 PTXAS_LABELS = {"nf4_matmul": ("Nf4Fwd",), "nf4_matmul_backward": ("Nf4Dx",),
-                "int4_matmul": ("Int4Fwd",), "int4_matmul_backward": ("Int4Dx",),
+                "int4_matmul": ("Int4Fwd",) + THIN_LABELS,
+                "int4_matmul_backward": ("Int4Dx",),
                 "int8_matmul": ("Int8Fwd",),
-                "int8_matmul_backward": ("Int8Dx", "int8_scale_dy_kernel")}
+                "int8_matmul_backward": ("Int8Dx", "int8_scale_dy_kernel"),
+                "flash_forward": FLASH_FWD_LABELS}
 
 
 def log(*args):
@@ -243,16 +272,17 @@ def matmul_bound(m: int, k: int, n: int, wbytes: int
 
 def qmm_resources() -> dict:
     """Registers, spills and shared memory of the kernels on the wgmma
-    mainloop (B1's, B6's and B8's wgmma routes, B2, B7, B9) and B9's
-    scaling pass, as ptxas reported them in this process's build, and
-    whether ptxas warned C7515 (wgmma serialized) for each."""
+    mainloop (B1's, B6's and B8's wgmma routes, B2, B7, B9), B9's scaling
+    pass, B6's thin-M kernel and the wgmma flash forward (B3), as ptxas
+    reported them in this process's build, and whether ptxas warned C7515
+    (wgmma serialized) for each."""
     from llm_in_practise_tpu_torch.ops import _build
 
     labels = ("Nf4Fwd", "Int4Fwd", "Int8Fwd", "Int4Dx", "Int8Dx", "Nf4Dx",
-              "int8_scale_dy_kernel")
+              "int8_scale_dy_kernel") + THIN_LABELS + FLASH_FWD_LABELS
     out = {}
     for src in ("nf4_matmul", "int4_matmul", "int8_matmul",
-                "nf4_matmul_bwd"):
+                "nf4_matmul_bwd", "flash_attention"):
         entry = None
         for line in _build.ptxas_log.get(src, "").splitlines():
             named = next((lab for lab in labels if lab in line), None)
@@ -555,13 +585,13 @@ def check_ptq_kernels(seed: int, flush) -> dict:
               i8.int8_matmul_backward_reference, None, dy, int8.quantize(w),
               0, k, n, None, edge=True)
         del w, dy, cases
-    # B6 at ragged shapes on both routes (wgmma where it takes the shape)
+    # B6 at ragged shapes on every route (wgmma where it takes the shape)
     for m, k, n, gs in FWD_EDGE_SHAPES:
         w = torch.randn(k, n, device=dev, generator=gen) * 0.02
         x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
         cases = {"sym": int4.rtn_quantize(w, group_size=gs),
                  "asym_frac": fractional_zero_int4(w, gs)}
-        for route in ("splitk", "wgmma"):
+        for route in i4.ROUTES:
             if route == "wgmma" and not i4._wgmma_shape(k, n, gs):
                 continue
             for case, t in cases.items():
@@ -583,14 +613,66 @@ def check_ptq_kernels(seed: int, flush) -> dict:
     return rows
 
 
+# row counts of every thin-route instantiation (8, 16, 32, 64 and 128 rows
+# of x per block), each launched THIN_REPEATS times for the same bytes
+THIN_REPEAT_M = (1, 8, 16, 17, 32, 33, 64, 65, 128)
+THIN_REPEATS = 10
+
+
+def thin_exactness(seed: int) -> dict:
+    """B6's thin route decodes every weight bit for bit as the codec does:
+    with x rows that are unit vectors e_k (and an f32 output), row m of
+    ``x @ W`` is row k_m of the bf16 weight exactly (products by 1.0 and
+    sums of zeros are exact), for symmetric g128 weights and AWQ-style
+    fractional zeros at g32, K rows at the edges of groups, stages and K.
+    And it is deterministic: at every ``THIN_REPEAT_M`` (each instantiation
+    of the kernel) on gate_proj's shape, ``THIN_REPEATS`` launches give the
+    same bytes."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
+    from llm_in_practise_tpu_torch.quant import int4
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    out = {}
+    for k, n in sorted(set(PROJ_SHAPES.values())):
+        w = torch.randn(k, n, device=dev, generator=gen) * 0.02
+        rows = [0, 1, 31, 32, 127, 128, 2049, k - 1]
+        x = torch.zeros(len(rows), k, device=dev, dtype=torch.bfloat16)
+        x[torch.arange(len(rows)), torch.tensor(rows)] = 1
+        for case, t in (("sym_g128", int4.rtn_quantize(w, group_size=INT4_GS)),
+                        ("asym_g32_frac", fractional_zero_int4(w, AWQ_GS))):
+            y = i4._forward(x, t, torch.float32, route="thin")
+            want = int4.decode(t, torch.bfloat16).float()[rows]
+            out[f"unit rows {case} K={k} N={n}"] = bool(torch.equal(y, want))
+    k, n = PROJ_SHAPES["gate_proj"]
+    t = fractional_zero_int4(torch.randn(k, n, device=dev, generator=gen)
+                             * 0.02, INT4_GS)
+    for m in THIN_REPEAT_M:
+        x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+        y = i4._forward(x, t, torch.bfloat16, route="thin")
+        out[f"repeats M={m} K={k} N={n}"] = all(
+            torch.equal(y, i4._forward(x, t, torch.bfloat16, route="thin"))
+            for _ in range(THIN_REPEATS))
+    log("int4 thin route, exactness:", json.dumps(out))
+    if not all(out.values()):
+        raise SystemExit(f"the thin route's weights differ from the codec's, "
+                         f"or a repeated launch gave other bytes: {out}")
+    return out
+
+
 def fwd_crossover(fmt: str, seed: int, flush) -> dict:
-    """Both forward routes of ``fmt`` (NF4, int4 symmetric with group size
+    """Every forward route of ``fmt`` (NF4, int4 symmetric with group size
     128, or int8) on one layer's 7 Qwen3-8B projections at every row count
-    of ``CROSSOVER_M``: device times summed over the layer (L2 flushed
-    before each launch), every launch held to its plain version.
-    ``measured_from_M`` is the smallest row count from which the wgmma
-    route is faster at every larger one in the table; the wrapper's
-    ``_route`` takes wgmma from its ``WGMMA_MIN_M``."""
+    of ``CROSSOVER_M`` (int4: ``INT4_CROSSOVER_M``): device times summed
+    over the layer (L2 flushed before each launch), every launch held to
+    its plain version. ``measured_from_M`` is the smallest row count from
+    which the wgmma route is faster at every larger one in the table; the
+    wrapper's ``_route`` takes wgmma from its ``WGMMA_MIN_M``, and
+    ``route_agrees`` says whether it picks the fastest route at every row
+    count."""
     import torch
 
     mod, plain, route_of = fwd_op(fmt)
@@ -601,10 +683,10 @@ def fwd_crossover(fmt: str, seed: int, flush) -> dict:
         fmt, torch.randn(*kn, device=dev, generator=gen) * 0.02)
         for kn in sorted(set(PROJ_SHAPES.values()))}
     table = []
-    for m in CROSSOVER_M:
+    for m in INT4_CROSSOVER_M if fmt == "int4" else CROSSOVER_M:
         xs = {k: torch.randn(m, k, device=dev, generator=gen).to(
             torch.bfloat16) for k in {k for k, _ in PROJ_SHAPES.values()}}
-        ms = {"wgmma": 0.0, "splitk": 0.0}
+        ms = dict.fromkeys(mod.ROUTES, 0.0)
         worst = 0.0
         for k, n in PROJ_SHAPES.values():
             t, x = weights[(k, n)], xs[k]
@@ -622,7 +704,7 @@ def fwd_crossover(fmt: str, seed: int, flush) -> dict:
                 worst = max(worst, rel)
                 ms[route] += time_ms(run, 5 if m == TRAIN_M else 10, flush)
             del ref
-        row = {"M": m, "wgmma_ms": ms["wgmma"], "splitk_ms": ms["splitk"],
+        row = {"M": m, **{f"{r}_ms": v for r, v in ms.items()},
                "faster": min(ms, key=ms.get), "max_rel_err": worst,
                "routed": route_of(m, *PROJ_SHAPES["q_proj"])}
         log(f"{fmt} crossover:", json.dumps(row))
@@ -638,6 +720,100 @@ def fwd_crossover(fmt: str, seed: int, flush) -> dict:
     return {"at": f"one layer's 7 projections, {fmt} {at}", "table": table,
             "measured_from_M": measured, "route_from_M": mod.WGMMA_MIN_M,
             "route_agrees": all(r["routed"] == r["faster"] for r in table)}
+
+
+def device_ms(calls, rounds: int = 20):
+    """Device time of one round of ``calls`` in ms: the summed kernel self
+    time under torch.profiler over ``rounds`` rounds, after one warm-up
+    round, so the host's work around each launch (the wrapper's checks,
+    allocations, the ctypes call) is not counted. None where the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / rounds if us else None
+
+
+def decode_device(seed: int, flush) -> dict:
+    """One layer's 7 Qwen3-8B projections at each row count of
+    ``DECODE_M``, per forward format (NF4, int4 symmetric g128, int8): the
+    wrapper (the route ``_route`` picks) and the library call (one
+    torch.matmul on the weight dequantized beforehand; for int8
+    ``(x @ q.bf16) * scale``), each as device time (``device_ms``) and as
+    event time (``time_ms`` per call, L2 flushed, summed); for int4 also
+    every other route's device time. Rows back to back, so a weight read
+    by one projection is out of L2 (108-193 MB a layer) by its next
+    round."""
+    import torch
+
+    from llm_in_practise_tpu_torch.quant import int4, nf4
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 12)
+    out = {}
+    for fmt in FWD_FORMATS:
+        mod, _, route_of = fwd_op(fmt)
+        wrapper = getattr(mod, f"{fmt}_matmul")
+        weights = {kn: quantize_weight(
+            fmt, torch.randn(*kn, device=dev, generator=gen) * 0.02)
+            for kn in sorted(set(PROJ_SHAPES.values()))}
+        if fmt == "nf4":
+            dense = {kn: nf4.dequantize(t, torch.bfloat16)
+                     for kn, t in weights.items()}
+        elif fmt == "int4":
+            dense = {kn: int4.decode(t) for kn, t in weights.items()}
+        else:
+            dense = {kn: t.q.to(torch.bfloat16) for kn, t in weights.items()}
+        rows = {}
+        for m in DECODE_M:
+            xs = {k: torch.randn(m, k, device=dev, generator=gen).to(
+                torch.bfloat16) for k in {k for k, _ in PROJ_SHAPES.values()}}
+            kern, lib = [], []
+            for kn in PROJ_SHAPES.values():
+                x, t, w = xs[kn[0]], weights[kn], dense[kn]
+                kern.append(lambda x=x, t=t: wrapper(x, t, torch.bfloat16))
+                if fmt == "int8":
+                    lib.append(lambda x=x, w=w, t=t: torch.matmul(x, w)
+                               * t.scale)
+                else:
+                    lib.append(lambda x=x, w=w: torch.matmul(x, w))
+            row = {"route": route_of(m, *PROJ_SHAPES["q_proj"]),
+                   "device_ms": device_ms(kern),
+                   "library_device_ms": device_ms(lib),
+                   "ms": sum(time_ms(c, 20, flush) for c in kern),
+                   "library_ms": sum(time_ms(c, 20, flush) for c in lib)}
+            for route in mod.ROUTES if fmt == "int4" else ():
+                if route != row["route"]:
+                    row[f"{route}_device_ms"] = device_ms([
+                        lambda x=xs[kn[0]], t=weights[kn], r=route:
+                        mod._forward(x, t, torch.bfloat16, route=r)
+                        for kn in PROJ_SHAPES.values()])
+            log(f"{fmt} decode device time, M={m}:", json.dumps(row))
+            rows[m] = row
+            del xs, kern, lib
+        out[fmt] = rows
+        del weights, dense
+    return out
+
+
+def decode_fields(decode: dict, fmt: str) -> dict:
+    """A forward's decode rows for the kernel table: device times at
+    M = MAX_SLOTS beside the event times, and every DECODE_M row."""
+    row = decode[fmt][MAX_SLOTS]
+    return {"device_ms": row["device_ms"],
+            "library_device_ms": row["library_device_ms"],
+            "decode_device": decode[fmt]}
 
 
 def edge_summary(rows: dict, kernel: str) -> dict:
@@ -716,6 +892,13 @@ def build_model(fmt: str, n_layer: int, seed: int):
 # the kernel that serves each format's projections
 SERVE_KERNEL = {"nf4": "nf4_matmul", "int4": "int4_matmul",
                 "awq": "int4_matmul", "int8": "int8_matmul"}
+# the device kernels of each forward's routes, as the profiler names them
+# (split-K kernel and its reduce, or the thin-M kernel; wgmma policy)
+ROUTE_KERNEL_KEYS = {"nf4_matmul": ("nf4_matmul_kernel", "splitk_reduce",
+                                    "Nf4Fwd"),
+                     "int4_matmul": ("int4_thin_kernel", "Int4Fwd"),
+                     "int8_matmul": ("int8_matmul_kernel",
+                                     "int8_splitk_reduce", "Int8Fwd")}
 
 
 def model_check(model, tok_ids, fmt: str) -> dict:
@@ -799,6 +982,11 @@ def train_tokenizer():
 
 
 MODEL_CHECK_TEXT = "The port serves Qwen3 on Hopper."
+# the chat requests' topics, one per slot
+TOPICS = ("the KV cache", "NF4 quantization", "continuous batching",
+          "rotary embeddings", "grouped-query attention", "SwiGLU",
+          "the OpenAI API", "Hopper tensor cores")
+AWQ_DECODE_TOKENS = 16
 
 
 def awq_check(tok, seed: int) -> dict:
@@ -814,6 +1002,58 @@ def awq_check(tok, seed: int) -> dict:
         f"built and quantized in {time.monotonic() - t0:.1f}s")
     res = model_check(model, tok.encode(MODEL_CHECK_TEXT), "awq")
     log("awq model check:", json.dumps(res))
+    res["decode"] = awq_decode(model, tok, seed)
+    log("awq decode:", json.dumps(res["decode"]))
+    return res
+
+
+def awq_decode(model, tok, seed: int) -> dict:
+    """Greedy generation for MAX_SLOTS prompts through the engine on the AWQ
+    model (no HTTP): every pass's projections must run on the route that
+    ``_route`` picks for its rows, every decode pass on that of MAX_SLOTS
+    rows."""
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.engine import (
+        InferenceEngine,
+        SamplingParams,
+    )
+
+    engine = InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+                             eos_id=tok.token_to_id(IM_END),
+                             cache_dtype=torch.bfloat16, seed=seed)
+    passes = []  # rows of each prefill pass
+    prefill = engine._prefill_batch
+
+    def recording_prefill(batch):
+        passes.append(len(batch) * max(len(r.prompt_ids) for _, r in batch))
+        return prefill(batch)
+
+    engine._prefill_batch = recording_prefill
+    params = SamplingParams(greedy=True, max_tokens=AWQ_DECODE_TOKENS)
+    zero_counters()
+    reqs = [engine.submit(tok.encode(f"Explain {topic} briefly."), params)
+            for topic in TOPICS]
+    while engine.step():
+        pass
+    torch.cuda.synchronize()
+    forwards = engine.decode_steps_run + engine.prefill_batches_run
+    routes = read_routes()["int4_matmul"]
+    launches = read_counters()["int4_matmul"]
+    decode_passes = forwards - len(passes)
+    want = route_launches("int4", passes + [MAX_SLOTS] * decode_passes,
+                          PROJ_SHAPES.values(), AWQ_LAYERS)
+    res = {"requests": len(reqs),
+           "completion_tokens": sum(r.n_generated for r in reqs),
+           "prefill_rows": passes, "decode_passes": decode_passes,
+           "launches": launches, "launches_by_route": routes,
+           "expected": want}
+    if (engine.error is not None or any(r.n_generated < 1 for r in reqs)
+            or decode_passes < 1 or routes != want
+            or launches != 7 * AWQ_LAYERS * forwards):
+        raise SystemExit(f"AWQ decode did not run every projection on the "
+                         f"route _route picks: {res}")
     return res
 
 
@@ -860,15 +1100,12 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
     server = OpenAIServer(engine, tok, model_name=model_name)
     port = server.serve(host="127.0.0.1", port=0, background=True)
     base = f"http://127.0.0.1:{port}"
-    topics = ["the KV cache", "NF4 quantization", "continuous batching",
-              "rotary embeddings", "grouped-query attention", "SwiGLU",
-              "the OpenAI API", "Hopper tensor cores"]
 
     def body(i, stream):
         return {"model": model_name, "temperature": 0.0,
                 "max_tokens": MAX_TOKENS, "stream": stream, "messages": [
                     {"role": "system", "content": "You are a helpful assistant."},
-                    {"role": "user", "content": f"Explain {topics[i]} in a "
+                    {"role": "user", "content": f"Explain {TOPICS[i]} in a "
                                                 "few sentences."}]}
 
     try:
@@ -921,14 +1158,18 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
     if rep[0] != rep[1] or not rep[0]:
         raise SystemExit("the repeated greedy request changed its tokens")
     # prefill passes take the route the wrapper's _route picks for their
-    # rows; decode passes (at most MAX_SLOTS rows) the split-K kernel
-    want = n_layer * wgmma_launches(fmt, passes, PROJ_SHAPES.values())
-    route_check = {"launches_by_route": routes, "wgmma_expected": want,
-                   "prefill_rows": passes}
-    if routes != {"wgmma": want, "splitk": launches - want}:
-        raise SystemExit(f"{kernel_name} routes {routes} != {want} wgmma "
-                         f"launches for prefill passes of {passes} rows and "
-                         f"the rest split-K")
+    # rows; decode passes (1 to MAX_SLOTS rows) that of MAX_SLOTS rows
+    decode_passes = forwards - len(passes)
+    want = route_launches(fmt, passes + [MAX_SLOTS] * decode_passes,
+                          PROJ_SHAPES.values(), n_layer)
+    route_check = {"launches_by_route": routes, "expected": want,
+                   "prefill_rows": passes, "decode_passes": decode_passes,
+                   "decode_route": fwd_op(fmt)[2](MAX_SLOTS,
+                                                  *PROJ_SHAPES["q_proj"])}
+    if routes != want:
+        raise SystemExit(f"{kernel_name} routes {routes} != {want} for "
+                         f"prefill passes of {passes} rows and "
+                         f"{decode_passes} decode passes")
     first = sorted(reqs, key=lambda r: r.uid)[0]
     gen_tokens = sum(r.n_generated for r in reqs)
     t_first = min(r.first_token_time for r in reqs)
@@ -994,7 +1235,8 @@ def profile_decode(engine, prompts, kernel_name: str, steps: int = 16
         return {"step_wall_ms": wall_ms, "device_ms": "not measured"}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     kernel_us = sum(e.self_device_time_total for e in kernels
-                    if kernel_name in e.key or "splitk_reduce" in e.key)
+                    if any(key in e.key
+                           for key in ROUTE_KERNEL_KEYS[kernel_name]))
     return {
         "batch": len(prompts), "steps": steps,
         "step_wall_ms": wall_ms,
@@ -1214,10 +1456,15 @@ def layer_sum(rows: dict, kernel: str) -> dict:
 
 def check_flash(seed: int, flush) -> dict:
     """The flash forward, dK/dV and dQ kernels against their plain
-    versions at the training shape (8 x 1024, 32/8 heads, head_dim 128:
-    16 key tiles, so the online softmax and the dK/dV loop run over many
-    tiles) and a ragged length (1000: the last tile is masked); timed at
-    the training shape, with SDPA as the library yardstick."""
+    versions at ``FLASH_SHAPES``: the training shape (8 x 1024, 32/8 heads,
+    head_dim 128: 8 query tiles of the forward, 16 key tiles of the
+    backward), a ragged length (1000: the last tile is masked), head_dim 64
+    with a GQA group of 1, and q, k, v as strided views of one fused
+    (B, L, H + 2 Hkv, D) tensor (the forward's 4-D tensor maps over the
+    caller's strides; its bytes must equal those from contiguous copies).
+    Every forward repeats to the same bytes (each row is reduced in one
+    block in a fixed order). Timed at the training shape, with SDPA as the
+    library yardstick."""
     import torch
     import torch.nn.functional as F
 
@@ -1226,53 +1473,71 @@ def check_flash(seed: int, flush) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 2)
-    n_head, n_kv, d = QWEN3_8B["n_head"], QWEN3_8B["n_kv_head"], \
-        QWEN3_8B["head_dim"]
-    scale = d ** -0.5
     checks, out = [], {}
-    for b, length in ((TRAIN_BATCH, TRAIN_SEQ), (2, 1000)):
+    for b, length, n_head, n_kv, d, layout in FLASH_SHAPES:
+        scale = d ** -0.5
+
         def rnd(h):
             return torch.randn(b, length, h, d, device=dev,
                                generator=gen).to(torch.bfloat16)
 
-        q, k, v, do = rnd(n_head), rnd(n_kv), rnd(n_kv), rnd(n_head)
+        if layout == "fused_views":
+            fused = rnd(n_head + 2 * n_kv)
+            q, k, v = (fused[:, :, :n_head],
+                       fused[:, :, n_head:n_head + n_kv],
+                       fused[:, :, n_head + n_kv:])
+        else:
+            q, k, v = rnd(n_head), rnd(n_kv), rnd(n_kv)
+        do = rnd(n_head)
         o, lse = fa.flash_forward(q, k, v, scale)
+        o_rep, lse_rep = fa.flash_forward(q, k, v, scale)
         ro, rlse = fa.flash_forward_reference(q, k, v, scale)
-        q2, k2, v2, do2, lse2, delta = fa.backward_inputs(q, k, v, o, lse,
-                                                          do)
-        dk, dv = fa.flash_backward_dkv(q2, k2, v2, do2, lse2, delta, scale)
-        dq = fa.flash_backward_dq(q2, k2, v2, do2, lse2, delta, scale)
+        q2, k2, v2, do2, lse_k, delta = fa.backward_inputs(q, k, v, o, lse,
+                                                           do)
+        dk, dv = fa.flash_backward_dkv(q2, k2, v2, do2, lse_k, delta, scale)
+        dq = fa.flash_backward_dq(q2, k2, v2, do2, lse_k, delta, scale)
         rq, rk, rv = fa.flash_backward_reference(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
         res = {"B": b, "L": length, "H": n_head, "Hkv": n_kv, "D": d,
-               "tile": FLASH_TILE, "o": tile_err(o, ro),
+               "layout": layout, "tile": FLASH_TILE, "o": tile_err(o, ro),
                "lse_abs": (lse - rlse).abs().max().item(),
                "dq": tile_err(dq, rq), "dk": tile_err(dk, rk),
                "dv": tile_err(dv, rv),
+               "forward_repeat_equal": bool(torch.equal(o, o_rep)
+                                            and torch.equal(lse, lse_rep)),
                "tol": f"tile_rel {FLASH_TOL}: max|kernel - plain| over "
                       f"max|plain| in every {FLASH_TILE}-row tile of one "
                       f"(batch, head); LSE {LSE_TOL} absolute"}
+        if layout == "fused_views":
+            oc, lsec = fa.flash_forward(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), scale)
+            res["equal_to_contiguous"] = bool(torch.equal(o, oc)
+                                              and torch.equal(lse, lsec))
+            del oc, lsec
         # the check must see a planted fault: dV with its last key tile
         # (the smallest values, and the ragged one at L = 1000) zeroed
         dv_bad = dv.clone()
         dv_bad[:, (length - 1) // FLASH_TILE * FLASH_TILE:] = 0
         res["planted_dv_tile_zeroed"] = tile_err(dv_bad, rv)
-        del dv_bad
+        del dv_bad, o_rep, lse_rep
         res["ok"] = (all(res[x]["tile_rel"] <= FLASH_TOL
                          for x in ("o", "dq", "dk", "dv"))
                      and res["lse_abs"] <= LSE_TOL
+                     and res["forward_repeat_equal"]
+                     and res.get("equal_to_contiguous", True)
                      and all(bool(torch.isfinite(t).all())
                              for t in (o, lse, dq, dk, dv)))
         log("flash check:", json.dumps(res))
         checks.append(res)
         if not res["ok"]:
             raise SystemExit(f"flash kernels disagree with their plain "
-                             f"versions: {res}")
+                             f"versions, or the forward's bytes moved: "
+                             f"{res}")
         if res["planted_dv_tile_zeroed"]["tile_rel"] <= FLASH_TOL:
             raise SystemExit("the flash check does not see a zeroed dV "
                              f"tile: {res['planted_dv_tile_zeroed']}")
         del ro, rlse, rq, rk, rv
-        if (b, length) != (TRAIN_BATCH, TRAIN_SEQ):
+        if (b, length, layout) != (TRAIN_BATCH, TRAIN_SEQ, "contiguous"):
             continue
         # timing at the training shape; SDPA is the library yardstick
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
@@ -1296,7 +1561,7 @@ def check_flash(seed: int, flush) -> dict:
                 sdpa_forward,
                 flash_bound(b, length, n_head, d, 2, 2 * qb + 2 * kvb + vec)),
             "flash_backward_dkv": (
-                lambda: fa.flash_backward_dkv(q2, k2, v2, do2, lse2, delta,
+                lambda: fa.flash_backward_dkv(q2, k2, v2, do2, lse_k, delta,
                                               scale),
                 lambda: fa.flash_backward_reference(q, k, v, o, lse, do,
                                                     scale),
@@ -1305,12 +1570,11 @@ def check_flash(seed: int, flush) -> dict:
                 flash_bound(b, length, n_head, d, 4,
                             2 * qb + 4 * kvb + 2 * vec)),
             "flash_backward_dq": (
-                lambda: fa.flash_backward_dq(q2, k2, v2, do2, lse2, delta,
+                lambda: fa.flash_backward_dq(q2, k2, v2, do2, lse_k, delta,
                                              scale),
                 lambda: fa.flash_backward_reference(q, k, v, o, lse, do,
                                                     scale),
-                lambda: torch.autograd.grad(sdpa, (qt, kt, vt), do_t,
-                                            retain_graph=True),
+                None,  # the pair's yardstick is timed with dK/dV
                 flash_bound(b, length, n_head, d, 3,
                             3 * qb + 2 * kvb + 2 * vec)),
         }
@@ -1318,17 +1582,23 @@ def check_flash(seed: int, flush) -> dict:
             out[name] = {
                 "ms": time_ms(fn, 10, flush),
                 "plain_ms": time_ms(plain, 3, flush),
-                "library_ms": time_ms(lib, 10, flush),
+                "library_ms": time_ms(lib, 10, flush) if lib else None,
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "bytes": bound[2],
                 "at": f"B={b} L={length} H={n_head} Hkv={n_kv} D={d}, "
                       "causal",
             }
             log(json.dumps({"kernel": name, **out[name]}))
+        # no PyTorch call computes dK/dV or dQ alone (library_ms null):
+        # the pair is set against SDPA's whole backward (dq, dk, dv)
+        pair = {"ms": (out["flash_backward_dkv"]["ms"]
+                       + out["flash_backward_dq"]["ms"]),
+                "library_ms": out["flash_backward_dkv"]["library_ms"],
+                "library": "SDPA backward: dq, dk and dv together"}
+        pair["ratio"] = pair["ms"] / pair["library_ms"]
         for name in ("flash_backward_dkv", "flash_backward_dq"):
-            out[name]["library_covers"] = (
-                "SDPA backward: dq, dk and dv together (compare with "
-                "flash_backward_dkv + flash_backward_dq)")
+            out[name]["library_ms"] = None
+            out[name]["pair"] = pair
         del qt, kt, vt, sdpa
     outputs = {"flash_forward": ("o",), "flash_backward_dkv": ("dk", "dv"),
                "flash_backward_dq": ("dq",)}
@@ -1504,13 +1774,17 @@ def read_routes() -> dict:
             for fmt in FWD_FORMATS}
 
 
-def wgmma_launches(fmt: str, rows_per_pass, shapes) -> int:
-    """Launches that ``fmt``'s ``_route`` sends to the wgmma kernel when
-    forward passes of ``rows_per_pass`` rows each run the projections
-    ``shapes`` ((K, N) pairs, one launch each)."""
-    route_of = fwd_op(fmt)[2]
-    return sum(route_of(m, k, n) == "wgmma"
-               for m in rows_per_pass for k, n in shapes)
+def route_launches(fmt: str, rows_per_pass, shapes, layers: int = 1
+                   ) -> dict:
+    """Launches per route that ``fmt``'s ``_route`` gives when forward
+    passes of ``rows_per_pass`` rows each run the projections ``shapes``
+    ((K, N) pairs, one launch each) in each of ``layers`` layers."""
+    mod, _, route_of = fwd_op(fmt)
+    counts = dict.fromkeys(mod.ROUTES, 0)
+    for m in rows_per_pass:
+        for k, n in shapes:
+            counts[route_of(m, k, n)] += layers
+    return counts
 
 
 def expected_launches(n_layer: int, fmt: str = "nf4") -> dict:
@@ -1572,9 +1846,8 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
     # the forwards see batch x seq rows: 7 projections, then the remat
     # recompute of all but down_proj, per layer
     shapes = list(PROJ_SHAPES.values())
-    wgmma = STEP_LAYERS * wgmma_launches(fmt, [STEP_BATCH * TRAIN_SEQ],
-                                         shapes + shapes[:-1])
-    want_routes = {"wgmma": wgmma, "splitk": want[f"{fmt}_matmul"] - wgmma}
+    want_routes = route_launches(fmt, [STEP_BATCH * TRAIN_SEQ],
+                                 shapes + shapes[:-1], STEP_LAYERS)
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     grad_rel = [_rel(a, b)[1] for a, b in zip(grads_k, grads_p)]
     res = {"base": fmt, "layers": STEP_LAYERS, "batch": STEP_BATCH,
@@ -1663,9 +1936,8 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
     per_step = expected_launches(n_layer)
     # every NF4 forward sees batch x seq rows: the wgmma route's
     shapes = list(PROJ_SHAPES.values())
-    wgmma = n_layer * wgmma_launches("nf4", [TRAIN_M], shapes + shapes[:-1])
-    route_per_step = {"wgmma": wgmma,
-                      "splitk": per_step["nf4_matmul"] - wgmma}
+    route_per_step = route_launches("nf4", [TRAIN_M], shapes + shapes[:-1],
+                                    n_layer)
     walls, step_counts, step_routes = [], [], []
     for _ in range(TRAIN_STEPS):
         zero_counters()
@@ -1773,10 +2045,12 @@ def main(argv=None) -> int:
     summary = check_nf4_kernel(args.seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     ptq_rows = check_ptq_kernels(args.seed, flush)
+    thin_exact = thin_exactness(args.seed)
     crossovers = {}
     for fmt in FWD_FORMATS:
         crossovers[fmt] = fwd_crossover(fmt, args.seed, flush)
         log(f"{fmt} crossover:", json.dumps(crossovers[fmt]))
+    decode = decode_device(args.seed, flush)
     phase_time("kernel checks", t0)
     tok = train_tokenizer()
     served = {}
@@ -1835,6 +2109,7 @@ def main(argv=None) -> int:
             "serve_nf4": served["nf4"]["routes"],
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
+        **decode_fields(decode, "nf4"),
         "launches": served["nf4"]["launches"] + launches["nf4_matmul"],
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
                              "train_nf4": launches["nf4_matmul"]}})
@@ -1860,6 +2135,8 @@ def main(argv=None) -> int:
              "_bwd_dq_kernel (pallas_call at :248)")):
         row = dict(flash_rows[name])
         row.pop("checks")
+        if name == "flash_forward":
+            row["ptxas"] = ptxas(name)
         table.append({"name": name,
                       "source": csrc + "flash_attention.cu",
                       "replaces": f"llm_in_practise_tpu/ops/"
@@ -1869,7 +2146,7 @@ def main(argv=None) -> int:
                       "launches_by_path": {"train_nf4": launches[name]},
                       "route": "cuda"})
     # B6-B9: launches on the PTQ serving runs and the PTQ step checks
-    for name, fmt, src, line, fn, decode in (
+    for name, fmt, src, line, fn, at_decode in (
             ("int4_matmul", "int4", "int4_matmul.cu", "int4_matmul.py:61",
              "_fwd_kernel (pallas_call at :157)", True),
             ("int4_matmul_backward", "int4", "int4_matmul.cu",
@@ -1881,16 +2158,22 @@ def main(argv=None) -> int:
              False)):
         case = "sym_g128" if fmt == "int4" else "per_channel"
         by_path = {f"step_{fmt}": steps[fmt]["launches"][name]}
-        if decode:
+        if at_decode:
             by_path = {f"serve_{fmt}": served[fmt]["launches"], **by_path}
+        if name == "int4_matmul":
+            by_path["serve_awq"] = awq_res["decode"]["launches"]
         row = ptq_summary(ptq_rows, name, case,
-                          MAX_SLOTS if decode else TRAIN_M)
+                          MAX_SLOTS if at_decode else TRAIN_M)
         row["ptxas"] = ptxas(name)
-        if decode:
+        if at_decode:
             row["train"] = ptq_summary(ptq_rows, name, case, TRAIN_M)
-            row.update(fwd_routes(fmt, MAX_SLOTS, {
-                f"serve_{fmt}": served[fmt]["routes"],
-                f"step_{fmt}": steps[fmt]["launches_by_route"]}))
+            paths = {f"serve_{fmt}": served[fmt]["routes"],
+                     f"step_{fmt}": steps[fmt]["launches_by_route"]}
+            if fmt == "int4":
+                paths["serve_awq"] = awq_res["decode"]["launches_by_route"]
+                row["thin_exactness"] = thin_exact
+            row.update(fwd_routes(fmt, MAX_SLOTS, paths))
+            row.update(decode_fields(decode, fmt))
         table.append({"name": name, "source": csrc + src,
                       "replaces": f"llm_in_practise_tpu/ops/{line}",
                       "tpu_function": fn, **row,
@@ -1900,6 +2183,9 @@ def main(argv=None) -> int:
         raise SystemExit("a kernel of a path launched no time: "
                          f"{[(r['name'], r['launches']) for r in table]}")
     log("flash checks:", json.dumps(flash_rows["flash_forward"]["checks"]))
+    log("decode device time, ms per layer's 7 projections (kernel self "
+        "time under torch.profiler; event time beside it):",
+        json.dumps(decode))
     log("step checks:", json.dumps(steps))
     log("awq model check:", json.dumps(awq_res))
     log("serving:", json.dumps({f: {k: v for k, v in r["serve"].items()

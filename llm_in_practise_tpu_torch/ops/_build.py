@@ -56,9 +56,9 @@ KERNELS: dict[str, dict[str, tuple]] = {
         "flash_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "int4_matmul": {
-        "int4_matmul_launch": (_I, [_P] * 6 + [_I] * 7 + [_P]),
         "int4_matmul_wgmma_launch": (_I, [_P] * 5 + [_I] * 6 + [_P]),
         "int4_matmul_bwd_launch": (_I, [_P] * 5 + [_I] * 6 + [_P]),
+        "int4_matmul_thin_launch": (_I, [_P] * 5 + [_I] * 6 + [_P]),
         "int4_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "int8_matmul": {

@@ -93,9 +93,13 @@ def _backward_from_delta(q, k, v, dout, lse, delta, scale: float):
 
 
 def _kernel_input(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` as the kernels read it: D contiguous, the other strides
+    nonzero multiples of 8 elements (the forward's TMA tensor maps take
+    strides in 16-byte multiples), the base 16-byte aligned; a copy where
+    ``x`` is not so."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the flash kernels take bf16; {name} is {x.dtype}")
-    if (x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3])
+    if (x.stride(-1) != 1 or any(s % 8 or s <= 0 for s in x.stride()[:3])
             or x.data_ptr() % 16):
         x = x.contiguous()
         if x.data_ptr() % 16:

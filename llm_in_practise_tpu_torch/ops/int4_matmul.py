@@ -4,10 +4,12 @@ Port of ``llm_in_practise_tpu/ops/int4_matmul.py``, forward and backward.
 On a CUDA tensor :func:`int4_matmul` (``x @ W``) and
 :func:`int4_matmul_backward` (``dx = dy @ W^T``) launch the hand-written
 Hopper kernels in ``csrc/int4_matmul.cu``, or raise; the forward has two
-kernels, picked by shape (:func:`_route`): the split-K ``mma.sync``
-kernel for decode row counts and the ``wgmma`` mainloop of
-``csrc/qmm_wgmma.cuh`` for prefill and training ones. On a CPU tensor
-they run the plain versions :func:`int4_matmul_reference` and
+kernels, picked by shape (:func:`_route`): the thin-M streaming kernel
+(``int4_thin_kernel``, one launch per call, the K splits of a column slab
+reduced inside a thread-block cluster) for decode row counts and the
+``wgmma`` mainloop of ``csrc/qmm_wgmma.cuh`` for prefill and training
+ones. On a CPU tensor they run the plain versions
+:func:`int4_matmul_reference` and
 :func:`int4_matmul_backward_reference`, which do the same arithmetic
 (bf16 operands, the weight ``(code - zero) * scale`` in f32 rounded once
 to bf16, f32 sums) in plain tensor ops. There is no fallback from a
@@ -25,13 +27,7 @@ from __future__ import annotations
 import torch
 
 from llm_in_practise_tpu_torch.ops import _build
-from llm_in_practise_tpu_torch.ops.nf4_matmul import (
-    _OUT_CODES,
-    ROUTES,
-    _aligned,
-    _sm_count,
-    split_k_for,
-)
+from llm_in_practise_tpu_torch.ops.nf4_matmul import _OUT_CODES, _aligned
 from llm_in_practise_tpu_torch.quant import int4
 from llm_in_practise_tpu_torch.quant.int4 import Int4Tensor
 
@@ -99,9 +95,9 @@ def int4_matmul(x: torch.Tensor, t: Int4Tensor, out_dtype=None
 
 # The forward's smallest row count on the wgmma route, from chip_smoke's
 # crossover table (one layer's 7 Qwen3-8B projections, NVIDIA H100 80GB
-# HBM3, 700 W): the split-K kernel wins at M = 16 and 64, ties at 128
-# (0.524 against 0.535 ms), and loses from 256 up (0.906 against 0.537 ms
-# at 256, 23.1 against 5.32 ms at 8192).
+# HBM3, 700 W): the thin-M kernel wins from M = 1 to 128 (0.154 against
+# 0.577 ms at 8, 0.437 against 0.542 at 128) and loses from 256 up (0.659
+# against 0.540 ms at 256, 14.4 against 5.34 ms at 8192).
 WGMMA_MIN_M = 256
 
 
@@ -112,13 +108,22 @@ def _wgmma_shape(k: int, n: int, gs: int) -> bool:
     return k % 8 == 0 and n % 16 == 0 and (gs % 64 == 0 or 64 % gs == 0)
 
 
+# the forward's kernels, by route name (``launches_by_route`` keys)
+ROUTES = ("wgmma", "thin")
+
+
+def _thin_shape(k: int, gs: int) -> bool:
+    """Whether the thin-M kernel takes the shape: a byte's two K rows in
+    one group (even K, even group size); any M and N."""
+    return k % 2 == 0 and gs % 2 == 0
+
+
 def _route(m: int, k: int, n: int, gs: int) -> str:
     """The forward kernel for ``(m, k) @ (k, n)`` at group size ``gs``:
     "wgmma" (``qmm_wgmma_kernel<Int4Fwd>``) for the shapes it takes at
-    ``m >= WGMMA_MIN_M``, else "splitk" (``int4_matmul_kernel``, split
-    over K)."""
+    ``m >= WGMMA_MIN_M``, else "thin" (``int4_thin_kernel``)."""
     return "wgmma" if m >= WGMMA_MIN_M and _wgmma_shape(k, n, gs) \
-        else "splitk"
+        else "thin"
 
 
 def _checked_route(m: int, k: int, n: int, gs: int, route: str | None
@@ -132,6 +137,9 @@ def _checked_route(m: int, k: int, n: int, gs: int, route: str | None
         raise ValueError(f"the wgmma forward needs K % 8 == 0, N % 16 == 0 "
                          f"and gs % 64 == 0 or 64 % gs == 0; got K={k}, "
                          f"N={n} with group_size {gs}")
+    if route == "thin" and not _thin_shape(k, gs):
+        raise ValueError(f"the thin forward needs an even K and an even "
+                         f"group size; got K={k} with group_size {gs}")
     return route
 
 
@@ -160,7 +168,6 @@ def _forward(x: torch.Tensor, t: Int4Tensor, out_dtype=None,
     packed, scales, zeros = (_aligned(a) for a in (t.packed, t.scales,
                                                    t.zeros))
     lib = _build.load("int4_matmul")
-    split = 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
@@ -169,16 +176,13 @@ def _forward(x: torch.Tensor, t: Int4Tensor, out_dtype=None,
                 zeros.data_ptr(), out.data_ptr(), m, k, n, gs, n_groups,
                 _OUT_CODES[out_dtype], stream)
         else:
-            split = split_k_for(m, k, n, _sm_count(x.device.index))
-            ws = (torch.empty((split, m, n), dtype=torch.float32,
-                              device=x.device) if split > 1 else out)
-            err = lib.int4_matmul_launch(
+            err = lib.int4_matmul_thin_launch(
                 x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                zeros.data_ptr(), out.data_ptr(), ws.data_ptr(), m, k, n,
-                gs, n_groups, split, _OUT_CODES[out_dtype], stream)
+                zeros.data_ptr(), out.data_ptr(), m, k, n, gs, n_groups,
+                _OUT_CODES[out_dtype], stream)
     if err != 0:
         raise _error(lib, err, f"int4_matmul ({route})", m=m, k=k, n=n,
-                     group_size=gs, split_k=split)
+                     group_size=gs)
     int4_matmul.launches += 1
     int4_matmul.launches_by_route[route] += 1
     return out.reshape(*lead, n)

@@ -164,3 +164,59 @@ def test_dispatch_dense_on_cpu_flash_when_asked():
                                                     q_offset=63))
     with pytest.raises(ValueError, match="impl"):
         dot_product_attention(q, k, v, impl="ring")
+
+
+# --- the kernels' input layout (the forward reads q, k, v through 4-D TMA
+# tensor maps: strides in 16-byte multiples, a 16-byte aligned base) ---
+
+
+def _bf16(*shape):
+    return torch.from_numpy(
+        np.random.default_rng(21).standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+
+
+def test_kernel_input_keeps_a_contiguous_aligned_tensor():
+    x = _bf16(2, 16, 4, 64)
+    got = port_fa._kernel_input(x, "q")
+    assert got.data_ptr() == x.data_ptr() and got.stride() == x.stride()
+
+
+def test_kernel_input_keeps_strided_views_of_a_fused_qkv():
+    h, hkv, d = 4, 2, 64
+    fused = _bf16(2, 16, h + 2 * hkv, d)
+    for view in (fused[:, :, :h], fused[:, :, h:h + hkv],
+                 fused[:, :, h + hkv:]):
+        got = port_fa._kernel_input(view, "q")
+        # no copy: the kernels read the view through its strides
+        assert got.data_ptr() == view.data_ptr()
+        assert got.stride() == view.stride() == ((h + 2 * hkv) * 16 * d,
+                                                 (h + 2 * hkv) * d, d, 1)
+
+
+@pytest.mark.parametrize("case", ["stride_not_multiple_of_8", "zero_stride",
+                                  "d_not_contiguous"])
+def test_kernel_input_copies_strides_the_kernels_cannot_read(case):
+    if case == "stride_not_multiple_of_8":
+        x = _bf16(2, 16, 4, 68)[..., :64]      # head stride 68 elements
+    elif case == "zero_stride":
+        x = _bf16(1, 16, 4, 64).expand(3, 16, 4, 64)
+    else:
+        x = _bf16(2, 16, 64, 4).transpose(2, 3)
+    got = port_fa._kernel_input(x, "k")
+    assert got.data_ptr() != x.data_ptr() and got.is_contiguous()
+    assert all(s % 8 == 0 and s > 0 for s in got.stride()[:3])
+    assert torch.equal(got, x)
+
+
+def test_kernel_input_realigns_an_offset_base():
+    buf = _bf16(2 * 16 * 4 * 64 + 1)
+    x = buf[1:].view(2, 16, 4, 64)             # 2 bytes past the boundary
+    assert x.data_ptr() % 16 != 0
+    got = port_fa._kernel_input(x, "v")
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
+
+
+def test_kernel_input_takes_bf16_only():
+    with pytest.raises(TypeError, match="take bf16"):
+        port_fa._kernel_input(torch.zeros(1, 8, 2, 64), "q")

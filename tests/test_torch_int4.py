@@ -217,23 +217,24 @@ def _chip_smoke():
 
 # (M, K, N, group size) -> the forward kernel chip_smoke's shapes take
 _ROUTES = {
-    # decode and the crossover table's split-K side
-    (1, 4096, 4096, 128): "splitk", (8, 4096, 12288, 128): "splitk",
-    (8, 12288, 4096, 128): "splitk", (16, 4096, 1024, 128): "splitk",
-    (64, 4096, 4096, 128): "splitk", (128, 12288, 4096, 128): "splitk",
-    (17, 4096, 4096, 128): "splitk", (255, 4096, 4096, 128): "splitk",
+    # decode (the thin-M kernel) and the crossover table below WGMMA_MIN_M
+    (1, 4096, 4096, 128): "thin", (8, 4096, 12288, 128): "thin",
+    (8, 12288, 4096, 128): "thin", (16, 4096, 1024, 128): "thin",
+    (64, 4096, 4096, 128): "thin", (128, 12288, 4096, 128): "thin",
+    (17, 4096, 4096, 128): "thin", (255, 4096, 4096, 128): "thin",
+    (8, 4096, 4096, 32): "thin", (1, 12288, 4096, 32): "thin",
     # from WGMMA_MIN_M up: prefill, the int4 step (2 x 1024 rows), training
     (256, 4096, 4096, 128): "wgmma", (512, 4096, 1024, 128): "wgmma",
     (1024, 4096, 12288, 128): "wgmma", (2048, 12288, 4096, 128): "wgmma",
     (8192, 4096, 4096, 32): "wgmma", (8191, 4096, 4096, 128): "wgmma",
     # ragged shapes: K 96 at gs 32, N 48 and 1040 take wgmma; K 10 (2K
-    # bytes no 16-byte multiple) stays on split-K
+    # bytes no 16-byte multiple) takes the thin kernel at any M
     (333, 4096, 4096, 128): "wgmma",
     (333, 96, 4096, 32): "wgmma", (333, 4096, 48, 128): "wgmma",
-    (333, 4096, 1040, 128): "wgmma", (333, 10, 4096, 2): "splitk",
+    (333, 4096, 1040, 128): "wgmma", (333, 10, 4096, 2): "thin",
     # shapes the wgmma forward does not take, at any M
-    (8192, 4096, 40, 128): "splitk", (8192, 4100, 4096, 128): "splitk",
-    (8192, 4096, 4096, 96): "splitk", (8192, 4096, 4096, 2): "wgmma",
+    (8192, 4096, 40, 128): "thin", (8192, 4100, 4096, 128): "thin",
+    (8192, 4096, 4096, 96): "thin", (8192, 4096, 4096, 2): "wgmma",
 }
 
 
@@ -246,10 +247,12 @@ def test_route_table_covers_the_chip_smoke_shapes():
     cs = _chip_smoke()
     assert port_mm.WGMMA_MIN_M == 256
     shapes = set(cs.PROJ_SHAPES.values())
-    for m in cs.CHECK_M + cs.CROSSOVER_M + cs.PTQ_CHECK_M:
+    for m in (cs.CHECK_M + cs.INT4_CROSSOVER_M + cs.PTQ_CHECK_M
+              + cs.DECODE_M):
         for k, n in shapes:
-            want = "wgmma" if m >= port_mm.WGMMA_MIN_M else "splitk"
+            want = "wgmma" if m >= port_mm.WGMMA_MIN_M else "thin"
             assert port_mm._route(m, k, n, cs.INT4_GS) == want, (m, k, n)
+            assert port_mm._route(m, k, n, cs.AWQ_GS) == want, (m, k, n)
     # every ragged forward shape is in the table above
     assert set(cs.FWD_EDGE_SHAPES) <= set(_ROUTES)
     assert port_mm._route(cs.STEP_BATCH * cs.TRAIN_SEQ, 4096, 4096,

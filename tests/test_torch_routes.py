@@ -1,13 +1,16 @@
-"""PyTorch port: the forward routes of the NF4 (B1) and int8 (B8) matmuls.
+"""PyTorch port: the forward routes of the NF4 (B1), int8 (B8) and int4
+(B6) matmuls.
 
-Each wrapper picks its forward kernel by shape (``_route``): the split-K
-``mma.sync`` kernel below ``WGMMA_MIN_M`` rows and for the shapes the
-``wgmma`` mainloop cannot take, the mainloop from the threshold up. On the
-card the route decides which kernel launches; here, on the CPU, both routes
-are the plain version, so the tables below pin the choice itself, for every
-row count and ragged shape ``chip_smoke.py`` runs on the card. An explicit
-route the shape does not take raises (no fallback), and the wrapper hands
-the kernels 16-byte-aligned arrays even where the weight is an offset view.
+Each wrapper picks its forward kernel by shape (``_route``): for NF4 and
+int8 the split-K ``mma.sync`` kernel below ``WGMMA_MIN_M`` rows and for the
+shapes the ``wgmma`` mainloop cannot take, the mainloop from the threshold
+up; for int4 the thin-M kernel in place of split-K (its table is in
+``test_torch_int4.py``). On the card the route decides which kernel
+launches; here, on the CPU, every route is the plain version, so the tables
+pin the choice itself, for every row count and ragged shape
+``chip_smoke.py`` runs on the card. An explicit route the shape does not
+take raises (no fallback), and the wrapper hands the kernels 16-byte-aligned
+arrays even where the weight is an offset view.
 """
 
 import importlib.util
@@ -21,6 +24,7 @@ from llm_in_practise_tpu_torch.ops import _build
 from llm_in_practise_tpu_torch.ops import int4_matmul as i4
 from llm_in_practise_tpu_torch.ops import int8_matmul as i8
 from llm_in_practise_tpu_torch.ops import nf4_matmul as nm
+from llm_in_practise_tpu_torch.quant import int4 as port_int4
 from llm_in_practise_tpu_torch.quant import int8 as port_int8
 from llm_in_practise_tpu_torch.quant import nf4 as port_nf4
 
@@ -118,22 +122,43 @@ def test_explicit_wgmma_route_on_a_shape_it_cannot_take_raises(mod, args,
         mod._checked_route(*args, "wgmma")
     with pytest.raises(ValueError, match="route must be one of"):
         mod._checked_route(*args, "cublas")
-    # split-K takes every shape; no route means _route's pick
-    assert mod._checked_route(*args, "splitk") == "splitk"
+    # split-K (int4: the thin-M kernel) takes every shape; no route means
+    # _route's pick
+    always = "thin" if mod is i4 else "splitk"
+    assert mod._checked_route(*args, always) == always
     assert mod._checked_route(*args, None) == mod._route(*args)
 
 
 def test_launch_counters_by_route():
-    for fn in (nm.nf4_matmul, i8.int8_matmul, i4.int4_matmul):
+    for fn in (nm.nf4_matmul, i8.int8_matmul):
         assert tuple(fn.launches_by_route) == nm.ROUTES == ("wgmma",
                                                             "splitk")
+    assert tuple(i4.int4_matmul.launches_by_route) == i4.ROUTES == (
+        "wgmma", "thin")
     assert {"nf4_matmul_wgmma_launch", "nf4_matmul_launch"} <= set(
         _build.KERNELS["nf4_matmul"])
     assert {"int8_matmul_wgmma_launch", "int8_matmul_launch"} <= set(
         _build.KERNELS["int8_matmul"])
+    # the int4 split-K kernel is gone: the thin-M kernel took its rows
+    assert {"int4_matmul_wgmma_launch", "int4_matmul_thin_launch"} <= set(
+        _build.KERNELS["int4_matmul"])
+    assert "int4_matmul_launch" not in _build.KERNELS["int4_matmul"]
 
 
-@pytest.mark.parametrize("fmt", ["nf4", "int8"])
+@pytest.mark.parametrize("args,match", [
+    ((8, 99, 4096, 32), r"even K and an even group size; got K=99 with "
+                        r"group_size 32"),
+    ((8, 96, 4096, 3), r"even K and an even group size; got K=96 with "
+                       r"group_size 3")], ids=["odd_k", "odd_gs"])
+def test_explicit_thin_route_on_a_shape_it_cannot_take_raises(args, match):
+    with pytest.raises(ValueError, match=match):
+        i4._checked_route(*args, "thin")
+    # every even K and even group size, at any M and N, takes it
+    for shape in ((1, 10, 40, 2), (8191, 4096, 1040, 96), (8, 96, 4096, 32)):
+        assert i4._checked_route(*shape, "thin") == "thin"
+
+
+@pytest.mark.parametrize("fmt", ["nf4", "int8", "int4"])
 def test_both_routes_on_the_cpu_are_the_plain_version(fmt):
     rng = np.random.default_rng(11)
     w = rng.normal(0, 0.02, (128, 96)).astype(np.float32)
@@ -141,12 +166,15 @@ def test_both_routes_on_the_cpu_are_the_plain_version(fmt):
     if fmt == "nf4":
         mod, t, plain = nm, port_nf4.quantize(w), nm.nf4_matmul_reference
         counter = nm.nf4_matmul
-    else:
+    elif fmt == "int8":
         mod, t, plain = i8, port_int8.quantize(w), i8.int8_matmul_reference
         counter = i8.int8_matmul
+    else:
+        mod, t = i4, port_int4.rtn_quantize(w, group_size=32)
+        plain, counter = i4.int4_matmul_reference, i4.int4_matmul
     before = (counter.launches, dict(counter.launches_by_route))
     want = plain(x, t, torch.bfloat16)
-    for route in (None, "wgmma", "splitk"):
+    for route in (None, *mod.ROUTES):
         got = mod._forward(x, t, torch.bfloat16, route=route)
         assert torch.equal(got, want)
     # the CPU path launches nothing, on either route
@@ -203,3 +231,74 @@ def test_chip_smoke_reads_c7515_per_policy():
     assert got["Nf4Fwd"]["c7515"] and not got["Int8Fwd"]["c7515"]
     assert "168 registers" in got["Nf4Fwd"]["ptxas"]
     assert "64 bytes smem" in got["Int8Fwd"]["ptxas"]
+
+
+def test_chip_smoke_route_launches_per_route():
+    """chip_smoke's expected launches per route: each pass's projections on
+    the route ``_route`` picks for its rows, times the layers."""
+    cs = _chip_smoke()
+    shapes = list(cs.PROJ_SHAPES.values())
+    assert cs.route_launches("int4", [364, 8, 8, 5], shapes, 36) == {
+        "wgmma": 7 * 36, "thin": 3 * 7 * 36}
+    assert cs.route_launches("nf4", [364, 8], shapes, 2) == {
+        "wgmma": 14, "splitk": 14}
+    # the training step's forwards: 7 projections and the remat recompute
+    # of all but down_proj
+    assert cs.route_launches("nf4", [cs.TRAIN_M], shapes + shapes[:-1],
+                             36) == {"wgmma": 468, "splitk": 0}
+
+
+def test_chip_smoke_reads_the_thin_and_flash_kernels_ptxas():
+    """qmm_resources also reports B6's thin-M kernel (per instantiation)
+    and the wgmma flash forward (per head_dim)."""
+    cs = _chip_smoke()
+    log = (
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1_14int4_"
+        "matmul_cu_116int4_thin_kernelILi1ELb1EEEvPK13__nv_bfloat16' for "
+        "'sm_90a'\n"
+        "ptxas info    : Used 72 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__1_18flash"
+        "_attention_cu_116flash_fwd_kernelILi128EEEv14CUtensorMap_st' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN51_flash_fwd_kernelILi128"
+        "\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 16 barriers, 64 bytes smem\n")
+    saved = dict(_build.ptxas_log)
+    try:
+        _build.ptxas_log.clear()
+        _build.ptxas_log["int4_matmul"] = log
+        _build.ptxas_log["flash_attention"] = log
+        got = cs.qmm_resources()
+    finally:
+        _build.ptxas_log.clear()
+        _build.ptxas_log.update(saved)
+    assert "72 registers" in got["int4_thin_kernelILi1ELb1E"]["ptxas"]
+    flash = got["flash_fwd_kernelILi128E"]
+    assert "168 registers" in flash["ptxas"] and "0 bytes spill" in \
+        flash["ptxas"] and not flash["c7515"]
+    assert set(cs.PTXAS_LABELS["flash_forward"]) == set(cs.FLASH_FWD_LABELS)
+
+
+def _thin_rows_per_block(m: int) -> int:
+    """Rows of x per block of the thin-M kernel instantiation that
+    ``int4_matmul_thin_launch`` picks for ``m`` rows (8 MT)."""
+    for rows in (8, 16, 32, 64):
+        if m <= rows:
+            return rows
+    return 128
+
+
+def test_chip_smoke_repeats_every_thin_instantiation():
+    """chip_smoke's determinism sweep of the thin route launches every
+    instantiation of the kernel (8 to 128 rows of x per block), with a
+    ragged row count where the instantiation has one, and the dispatch in
+    the C source still has those five."""
+    cs = _chip_smoke()
+    ms = cs.THIN_REPEAT_M
+    assert {_thin_rows_per_block(m) for m in ms} == {8, 16, 32, 64, 128}
+    assert cs.THIN_REPEATS >= 2
+    assert any(m % 8 for m in ms if m > 16)
+    src = _build.source_path("int4_matmul").read_text()
+    for mt in (1, 2, 4, 8, 16):
+        assert f"launch_thin_mt<{mt}>" in src
