@@ -19,17 +19,19 @@ Phases, in order; any failure exits non-zero:
    size 32 and fractional zeros (AWQ's grid). A planted fault (one group's
    scale, or for int8 a block of columns' or at M = 8192 one column's
    scale, zeroed in a copy of the weight) must read as a failure, on both
-   forward routes. The dx kernels and every forward route of int4 and
+   forward routes. The dx kernels and both forward routes of int4 and
    int8 also run at ragged shapes (``DX_EDGE_SHAPES``, ``FWD_EDGE_SHAPES``,
    ``INT8_FWD_EDGE_SHAPES``: M, K and N off their tiles, int4 group sizes
    32 and 2), and every launch of a dx kernel or a forward is repeated and
-   must give the same bytes; int4's thin-M route must reproduce the
-   codec's bf16 weights bit for bit (unit-vector rows of x) and give the
-   same bytes over repeated launches of every instantiation. Then the
-   forward crossover tables of NF4, int4 and int8: every route (NF4 and
-   int8: split-K and the wgmma mainloop; int4: the thin-M kernel and the
-   wgmma mainloop) on one layer's 7 projections at ``CROSSOVER_M`` (int4
-   also at M = 1 and 8), beside the row count from which each wrapper's
+   must give the same bytes. The NF4 and int8 forwards run on their thin-M
+   route at every projection shape and ``THIN_CHECK_M`` rows. The thin-M
+   route of all three forwards (``csrc/qmm_thin.cuh``) must reproduce the
+   codec's weights bit for bit (unit-vector rows of x), give the same
+   bytes over repeated launches of every instantiation (8 to 128 rows of x
+   per block, TMA and plain-load path) and see a planted fault. Then the
+   forward crossover tables of NF4, int4 and int8: both routes (the thin-M
+   kernel and the wgmma mainloop) on one layer's 7 projections at
+   ``THIN_CROSSOVER_M``, beside the row count from which each wrapper's
    ``_route`` takes wgmma; and the three forwards' device time at decode
    row counts (``DECODE_M``: kernel self time under torch.profiler, beside
    the event time), each against its library call.
@@ -154,7 +156,7 @@ DX_EDGE_SHAPES = ((17, 4096, 4096, INT4_GS), (8191, 4096, 4096, INT4_GS),
                   (333, 4096, 48, INT4_GS), (333, 4096, 1040, INT4_GS))
 # ragged shapes for the int4 forward, both routes where they take the
 # shape (M, K, N, group size): M off the 256-row tile, K off the 64-row
-# stage (96 with groups of 32; 10 with groups of 2, which only the split-K
+# stage (96 with groups of 32; 10 with groups of 2, which only the thin-M
 # kernel takes: 2K bytes is no 16-byte multiple), N off the 128-column
 # tile (48, and 1040 = 8 tiles + 16 columns)
 FWD_EDGE_SHAPES = ((17, 4096, 4096, INT4_GS), (333, 4096, 4096, INT4_GS),
@@ -163,16 +165,18 @@ FWD_EDGE_SHAPES = ((17, 4096, 4096, INT4_GS), (333, 4096, 4096, INT4_GS),
                    (333, 4096, 1040, INT4_GS))
 # ragged shapes for the NF4 forward, both routes where the wgmma one takes
 # the shape (M, K, N): M below the route threshold (17) and off the 256-row
-# tile (333, 8191), a single 64-row stage (K = 64), N/2 % 64 == 32 (192:
-# the last block's byte columns past N/2 are dropped), a low-half absmax run
-# across a 256-value scale block (1088), and N % 32 != 0 (200), which only
-# the split-K kernel takes
+# tile (333, 8191), a single 64-row stage (K = 64: half of thin's 128-k
+# stage past K), N/2 % 64 == 32 (192: the last block's byte columns past
+# N/2 are dropped), a low-half absmax run across a 256-value scale block
+# (1088), and N % 32 != 0 (200), which only the thin kernel takes (on its
+# plain-load path)
 NF4_FWD_EDGE_SHAPES = ((17, 4096, 4096), (333, 4096, 4096),
                        (8191, 4096, 4096), (333, 64, 4096), (333, 4096, 192),
                        (333, 4096, 1088), (333, 4096, 200))
 # the same for the int8 forward: K off the 64-row stage (96), N off the
 # 128-column tile (48, and 1040 = 8 tiles + 16 columns), and K = 10 (2K
-# bytes no 16-byte multiple), which only the split-K kernel takes
+# bytes no 16-byte multiple), which only the thin kernel takes (on its
+# plain-load path)
 INT8_FWD_EDGE_SHAPES = ((333, 4096, 4096), (8191, 4096, 4096),
                         (333, 96, 4096), (333, 4096, 48), (333, 4096, 1040),
                         (333, 10, 4096))
@@ -182,10 +186,15 @@ INT8_FWD_EDGE_SHAPES = ((333, 4096, 4096), (8191, 4096, 4096),
 # 256-value scale block), M off the 256-row tile
 NF4_DX_EDGE_SHAPES = ((17, 4096, 4096), (8191, 4096, 4096), (333, 192, 4096),
                       (333, 4096, 192), (333, 4096, 1088), (33, 192, 192))
-# the forward crossover tables (NF4, int4, int8): every route at these row
-# counts (int4 also at the decode row counts 1 and 8)
+# the forward crossover tables (NF4, int4, int8): both routes at the decode
+# row counts 1 and 8 and at these
 CROSSOVER_M = (16, 64, 128, 256, 512, 1024, 8192)
-INT4_CROSSOVER_M = (1, 8) + CROSSOVER_M
+THIN_CROSSOVER_M = (1, 8) + CROSSOVER_M
+# row counts at which the NF4 and int8 forwards run on their thin-M route at
+# every projection shape, held to the plain version: decode (1, 8, 16), a
+# ragged block (17), short prefill, and the last row count below the wgmma
+# route's threshold (255)
+THIN_CHECK_M = (1, 8, 16, 17, 64, 128, 255)
 FWD_FORMATS = ("nf4", "int4", "int8")
 # decode row counts whose device time (torch.profiler, kernel self time)
 # the kernel table reports beside the event time
@@ -203,16 +212,25 @@ FLASH_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128, "contiguous"),
 EARLIER_MS = {"nf4_matmul": 18.86, "nf4_matmul_backward": 20.85,
               "int4_matmul": 22.95, "int8_matmul": 18.48}
 AWQ_LAYERS = 2
-# the thin-M int4 kernel's instantiations (8 MT rows of x per block; gs %
-# 16 == 0 or not), as ptxas names them
-THIN_LABELS = tuple(f"int4_thin_kernelILi{mt}ELb{u}E" for mt in (1, 2, 4, 8, 16)
-                    for u in (1, 0))
+# each forward's policy of the thin-M kernel (csrc/qmm_thin.cuh)
+THIN_POLICIES = {"nf4": "Nf4Thin", "int4": "Int4Thin", "int8": "Int8Thin"}
+
+
+def thin_labels(fmt: str) -> tuple:
+    """The instantiations of ``fmt``'s thin-M kernel (8 MT rows of x per
+    block; the TMA path or the plain-load one), as ptxas names them."""
+    return tuple(f"{THIN_POLICIES[fmt]}ELi{mt}ELb{u}E"
+                 for mt in (1, 2, 4, 8, 16) for u in (1, 0))
+
+
+THIN_LABELS = sum((thin_labels(f) for f in THIN_POLICIES), ())
 FLASH_FWD_LABELS = ("flash_fwd_kernelILi128E", "flash_fwd_kernelILi64E")
 # each kernel's entries in the ptxas report (qmm_resources)
-PTXAS_LABELS = {"nf4_matmul": ("Nf4Fwd",), "nf4_matmul_backward": ("Nf4Dx",),
-                "int4_matmul": ("Int4Fwd",) + THIN_LABELS,
+PTXAS_LABELS = {"nf4_matmul": ("Nf4Fwd",) + thin_labels("nf4"),
+                "nf4_matmul_backward": ("Nf4Dx",),
+                "int4_matmul": ("Int4Fwd",) + thin_labels("int4"),
                 "int4_matmul_backward": ("Int4Dx",),
-                "int8_matmul": ("Int8Fwd",),
+                "int8_matmul": ("Int8Fwd",) + thin_labels("int8"),
                 "int8_matmul_backward": ("Int8Dx", "int8_scale_dy_kernel"),
                 "flash_forward": FLASH_FWD_LABELS}
 
@@ -273,9 +291,10 @@ def matmul_bound(m: int, k: int, n: int, wbytes: int
 def qmm_resources() -> dict:
     """Registers, spills and shared memory of the kernels on the wgmma
     mainloop (B1's, B6's and B8's wgmma routes, B2, B7, B9), B9's scaling
-    pass, B6's thin-M kernel and the wgmma flash forward (B3), as ptxas
-    reported them in this process's build, and whether ptxas warned C7515
-    (wgmma serialized) for each."""
+    pass, every instantiation of the thin-M kernel (the decode routes of
+    B1, B6 and B8) and the wgmma flash forward (B3), as ptxas reported
+    them in this process's build, and whether ptxas warned C7515 (wgmma
+    serialized) for each."""
     from llm_in_practise_tpu_torch.ops import _build
 
     labels = ("Nf4Fwd", "Int4Fwd", "Int8Fwd", "Int4Dx", "Int8Dx", "Nf4Dx",
@@ -321,7 +340,6 @@ def check_nf4_kernel(seed: int) -> dict:
         _route,
         nf4_matmul,
         nf4_matmul_reference,
-        split_k_for,
     )
     from llm_in_practise_tpu_torch.quant import nf4
 
@@ -329,7 +347,6 @@ def check_nf4_kernel(seed: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, by_shape = [], {}
     for k, n in sorted(set(PROJ_SHAPES.values())):
         t = nf4.quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02)
@@ -346,7 +363,7 @@ def check_nf4_kernel(seed: int) -> dict:
                 m, k, n, weight_bytes("nf4", k, n))
             row = {
                 "kernel": "nf4_matmul", "M": m, "K": k, "N": n,
-                "route": _route(m, k, n), "split_k": split_k_for(m, k, n, sms),
+                "route": _route(m, k, n),
                 "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
                 "tol": f"{KERNEL_TOL} * max|plain| (summation order; bf16 "
                        "output rounding)",
@@ -480,8 +497,8 @@ def check_ptq_kernels(seed: int, flush) -> dict:
         elif kernel == "int8_matmul":
             row["route"] = route or i8._route(m, k, n)
         # deterministic: each output element is reduced in one block (or
-        # its split-K partials summed) in a fixed order, so a second launch
-        # gives the same bytes
+        # its K splits summed in one cluster) in a fixed order, so a second
+        # launch gives the same bytes
         row["repeat_equal"] = torch.equal(out, fn(inp, t, torch.bfloat16))
         ok = ok and row["repeat_equal"]
         if not edge:
@@ -603,7 +620,7 @@ def check_ptq_kernels(seed: int, flush) -> dict:
     for m, k, n in INT8_FWD_EDGE_SHAPES:
         t = int8.quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02)
         x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
-        for route in ("splitk", "wgmma"):
+        for route in i8.ROUTES:
             if route == "wgmma" and not i8._wgmma_shape(k, n):
                 continue
             check("int8_matmul", f"per_channel@{route}", None,
@@ -617,62 +634,193 @@ def check_ptq_kernels(seed: int, flush) -> dict:
 # of x per block), each launched THIN_REPEATS times for the same bytes
 THIN_REPEAT_M = (1, 8, 16, 17, 32, 33, 64, 65, 128)
 THIN_REPEATS = 10
+# the thin route's repeat shapes per format, (K, N) and for int4 the group
+# size: gate_proj's on the TMA path, then one the plain-load path takes
+# (NF4: N % 32 != 0; int4: a group size that is no power of two; int8:
+# K % 8 != 0 and N % 16 != 0)
+THIN_REPEAT_SHAPES = {"nf4": ((4096, 12288, 0), (4096, 1000, 0)),
+                      "int4": ((4096, 12288, INT4_GS), (4096, 1040, 96)),
+                      "int8": ((4096, 12288, 0), (4100, 1000, 0))}
+
+
+def thin_path(fmt: str, k: int, n: int, gs: int = 0) -> str:
+    """Which path of the thin-M kernel fills a stage for this shape: "tma"
+    or "plain", by the conditions of the C entries in ``csrc/``."""
+    if fmt == "nf4":
+        fast = n % 32 == 0
+    elif fmt == "int8":
+        fast = k % 8 == 0 and n % 16 == 0
+    else:
+        fast = k % 8 == 0 and n % 16 == 0 and gs >= 16 and gs & (gs - 1) == 0
+    return "tma" if fast else "plain"
+
+
+def thin_weight(fmt: str, w, gs: int = 0):
+    """``w`` in ``fmt`` for the thin checks: NF4, int8, or int4 with
+    AWQ-style fractional zeros at group size ``gs``."""
+    from llm_in_practise_tpu_torch.quant import int8, nf4
+
+    if fmt == "nf4":
+        return nf4.quantize(w)
+    if fmt == "int8":
+        return int8.quantize(w)
+    return fractional_zero_int4(w, gs)
+
+
+def thin_codec_weights(fmt: str, t):
+    """The weights the thin route must read back from unit-vector rows of
+    x, in f32: the codec's bf16 weight for NF4 and int4; for int8 the
+    kernel's weight is the code itself, so a unit row reads q * scale, the
+    column scale applied to the exact sum in f32."""
+    import torch
+
+    from llm_in_practise_tpu_torch.quant import int4, nf4
+
+    if fmt == "nf4":
+        return nf4.dequantize(t, torch.bfloat16).float()
+    if fmt == "int4":
+        return int4.decode(t, torch.bfloat16).float()
+    return t.q.float() * t.scale
+
+
+def thin_fault(fmt: str, t):
+    """A copy of ``t`` with a planted fault the thin checks must see: NF4
+    absmax byte row 0 zeroed, int4 group row 0's scales zeroed, int8 column
+    0's scale zeroed."""
+    import dataclasses
+
+    if fmt == "nf4":
+        bad = dataclasses.replace(t, absmax_q=t.absmax_q.clone())
+        bad.absmax_q[:t.shape[1]] = 0
+    elif fmt == "int4":
+        bad = dataclasses.replace(t, scales=t.scales.clone())
+        bad.scales[0] = 0
+    else:
+        bad = dataclasses.replace(t, scale=t.scale.clone())
+        bad.scale[0] = 0
+    return bad
 
 
 def thin_exactness(seed: int) -> dict:
-    """B6's thin route decodes every weight bit for bit as the codec does:
-    with x rows that are unit vectors e_k (and an f32 output), row m of
-    ``x @ W`` is row k_m of the bf16 weight exactly (products by 1.0 and
-    sums of zeros are exact), for symmetric g128 weights and AWQ-style
-    fractional zeros at g32, K rows at the edges of groups, stages and K.
-    And it is deterministic: at every ``THIN_REPEAT_M`` (each instantiation
-    of the kernel) on gate_proj's shape, ``THIN_REPEATS`` launches give the
-    same bytes."""
+    """The thin-M route of every forward format decodes every weight bit
+    for bit as the codec does: with x rows that are unit vectors e_k (and
+    an f32 output), row m of ``x @ W`` is row k_m of the weight exactly
+    (products by 1.0 and sums of zeros are exact), for NF4, int8, and int4
+    symmetric at g128 and with AWQ-style fractional zeros at g32, K rows at
+    the edges of absmax blocks, groups, stages and K. It is deterministic:
+    at every ``THIN_REPEAT_M`` (each instantiation of the kernel) on both
+    ``THIN_REPEAT_SHAPES`` (the TMA path and the plain-load path),
+    ``THIN_REPEATS`` launches give the same bytes. And it sees a planted
+    fault (``thin_fault``) at M = 8 on both paths."""
     import torch
 
-    from llm_in_practise_tpu_torch.ops import int4_matmul as i4
     from llm_in_practise_tpu_torch.quant import int4
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 13)
     out = {}
-    for k, n in sorted(set(PROJ_SHAPES.values())):
-        w = torch.randn(k, n, device=dev, generator=gen) * 0.02
-        rows = [0, 1, 31, 32, 127, 128, 2049, k - 1]
-        x = torch.zeros(len(rows), k, device=dev, dtype=torch.bfloat16)
-        x[torch.arange(len(rows)), torch.tensor(rows)] = 1
-        for case, t in (("sym_g128", int4.rtn_quantize(w, group_size=INT4_GS)),
-                        ("asym_g32_frac", fractional_zero_int4(w, AWQ_GS))):
-            y = i4._forward(x, t, torch.float32, route="thin")
-            want = int4.decode(t, torch.bfloat16).float()[rows]
-            out[f"unit rows {case} K={k} N={n}"] = bool(torch.equal(y, want))
-    k, n = PROJ_SHAPES["gate_proj"]
-    t = fractional_zero_int4(torch.randn(k, n, device=dev, generator=gen)
-                             * 0.02, INT4_GS)
-    for m in THIN_REPEAT_M:
-        x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
-        y = i4._forward(x, t, torch.bfloat16, route="thin")
-        out[f"repeats M={m} K={k} N={n}"] = all(
-            torch.equal(y, i4._forward(x, t, torch.bfloat16, route="thin"))
-            for _ in range(THIN_REPEATS))
-    log("int4 thin route, exactness:", json.dumps(out))
+    for fmt in FWD_FORMATS:
+        mod, plain, _ = fwd_op(fmt)
+
+        def thin(x, t, dtype, mod=mod):
+            return mod._forward(x, t, dtype, route="thin")
+
+        for k, n in sorted(set(PROJ_SHAPES.values())):
+            w = torch.randn(k, n, device=dev, generator=gen) * 0.02
+            rows = [0, 1, 31, 32, 63, 64, 127, 128, 2049, k - 1]
+            x = torch.zeros(len(rows), k, device=dev, dtype=torch.bfloat16)
+            x[torch.arange(len(rows)), torch.tensor(rows)] = 1
+            cases = {fmt: thin_weight(fmt, w)} if fmt != "int4" else {
+                "int4 sym_g128": int4.rtn_quantize(w, group_size=INT4_GS),
+                "int4 asym_g32_frac": fractional_zero_int4(w, AWQ_GS)}
+            for case, t in cases.items():
+                y = thin(x, t, torch.float32)
+                want = thin_codec_weights(fmt, t)[rows]
+                out[f"unit rows {case} K={k} N={n}"] = bool(torch.equal(y, want))
+            del w, cases
+        for k, n, gs in THIN_REPEAT_SHAPES[fmt]:
+            path = thin_path(fmt, k, n, gs)
+            t = thin_weight(fmt, torch.randn(k, n, device=dev, generator=gen)
+                            * 0.02, gs)
+            for m in THIN_REPEAT_M:
+                x = torch.randn(m, k, device=dev, generator=gen).to(
+                    torch.bfloat16)
+                y = thin(x, t, torch.bfloat16)
+                out[f"repeats {fmt} {path} M={m} K={k} N={n}"] = all(
+                    torch.equal(y, thin(x, t, torch.bfloat16))
+                    for _ in range(THIN_REPEATS))
+                if m == MAX_SLOTS:
+                    ref = plain(x, t, torch.bfloat16)
+                    out[f"plain version {fmt} {path} M={m} K={k} N={n}"] = (
+                        _rel(y, ref)[1] <= KERNEL_TOL)
+                    out[f"planted fault seen {fmt} {path} K={k} N={n}"] = (
+                        _rel(thin(x, thin_fault(fmt, t), torch.bfloat16),
+                             ref)[1] > KERNEL_TOL)
+            del t
+    log("thin route, exactness:", json.dumps(out))
     if not all(out.values()):
         raise SystemExit(f"the thin route's weights differ from the codec's, "
-                         f"or a repeated launch gave other bytes: {out}")
+                         f"a repeated launch gave other bytes, or a planted "
+                         f"fault went unseen: "
+                         f"{[k for k, v in out.items() if not v]}")
+    return out
+
+
+def thin_rows(seed: int) -> dict:
+    """B1 and B8 below the wgmma threshold: at every Qwen3-8B projection
+    shape and every ``THIN_CHECK_M`` row count, the wrapper's route (thin)
+    against the plain version, and a second launch for the same bytes.
+    Returns the largest error and the rows checked, per format."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 14)
+    out = {}
+    for fmt in ("nf4", "int8"):
+        mod, plain, route_of = fwd_op(fmt)
+        wrapper = getattr(mod, f"{fmt}_matmul")
+        worst, checked = 0.0, 0
+        for k, n in sorted(set(PROJ_SHAPES.values())):
+            t = thin_weight(fmt, torch.randn(k, n, device=dev, generator=gen)
+                            * 0.02)
+            for m in THIN_CHECK_M:
+                x = torch.randn(m, k, device=dev, generator=gen).to(
+                    torch.bfloat16)
+                y = wrapper(x, t, torch.bfloat16)
+                rel = _rel(y, plain(x, t, torch.bfloat16))[1]
+                same = torch.equal(y, wrapper(x, t, torch.bfloat16))
+                route = route_of(m, k, n)
+                if (route != "thin" or not bool(torch.isfinite(y).all())
+                        or rel > KERNEL_TOL or not same):
+                    raise SystemExit(f"{fmt} forward at M={m} K={k} N={n}: "
+                                     f"route {route}, rel {rel}, repeat "
+                                     f"equal {same}")
+                worst = max(worst, rel)
+                checked += 1
+            del t
+        out[fmt] = {"M": list(THIN_CHECK_M), "shapes_checked": checked,
+                    "max_rel_err": worst, "route": "thin",
+                    "tol": f"{KERNEL_TOL} * max|plain|"}
+    log("thin rows:", json.dumps(out))
     return out
 
 
 def fwd_crossover(fmt: str, seed: int, flush) -> dict:
     """Every forward route of ``fmt`` (NF4, int4 symmetric with group size
     128, or int8) on one layer's 7 Qwen3-8B projections at every row count
-    of ``CROSSOVER_M`` (int4: ``INT4_CROSSOVER_M``): device times summed
-    over the layer (L2 flushed before each launch), every launch held to
-    its plain version. ``measured_from_M`` is the smallest row count from
-    which the wgmma route is faster at every larger one in the table; the
-    wrapper's ``_route`` takes wgmma from its ``WGMMA_MIN_M``, and
-    ``route_agrees`` says whether it picks the fastest route at every row
-    count."""
+    of ``THIN_CROSSOVER_M``: event times summed over the layer (L2 flushed
+    before each launch) and device times (``device_ms``: the kernels' own
+    time, without the wrapper's host work), every launch held to its plain
+    version. ``faster`` is the route with the least device time (event
+    time where the profiler records none). ``measured_from_M`` is the
+    smallest row count from which the wgmma route is faster at every
+    larger one in the table; the wrapper's ``_route`` takes wgmma from its
+    ``WGMMA_MIN_M``, and ``route_agrees`` says whether it picks the fastest
+    route at every row count. The routes are the wrapper module's
+    ``ROUTES``, so the same function times a tree whose wrappers have
+    other routes (an earlier checkout's split-K kernels, say)."""
     import torch
 
     mod, plain, route_of = fwd_op(fmt)
@@ -683,7 +831,7 @@ def fwd_crossover(fmt: str, seed: int, flush) -> dict:
         fmt, torch.randn(*kn, device=dev, generator=gen) * 0.02)
         for kn in sorted(set(PROJ_SHAPES.values()))}
     table = []
-    for m in INT4_CROSSOVER_M if fmt == "int4" else CROSSOVER_M:
+    for m in THIN_CROSSOVER_M:
         xs = {k: torch.randn(m, k, device=dev, generator=gen).to(
             torch.bfloat16) for k in {k for k, _ in PROJ_SHAPES.values()}}
         ms = dict.fromkeys(mod.ROUTES, 0.0)
@@ -704,8 +852,15 @@ def fwd_crossover(fmt: str, seed: int, flush) -> dict:
                 worst = max(worst, rel)
                 ms[route] += time_ms(run, 5 if m == TRAIN_M else 10, flush)
             del ref
+        dev_ms = {route: device_ms(
+            [lambda r=route, x=xs[k], t=weights[(k, n)]:
+             mod._forward(x, t, torch.bfloat16, route=r)
+             for k, n in PROJ_SHAPES.values()],
+            rounds=5 if m == TRAIN_M else 20) for route in mod.ROUTES}
+        by = dev_ms if None not in dev_ms.values() else ms
         row = {"M": m, **{f"{r}_ms": v for r, v in ms.items()},
-               "faster": min(ms, key=ms.get), "max_rel_err": worst,
+               **{f"{r}_device_ms": v for r, v in dev_ms.items()},
+               "faster": min(by, key=by.get), "max_rel_err": worst,
                "routed": route_of(m, *PROJ_SHAPES["q_proj"])}
         log(f"{fmt} crossover:", json.dumps(row))
         table.append(row)
@@ -744,14 +899,41 @@ def device_ms(calls, rounds: int = 20):
     return us / 1e3 / rounds if us else None
 
 
+def device_ms_each(calls, key: str, rounds: int = 20):
+    """Device time of each of ``calls`` in ms, in one round of all of them
+    (so each weight is out of L2 by its next launch): the mean, over
+    ``rounds`` rounds after one warm-up, of the kernels whose name holds
+    ``key``, taken in launch order (each call launches one). None where the
+    profiler records no such kernel times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name),
+        key=lambda e: e.time_range.start)]
+    if len(us) != rounds * len(calls):
+        return None
+    return [sum(us[i::len(calls)]) / rounds / 1e3 for i in range(len(calls))]
+
+
 def decode_device(seed: int, flush) -> dict:
     """One layer's 7 Qwen3-8B projections at each row count of
     ``DECODE_M``, per forward format (NF4, int4 symmetric g128, int8): the
     wrapper (the route ``_route`` picks) and the library call (one
     torch.matmul on the weight dequantized beforehand; for int8
     ``(x @ q.bf16) * scale``), each as device time (``device_ms``) and as
-    event time (``time_ms`` per call, L2 flushed, summed); for int4 also
-    every other route's device time. Rows back to back, so a weight read
+    event time (``time_ms`` per call, L2 flushed, summed); also the other
+    route's device time, and at M = MAX_SLOTS each projection's own device
+    time (``device_ms_each``). Rows back to back, so a weight read
     by one projection is out of L2 (108-193 MB a layer) by its next
     round."""
     import torch
@@ -793,7 +975,11 @@ def decode_device(seed: int, flush) -> dict:
                    "library_device_ms": device_ms(lib),
                    "ms": sum(time_ms(c, 20, flush) for c in kern),
                    "library_ms": sum(time_ms(c, 20, flush) for c in lib)}
-            for route in mod.ROUTES if fmt == "int4" else ():
+            if m == MAX_SLOTS:  # where a decode step's time goes
+                each = device_ms_each(kern, THIN_POLICIES[fmt])
+                row["per_projection_device_ms"] = (
+                    dict(zip(PROJ_SHAPES, each)) if each else None)
+            for route in mod.ROUTES:
                 if route != row["route"]:
                     row[f"{route}_device_ms"] = device_ms([
                         lambda x=xs[kn[0]], t=weights[kn], r=route:
@@ -893,12 +1079,10 @@ def build_model(fmt: str, n_layer: int, seed: int):
 SERVE_KERNEL = {"nf4": "nf4_matmul", "int4": "int4_matmul",
                 "awq": "int4_matmul", "int8": "int8_matmul"}
 # the device kernels of each forward's routes, as the profiler names them
-# (split-K kernel and its reduce, or the thin-M kernel; wgmma policy)
-ROUTE_KERNEL_KEYS = {"nf4_matmul": ("nf4_matmul_kernel", "splitk_reduce",
-                                    "Nf4Fwd"),
-                     "int4_matmul": ("int4_thin_kernel", "Int4Fwd"),
-                     "int8_matmul": ("int8_matmul_kernel",
-                                     "int8_splitk_reduce", "Int8Fwd")}
+# (the thin-M kernel's policy, the wgmma mainloop's policy)
+ROUTE_KERNEL_KEYS = {"nf4_matmul": ("Nf4Thin", "Nf4Fwd"),
+                     "int4_matmul": ("Int4Thin", "Int4Fwd"),
+                     "int8_matmul": ("Int8Thin", "Int8Fwd")}
 
 
 def model_check(model, tok_ids, fmt: str) -> dict:
@@ -1368,7 +1552,7 @@ def check_train_nf4(seed: int, flush) -> dict:
         # the same weight with packed, absmax_q and absmax_scale at starts
         # off 16-byte alignment: the wrapper must align them
         shifted = nf4_offset_views(t) if (k, n) == (4096, 4096) else None
-        for route in ("splitk", "wgmma"):
+        for route in nm.ROUTES:
             if route == "wgmma" and not nm._wgmma_shape(k, n):
                 continue
 
@@ -2046,6 +2230,7 @@ def main(argv=None) -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     ptq_rows = check_ptq_kernels(args.seed, flush)
     thin_exact = thin_exactness(args.seed)
+    thin_checked = thin_rows(args.seed)
     crossovers = {}
     for fmt in FWD_FORMATS:
         crossovers[fmt] = fwd_crossover(fmt, args.seed, flush)
@@ -2110,6 +2295,9 @@ def main(argv=None) -> int:
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
         **decode_fields(decode, "nf4"),
+        "thin_rows": thin_checked["nf4"],
+        "thin_exactness": {k: v for k, v in thin_exact.items()
+                           if " nf4" in k},
         "launches": served["nf4"]["launches"] + launches["nf4_matmul"],
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
                              "train_nf4": launches["nf4_matmul"]}})
@@ -2171,7 +2359,10 @@ def main(argv=None) -> int:
                      f"step_{fmt}": steps[fmt]["launches_by_route"]}
             if fmt == "int4":
                 paths["serve_awq"] = awq_res["decode"]["launches_by_route"]
-                row["thin_exactness"] = thin_exact
+            else:
+                row["thin_rows"] = thin_checked[fmt]
+            row["thin_exactness"] = {k: v for k, v in thin_exact.items()
+                                     if f" {fmt}" in k}
             row.update(fwd_routes(fmt, MAX_SLOTS, paths))
             row.update(decode_fields(decode, fmt))
         table.append({"name": name, "source": csrc + src,

@@ -1,6 +1,7 @@
 // W4A16 int4 dequant-matmul for Hopper (sm_90a), forward and backward:
 //   y  = x  @ W     (qmm_wgmma_kernel<Int4Fwd> at prefill and training row
-//                    counts; int4_thin_kernel at decode row counts)
+//                    counts; qmm_thin_kernel<Int4Thin> of qmm_thin.cuh at
+//                    decode row counts)
 //   dx = dy @ W^T   (qmm_wgmma_kernel<Int4Dx>)
 // with W[k, n] = (code[k, n] - zero[k / gs, n]) * scale[k / gs, n].
 //
@@ -41,12 +42,14 @@
 //     22.95 ms for one layer's 7 projections at M = 8192, 5.8x cuBLAS on a
 //     dequantized weight (NVIDIA H100 80GB HBM3, 700 W).
 //   - Thin M (decode) leaves a 256-row tile mostly empty and too few blocks
-//     to fill 132 SMs: int4_thin_kernel (below) streams long runs of packed
-//     rows through a warp-specialized TMA ring, decodes on mma.sync with
-//     the weight as the A operand (8 rows of x fill an n8 tile), and sums
-//     the K splits of a column slab inside a thread-block cluster through
-//     distributed shared memory: one launch, no workspace, deterministic.
-//     The wrapper picks the route by shape (ops/int4_matmul.py::_route).
+//     to fill 132 SMs: the thin-M streaming kernel of qmm_thin.cuh with the
+//     Int4Thin policy (below), shared with the NF4 and int8 forwards,
+//     streams long runs of packed rows through a warp-specialized TMA ring,
+//     decodes on mma.sync with the weight as the A operand (8 rows of x fill
+//     an n8 tile), and sums the K splits of a column slab inside a
+//     thread-block cluster through distributed shared memory: one launch,
+//     no workspace, deterministic. The wrapper picks the route by shape
+//     (ops/int4_matmul.py::_route).
 //     The split-K mma.sync kernel it replaced (16-row tiles, f32 partials
 //     in device memory summed by a second launch) took 0.204 ms of device
 //     time for one layer's 7 projections at M = 8 (NVIDIA H100 80GB HBM3,
@@ -66,8 +69,9 @@
 //   - The M, N and K edges are masked (TMA's zero fill, or zeros written
 //     by the thin kernel's producer warp, and guarded stores).
 
-#include "qmm_wgmma.cuh"
 #include "mma_util.cuh"
+#include "qmm_thin.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -222,529 +226,189 @@ struct Int4Fwd : qmm::LinearChunks, qmm::LinearCols {
   };
 };
 
-// ---------------------------------------------------------------- thin M
-// B6's route for decode row counts (int4_thin_kernel), y^T = W^T . x^T on
-// mma.sync m16n8k16: A is the weight (16 output columns x 16 k, decoded from
-// the packed bytes into registers), B is x^T (16 k x 8 rows of x), so 8 rows
-// of x fill an n8 tile and no tensor-core row is padding at M = 8.
-//   - A block owns a slab of kBN = 128 output columns and one of `splits`
-//     runs of K; the splits of one slab are one thread-block cluster.
-//   - One producer warp streams the block's run through a ring of stages
-//     of kKC = 128 k (64 packed rows x 128 bytes of codes, the x tile, and
-//     the group rows of scales and zeros that cover the stage) behind
-//     full/empty mbarrier pairs: by TMA where the shape allows it (K % 8 and
-//     N % 16 zero, gs a power of two from 16 up), otherwise by plain loads
-//     into the same layout. Eight consumer warps decode and multiply
-//     without block-wide barriers, so a block keeps several stages in
-//     flight while it decodes.
-//   - Consumer warp w decodes columns 32 (w % 4) .. + 31 over k-steps
-//     4 (w / 4) .. + 3 of each stage. Thread (g, t) owns the 4 adjacent
-//     columns 4g .. 4g + 3 of its warp's 32: A tile a takes fragment rows g
-//     and g + 8 from columns 4g + 2a and 4g + 2a + 1, so one 32-bit load of
-//     packed row kp gives a[0] and a[1] of both tiles and packed row kp + 4
-//     gives a[2] and a[3]; the scales and zeros of the 4 columns are one
-//     16-byte load each.
-//   - Each weight is (code - zero) * scale in f32 with each step rounded
-//     on its own, as the codec does, and one rounding to bf16 per pair. A
-//     word's 8 nibbles become 8 exact floats 2^23 + code with two masks, a
-//     shift and one byte permute each.
-//   - The reduction stays on chip and in a fixed order: a block adds its
-//     two k halves in shared memory and stores each column quad's f32 sums
-//     into the receive buffer of the cluster block that owns the quad,
-//     through distributed shared memory; after one cluster barrier each
-//     block sums its share over the splits in split order and writes the
-//     output dtype. One launch, no workspace in device memory,
-//     deterministic.
-namespace thin {
+// B6's policy for the thin-M kernel of qmm_thin.cuh (decode row counts). A
+// stage holds 64 packed rows x 128 bytes of codes (k0 .. k0 + 127 of local
+// columns n0 .. n0 + 127, the 128-byte swizzle) and, on the TMA path (K % 8
+// and N % 16 zero, gs a power of two from 16 up), the group rows of scales
+// and zeros that cover the stage; the plain path fills the same code layout
+// and the consumers read scales and zeros through the read-only cache.
+// Thread (g, t) owns local columns cl .. cl + 3: one 32-bit load of packed
+// row kp gives a[0] and a[1] of both tiles and packed row kp + 4 gives a[2]
+// and a[3]; the scales and zeros of the 4 columns are one 16-byte load each.
+// Each weight is (code - zero) * scale in f32 with each step rounded on its
+// own, as the codec does, and one rounding to bf16 per pair. A word's 8
+// nibbles become 8 exact floats 2^23 + code with two masks, a shift and one
+// byte permute each.
+struct Int4Thin {
+  static constexpr int kWBytes = (thin::kKC / 2) * thin::kBN;
+  static constexpr uint32_t kMagic = 0x4B000000u;  // 2^23 as f32 bits
 
-constexpr int kConsumers = 256;       // 8 warps: 4 column groups x 2 k halves
-constexpr int kThreads = kConsumers + 32;  // and one producer warp
-constexpr int kBN = 128;              // output columns per block
-constexpr int kKC = 128;              // k per stage: 64 packed rows
-constexpr int kCodeBytes = (kKC / 2) * kBN;  // 128-byte swizzled rows
-constexpr int kMaxSplits = 8;         // portable cluster size
-constexpr int kMaxStages = 6;
-constexpr uint32_t kMagic = 0x4B000000u;  // 2^23 as f32 bits
-
-template <int MT>  // n8 tiles of x rows per block: 8 MT rows
-struct Geo {
-  static constexpr int kRows = 8 * MT;
-  static constexpr int kStages = MT <= 2 ? 6 : MT <= 4 ? 4 : 3;
-  static constexpr int kMinBlocks = MT <= 2 ? 3 : MT <= 4 ? 2 : 1;
-  // x: two boxes of 64 k (128-byte swizzled rows), one per k half
-  static constexpr int kXBytes = 2 * kRows * 128;
-  // the receive buffer: every split's sums of this block's share of the
-  // slab, kRows rows x at most kBN / 4 / splits + 1 column quads x splits
-  static constexpr int kRecvBytes = kRows * (kBN / 4 + kMaxSplits) * 16;
-};
-
-// group rows of scales (and as many of zeros) staged per stage on the TMA
-// path (gs a power of two): those that cover kKC k from a multiple of kKC
-__host__ __device__ inline int staged_group_rows(int gs, int n_groups) {
-  const int rows = gs >= kKC ? 1 : kKC / gs;
-  return rows < n_groups ? rows : n_groups;
-}
-
-// bytes of one stage, a multiple of 1024 (the swizzle's period)
-template <int MT>
-__host__ __device__ inline int stage_bytes(int g_rows) {
-  return (kCodeBytes + Geo<MT>::kXBytes + 2 * g_rows * kBN * 4 + 1023) /
-         1024 * 1024;
-}
-
-// the ring, then the receive buffer (other blocks of the cluster write it
-// while this one may still stream), and 1024 for the alignment
-template <int MT>
-__host__ __device__ inline int smem_bytes(int g_rows) {
-  return Geo<MT>::kStages * stage_bytes<MT>(g_rows) + Geo<MT>::kRecvBytes +
-         1024;
-}
-
-// the first column quad of cluster block `rank`'s share of the slab
-__device__ __forceinline__ int quad_lo(int rank, int splits) {
-  return rank * (kBN / 4) / splits;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// four f32 to `p` in the shared memory of cluster block `rank`
-__device__ __forceinline__ void st_dsmem4(float* p, uint32_t rank,
-                                          float4 v) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(qmm::smem_u32(p)), "r"(rank));
-  asm volatile(
-      "st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-      : "memory");
-}
-
-// (code - zero) * scale for the code in byte `i` of `nib` (0 .. 15 per
-// byte), each step rounded in f32 as the codec does: the bits 2^23 + code
-// are an exact f32, less 2^23 the code itself
-__device__ __forceinline__ float deq_code(uint32_t nib, int i, float zero,
-                                          float scale) {
-  const float m = __uint_as_float(__byte_perm(nib, kMagic, 0x7650 + i));
-  return __fmul_rn(__fsub_rn(__fsub_rn(m, 8388608.0f), zero), scale);
-}
-
-// A register of weight column `i` (byte i of the packed words) at k pair
-// (2p, 2p + 1): the high nibble is the even k, the lower half
-__device__ __forceinline__ uint32_t deq_pair(uint32_t hi, uint32_t lo, int i,
-                                             float zero, float scale) {
-  return qmm::pack2(deq_code(hi, i, zero, scale), deq_code(lo, i, zero, scale));
-}
-
-__device__ __forceinline__ float at(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-}  // namespace thin
-
-// grid (splits, N / kBN, M / (8 MT)), cluster (splits, 1, 1). kFast: the
-// TMA path with staged scales (K % 8 and N % 16 zero, gs = 2^lg_gs >= 16);
-// otherwise the producer warp fills the same layout with plain loads and
-// the consumers read scales and zeros through the read-only cache.
-template <int MT, bool kFast>
-__global__ void __launch_bounds__(thin::kThreads, thin::Geo<MT>::kMinBlocks)
-int4_thin_kernel(const __grid_constant__ CUtensorMap tm_x,
-                 const __grid_constant__ CUtensorMap tm_p,
-                 const __grid_constant__ CUtensorMap tm_s,
-                 const __grid_constant__ CUtensorMap tm_z,
-                 const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
-                 const float* __restrict__ scales,
-                 const float* __restrict__ zeros, void* __restrict__ out,
-                 int M, int K, int N, int gs, int lg_gs, int n_groups,
-                 int out_dtype) {
-  using Gm = thin::Geo<MT>;
-  constexpr int kBN = thin::kBN;
-  constexpr int kKC = thin::kKC;
-  constexpr int kS = Gm::kStages;
-  extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[thin::kMaxStages];
-  __shared__ __align__(8) uint64_t empty[thin::kMaxStages];
-  // the 128-byte swizzle repeats every 1024 bytes: stages start there
-  uint8_t* smem =
-      smem_raw + ((1024 - (qmm::smem_u32(smem_raw) & 1023)) & 1023);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int splits = gridDim.x;
-  const int split = blockIdx.x;  // the block's rank in its cluster
-  const int n0 = blockIdx.y * kBN;
-  const int m0 = blockIdx.z * Gm::kRows;
-  const int n_chunks = (K + kKC - 1) / kKC;
-  const int c_begin = static_cast<int>(static_cast<long>(split) * n_chunks /
-                                       splits);
-  const int n_local =
-      static_cast<int>(static_cast<long>(split + 1) * n_chunks / splits) -
-      c_begin;
-  const int g_rows = kFast ? thin::staged_group_rows(gs, n_groups) : 0;
-  const int st_bytes = thin::stage_bytes<MT>(g_rows);
-
-  if (tid == 0) {
-    for (int s = 0; s < kS; ++s) {
-      qmm::mbar_init(&full[s], kFast ? 1 : 32);
-      qmm::mbar_init(&empty[s], thin::kConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __host__ __device__ static constexpr int stages(int mt) {
+    return mt <= 2 ? 6 : mt <= 4 ? 4 : 3;
   }
-  __syncthreads();
+  __host__ __device__ static constexpr int min_blocks(int mt) {
+    return mt <= 2 ? 3 : mt <= 4 ? 2 : 1;
+  }
 
-  float acc[2][MT][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int j = 0; j < MT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][j][e] = 0.0f;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int cg = warp & 3;   // column group: 32 columns
-  const int kh = warp >> 2;  // k half: k-steps 4 kh .. 4 kh + 3 of a stage
-  const int cl = 32 * cg + 4 * g;  // this thread's first column in the slab
+  // group rows of scales (and as many of zeros) staged per stage on the TMA
+  // path (gs a power of two): those that cover kKC k from a multiple of kKC
+  static int staged_group_rows(int gs, int n_groups) {
+    const int rows = gs >= thin::kKC ? 1 : thin::kKC / gs;
+    return rows < n_groups ? rows : n_groups;
+  }
 
-  if (warp == thin::kConsumers / 32) {  // producer
-    for (int i = 0; i < n_local; ++i) {
-      const int s = i % kS;
-      if (i >= kS) qmm::mbar_wait(&empty[s], ((i / kS) - 1) & 1);
-      uint8_t* st = smem + s * st_bytes;
-      const int k0 = (c_begin + i) * kKC;
-      if (kFast) {
-        if (lane == 0) {
-          const uint32_t aux = g_rows * kBN * 4;
-          qmm::mbar_expect_tx(&full[s],
-                              thin::kCodeBytes + Gm::kXBytes + 2 * aux);
-          qmm::tma_load_2d(st, &tm_p, &full[s], n0, k0 / 2);
-          uint8_t* sx = st + thin::kCodeBytes;
-          qmm::tma_load_2d(sx, &tm_x, &full[s], k0, m0);
-          qmm::tma_load_2d(sx + Gm::kRows * 128, &tm_x, &full[s], k0 + 64,
-                           m0);
-          uint8_t* sa = sx + Gm::kXBytes;
-          qmm::tma_load_2d(sa, &tm_s, &full[s], n0, k0 >> lg_gs);
-          qmm::tma_load_2d(sa + aux, &tm_z, &full[s], n0, k0 >> lg_gs);
-        }
-      } else {
-        // codes: byte (r, c) at r * 128 + 16 ((c / 16) ^ (r % 8)) + c % 16,
-        // as TMA's 128-byte swizzle writes it; zeros past the edges
-        for (int e = lane; e < thin::kCodeBytes; e += 32) {
-          const int r = e / kBN;
-          const int c = e % kBN;
-          const int row = k0 / 2 + r;
-          st[qmm::sw128(r, c)] =
-              (row < K / 2 && n0 + c < N)
-                  ? packed[static_cast<long>(row) * N + n0 + c]
-                  : 0;
-        }
-        // x: two boxes of kRows rows x 64 k, the same swizzle
-        bf16* sx = reinterpret_cast<bf16*>(st + thin::kCodeBytes);
-        for (int e = lane; e < Gm::kRows * kKC; e += 32) {
-          const int r = e / kKC;
-          const int kk = e % kKC;
-          const int box = kk / 64;
-          const int row = m0 + r;
-          const int k = k0 + kk;
-          sx[(box * Gm::kRows * 128 + qmm::sw128(r, 2 * (kk % 64))) / 2] =
-              (row < M && k < K) ? x[static_cast<long>(row) * K + k]
-                                 : __float2bfloat16_rn(0.0f);
-        }
-        qmm::mbar_arrive(&full[s]);  // release: the stores above
-      }
+  __host__ __device__ static int aux_bytes(const thin::ThinArgs& args) {
+    return 2 * args.g_rows * thin::kBN * 4;
+  }
+  __host__ __device__ static int slabs(int n) {
+    return (n + thin::kBN - 1) / thin::kBN;
+  }
+  __device__ static int out_col(int slab, int lc, const thin::ThinArgs& args) {
+    const int col = slab * thin::kBN + lc;
+    return col < args.N ? col : -1;
+  }
+  __device__ static void block_init() {}
+
+  __device__ static uint32_t tx_bytes(const thin::ThinArgs& args) {
+    return kWBytes + aux_bytes(args);
+  }
+
+  __device__ static void load(uint8_t* w, uint8_t* aux,
+                              const CUtensorMap* tm_p, const CUtensorMap* tm_s,
+                              const CUtensorMap* tm_z, uint64_t* bar,
+                              int slab, int k0, const thin::ThinArgs& args) {
+    const int n0 = slab * thin::kBN;
+    qmm::tma_load_2d(w, tm_p, bar, n0, k0 / 2);
+    qmm::tma_load_2d(aux, tm_s, bar, n0, k0 >> args.lg_gs);
+    qmm::tma_load_2d(aux + args.g_rows * thin::kBN * 4, tm_z, bar, n0,
+                     k0 >> args.lg_gs);
+  }
+
+  // codes: byte (r, c) at r * 128 + 16 ((c / 16) ^ (r % 8)) + c % 16, as
+  // TMA's 128-byte swizzle writes it; zeros past the edges
+  __device__ static void fill(uint8_t* w, uint8_t*, int lane, int slab,
+                              int k0, const thin::ThinArgs& args) {
+    const int n0 = slab * thin::kBN;
+    for (int e = lane; e < kWBytes; e += 32) {
+      const int r = e / thin::kBN;
+      const int c = e % thin::kBN;
+      const int row = k0 / 2 + r;
+      w[qmm::sw128(r, c)] =
+          (row < args.K / 2 && n0 + c < args.N)
+              ? args.w[static_cast<long>(row) * args.N + n0 + c]
+              : 0;
     }
-  } else {  // consumers
-    // !kFast: the scales and zeros of the groups of the k-step's two halves
-    // (k + 2t and k + 2t + 8) through the read-only cache; groups past the
-    // last (k past K: zero x) take the last
-    auto load_group = [&](int grp, float4& sc, float4& zr) {
-      grp = min(grp, n_groups - 1);
+  }
+
+  // (code - zero) * scale for the code in byte `i` of `nib` (0 .. 15 per
+  // byte), each step rounded in f32 as the codec does: the bits 2^23 + code
+  // are an exact f32, less 2^23 the code itself
+  static __device__ __forceinline__ float deq_code(uint32_t nib, int i,
+                                                   float zero, float scale) {
+    const float m = __uint_as_float(__byte_perm(nib, kMagic, 0x7650 + i));
+    return __fmul_rn(__fsub_rn(__fsub_rn(m, 8388608.0f), zero), scale);
+  }
+
+  // A register of weight column `i` (byte i of the packed words) at k pair
+  // (2p, 2p + 1): the high nibble is the even k, the lower half
+  static __device__ __forceinline__ uint32_t deq_pair(uint32_t hi, uint32_t lo,
+                                                      int i, float zero,
+                                                      float scale) {
+    return qmm::pack2(deq_code(hi, i, zero, scale),
+                      deq_code(lo, i, zero, scale));
+  }
+
+  static __device__ __forceinline__ float at(const float4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+
+  struct State {
+    int cl, n0, t, code0, code1, cur0, cur1;
+    float4 s0, z0, s1, z1;
+
+    __device__ State(const thin::ThinArgs&, int slab, int cl_, int, int,
+                     int t_)
+        : cl(cl_),
+          n0(slab * thin::kBN),
+          t(t_),
+          // byte offsets, in a stage, of this thread's code words in packed
+          // rows t and t + 4 (mod 8), under the 128-byte swizzle
+          code0(qmm::sw128(t_, cl_)),
+          code1(qmm::sw128(t_ + 4, cl_)),
+          cur0(-1),
+          cur1(-1) {}
+
+    template <bool kFast>
+    __device__ void stage(const uint8_t*, int, const thin::ThinArgs&) {}
+
+    // the plain path's scales and zeros of group `grp` for the thread's 4
+    // columns, through the read-only cache; groups past the last (k past
+    // K: zero x) take the last
+    __device__ void load_group(int grp, float4& sc, float4& zr,
+                               const thin::ThinArgs& args) const {
+      grp = min(grp, args.n_groups - 1);
+      const auto* scales = static_cast<const float*>(args.aux0);
+      const auto* zeros = static_cast<const float*>(args.aux1);
       float v[2][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = n0 + cl + i;
-        const long j = static_cast<long>(grp) * N + c;
-        v[0][i] = c < N ? __ldg(scales + j) : 0.0f;
-        v[1][i] = c < N ? __ldg(zeros + j) : 0.0f;
+        const long j = static_cast<long>(grp) * args.N + c;
+        v[0][i] = c < args.N ? __ldg(scales + j) : 0.0f;
+        v[1][i] = c < args.N ? __ldg(zeros + j) : 0.0f;
       }
       sc = make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
       zr = make_float4(v[1][0], v[1][1], v[1][2], v[1][3]);
-    };
-    int cur0 = -1, cur1 = -1;
-    float4 s0, z0, s1, z1;
-    // byte offsets, in a stage, of this thread's code words in packed rows
-    // t and t + 4 (mod 8) and of its x words in row g (mod 8), k 2t and
-    // 2t + 8 of each 16, under the 128-byte swizzle
-    const int code0 = qmm::sw128(t, cl);
-    const int code1 = qmm::sw128(t + 4, cl);
-    int xoff[4][2];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        xoff[q][h] = qmm::sw128(g, 32 * q + 16 * h + 4 * t);
-    for (int i = 0; i < n_local; ++i) {
-      const int s = i % kS;
-      qmm::mbar_wait(&full[s], (i / kS) & 1);
-      const uint8_t* sp = smem + s * st_bytes;
-      const uint8_t* sx = sp + thin::kCodeBytes + kh * Gm::kRows * 128;
-      const float* sa =
-          reinterpret_cast<const float*>(sp + thin::kCodeBytes + Gm::kXBytes);
-      const int k0 = (c_begin + i) * kKC;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int kk = k0 + 16 * (4 * kh + q);
-        if (kFast) {
-          // the staged group row; a k past K (zero x) takes the last
-          const int r = min(kk >> lg_gs, n_groups - 1) - (k0 >> lg_gs);
-          s0 = *reinterpret_cast<const float4*>(sa + r * kBN + cl);
-          z0 = *reinterpret_cast<const float4*>(sa + (g_rows + r) * kBN +
-                                                cl);
-          s1 = s0;
-          z1 = z0;
-        } else {
-          const int ga = (kk + 2 * t) / gs;
-          const int gb = (kk + 2 * t + 8) / gs;
-          if (ga != cur0) {
-            load_group(ga, s0, z0);
-            cur0 = ga;
-          }
-          if (gb != cur1) {
-            load_group(gb, s1, z1);
-            cur1 = gb;
-          }
+    }
+
+    template <bool kFast>
+    __device__ void decode(const uint8_t* w, const uint8_t* aux, int ks,
+                           int k0, const thin::ThinArgs& args,
+                           uint32_t (&a)[2][4]) {
+      const int kk = k0 + 16 * ks;
+      if (kFast) {
+        // the staged group row; a k past K (zero x) takes the last
+        const auto* sa = reinterpret_cast<const float*>(aux);
+        const int r = min(kk >> args.lg_gs, args.n_groups - 1) -
+                      (k0 >> args.lg_gs);
+        s0 = *reinterpret_cast<const float4*>(sa + r * thin::kBN + cl);
+        z0 = *reinterpret_cast<const float4*>(
+            sa + (args.g_rows + r) * thin::kBN + cl);
+        s1 = s0;
+        z1 = z0;
+      } else {
+        // the groups of the k-step's two halves (k + 2t and k + 2t + 8)
+        const int ga = (kk + 2 * t) / args.gs;
+        const int gb = (kk + 2 * t + 8) / args.gs;
+        if (ga != cur0) {
+          load_group(ga, s0, z0, args);
+          cur0 = ga;
         }
-        // packed rows 8 ks + t (k pair 2t) and + 4 (k pair 2t + 8), bytes
-        // 4g .. 4g + 3 of the warp's 32 columns
-        const uint8_t* rows = sp + 8 * (4 * kh + q) * 128;
-        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(rows + code0);
-        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(rows + code1);
-        const uint32_t lo0 = w0 & 0x0F0F0F0Fu, hi0 = (w0 >> 4) & 0x0F0F0F0Fu;
-        const uint32_t lo1 = w1 & 0x0F0F0F0Fu, hi1 = (w1 >> 4) & 0x0F0F0F0Fu;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int ta = 0; ta < 2; ++ta) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = 2 * ta + e;
-            a[ta][e] = thin::deq_pair(hi0, lo0, c, thin::at(z0, c),
-                                      thin::at(s0, c));
-            a[ta][2 + e] = thin::deq_pair(hi1, lo1, c, thin::at(z1, c),
-                                          thin::at(s1, c));
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < MT; ++j) {
-          // x row 8j + g at k 16 (ks % 4) + 2t (+ 8) of this half's box
-          const uint8_t* xr = sx + 8 * j * 128;
-          const uint32_t bx0 =
-              *reinterpret_cast<const uint32_t*>(xr + xoff[q][0]);
-          const uint32_t bx1 =
-              *reinterpret_cast<const uint32_t*>(xr + xoff[q][1]);
-          mma_bf16(acc[0][j], a[0], bx0, bx1);
-          mma_bf16(acc[1][j], a[1], bx0, bx1);
+        if (gb != cur1) {
+          load_group(gb, s1, z1, args);
+          cur1 = gb;
         }
       }
-      // the stage was read by generic loads and its next fill is a TMA
-      // (async proxy) write: order the two before handing it back
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      qmm::mbar_arrive(&empty[s]);
-    }
-    // every consumer is done with the ring: the k-half-1 warps leave their
-    // sums there for their k-half-0 partners (the same columns and rows)
-    asm volatile("bar.sync 1, %0;\n" ::"n"(thin::kConsumers) : "memory");
-    float* xch = reinterpret_cast<float*>(smem) + (tid & 127) * (8 * MT);
-    if (kh == 1) {
+      // packed rows 8 ks + t (k pair 2t) and + 4 (k pair 2t + 8), bytes
+      // 4g .. 4g + 3 of the warp's 32 columns
+      const uint8_t* rows = w + 8 * ks * 128;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(rows + code0);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(rows + code1);
+      const uint32_t lo0 = w0 & 0x0F0F0F0Fu, hi0 = (w0 >> 4) & 0x0F0F0F0Fu;
+      const uint32_t lo1 = w1 & 0x0F0F0F0Fu, hi1 = (w1 >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
+      for (int ta = 0; ta < 2; ++ta) {
 #pragma unroll
-        for (int j = 0; j < MT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) xch[(a * MT + j) * 4 + e] = acc[a][j][e];
-    }
-    asm volatile("bar.sync 1, %0;\n" ::"n"(thin::kConsumers) : "memory");
-    if (kh == 0) {
-      // this thread's quad (columns cl .. cl + 3: tile a, fragment column
-      // e / 2) in rows 8j + 2t + p, half 0 + half 1, pushed to the block
-      // that owns the quad, into its slot for this split
-      const int qd = cl / 4;
-      int owner = 0;
-      while (owner + 1 < splits && thin::quad_lo(owner + 1, splits) <= qd)
-        ++owner;
-      const int lo = thin::quad_lo(owner, splits);
-      const int n_qd = thin::quad_lo(owner + 1, splits) - lo;
-      float* recv = reinterpret_cast<float*>(
-          smem + Gm::kStages * st_bytes);
-#pragma unroll
-      for (int j = 0; j < MT; ++j)
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          float v[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {  // column cl + i: tile i / 2
-            const int e = 2 * (i % 2) + p;
-            v[i] = acc[i / 2][j][e] + xch[((i / 2) * MT + j) * 4 + e];
-          }
-          const int r = 8 * j + 2 * t + p;
-          thin::st_dsmem4(recv + ((r * n_qd + qd - lo) * splits + split) * 4,
-                          owner, make_float4(v[0], v[1], v[2], v[3]));
+        for (int e = 0; e < 2; ++e) {
+          const int c = 2 * ta + e;
+          a[ta][e] = deq_pair(hi0, lo0, c, at(z0, c), at(s0, c));
+          a[ta][2 + e] = deq_pair(hi1, lo1, c, at(z1, c), at(s1, c));
         }
-    }
-  }
-  thin::cluster_sync();  // every split's sums are in their owners' buffers
-
-  // this block's share of the slab: column quads qd_lo .. qd_lo + n_qd - 1
-  // of every row, summed over the splits in split order (deterministic)
-  const float4* recv =
-      reinterpret_cast<const float4*>(smem + Gm::kStages * st_bytes);
-  const int qd_lo = thin::quad_lo(split, splits);
-  const int n_qd = thin::quad_lo(split + 1, splits) - qd_lo;
-  for (int lq = tid; lq < Gm::kRows * n_qd; lq += thin::kThreads) {
-    const int r = lq / n_qd;
-    const int c = 4 * (qd_lo + lq % n_qd);
-    const int m = m0 + r;
-    float4 sum = recv[lq * splits];
-    for (int q = 1; q < splits; ++q) {
-      const float4 p = recv[lq * splits + q];
-      sum.x += p.x;
-      sum.y += p.y;
-      sum.z += p.z;
-      sum.w += p.w;
-    }
-    if (m < M) {
-      const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (n0 + c + e < N)
-          port::store_out(out, static_cast<long>(m) * N + n0 + c + e, s4[e],
-                          out_dtype);
       }
     }
-  }
-}
+  };
+};
 
-template <int MT, bool kFast>
-cudaError_t launch_thin(const void* x, const void* packed, const void* scales,
-                        const void* zeros, void* out, int M, int K, int N,
-                        int gs, int n_groups, int out_dtype,
-                        cudaStream_t stream) {
-  using Gm = thin::Geo<MT>;
-  const auto kernel = int4_thin_kernel<MT, kFast>;
-  const int g_rows = kFast ? thin::staged_group_rows(gs, n_groups) : 0;
-  const int smem = thin::smem_bytes<MT>(g_rows);
-  constexpr int kMaxSmem = 232448 - 256;  // less the static barriers
-  if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
-  CUtensorMap tm_x = {}, tm_p = {}, tm_s = {}, tm_z = {};
-  if (kFast) {
-    cudaError_t err = qmm::encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                     2, x, M, K, Gm::kRows, 64,
-                                     CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err == cudaSuccess)
-      err = qmm::encode_2d(&tm_p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed,
-                           K / 2, N, thin::kKC / 2, thin::kBN,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err == cudaSuccess)
-      err = qmm::encode_2d(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales,
-                           n_groups, N, g_rows, thin::kBN,
-                           CU_TENSOR_MAP_SWIZZLE_NONE);
-    if (err == cudaSuccess)
-      err = qmm::encode_2d(&tm_z, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, zeros,
-                           n_groups, N, g_rows, thin::kBN,
-                           CU_TENSOR_MAP_SWIZZLE_NONE);
-    if (err != cudaSuccess) return err;
-  }
-  // splits of K per slab (the cluster size), among those for which every
-  // cluster of the grid is resident at once (the occupancy API's count of
-  // active clusters at this size and shared memory, queried once per
-  // staged row count) and each split has at least two stages: the one that
-  // puts the least work on the busiest SM, ceil(blocks / SMs) blocks of
-  // 1 / splits of a slab's run each, over the SMs that clusters of that
-  // size can use (active clusters x size / blocks per SM); the larger on a
-  // tie
-  static int per_sm[thin::kKC + 1];                        // [g_rows]
-  static int active[thin::kKC + 1][thin::kMaxSplits + 1];  // [g_rows][size]
-  if (per_sm[g_rows] == 0) {
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm[g_rows], kernel, thin::kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm[g_rows] < 1) return cudaErrorInvalidConfiguration;
-  }
-  const int slabs = (N + thin::kBN - 1) / thin::kBN;
-  const int m_tiles = (M + Gm::kRows - 1) / Gm::kRows;
-  const int n_chunks = (K + thin::kKC - 1) / thin::kKC;
-  const long clusters = static_cast<long>(slabs) * m_tiles;
-  int splits = 1;
-  long best_num = -1;  // the busiest SM's work: best_num / splits runs
-  for (int c = 1; c <= thin::kMaxSplits && (c == 1 || n_chunks >= 2 * c);
-       ++c) {
-    int& n_active = active[g_rows][c];
-    if (n_active == 0) {
-      cudaLaunchConfig_t q = {};
-      q.gridDim = dim3(c, 1, 1);
-      q.blockDim = dim3(thin::kThreads);
-      q.dynamicSmemBytes = smem;
-      cudaLaunchAttribute at[1];
-      at[0].id = cudaLaunchAttributeClusterDimension;
-      at[0].val.clusterDim.x = c;
-      at[0].val.clusterDim.y = 1;
-      at[0].val.clusterDim.z = 1;
-      q.attrs = at;
-      q.numAttrs = 1;
-      const cudaError_t err =
-          cudaOccupancyMaxActiveClusters(&n_active, kernel, &q);
-      if (err != cudaSuccess) return err;
-      if (n_active == 0) n_active = -1;  // not resident at this size
-    }
-    if (n_active < 1 || clusters > n_active) continue;
-    long sms = static_cast<long>(n_active) * c / per_sm[g_rows];
-    if (sms < 1) sms = 1;
-    const long num = (clusters * c + sms - 1) / sms;
-    if (best_num < 0 || num * splits <= best_num * c) {
-      splits = c;
-      best_num = num;
-    }
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, slabs, m_tiles);
-  cfg.blockDim = dim3(thin::kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, tm_x, tm_p, tm_s, tm_z,
-                            static_cast<const bf16*>(x),
-                            static_cast<const uint8_t*>(packed),
-                            static_cast<const float*>(scales),
-                            static_cast<const float*>(zeros), out, M, K, N,
-                            gs, 31 - __builtin_clz(gs), n_groups, out_dtype);
-}
-
-template <int MT>
-cudaError_t launch_thin_mt(const void* x, const void* packed,
-                           const void* scales, const void* zeros, void* out,
-                           int M, int K, int N, int gs, int n_groups,
-                           int out_dtype, cudaStream_t stream) {
-  return (K % 8 == 0 && N % 16 == 0 && gs >= 16 && (gs & (gs - 1)) == 0)
-             ? launch_thin<MT, true>(x, packed, scales, zeros, out, M, K, N,
-                                     gs, n_groups, out_dtype, stream)
-             : launch_thin<MT, false>(x, packed, scales, zeros, out, M, K, N,
-                                      gs, n_groups, out_dtype, stream);
-}
 }  // namespace
 
 // Forward on the wgmma mainloop (Int4Fwd), on `stream`: the route for
@@ -832,12 +496,12 @@ extern "C" int int4_matmul_bwd_launch(const void* dy, const void* packed,
       tm_dy, tm_p, tm_s, tm_z, args, static_cast<cudaStream_t>(stream)));
 }
 
-// Forward on the thin-M kernel (int4_thin_kernel), on `stream`: the route
-// for decode row counts. x: (M, K) bf16, 16-byte aligned; packed, scales,
-// zeros as for int4_matmul_wgmma_launch; out: (M, N) in out_dtype. Requires
-// M >= 1, K even and gs even. One launch (a cluster per column slab), no
-// workspace. Returns the first CUDA error of the descriptor encoding and
-// the launch (0 on success).
+// Forward on the thin-M kernel (qmm_thin_kernel<Int4Thin>), on `stream`:
+// the route for decode row counts. x: (M, K) bf16, 16-byte aligned; packed,
+// scales, zeros as for int4_matmul_wgmma_launch; out: (M, N) in out_dtype.
+// Requires M >= 1, K even and gs even. One launch (a cluster per column
+// slab), no workspace. Returns the first CUDA error of the descriptor
+// encoding and the launch (0 on success).
 extern "C" int int4_matmul_thin_launch(const void* x, const void* packed,
                                        const void* scales, const void* zeros,
                                        void* out, int M, int K, int N, int gs,
@@ -846,26 +510,40 @@ extern "C" int int4_matmul_thin_launch(const void* x, const void* packed,
   if (M < 1 || K < 2 || K % 2 || N < 1 || gs < 2 || gs % 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (M <= 8) {
-    err = launch_thin_mt<1>(x, packed, scales, zeros, out, M, K, N, gs,
-                            n_groups, out_dtype, s);
-  } else if (M <= 16) {
-    err = launch_thin_mt<2>(x, packed, scales, zeros, out, M, K, N, gs,
-                            n_groups, out_dtype, s);
-  } else if (M <= 32) {
-    err = launch_thin_mt<4>(x, packed, scales, zeros, out, M, K, N, gs,
-                            n_groups, out_dtype, s);
-  } else if (M <= 64) {
-    err = launch_thin_mt<8>(x, packed, scales, zeros, out, M, K, N, gs,
-                            n_groups, out_dtype, s);
-  } else {
-    err = launch_thin_mt<16>(x, packed, scales, zeros, out, M, K, N, gs,
-                             n_groups, out_dtype, s);
+  const bool fast =
+      K % 8 == 0 && N % 16 == 0 && gs >= 16 && (gs & (gs - 1)) == 0;
+  thin::ThinArgs args = {};
+  args.x = static_cast<const bf16*>(x);
+  args.w = static_cast<const uint8_t*>(packed);
+  args.aux0 = scales;
+  args.aux1 = zeros;
+  args.out = out;
+  args.M = M;
+  args.K = K;
+  args.N = N;
+  args.out_dtype = out_dtype;
+  args.gs = gs;
+  args.lg_gs = 31 - __builtin_clz(gs);
+  args.n_groups = n_groups;
+  args.g_rows = fast ? Int4Thin::staged_group_rows(gs, n_groups) : 0;
+  CUtensorMap tm_p = {}, tm_s = {}, tm_z = {};
+  if (fast) {
+    cudaError_t err = qmm::encode_2d(&tm_p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                                     packed, K / 2, N, thin::kKC / 2,
+                                     thin::kBN, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+      err = qmm::encode_2d(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales,
+                           n_groups, N, args.g_rows, thin::kBN,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err == cudaSuccess)
+      err = qmm::encode_2d(&tm_z, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, zeros,
+                           n_groups, N, args.g_rows, thin::kBN,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(thin::launch<Int4Thin>(
+      tm_p, tm_s, tm_z, args, fast, args.g_rows,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* int4_cuda_error_string(int err) {

@@ -1,8 +1,9 @@
 // W8A16 int8 matmul for Hopper (sm_90a), forward and backward:
 //   y  = (x @ q) * scale[n]              (qmm_wgmma_kernel<Int8Fwd> at
 //                                         prefill and training row counts;
-//                                         int8_matmul_kernel, split over K,
-//                                         at decode)
+//                                         qmm_thin_kernel<Int8Thin> of
+//                                         qmm_thin.cuh at decode and short
+//                                         prefill)
 //   dx = bf16(dy * scale[n]) @ q^T       (int8_scale_dy_kernel, then
 //                                         qmm_wgmma_kernel<Int8Dx>)
 //
@@ -13,9 +14,9 @@
 //   - q is an Int8Tensor's (K, N) int8 in [-127, 127] and scale its (N,) f32
 //     per-column scale; int8 -> bf16 is exact.
 //   - Forward: x is bf16 (the wrapper casts), products accumulate in f32, and
-//     the scale multiplies the f32 sum once per output element after the K
-//     loop (after the split-K reduce where there is one), then one rounding
-//     to the caller's dtype.
+//     the scale multiplies the f32 sum once per output element after the
+//     whole K reduction (on the thin route after the cluster's split
+//     reduce, never on a split), then one rounding to the caller's dtype.
 //   - Backward: dys = bf16(f32(dy) * scale) first (the JAX package scales in
 //     f32 outside its kernel and rounds to bf16 inside it), then
 //     dx = dys @ q^T with f32 sums. With a bf16 dy a first kernel forms dys
@@ -38,14 +39,18 @@
 //     rounding. The mma.sync split-K kernel took 18.48 ms for one layer's 7
 //     projections at M = 8192, 3.5x cuBLAS on a dequantized weight (NVIDIA
 //     H100 80GB HBM3, 700 W).
-//   - Forward at decode: the pair (k, k + 1) of one column, which one 32-bit
-//     B-fragment register of mma.sync m16n8k16 holds, lies N bytes apart in
-//     row-major q; the tile is staged in shared memory (16-byte cp.async
-//     copies, coalesced rows) and the pairs are built there, so the bf16
-//     weight never exists in device memory. A cp.async ring keeps several
-//     chunks in flight; thin M splits K over grid.z as the NF4 and int4
-//     kernels do, with a deterministic second pass that sums and applies
-//     the scale.
+//   - Forward below the threshold: the thin-M streaming kernel of
+//     qmm_thin.cuh with the Int8Thin policy (below), shared with the NF4 and
+//     int4 forwards: a producer warp streams 16 KB stages of q (128 k x 128
+//     columns) by TMA, eight consumer warps build each thread's 4 columns'
+//     k pairs from two 32-bit shared loads and one byte_perm per column into
+//     mma.sync A fragments (the weight is the A operand, so 8 rows of x fill
+//     an n8 tile), and the K splits of a column slab are summed in a
+//     thread-block cluster through distributed shared memory before the
+//     scale: one launch, no workspace, deterministic. The split-K kernel it
+//     replaced (16-row x tiles, f32 partials in device memory summed and
+//     scaled by a second launch) took 0.1314 ms of device time for one
+//     layer's 7 projections at M = 8 (NVIDIA H100 80GB HBM3, 700 W).
 //   - Backward: the shared wgmma mainloop of qmm_wgmma.cuh (TMA ring, one
 //     producer warp, two consumer warpgroups on a 128 x 256 tile of dx^T,
 //     deterministic) with the Int8Dx policy: for fixed k the pair (n, n + 1)
@@ -59,185 +64,16 @@
 //     cp.async ring) took 27.54 ms for one layer's 7 projections at
 //     M = 8192, 6.9x cuBLAS on a dequantized weight (NVIDIA H100 80GB HBM3,
 //     700 W).
-//   - The M, N and K edges are masked (split-K: zero-filled tiles and
-//     guarded stores; wgmma: TMA's zero fill and guarded stores).
+//   - The M, N and K edges are masked (TMA's zero fill, or zeros written by
+//     the thin kernel's producer warp, and guarded stores).
 
-#include "qmm_wgmma.cuh"
 #include "mma_util.cuh"
+#include "qmm_thin.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
-using port::mma_bf16;
-using port::pack_bf16;
 using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 128;       // 4 warps
-constexpr int kBK = 64;             // K rows per chunk
-constexpr int kBN = 64;             // output columns per block, 16 per warp
-constexpr int kQStride = kBN + 16;  // smem bytes per q row (bank spread)
-constexpr int kXStride = kBK + 8;   // smem bf16 per x row (bank spread)
-
-__device__ __forceinline__ float i8f(int8_t v) {
-  return static_cast<float>(v);
-}
-
-// One block: rows [m0, m0 + 16*MT) of x against output columns
-// [n0, n0 + kBN), over the K chunks of split blockIdx.z. Warp w owns
-// columns n0 + 16w .. n0 + 16w + 15 as two n8 tiles.
-template <int MT, int STAGES>
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                   const float* __restrict__ scale, void* __restrict__ out,
-                   float* __restrict__ ws, int M, int K, int N, int split_k,
-                   int out_dtype) {
-  constexpr int BM = 16 * MT;
-  __shared__ __align__(16) int8_t s_q[STAGES][kBK * kQStride];
-  __shared__ __align__(16) bf16 s_x[STAGES][BM * kXStride];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
-  const int n_chunks = (K + kBK - 1) / kBK;
-  const int kc_begin =
-      static_cast<int>(static_cast<long>(blockIdx.z) * n_chunks / split_k);
-  const int kc_end =
-      static_cast<int>(static_cast<long>(blockIdx.z + 1) * n_chunks / split_k);
-  const int n_local = kc_end - kc_begin;
-  const bool q_vec = (N % 16) == 0;  // 16-byte aligned q rows
-  const bool x_vec = (K % 8) == 0;   // 16-byte aligned x rows
-
-  auto load_stage = [&](int stage, int kc) {
-    const int k0 = kc * kBK;
-    // q tile: kBK rows x kBN bytes; zeros past the K and N edges
-    for (int i = tid; i < kBK * (kBN / 16); i += kThreads) {
-      const int r = i / (kBN / 16);
-      const int part = i % (kBN / 16);
-      const int row = k0 + r;
-      const int col = n0 + part * 16;
-      int8_t* dst = &s_q[stage][r * kQStride + part * 16];
-      if (q_vec) {
-        const bool ok = row < K && col < N;
-        port::cp_async16(dst, q + (ok ? static_cast<long>(row) * N + col : 0),
-                         ok ? 16 : 0);
-      } else {
-        for (int b = 0; b < 16; ++b) {
-          dst[b] = (row < K && col + b < N)
-                       ? q[static_cast<long>(row) * N + col + b]
-                       : 0;
-        }
-      }
-    }
-    // x tile: BM rows x kBK bf16; zeros past the M and K edges
-    for (int i = tid; i < BM * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8);
-      const int part = i % (kBK / 8);
-      const int row = m0 + r;
-      const int col = k0 + part * 8;
-      bf16* dst = &s_x[stage][r * kXStride + part * 8];
-      if (x_vec) {
-        const bool ok = row < M && col < K;
-        port::cp_async16(dst, x + (ok ? static_cast<long>(row) * K + col : 0),
-                         ok ? 16 : 0);
-      } else {
-        for (int e = 0; e < 8; ++e) {
-          dst[e] = (row < M && col + e < K)
-                       ? x[static_cast<long>(row) * K + col + e]
-                       : __float2bfloat16_rn(0.0f);
-        }
-      }
-    }
-  };
-
-  float acc[MT][2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][h][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_local) load_stage(s, kc_begin + s);
-    port::cp_async_commit();
-  }
-
-  for (int i = 0; i < n_local; ++i) {
-    port::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    {
-      const int nxt = i + STAGES - 1;
-      if (nxt < n_local) load_stage(nxt % STAGES, kc_begin + nxt);
-      port::cp_async_commit();
-    }
-    const int stage = i % STAGES;
-    const int8_t* sq = s_q[stage] + warp * 16 + g;
-    const bf16* sx = s_x[stage];
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const int r = ks * 16 + 2 * t;  // q rows r, r+1 (b0) and r+8, r+9 (b1)
-      uint32_t b[2][2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int8_t* qc = sq + nt * 8;
-        b[nt][0] = pack_bf16(i8f(qc[r * kQStride]),
-                             i8f(qc[(r + 1) * kQStride]));
-        b[nt][1] = pack_bf16(i8f(qc[(r + 8) * kQStride]),
-                             i8f(qc[(r + 9) * kQStride]));
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const bf16* xa = sx + (mt * 16 + g) * kXStride + ks * 16 + 2 * t;
-        uint32_t a[4];
-        a[0] = port::ld_u32(xa);
-        a[1] = port::ld_u32(xa + 8 * kXStride);
-        a[2] = port::ld_u32(xa + 8);
-        a[3] = port::ld_u32(xa + 8 * kXStride + 8);
-        mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
-        mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
-      }
-    }
-  }
-  port::cp_async_wait<0>();
-
-  const long mn = static_cast<long>(M) * N;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + mt * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = n0 + warp * 16 + nt * 8 + 2 * t + (e & 1);
-        if (row < M && col < N) {
-          const long o = static_cast<long>(row) * N + col;
-          if (split_k > 1) {
-            ws[blockIdx.z * mn + o] = acc[mt][nt][e];
-          } else {
-            port::store_out(out, o, __fmul_rn(acc[mt][nt][e], scale[col]),
-                            out_dtype);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Sum the split-K partials in split order, then apply the column scale.
-__global__ void int8_splitk_reduce_kernel(const float* __restrict__ ws,
-                                          const float* __restrict__ scale,
-                                          void* __restrict__ out, long mn,
-                                          int N, int split_k, int out_dtype) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.0f;
-  for (int z = 0; z < split_k; ++z) s += ws[z * mn + i];
-  port::store_out(out, i, __fmul_rn(s, scale[i % N]), out_dtype);
-}
 
 // dys = bf16(f32(dy) * scale[n]), B9's rounding point, once per element
 // before the product. Thread x of the grid owns 8 columns (16 bytes) of
@@ -380,38 +216,100 @@ struct Int8Fwd : qmm::LinearChunks, qmm::LinearCols {
   };
 };
 
-}  // namespace
+// B8's policy for the thin-M kernel of qmm_thin.cuh (decode and short
+// prefill row counts). A stage holds q rows k0 .. k0 + 127 x columns n0 ..
+// n0 + 127 (16 KB: TMA with the 128-byte swizzle where K % 8 and N % 16 are
+// zero, otherwise plain loads into the same layout, zeros past K and N).
+// Thread (g, t) owns the adjacent columns cl .. cl + 3: one 32-bit load of q
+// row k gives the 4 columns at k, one of row k + 1 the other half of each
+// pair, and one byte_perm per column pairs them for Int8Dx::s8x2's exact
+// bf16x2. The column scale goes on the f32 sum after the cluster reduce
+// (ThinArgs::col_scale), the JAX kernel's rounding point, never on a split.
+struct Int8Thin {
+  static constexpr int kWBytes = thin::kKC * thin::kBN;
 
-// Forward, on `stream`. x: (M, K) bf16, 16-byte aligned; q: (K, N) int8;
-// scale: (N,) f32; out: (M, N) in out_dtype (0 f32, 1 bf16, 2 f16); ws:
-// (split_k, M, N) f32 when split_k > 1. Requires M >= 1. Returns
-// cudaGetLastError() after the launches (0 on success).
-extern "C" int int8_matmul_launch(const void* x, const void* q,
-                                  const void* scale, void* out, void* ws,
-                                  int M, int K, int N, int split_k,
-                                  int out_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kThreads);
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* qb = static_cast<const int8_t*>(q);
-  const auto* sc = static_cast<const float*>(scale);
-  auto* wsf = static_cast<float*>(ws);
-  if (M <= 16) {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 15) / 16, split_k);
-    int8_matmul_kernel<1, 4><<<grid, block, 0, s>>>(
-        xb, qb, sc, out, wsf, M, K, N, split_k, out_dtype);
-  } else {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 63) / 64, split_k);
-    int8_matmul_kernel<4, 3><<<grid, block, 0, s>>>(
-        xb, qb, sc, out, wsf, M, K, N, split_k, out_dtype);
+  // 16 KB of q a stage: fewer stages fit than for the 4-bit formats. Up to
+  // 32 rows of x two blocks share an SM (3-5 stages each); from 64 rows one
+  // block holds the SM and takes what the receive buffer leaves
+  __host__ __device__ static constexpr int stages(int mt) {
+    return mt <= 1 ? 5 : mt <= 2 ? 4 : mt <= 4 ? 3 : mt <= 8 ? 4 : 3;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || split_k == 1) return static_cast<int>(err);
-  const long mn = static_cast<long>(M) * N;
-  int8_splitk_reduce_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0,
-                              s>>>(wsf, sc, out, mn, N, split_k, out_dtype);
-  return static_cast<int>(cudaGetLastError());
-}
+  __host__ __device__ static constexpr int min_blocks(int mt) {
+    return mt <= 4 ? 2 : 1;
+  }
+  __host__ __device__ static int aux_bytes(const thin::ThinArgs&) {
+    return 0;
+  }
+  __host__ __device__ static int slabs(int n) {
+    return (n + thin::kBN - 1) / thin::kBN;
+  }
+  __device__ static int out_col(int slab, int lc, const thin::ThinArgs& args) {
+    const int col = slab * thin::kBN + lc;
+    return col < args.N ? col : -1;
+  }
+  __device__ static void block_init() {}
+
+  __device__ static uint32_t tx_bytes(const thin::ThinArgs&) {
+    return kWBytes;
+  }
+
+  __device__ static void load(uint8_t* w, uint8_t*, const CUtensorMap* tm_q,
+                              const CUtensorMap*, const CUtensorMap*,
+                              uint64_t* bar, int slab, int k0,
+                              const thin::ThinArgs&) {
+    qmm::tma_load_2d(w, tm_q, bar, slab * thin::kBN, k0);
+  }
+
+  __device__ static void fill(uint8_t* w, uint8_t*, int lane, int slab,
+                              int k0, const thin::ThinArgs& args) {
+    const int n0 = slab * thin::kBN;
+    for (int e = lane; e < kWBytes; e += 32) {
+      const int r = e / thin::kBN;
+      const int c = e % thin::kBN;
+      const int row = k0 + r;
+      w[qmm::sw128(r, c)] =
+          (row < args.K && n0 + c < args.N)
+              ? args.w[static_cast<long>(row) * args.N + n0 + c]
+              : 0;
+    }
+  }
+
+  struct State {
+    int o0, o1, o8, o9;  // the thread's words in rows 2t, 2t + 1, 2t + 8,
+                         // 2t + 9 of a k-step (the swizzle repeats every 8)
+
+    __device__ State(const thin::ThinArgs&, int, int cl, int, int, int t)
+        : o0(qmm::sw128(2 * t, cl)),
+          o1(qmm::sw128(2 * t + 1, cl)),
+          o8(qmm::sw128(2 * t + 8, cl)),
+          o9(qmm::sw128(2 * t + 9, cl)) {}
+
+    template <bool kFast>
+    __device__ void stage(const uint8_t*, int, const thin::ThinArgs&) {}
+
+    template <bool kFast>
+    __device__ void decode(const uint8_t* w, const uint8_t*, int ks, int,
+                           const thin::ThinArgs&, uint32_t (&a)[2][4]) const {
+      const uint8_t* rows = w + 16 * ks * thin::kBN;
+      const auto ld = [&](int o) {
+        return *reinterpret_cast<const uint32_t*>(rows + o);
+      };
+      const uint32_t w0 = ld(o0), w1 = ld(o1), w8 = ld(o8), w9 = ld(o9);
+#pragma unroll
+      for (int ta = 0; ta < 2; ++ta) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 2 * ta + e;
+          const uint32_t sel = ((4 + col) << 4) | col;  // (k, k + 1) bytes
+          a[ta][e] = Int8Dx::s8x2(__byte_perm(w0, w1, sel));
+          a[ta][2 + e] = Int8Dx::s8x2(__byte_perm(w8, w9, sel));
+        }
+      }
+    }
+  };
+};
+
+}  // namespace
 
 // Forward on the wgmma mainloop (Int8Fwd), on `stream`: the route for
 // prefill and training row counts. x: (M, K) bf16, q: (K, N) int8, both
@@ -474,6 +372,41 @@ extern "C" int int8_matmul_bwd_launch(const void* dy, const void* q,
   const qmm::QmmArgs args = {dx, M, K, N, out_dtype, 0, 0, 0, nullptr};
   return static_cast<int>(
       qmm::launch_qmm<Int8Dx>(tm_dy, tm_q, tm_q, tm_q, args, s));
+}
+
+// Forward on the thin-M kernel (qmm_thin_kernel<Int8Thin>), on `stream`:
+// the route for decode and short prefill row counts. x: (M, K) bf16, q:
+// (K, N) int8, both 16-byte aligned; scale: (N,) f32; out: (M, N) in
+// out_dtype. Requires M >= 1; any K and N (the TMA path takes K % 8 == 0 and
+// N % 16 == 0, the plain-load path the rest). One launch (a cluster per
+// column slab), no workspace. Returns the first CUDA error of the
+// descriptor encoding and the launch (0 on success).
+extern "C" int int8_matmul_thin_launch(const void* x, const void* q,
+                                       const void* scale, void* out, int M,
+                                       int K, int N, int out_dtype,
+                                       void* stream) {
+  if (M < 1 || K < 1 || N < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool fast = K % 8 == 0 && N % 16 == 0;
+  thin::ThinArgs args = {};
+  args.x = static_cast<const bf16*>(x);
+  args.w = static_cast<const uint8_t*>(q);
+  args.col_scale = static_cast<const float*>(scale);
+  args.out = out;
+  args.M = M;
+  args.K = K;
+  args.N = N;
+  args.out_dtype = out_dtype;
+  CUtensorMap tm_q = {};
+  if (fast) {
+    const cudaError_t err =
+        qmm::encode_2d(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, K, N,
+                       thin::kKC, thin::kBN, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(thin::launch<Int8Thin>(
+      tm_q, tm_q, tm_q, args, fast, 0, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* int8_cuda_error_string(int err) {

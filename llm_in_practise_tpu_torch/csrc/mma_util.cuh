@@ -51,6 +51,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four (two) 8x8 b16 matrices: lanes 8i..8i+7 give the row addresses of
+// matrix i; register i then holds (row g, cols 2t, 2t + 1) of matrix i. On
+// a row-major [n][k] tile that is a B fragment (b0 from k 0-7, b1 from k
+// 8-15).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* smem_row) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            const void* smem_row) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
 // Four 8x8 b16 matrices, transposed: lanes 8i..8i+7 give the row addresses
 // of matrix i; register i then holds (row 2t, col g) and (row 2t+1, col g)
 // of matrix i. On a row-major [k][n] tile that is a B fragment.

@@ -1,6 +1,6 @@
-// The NF4 decode shared by every NF4 kernel (the split-K forward and the
-// Nf4Fwd policy in nf4_matmul.cu, the Nf4Dx policy in nf4_matmul_bwd.cu), so
-// the forward and the backward cannot drift apart: the 16-entry codebook and
+// The NF4 decode shared by every NF4 kernel (the Nf4Thin and Nf4Fwd policies
+// in nf4_matmul.cu, the Nf4Dx policy in nf4_matmul_bwd.cu), so the forward
+// routes and the backward cannot drift apart: the 16-entry codebook and
 // the double-quantized absmax, with the reference codec's rounding points
 // (llm_in_practise_tpu/quant/nf4.py; __fmul_rn / __fadd_rn keep nvcc from
 // contracting them into an FMA).
@@ -41,6 +41,15 @@ __device__ __forceinline__ float absmax(uint32_t q, float scale,
 // one weight: code * absmax in f32 (the caller rounds it once to bf16)
 __device__ __forceinline__ float weight(uint32_t code, float am) {
   return __fmul_rn(s_code[code], am);
+}
+
+// the same, from the code's byte offset into the codebook (4 * code), for
+// callers that extract the code already scaled by 4
+__device__ __forceinline__ float weight_at(uint32_t offset, float am) {
+  return __fmul_rn(
+      *reinterpret_cast<const float*>(
+          reinterpret_cast<const uint8_t*>(s_code) + offset),
+      am);
 }
 
 }  // namespace nf4

@@ -1,6 +1,7 @@
 // Fused NF4 dequant-matmul for Hopper (sm_90a): y = x @ dequant_nf4(W),
 //   qmm_wgmma_kernel<Nf4Fwd> at prefill and training row counts;
-//   nf4_matmul_kernel, split over K, at decode.
+//   qmm_thin_kernel<Nf4Thin> (csrc/qmm_thin.cuh) at decode and short
+//   prefill row counts.
 //
 // Replaces the TPU kernel llm_in_practise_tpu/ops/nf4_matmul.py::_fwd_kernel
 // (launched by _call_fwd through pl.pallas_call). It computes the same
@@ -41,196 +42,26 @@
 //     for one layer's 7 projections at M = 8192, 4.8x cuBLAS on a
 //     dequantized weight (NVIDIA H100 80GB HBM3, 700 W).
 //   - Thin M (decode) leaves a 256-row tile mostly empty and too few blocks
-//     to fill 132 SMs: nf4_matmul_kernel (mma.sync m16n8k16 on 16-row tiles,
-//     a cp.async ring of packed and x tiles) splits K over grid.z; each split
-//     writes f32 partials to a workspace and a second kernel sums them in a
-//     fixed order (deterministic, no atomics). The split-half nibble pairing
-//     means one packed byte column feeds one column of each output half:
-//     each warp owns 8 byte columns and produces two n8 output tiles from
-//     one load.
+//     to fill 132 SMs: below the threshold the thin-M streaming kernel of
+//     qmm_thin.cuh with the Nf4Thin policy (below), shared with the int4
+//     and int8 forwards: a producer warp streams 128-k stages of packed
+//     bytes, absmax bytes and scales by TMA, eight consumer warps decode
+//     them into mma.sync A fragments (the weight is the A operand, so 8
+//     rows of x fill an n8 tile), and the K splits of a column slab are
+//     summed in a thread-block cluster through distributed shared memory:
+//     one launch, no workspace, deterministic. The split-K kernel it
+//     replaced (16-row x tiles, f32 partials in device memory summed by a
+//     second launch) took 0.1588 ms of device time for one layer's 7
+//     projections at M = 8 (NVIDIA H100 80GB HBM3, 700 W).
 
 #include "mma_util.cuh"
 #include "nf4_codec.cuh"
+#include "qmm_thin.cuh"
 #include "qmm_wgmma.cuh"
 
 namespace {
 
-using port::cp_async16;
-using port::cp_async_commit;
-using port::cp_async_wait;
-using port::mma_bf16;
-using port::pack_bf16;
-using port::store_out;
-
-constexpr int kBK = 64;             // K rows per chunk == one absmax block
-constexpr int kBNH = 32;            // packed byte columns per block
-constexpr int kWarps = 4;           // each warp owns 8 byte columns
-constexpr int kThreads = kWarps * 32;
-constexpr int kPStride = kBNH + 16; // smem bytes per packed row (bank spread)
-constexpr int kXStride = kBK + 8;   // smem bf16 per x row (bank spread)
-
-// One block: rows [m0, m0 + 16*MT) of x against byte columns
-// [c0, c0 + kBNH) of packed, i.e. output columns [c0, c0 + kBNH) and
-// [N/2 + c0, N/2 + c0 + kBNH), over the K chunks of split blockIdx.z.
-template <int MT, int STAGES>
-__global__ void __launch_bounds__(kThreads)
-nf4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                  const uint8_t* __restrict__ packed,
-                  const uint8_t* __restrict__ aq,
-                  const float* __restrict__ ascale,
-                  const float* __restrict__ aoffset, void* __restrict__ out,
-                  float* __restrict__ ws, int M, int K, int N, int split_k,
-                  int out_dtype) {
-  constexpr int BM = 16 * MT;
-  __shared__ __align__(16) uint8_t s_p[STAGES][kBK * kPStride];
-  __shared__ __align__(16) __nv_bfloat16 s_x[STAGES][BM * kXStride];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // mma groupID
-  const int t = lane & 3;   // mma thread in group
-  const int NH = N >> 1;
-  const int c0 = blockIdx.x * kBNH;
-  const int m0 = blockIdx.y * BM;
-  const int n_chunks = K / kBK;
-  const int kc_begin =
-      static_cast<int>(static_cast<long>(blockIdx.z) * n_chunks / split_k);
-  const int kc_end =
-      static_cast<int>(static_cast<long>(blockIdx.z + 1) * n_chunks / split_k);
-  const int n_local = kc_end - kc_begin;
-  const bool vec_ok = (NH % 16) == 0;
-
-  nf4::fill_codebook();  // read after the loop's first __syncthreads
-  const float offset = *aoffset;
-
-  auto load_stage = [&](int stage, int kc) {
-    const int k0 = kc * kBK;
-    // packed tile: kBK rows x kBNH bytes, 16 bytes per copy
-    for (int i = tid; i < kBK * (kBNH / 16); i += kThreads) {
-      const int r = i / (kBNH / 16);
-      const int part = i % (kBNH / 16);
-      const int col = c0 + part * 16;
-      uint8_t* dst = &s_p[stage][r * kPStride + part * 16];
-      const uint8_t* src = packed + static_cast<long>(k0 + r) * NH + col;
-      if (vec_ok && col + 16 <= NH) {
-        cp_async16(dst, src, 16);
-      } else {
-        // ragged or unaligned edge: byte loads, zeros past the last column
-        for (int b = 0; b < 16; ++b) dst[b] = (col + b < NH) ? src[b] : 0;
-      }
-    }
-    // x tile: BM rows x kBK bf16; rows past M are zero-filled
-    for (int i = tid; i < BM * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8);
-      const int part = i % (kBK / 8);
-      const int row = m0 + r;
-      __nv_bfloat16* dst = &s_x[stage][r * kXStride + part * 8];
-      const __nv_bfloat16* src =
-          x + static_cast<long>(row < M ? row : M - 1) * K + k0 + part * 8;
-      cp_async16(dst, src, row < M ? 16 : 0);
-    }
-  };
-
-  float acc[MT][2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][h][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_local) load_stage(s, kc_begin + s);
-    cp_async_commit();
-  }
-
-  const int bcol = c0 + warp * 8 + g;  // this thread's B (byte) column
-  const bool bcol_ok = bcol < NH;
-
-  for (int i = 0; i < n_local; ++i) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    {
-      const int nxt = i + STAGES - 1;
-      if (nxt < n_local) load_stage(nxt % STAGES, kc_begin + nxt);
-      cp_async_commit();
-    }
-    const int stage = i % STAGES;
-    const int kb = kc_begin + i;  // absmax block row of this chunk
-    float am_hi = 0.0f;
-    float am_lo = 0.0f;
-    if (bcol_ok) {
-      const long j = static_cast<long>(kb) * N + bcol;
-      am_hi = nf4::absmax(aq[j], ascale[j >> 8], offset);
-      am_lo = nf4::absmax(aq[j + NH], ascale[(j + NH) >> 8], offset);
-    }
-    const uint8_t* sp = s_p[stage] + warp * 8 + g;
-    const __nv_bfloat16* sx = s_x[stage];
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const int r = ks * 16 + 2 * t;
-      const uint32_t p0 = sp[r * kPStride];
-      const uint32_t p1 = sp[(r + 1) * kPStride];
-      const uint32_t p2 = sp[(r + 8) * kPStride];
-      const uint32_t p3 = sp[(r + 9) * kPStride];
-      const uint32_t bh0 = pack_bf16(nf4::weight(p0 >> 4, am_hi),
-                                     nf4::weight(p1 >> 4, am_hi));
-      const uint32_t bh1 = pack_bf16(nf4::weight(p2 >> 4, am_hi),
-                                     nf4::weight(p3 >> 4, am_hi));
-      const uint32_t bl0 = pack_bf16(nf4::weight(p0 & 15, am_lo),
-                                     nf4::weight(p1 & 15, am_lo));
-      const uint32_t bl1 = pack_bf16(nf4::weight(p2 & 15, am_lo),
-                                     nf4::weight(p3 & 15, am_lo));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const __nv_bfloat16* xa =
-            sx + (mt * 16 + g) * kXStride + ks * 16 + 2 * t;
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(xa);
-        a[1] = *reinterpret_cast<const uint32_t*>(xa + 8 * kXStride);
-        a[2] = *reinterpret_cast<const uint32_t*>(xa + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(xa + 8 * kXStride + 8);
-        mma_bf16(acc[mt][0], a, bh0, bh1);
-        mma_bf16(acc[mt][1], a, bl0, bl1);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  const long mn = static_cast<long>(M) * N;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + mt * 16 + g + (e >= 2 ? 8 : 0);
-        const int bc = c0 + warp * 8 + 2 * t + (e & 1);
-        if (row < M && bc < NH) {
-          const long o = static_cast<long>(row) * N + (h ? NH : 0) + bc;
-          if (split_k > 1) {
-            ws[blockIdx.z * mn + o] = acc[mt][h][e];
-          } else {
-            store_out(out, o, acc[mt][h][e], out_dtype);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Sum the split-K partials in split order and write the output dtype.
-__global__ void splitk_reduce_kernel(const float* __restrict__ ws,
-                                     void* __restrict__ out, long mn,
-                                     int split_k, int out_dtype) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.0f;
-  for (int z = 0; z < split_k; ++z) s += ws[z * mn + i];
-  store_out(out, i, s, out_dtype);
-}
+using bf16 = __nv_bfloat16;
 
 // B1's decode policy for the quantized-matmul mainloop (qmm_wgmma.cuh) at
 // prefill and training row counts, as y^T = W^T . x^T: A is W^T, its rows
@@ -334,51 +165,195 @@ struct Nf4Fwd : qmm::LinearChunks {
   };
 };
 
+// B1's policy for the thin-M kernel of qmm_thin.cuh (decode and short
+// prefill row counts). A slab is 64 packed byte columns b0 = 64 slab ..
+// b0 + 63: local columns 0-63 are their high nibbles (output columns b0 ..),
+// 64-127 their low ones (N/2 + b0 ..), so column groups 0-1 decode high
+// nibbles and 2-3 low ones, the nibble uniform per warp, and out_col places
+// the two ranges.
+//   - A stage is 128 k, two absmax rows: the packed box, 128 rows x 64 bytes
+//     (64-byte swizzle); then the aux bytes: for each half h the absmax_q
+//     runs of rows kb and kb + 1 at column h N/2 + b0 (64 bytes each, at
+//     128 h), and for each half and row the 8 absmax scales from the
+//     16-byte-aligned index at or below the run's first scale block (at
+//     kScaleOff + 128 (2 h + row): a TMA box lands 128-byte aligned in
+//     shared memory, and faults on an innermost start that is not 16-byte
+//     aligned). The TMA path needs N % 32 == 0 (a packed row and the low
+//     half's runs start 16-byte aligned); the plain path fills the same
+//     layout with byte loads (N = 200, say).
+//   - Thread (g, t) owns byte columns c .. c + 3 of its half: one 32-bit
+//     load of packed row k gives the 4 columns' codes at k, one of row
+//     k + 1 the other half of each pair. One rotate and one mask per word
+//     leave each byte holding 4 x its code (this warp's nibble), and one
+//     byte permute per weight picks it out as the codebook offset. The
+//     warp's k half is exactly one absmax row, so each stage it decodes the
+//     4 columns' absmax once.
+//   - Past K (a last stage over a K that is 64 mod 128) the packed bytes,
+//     absmax bytes and x read as zeros: code 0 is -1.0, but the absmax
+//     stays finite and the x it meets is zero. Byte columns past N/2
+//     decode bytes of their own or zeros into their own columns, which
+//     out_col drops.
+struct Nf4Thin {
+  static constexpr int kBytes = thin::kBN / 2;  // packed byte columns a slab
+  static constexpr int kWBytes = thin::kKC * kBytes;
+  static constexpr int kScaleOff = 256;         // bytes into the aux area
+  static constexpr int kAuxBytes = kScaleOff + 2 * 2 * 128;
+
+  __host__ __device__ static constexpr int stages(int mt) {
+    return mt <= 2 ? 6 : mt <= 4 ? 4 : 3;
+  }
+  __host__ __device__ static constexpr int min_blocks(int mt) {
+    return mt <= 2 ? 3 : mt <= 4 ? 2 : 1;
+  }
+  __host__ __device__ static int aux_bytes(const thin::ThinArgs&) {
+    return kAuxBytes;
+  }
+  __host__ __device__ static int slabs(int n) {
+    return (n / 2 + kBytes - 1) / kBytes;
+  }
+  __device__ static int out_col(int slab, int lc, const thin::ThinArgs& args) {
+    const int nh = args.N / 2;
+    const int b = slab * kBytes + (lc & (kBytes - 1));
+    return b < nh ? b + (lc >= kBytes ? nh : 0) : -1;
+  }
+  __device__ static void block_init() { nf4::fill_codebook(); }
+
+  // the packed box, 2 x 2 absmax runs of 64 bytes, 2 x 2 scale runs of 8
+  __device__ static uint32_t tx_bytes(const thin::ThinArgs&) {
+    return kWBytes + 2 * 2 * 64 + 2 * 2 * 8 * 4;
+  }
+
+  // flat absmax index of half h's first column in absmax row kb
+  __device__ static int run_flat(int kb, int h, int b0, int n) {
+    return kb * n + h * (n / 2) + b0;
+  }
+
+  __device__ static void load(uint8_t* w, uint8_t* aux,
+                              const CUtensorMap* tm_p,
+                              const CUtensorMap* tm_aq,
+                              const CUtensorMap* tm_as, uint64_t* bar,
+                              int slab, int k0, const thin::ThinArgs& args) {
+    const int b0 = slab * kBytes;
+    const int kb = k0 / 64;
+    qmm::tma_load_2d(w, tm_p, bar, b0, k0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      qmm::tma_load_2d(aux + 128 * h, tm_aq, bar, h * (args.N / 2) + b0, kb);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        qmm::tma_load_1d(aux + kScaleOff + 128 * (2 * h + r), tm_as, bar,
+                         (run_flat(kb + r, h, b0, args.N) >> 8) & ~3);
+    }
+  }
+
+  // the same layout by plain loads: packed bytes as TMA's 64-byte swizzle
+  // writes them, zeros past K and N/2; absmax bytes and scales, zeros past
+  // their arrays
+  __device__ static void fill(uint8_t* w, uint8_t* aux, int lane, int slab,
+                              int k0, const thin::ThinArgs& args) {
+    const int b0 = slab * kBytes;
+    const int nh = args.N / 2;
+    for (int e = lane; e < kWBytes; e += 32) {
+      const int r = e / kBytes;
+      const int c = e % kBytes;
+      const int row = k0 + r;
+      w[qmm::sw64(r, c)] = (row < args.K && b0 + c < nh)
+                               ? args.w[static_cast<long>(row) * nh + b0 + c]
+                               : 0;
+    }
+    const int kb = k0 / 64;
+    const auto* aq = static_cast<const uint8_t*>(args.aux0);
+    const auto* as = static_cast<const float*>(args.aux1);
+    for (int e = lane; e < 256; e += 32) {
+      const int h = e / 128;
+      const int r = (e / 64) % 2;
+      const int col = h * nh + b0 + e % 64;
+      aux[e] = (kb + r < args.K / 64 && col < args.N)
+                   ? aq[static_cast<long>(kb + r) * args.N + col]
+                   : 0;
+    }
+    {
+      const int h = lane / 16;
+      const int r = (lane / 8) % 2;
+      const int i = ((run_flat(kb + r, h, b0, args.N) >> 8) & ~3) + lane % 8;
+      reinterpret_cast<float*>(aux + kScaleOff + 128 * (2 * h + r))[lane % 8] =
+          i < args.n_groups ? as[i] : 0.0f;
+    }
+  }
+
+  struct State {
+    int h, c, rot, kh, b0, o0, o1;
+    float offset;
+    float am[4];
+
+    __device__ State(const thin::ThinArgs& args, int slab, int cl, int kh_,
+                     int, int t)
+        : h(cl / kBytes),
+          c(cl % kBytes),
+          // a rotation that takes this warp's nibble of each byte (high:
+          // bits 4-7, low: bits 0-3) to bits 2-5, four times its code
+          rot(cl < kBytes ? 2 : 30),
+          kh(kh_),
+          b0(slab * kBytes),
+          o0(qmm::sw64(2 * t, cl % kBytes)),
+          o1(qmm::sw64(2 * t + 1, cl % kBytes)),
+          offset(*args.param) {}
+
+    // the absmax of the thread's 4 columns in its k half's absmax row
+    template <bool kFast>
+    __device__ void stage(const uint8_t* aux, int k0,
+                          const thin::ThinArgs& args) {
+      const int flat = run_flat(k0 / 64 + kh, h, b0, args.N);
+      const float* sc = reinterpret_cast<const float*>(
+          aux + kScaleOff + 128 * (2 * h + kh));
+      const int s0 = (flat >> 8) & ~3;  // the staged run's first scale
+      const uint32_t q4 =
+          *reinterpret_cast<const uint32_t*>(aux + 128 * h + 64 * kh + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        am[e] = nf4::absmax((q4 >> (8 * e)) & 255,
+                            sc[((flat + c + e) >> 8) - s0], offset);
+    }
+
+    template <bool kFast>
+    __device__ void decode(const uint8_t* w, const uint8_t*, int ks, int,
+                           const thin::ThinArgs&, uint32_t (&a)[2][4]) const {
+      // rows 16 ks + ..: 1024 bytes a k-step, the swizzle repeats every 8
+      // rows, and rows + 8 lie 512 bytes on
+      const uint8_t* rows = w + 1024 * ks;
+      // per byte of a 32-bit load (4 columns at one k): this warp's code
+      // times 4, the byte offset into the codebook
+      const auto ld = [&](int o) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(rows + o);
+        return __funnelshift_r(v, v, rot) & 0x3C3C3C3Cu;
+      };
+      const uint32_t w0 = ld(o0), w1 = ld(o1), w8 = ld(o0 + 512),
+                     w9 = ld(o1 + 512);
+      const auto wt = [&](uint32_t v, int e) {
+        return nf4::weight_at(__byte_perm(v, 0, 0x4440 + e), am[e]);
+      };
+#pragma unroll
+      for (int ta = 0; ta < 2; ++ta) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 2 * ta + e;
+          a[ta][e] = qmm::pack2(wt(w0, col), wt(w1, col));
+          a[ta][2 + e] = qmm::pack2(wt(w8, col), wt(w9, col));
+        }
+      }
+    }
+  };
+};
+
 }  // namespace
 
-// Launch on `stream`. x: (M, K) bf16; packed: (K, N/2) uint8; absmax_q:
-// (K/64 * N) uint8; absmax_scale: f32; absmax_offset: one f32 on the device;
-// out: (M, N) in out_dtype (0 f32, 1 bf16, 2 f16); ws: (split_k, M, N) f32
-// when split_k > 1. Requires M >= 1, K % 64 == 0, N even, 16-byte aligned
-// x. Returns cudaGetLastError() after the launches (0 on success).
-extern "C" int nf4_matmul_launch(const void* x, const void* packed,
-                                 const void* absmax_q,
-                                 const void* absmax_scale,
-                                 const void* absmax_offset, void* out,
-                                 void* ws, int M, int K, int N, int split_k,
-                                 int out_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int NH = N / 2;
-  const dim3 block(kThreads);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* pb = static_cast<const uint8_t*>(packed);
-  const auto* aqb = static_cast<const uint8_t*>(absmax_q);
-  const auto* asb = static_cast<const float*>(absmax_scale);
-  const auto* aob = static_cast<const float*>(absmax_offset);
-  auto* wsf = static_cast<float*>(ws);
-  if (M <= 16) {
-    const dim3 grid((NH + kBNH - 1) / kBNH, (M + 15) / 16, split_k);
-    nf4_matmul_kernel<1, 4><<<grid, block, 0, s>>>(
-        xb, pb, aqb, asb, aob, out, wsf, M, K, N, split_k, out_dtype);
-  } else {
-    const dim3 grid((NH + kBNH - 1) / kBNH, (M + 63) / 64, split_k);
-    nf4_matmul_kernel<4, 3><<<grid, block, 0, s>>>(
-        xb, pb, aqb, asb, aob, out, wsf, M, K, N, split_k, out_dtype);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || split_k == 1) return static_cast<int>(err);
-  const long mn = static_cast<long>(M) * N;
-  splitk_reduce_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(
-      wsf, out, mn, split_k, out_dtype);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launch the wgmma route (Nf4Fwd) on `stream`: x, packed, absmax_q,
-// absmax_scale, absmax_offset and out as for nf4_matmul_launch, every array
-// 16-byte aligned. Requires M >= 1, K % 64 == 0 and N % 32 == 0 (the
-// low-half absmax runs and the packed rows, N/2 bytes, must start 16-byte
-// aligned for TMA). Returns the first CUDA error of the descriptor encoding
-// and the launch (0 on success).
+// Launch the wgmma route (Nf4Fwd) on `stream`. x: (M, K) bf16; packed:
+// (K, N/2) uint8; absmax_q: (K/64 * N) uint8; absmax_scale: f32;
+// absmax_offset: one f32 on the device; out: (M, N) in out_dtype (0 f32,
+// 1 bf16, 2 f16); every array 16-byte aligned. Requires M >= 1, K % 64 == 0
+// and N % 32 == 0 (the low-half absmax runs and the packed rows, N/2 bytes,
+// must start 16-byte aligned for TMA). Returns the first CUDA error of the
+// descriptor encoding and the launch (0 on success).
 extern "C" int nf4_matmul_wgmma_launch(const void* x, const void* packed,
                                        const void* absmax_q,
                                        const void* absmax_scale,
@@ -407,6 +382,54 @@ extern "C" int nf4_matmul_wgmma_launch(const void* x, const void* packed,
                              static_cast<const float*>(absmax_offset)};
   return static_cast<int>(qmm::launch_qmm<Nf4Fwd>(
       tm_x, tm_p, tm_aq, tm_as, args, static_cast<cudaStream_t>(stream)));
+}
+
+// Launch the thin-M route (qmm_thin_kernel<Nf4Thin>) on `stream`: x,
+// packed, absmax_q, absmax_scale, absmax_offset and out as for
+// nf4_matmul_wgmma_launch, every array 16-byte aligned. Requires M >= 1,
+// K % 64 == 0 and an even N; the TMA path takes N % 32 == 0, the plain-load
+// path the rest. One launch (a cluster per column slab), no workspace.
+// Returns the first CUDA error of the descriptor encoding and the launch (0
+// on success).
+extern "C" int nf4_matmul_thin_launch(const void* x, const void* packed,
+                                      const void* absmax_q,
+                                      const void* absmax_scale,
+                                      const void* absmax_offset, void* out,
+                                      int M, int K, int N, int out_dtype,
+                                      void* stream) {
+  if (M < 1 || K < 64 || K % 64 || N < 2 || N % 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long n_scales = (static_cast<long>(K / 64) * N + 255) / 256;
+  const bool fast = N % 32 == 0;
+  thin::ThinArgs args = {};
+  args.x = static_cast<const bf16*>(x);
+  args.w = static_cast<const uint8_t*>(packed);
+  args.aux0 = absmax_q;
+  args.aux1 = absmax_scale;
+  args.param = static_cast<const float*>(absmax_offset);
+  args.out = out;
+  args.M = M;
+  args.K = K;
+  args.N = N;
+  args.out_dtype = out_dtype;
+  args.n_groups = static_cast<int>(n_scales);
+  CUtensorMap tm_p = {}, tm_aq = {}, tm_as = {};
+  if (fast) {
+    cudaError_t err = qmm::encode_2d(&tm_p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                                     packed, K, N / 2, thin::kKC,
+                                     Nf4Thin::kBytes,
+                                     CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err == cudaSuccess)
+      err = qmm::encode_2d(&tm_aq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, absmax_q,
+                           K / 64, N, 2, Nf4Thin::kBytes,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err == cudaSuccess)
+      err = qmm::encode_1d_f32(&tm_as, absmax_scale, n_scales, 8);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(thin::launch<Nf4Thin>(
+      tm_p, tm_aq, tm_as, args, fast, 0, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* nf4_cuda_error_string(int err) {

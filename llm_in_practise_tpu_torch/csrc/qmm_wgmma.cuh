@@ -365,7 +365,13 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_act,
       for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
         for (int r = 0; r < 64; ++r) fence_operand(acc[nb][r]);
-      if (i > 0) mbar_arrive(&empty[(i - 1) % n_st]);
+      if (i > 0) {
+        // stage i - 1 was read by generic loads (the decode) and its next
+        // fill is a TMA (async proxy) write: order the two before handing
+        // it back
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&empty[(i - 1) % n_st]);
+      }
     };
     for (int i = 0; i < n_chunks; i += 2) {
       step(i, std::integral_constant<int, 0>());

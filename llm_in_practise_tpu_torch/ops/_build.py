@@ -38,8 +38,8 @@ _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)  # {batch, length, head}
 KERNELS: dict[str, dict[str, tuple]] = {
     "nf4_matmul": {
-        "nf4_matmul_launch": (_I, [_P] * 7 + [_I] * 5 + [_P]),
         "nf4_matmul_wgmma_launch": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+        "nf4_matmul_thin_launch": (_I, [_P] * 6 + [_I] * 4 + [_P]),
         "nf4_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "nf4_matmul_bwd": {
@@ -62,8 +62,8 @@ KERNELS: dict[str, dict[str, tuple]] = {
         "int4_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "int8_matmul": {
-        "int8_matmul_launch": (_I, [_P] * 5 + [_I] * 5 + [_P]),
         "int8_matmul_wgmma_launch": (_I, [_P] * 4 + [_I] * 4 + [_P]),
+        "int8_matmul_thin_launch": (_I, [_P] * 4 + [_I] * 4 + [_P]),
         "int8_matmul_bwd_launch": (_I, [_P] * 5 + [_I] * 4 + [_P]),
         "int8_cuda_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -5,10 +5,10 @@ On a CUDA tensor :func:`int4_matmul` (``x @ W``) and
 :func:`int4_matmul_backward` (``dx = dy @ W^T``) launch the hand-written
 Hopper kernels in ``csrc/int4_matmul.cu``, or raise; the forward has two
 kernels, picked by shape (:func:`_route`): the thin-M streaming kernel
-(``int4_thin_kernel``, one launch per call, the K splits of a column slab
-reduced inside a thread-block cluster) for decode row counts and the
-``wgmma`` mainloop of ``csrc/qmm_wgmma.cuh`` for prefill and training
-ones. On a CPU tensor they run the plain versions
+of ``csrc/qmm_thin.cuh`` (``Int4Thin``, one launch per call, the K splits
+of a column slab reduced inside a thread-block cluster) for decode row
+counts and the ``wgmma`` mainloop of ``csrc/qmm_wgmma.cuh`` for prefill
+and training ones. On a CPU tensor they run the plain versions
 :func:`int4_matmul_reference` and
 :func:`int4_matmul_backward_reference`, which do the same arithmetic
 (bf16 operands, the weight ``(code - zero) * scale`` in f32 rounded once
@@ -94,10 +94,9 @@ def int4_matmul(x: torch.Tensor, t: Int4Tensor, out_dtype=None
 
 
 # The forward's smallest row count on the wgmma route, from chip_smoke's
-# crossover table (one layer's 7 Qwen3-8B projections, NVIDIA H100 80GB
-# HBM3, 700 W): the thin-M kernel wins from M = 1 to 128 (0.154 against
-# 0.577 ms at 8, 0.437 against 0.542 at 128) and loses from 256 up (0.659
-# against 0.540 ms at 256, 14.4 against 5.34 ms at 8192).
+# crossover table (one layer's 7 Qwen3-8B projections, device time): the
+# thin-M kernel is faster from M = 1 to 128 and the wgmma mainloop from 256
+# up (the times are in PERF.md section 6).
 WGMMA_MIN_M = 256
 
 
@@ -121,7 +120,7 @@ def _thin_shape(k: int, gs: int) -> bool:
 def _route(m: int, k: int, n: int, gs: int) -> str:
     """The forward kernel for ``(m, k) @ (k, n)`` at group size ``gs``:
     "wgmma" (``qmm_wgmma_kernel<Int4Fwd>``) for the shapes it takes at
-    ``m >= WGMMA_MIN_M``, else "thin" (``int4_thin_kernel``)."""
+    ``m >= WGMMA_MIN_M``, else "thin" (``qmm_thin_kernel<Int4Thin>``)."""
     return "wgmma" if m >= WGMMA_MIN_M and _wgmma_shape(k, n, gs) \
         else "thin"
 

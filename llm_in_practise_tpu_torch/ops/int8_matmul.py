@@ -4,12 +4,15 @@ Port of ``llm_in_practise_tpu/ops/int8_matmul.py``, forward and backward.
 On a CUDA tensor :func:`int8_matmul` (``(x @ q) * scale``) and
 :func:`int8_matmul_backward` (``dx = bf16(dy * scale) @ q^T``) launch the
 hand-written Hopper kernels in ``csrc/int8_matmul.cu``, or raise; the
-forward has two kernels, picked by shape (:func:`_route`): the split-K
-``mma.sync`` kernel for decode row counts and the ``wgmma`` mainloop of
-``csrc/qmm_wgmma.cuh`` for prefill and training ones. On a CPU tensor
-they run the plain versions :func:`int8_matmul_reference` and
-:func:`int8_matmul_backward_reference`, which do the same arithmetic with
-the same rounding points in plain tensor ops. There is no fallback from a
+forward has two kernels, picked by shape (:func:`_route`): the thin-M
+streaming kernel of ``csrc/qmm_thin.cuh`` (``Int8Thin``: one launch per
+call, the K splits of a column slab reduced inside a thread-block cluster,
+the scale on the whole sum) for decode and short prefill row counts, and
+the ``wgmma`` mainloop of ``csrc/qmm_wgmma.cuh`` for prefill and training
+ones. On a CPU tensor they run the plain versions
+:func:`int8_matmul_reference` and :func:`int8_matmul_backward_reference`,
+which do the same arithmetic with the same rounding points in plain
+tensor ops. There is no fallback from a
 kernel to its plain version.
 
 The JAX package routes int8 serving to XLA because of a TPU measurement;
@@ -30,8 +33,6 @@ from llm_in_practise_tpu_torch.ops.nf4_matmul import (
     _OUT_CODES,
     ROUTES,
     _aligned,
-    _sm_count,
-    split_k_for,
 )
 from llm_in_practise_tpu_torch.quant.int8 import Int8Tensor
 
@@ -95,10 +96,9 @@ def int8_matmul(x: torch.Tensor, t: Int8Tensor, out_dtype=None
 
 
 # The forward's smallest row count on the wgmma route, from chip_smoke's
-# crossover table (one layer's 7 Qwen3-8B projections, NVIDIA H100 80GB
-# HBM3, 700 W): the split-K kernel wins at M = 16, 64 and 128 (0.502
-# against 0.516 ms at 128) and loses from 256 up (0.799 against 0.528 ms
-# at 256, 18.25 against 5.24 ms at 8192).
+# crossover table (one layer's 7 Qwen3-8B projections, device time): the
+# thin-M kernel is faster from M = 1 to 128 and the wgmma mainloop from 256
+# up (the times are in PERF.md section 6).
 WGMMA_MIN_M = 256
 
 
@@ -108,12 +108,17 @@ def _wgmma_shape(k: int, n: int) -> bool:
     return k % 8 == 0 and n % 16 == 0
 
 
+def _thin_shape(k: int, n: int) -> bool:
+    """Whether the thin-M forward takes the shape: any K and N from 1 (TMA
+    where K % 8 == 0 and N % 16 == 0, plain loads otherwise)."""
+    return k >= 1 and n >= 1
+
+
 def _route(m: int, k: int, n: int) -> str:
     """The forward kernel for ``(m, k) @ (k, n)``: "wgmma"
     (``qmm_wgmma_kernel<Int8Fwd>``) for the shapes it takes at
-    ``m >= WGMMA_MIN_M``, else "splitk" (``int8_matmul_kernel``, split over
-    K)."""
-    return "wgmma" if m >= WGMMA_MIN_M and _wgmma_shape(k, n) else "splitk"
+    ``m >= WGMMA_MIN_M``, else "thin" (``qmm_thin_kernel<Int8Thin>``)."""
+    return "wgmma" if m >= WGMMA_MIN_M and _wgmma_shape(k, n) else "thin"
 
 
 def _checked_route(m: int, k: int, n: int, route: str | None) -> str:
@@ -125,6 +130,9 @@ def _checked_route(m: int, k: int, n: int, route: str | None) -> str:
     if route == "wgmma" and not _wgmma_shape(k, n):
         raise ValueError(f"the wgmma forward needs K % 8 == 0 and "
                          f"N % 16 == 0; got K={k}, N={n}")
+    if route == "thin" and not _thin_shape(k, n):
+        raise ValueError(f"the thin forward needs K >= 1 and N >= 1; got "
+                         f"K={k}, N={n}")
     return route
 
 
@@ -151,24 +159,14 @@ def _forward(x: torch.Tensor, t: Int8Tensor, out_dtype=None,
     route = _checked_route(m, k, n, route)
     q, scale = _aligned(t.q), _aligned(t.scale)
     lib = _build.load("int8_matmul")
-    split = 1
+    launch = (lib.int8_matmul_wgmma_launch if route == "wgmma"
+              else lib.int8_matmul_thin_launch)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "wgmma":
-            err = lib.int8_matmul_wgmma_launch(
-                x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), m, k, n, _OUT_CODES[out_dtype], stream)
-        else:
-            split = split_k_for(m, k, n, _sm_count(x.device.index))
-            ws = (torch.empty((split, m, n), dtype=torch.float32,
-                              device=x.device) if split > 1 else out)
-            err = lib.int8_matmul_launch(
-                x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), ws.data_ptr(), m, k, n, split,
-                _OUT_CODES[out_dtype], stream)
+        err = launch(x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                     out.data_ptr(), m, k, n, _OUT_CODES[out_dtype], stream)
     if err != 0:
-        raise _error(lib, err, f"int8_matmul ({route})", m=m, k=k, n=n,
-                     split_k=split)
+        raise _error(lib, err, f"int8_matmul ({route})", m=m, k=k, n=n)
     int8_matmul.launches += 1
     int8_matmul.launches_by_route[route] += 1
     return out.reshape(*lead, n)

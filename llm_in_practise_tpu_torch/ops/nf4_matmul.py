@@ -4,8 +4,10 @@ Port of ``llm_in_practise_tpu/ops/nf4_matmul.py``, forward and backward.
 On a CUDA tensor :func:`nf4_matmul` launches the hand-written Hopper
 kernels in ``csrc/nf4_matmul.cu`` and :func:`nf4_matmul_backward` the one
 in ``csrc/nf4_matmul_bwd.cu`` (``dx = dy @ dequant(W)^T``), or raise; the
-forward has two kernels, picked by shape (:func:`_route`): the split-K
-``mma.sync`` kernel for decode row counts and the ``wgmma`` mainloop of
+forward has two kernels, picked by shape (:func:`_route`): the thin-M
+streaming kernel of ``csrc/qmm_thin.cuh`` (``Nf4Thin``: one launch per
+call, the K splits of a column slab reduced inside a thread-block cluster)
+for decode and short prefill row counts, and the ``wgmma`` mainloop of
 ``csrc/qmm_wgmma.cuh`` (which the backward runs on too) for prefill and
 training ones. On a CPU tensor they run the plain versions
 :func:`nf4_matmul_reference` and :func:`nf4_matmul_backward_reference`,
@@ -21,9 +23,6 @@ route.
 
 from __future__ import annotations
 
-import functools
-import math
-
 import torch
 
 from llm_in_practise_tpu_torch.ops import _build
@@ -32,8 +31,7 @@ from llm_in_practise_tpu_torch.quant.nf4 import NF4Tensor
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-_BK = 64    # K rows per kernel chunk (one absmax block)
-_BNH = 32   # packed byte columns per kernel block
+_BK = 64    # K rows per absmax block
 
 
 def nf4_matmul_reference(x: torch.Tensor, t: NF4Tensor,
@@ -44,26 +42,11 @@ def nf4_matmul_reference(x: torch.Tensor, t: NF4Tensor,
     return (x.to(torch.bfloat16).float() @ w).to(out_dtype)
 
 
-def split_k_for(m: int, k: int, n: int, sm_count: int) -> int:
-    """How many K splits the kernel's grid takes: enough blocks for about
-    four per SM, with at least four 64-row chunks in each split."""
-    blocks = math.ceil(n // 2 / _BNH) * math.ceil(m / (16 if m <= 16 else 64))
-    target = 4 * sm_count
-    if blocks >= target:
-        return 1
-    return max(1, min(math.ceil(target / blocks), (k // _BK) // 4))
-
-
 def _aligned(a: torch.Tensor) -> torch.Tensor:
     """``a`` contiguous at a 16-byte aligned address (the kernels' 16-byte
     copies and TMA descriptors need it)."""
     a = a.contiguous()
     return a if a.data_ptr() % 16 == 0 else a.clone()
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_weight(t: NF4Tensor, device: torch.device, what: str
@@ -111,12 +94,12 @@ def nf4_matmul(x: torch.Tensor, t: NF4Tensor, out_dtype=None) -> torch.Tensor:
 
 
 # The forward's smallest row count on the wgmma route, from chip_smoke's
-# crossover table (one layer's 7 Qwen3-8B projections, NVIDIA H100 80GB
-# HBM3, 700 W): the split-K kernel wins at M = 16, 64 and 128 (0.478
-# against 0.517 ms at 128) and loses from 256 up (0.744 against 0.514 ms
-# at 256, 19.03 against 5.14 ms at 8192).
+# crossover table (one layer's 7 Qwen3-8B projections, device time): the
+# thin-M kernel is faster from M = 1 to 128 and the wgmma mainloop from 256
+# up (the times are in PERF.md section 6).
 WGMMA_MIN_M = 256
-ROUTES = ("wgmma", "splitk")
+# the forward's kernels, by route name (``launches_by_route`` keys)
+ROUTES = ("wgmma", "thin")
 
 
 def _wgmma_shape(k: int, n: int) -> bool:
@@ -127,12 +110,18 @@ def _wgmma_shape(k: int, n: int) -> bool:
     return k % _BK == 0 and n % 32 == 0
 
 
+def _thin_shape(k: int, n: int) -> bool:
+    """Whether the thin-M forward takes the shape: every kblock shape (K a
+    positive multiple of 64, N even and positive; TMA where N % 32 == 0,
+    plain loads otherwise)."""
+    return k > 0 and k % _BK == 0 and n > 0 and n % 2 == 0
+
+
 def _route(m: int, k: int, n: int) -> str:
     """The forward kernel for ``(m, k) @ (k, n)``: "wgmma"
     (``qmm_wgmma_kernel<Nf4Fwd>``) for the shapes it takes at
-    ``m >= WGMMA_MIN_M``, else "splitk" (``nf4_matmul_kernel``, split over
-    K)."""
-    return "wgmma" if m >= WGMMA_MIN_M and _wgmma_shape(k, n) else "splitk"
+    ``m >= WGMMA_MIN_M``, else "thin" (``qmm_thin_kernel<Nf4Thin>``)."""
+    return "wgmma" if m >= WGMMA_MIN_M and _wgmma_shape(k, n) else "thin"
 
 
 def _checked_route(m: int, k: int, n: int, route: str | None) -> str:
@@ -144,6 +133,9 @@ def _checked_route(m: int, k: int, n: int, route: str | None) -> str:
     if route == "wgmma" and not _wgmma_shape(k, n):
         raise ValueError(f"the wgmma forward needs K % 64 == 0 and "
                          f"N % 32 == 0; got K={k}, N={n}")
+    if route == "thin" and not _thin_shape(k, n):
+        raise ValueError(f"the thin forward needs K % 64 == 0 and an even "
+                         f"N; got K={k}, N={n}")
     return route
 
 
@@ -170,27 +162,18 @@ def _forward(x: torch.Tensor, t: NF4Tensor, out_dtype=None,
         _aligned(a) for a in (t.packed, t.absmax_q, t.absmax_scale))
     offset = t.absmax_offset.reshape(1).contiguous()
     lib = _build.load("nf4_matmul")
-    split = 1
+    launch = (lib.nf4_matmul_wgmma_launch if route == "wgmma"
+              else lib.nf4_matmul_thin_launch)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "wgmma":
-            err = lib.nf4_matmul_wgmma_launch(
-                x2.data_ptr(), packed.data_ptr(), absmax_q.data_ptr(),
-                absmax_scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
-                m, k, n, _OUT_CODES[out_dtype], stream)
-        else:
-            split = split_k_for(m, k, n, _sm_count(x.device.index))
-            ws = (torch.empty((split, m, n), dtype=torch.float32,
-                              device=x.device) if split > 1 else out)
-            err = lib.nf4_matmul_launch(
-                x2.data_ptr(), packed.data_ptr(), absmax_q.data_ptr(),
-                absmax_scale.data_ptr(), offset.data_ptr(), out.data_ptr(),
-                ws.data_ptr(), m, k, n, split, _OUT_CODES[out_dtype], stream)
+        err = launch(x2.data_ptr(), packed.data_ptr(), absmax_q.data_ptr(),
+                     absmax_scale.data_ptr(), offset.data_ptr(),
+                     out.data_ptr(), m, k, n, _OUT_CODES[out_dtype], stream)
     if err != 0:
         msg = lib.nf4_cuda_error_string(err).decode()
         raise RuntimeError(
             f"nf4_matmul ({route}) kernel launch failed (m={m}, k={k}, "
-            f"n={n}, split_k={split}): cuda error {err}: {msg}")
+            f"n={n}): cuda error {err}: {msg}")
     nf4_matmul.launches += 1
     nf4_matmul.launches_by_route[route] += 1
     return out.reshape(*lead, n)

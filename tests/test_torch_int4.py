@@ -247,7 +247,7 @@ def test_route_table_covers_the_chip_smoke_shapes():
     cs = _chip_smoke()
     assert port_mm.WGMMA_MIN_M == 256
     shapes = set(cs.PROJ_SHAPES.values())
-    for m in (cs.CHECK_M + cs.INT4_CROSSOVER_M + cs.PTQ_CHECK_M
+    for m in (cs.CHECK_M + cs.THIN_CROSSOVER_M + cs.PTQ_CHECK_M
               + cs.DECODE_M):
         for k, n in shapes:
             want = "wgmma" if m >= port_mm.WGMMA_MIN_M else "thin"

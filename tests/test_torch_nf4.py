@@ -86,17 +86,6 @@ def test_matmul_leading_dims_and_out_dtype():
                           atol=1e-2)
 
 
-def test_split_k_keeps_thin_calls_busy():
-    # decode widths of Qwen3-8B on 132 SMs: enough blocks, >= 4 chunks/split
-    for k, n in [(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)]:
-        s = port_mm.split_k_for(8, k, n, 132)
-        cap = (k // 64) // 4
-        assert 1 <= s <= cap
-        assert (n // 2 // 32) * s >= 4 * 132 or s == cap
-    # wide prefill calls need no split
-    assert port_mm.split_k_for(512, 4096, 12288, 132) == 1
-
-
 def test_flat_layout_is_refused_on_cuda_path():
     t = port_nf4.quantize(np.ones((100, 30), np.float32))
     with pytest.raises(ValueError, match="kblock"):
