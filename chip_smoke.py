@@ -2,6 +2,13 @@
 """Drive the PyTorch port on one NVIDIA H100 (or another CUDA card).
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --flash-only   # phase 1, the flash source, and
+                                         # the flash checks and times
+
+With ``--flash-only`` it builds only ``csrc/flash_attention.cu``, runs the
+flash checks and times of phase 6 on the kernels of the checkout it runs
+from, prints their rows and stops (no status line): copied into an
+unpacked earlier tree, it times that tree's flash kernels.
 
 Phases, in order; any failure exits non-zero:
 
@@ -56,10 +63,12 @@ Phases, in order; any failure exits non-zero:
    the three flash kernels (forward, dK/dV, dQ) at ``FLASH_SHAPES`` (batch
    8 x 1024 tokens, 32/8 heads; a ragged length; head_dim 64 with a GQA
    group of 1; q, k, v as strided views of one fused tensor, whose
-   forward must give the bytes of contiguous copies), each against its
-   plain version (the flash outputs tile by tile, every forward repeated
-   for the same bytes, and a planted zeroed dV tile must read as a
-   failure) and timed as in phase 3 at the training shape.
+   forward and backward must give the bytes of contiguous copies), each
+   against its plain version (the flash outputs tile by tile, every
+   forward and backward launch repeated for the same bytes, and a planted
+   zeroed tile of dq, of dk and of dv must each read as a failure) and
+   timed as in phase 3 at the training shape, the dK/dV and dQ pair
+   against SDPA's whole backward.
 7. Whole step: one QLoRA step at full width, 2 layers, batch 2 x 1024,
    over an NF4, an int4 and an int8 base, with the kernels and again with
    every kernel swapped for its plain version; the loss and every LoRA
@@ -225,6 +234,9 @@ def thin_labels(fmt: str) -> tuple:
 
 THIN_LABELS = sum((thin_labels(f) for f in THIN_POLICIES), ())
 FLASH_FWD_LABELS = ("flash_fwd_kernelILi128E", "flash_fwd_kernelILi64E")
+FLASH_DKV_LABELS = ("flash_bwd_dkv_kernelILi128E",
+                    "flash_bwd_dkv_kernelILi64E")
+FLASH_DQ_LABELS = ("flash_bwd_dq_kernelILi128E", "flash_bwd_dq_kernelILi64E")
 # each kernel's entries in the ptxas report (qmm_resources)
 PTXAS_LABELS = {"nf4_matmul": ("Nf4Fwd",) + thin_labels("nf4"),
                 "nf4_matmul_backward": ("Nf4Dx",),
@@ -232,7 +244,9 @@ PTXAS_LABELS = {"nf4_matmul": ("Nf4Fwd",) + thin_labels("nf4"),
                 "int4_matmul_backward": ("Int4Dx",),
                 "int8_matmul": ("Int8Fwd",) + thin_labels("int8"),
                 "int8_matmul_backward": ("Int8Dx", "int8_scale_dy_kernel"),
-                "flash_forward": FLASH_FWD_LABELS}
+                "flash_forward": FLASH_FWD_LABELS,
+                "flash_backward_dkv": FLASH_DKV_LABELS,
+                "flash_backward_dq": FLASH_DQ_LABELS}
 
 
 def log(*args):
@@ -292,13 +306,14 @@ def qmm_resources() -> dict:
     """Registers, spills and shared memory of the kernels on the wgmma
     mainloop (B1's, B6's and B8's wgmma routes, B2, B7, B9), B9's scaling
     pass, every instantiation of the thin-M kernel (the decode routes of
-    B1, B6 and B8) and the wgmma flash forward (B3), as ptxas reported
-    them in this process's build, and whether ptxas warned C7515 (wgmma
-    serialized) for each."""
+    B1, B6 and B8) and the three wgmma flash kernels (B3, B4, B5), as
+    ptxas reported them in this process's build, and whether ptxas warned
+    C7515 (wgmma serialized) for each."""
     from llm_in_practise_tpu_torch.ops import _build
 
-    labels = ("Nf4Fwd", "Int4Fwd", "Int8Fwd", "Int4Dx", "Int8Dx", "Nf4Dx",
-              "int8_scale_dy_kernel") + THIN_LABELS + FLASH_FWD_LABELS
+    labels = (("Nf4Fwd", "Int4Fwd", "Int8Fwd", "Int4Dx", "Int8Dx", "Nf4Dx",
+               "int8_scale_dy_kernel") + THIN_LABELS + FLASH_FWD_LABELS
+              + FLASH_DKV_LABELS + FLASH_DQ_LABELS)
     out = {}
     for src in ("nf4_matmul", "int4_matmul", "int8_matmul",
                 "nf4_matmul_bwd", "flash_attention"):
@@ -1644,11 +1659,13 @@ def check_flash(seed: int, flush) -> dict:
     head_dim 128: 8 query tiles of the forward, 16 key tiles of the
     backward), a ragged length (1000: the last tile is masked), head_dim 64
     with a GQA group of 1, and q, k, v as strided views of one fused
-    (B, L, H + 2 Hkv, D) tensor (the forward's 4-D tensor maps over the
-    caller's strides; its bytes must equal those from contiguous copies).
-    Every forward repeats to the same bytes (each row is reduced in one
-    block in a fixed order). Timed at the training shape, with SDPA as the
-    library yardstick."""
+    (B, L, H + 2 Hkv, D) tensor (the kernels' 4-D tensor maps over the
+    caller's strides; the forward's and the backward's bytes must equal
+    those from contiguous copies). Every forward and backward launch
+    repeats to the same bytes (each row is reduced in one block in a fixed
+    order), and a zeroed last tile of dq, of dk and of dv must each read
+    as a failure. Timed at the training shape, with SDPA as the library
+    yardstick."""
     import torch
     import torch.nn.functional as F
 
@@ -1680,6 +1697,9 @@ def check_flash(seed: int, flush) -> dict:
                                                            do)
         dk, dv = fa.flash_backward_dkv(q2, k2, v2, do2, lse_k, delta, scale)
         dq = fa.flash_backward_dq(q2, k2, v2, do2, lse_k, delta, scale)
+        dk_rep, dv_rep = fa.flash_backward_dkv(q2, k2, v2, do2, lse_k, delta,
+                                               scale)
+        dq_rep = fa.flash_backward_dq(q2, k2, v2, do2, lse_k, delta, scale)
         rq, rk, rv = fa.flash_backward_reference(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
         res = {"B": b, "L": length, "H": n_head, "Hkv": n_kv, "D": d,
@@ -1689,6 +1709,9 @@ def check_flash(seed: int, flush) -> dict:
                "dv": tile_err(dv, rv),
                "forward_repeat_equal": bool(torch.equal(o, o_rep)
                                             and torch.equal(lse, lse_rep)),
+               "backward_repeat_equal": bool(torch.equal(dq, dq_rep)
+                                             and torch.equal(dk, dk_rep)
+                                             and torch.equal(dv, dv_rep)),
                "tol": f"tile_rel {FLASH_TOL}: max|kernel - plain| over "
                       f"max|plain| in every {FLASH_TILE}-row tile of one "
                       f"(batch, head); LSE {LSE_TOL} absolute"}
@@ -1697,29 +1720,47 @@ def check_flash(seed: int, flush) -> dict:
                                         v.contiguous(), scale)
             res["equal_to_contiguous"] = bool(torch.equal(o, oc)
                                               and torch.equal(lse, lsec))
-            del oc, lsec
-        # the check must see a planted fault: dV with its last key tile
-        # (the smallest values, and the ragged one at L = 1000) zeroed
-        dv_bad = dv.clone()
-        dv_bad[:, (length - 1) // FLASH_TILE * FLASH_TILE:] = 0
-        res["planted_dv_tile_zeroed"] = tile_err(dv_bad, rv)
-        del dv_bad, o_rep, lse_rep
+            # the backward from contiguous copies of q, k, v and dO, on the
+            # same O and LSE
+            cq, ck, cv, cdo, clse, cdelta = fa.backward_inputs(
+                q.contiguous(), k.contiguous(), v.contiguous(), o, lse,
+                do.contiguous())
+            cdk, cdv = fa.flash_backward_dkv(cq, ck, cv, cdo, clse, cdelta,
+                                             scale)
+            cdq = fa.flash_backward_dq(cq, ck, cv, cdo, clse, cdelta, scale)
+            res["backward_equal_to_contiguous"] = bool(
+                torch.equal(dq, cdq) and torch.equal(dk, cdk)
+                and torch.equal(dv, cdv))
+            del oc, lsec, cq, ck, cv, cdo, clse, cdelta, cdk, cdv, cdq
+        # the check must see a planted fault in each gradient: its last
+        # tile of rows (the smallest values, and the ragged one at L =
+        # 1000) zeroed
+        for name, got, want in (("dq", dq, rq), ("dk", dk, rk),
+                                ("dv", dv, rv)):
+            bad = got.clone()
+            bad[:, (length - 1) // FLASH_TILE * FLASH_TILE:] = 0
+            res[f"planted_{name}_tile_zeroed"] = tile_err(bad, want)
+            del bad
+        del o_rep, lse_rep, dq_rep, dk_rep, dv_rep
         res["ok"] = (all(res[x]["tile_rel"] <= FLASH_TOL
                          for x in ("o", "dq", "dk", "dv"))
                      and res["lse_abs"] <= LSE_TOL
                      and res["forward_repeat_equal"]
+                     and res["backward_repeat_equal"]
                      and res.get("equal_to_contiguous", True)
+                     and res.get("backward_equal_to_contiguous", True)
                      and all(bool(torch.isfinite(t).all())
                              for t in (o, lse, dq, dk, dv)))
         log("flash check:", json.dumps(res))
         checks.append(res)
         if not res["ok"]:
             raise SystemExit(f"flash kernels disagree with their plain "
-                             f"versions, or the forward's bytes moved: "
-                             f"{res}")
-        if res["planted_dv_tile_zeroed"]["tile_rel"] <= FLASH_TOL:
-            raise SystemExit("the flash check does not see a zeroed dV "
-                             f"tile: {res['planted_dv_tile_zeroed']}")
+                             f"versions, or their bytes moved: {res}")
+        for name in ("dq", "dk", "dv"):
+            if res[f"planted_{name}_tile_zeroed"]["tile_rel"] <= FLASH_TOL:
+                raise SystemExit(
+                    f"the flash check does not see a zeroed {name} tile: "
+                    f"{res[f'planted_{name}_tile_zeroed']}")
         del ro, rlse, rq, rk, rv
         if (b, length, layout) != (TRAIN_BATCH, TRAIN_SEQ, "contiguous"):
             continue
@@ -2190,6 +2231,14 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels_ms": {e.key[:70]: e.self_device_time_total / 1e3
                                for e in top},
+            # the three flash kernels' share of the step (device ms and
+            # launches), which the top kernels do not reach
+            "flash_kernels": {name: {
+                "ms": sum(e.self_device_time_total for e in kernels
+                          if name in e.key) / 1e3,
+                "launches": sum(e.count for e in kernels if name in e.key)}
+                for name in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                             "flash_bwd_dq_kernel")},
         }
     log("train profile:", json.dumps(out["profile"]))
     return {"launches": counts, "routes": step_routes, "train": out}
@@ -2198,6 +2247,9 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--flash-only", action="store_true",
+                    help="build the flash source only, run the flash checks "
+                         "and times, print their rows and stop")
     args = ap.parse_args(argv)
 
     import torch
@@ -2213,6 +2265,19 @@ def main(argv=None) -> int:
     card = card_line()
     log("card:", card, "|", torch.cuda.get_device_name(0),
         "| torch", torch.__version__, "cuda", torch.version.cuda)
+    if args.flash_only:
+        t0 = time.monotonic()
+        _build.load("flash_attention")
+        log(f"build: {time.monotonic() - t0:.1f}s (flash_attention only)")
+        log("flash kernels (ptxas):", json.dumps(qmm_resources()))
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        rows = check_flash(args.seed, flush)
+        for name, row in rows.items():
+            row = {k: v for k, v in row.items() if k != "checks"}
+            log(json.dumps({"kernel": name, **row}))
+        log(f"flash only: total {time.monotonic() - t_start:.1f}s")
+        log(card_line())
+        return 0
     log(f"build: {_build.build_all():.1f}s (nvcc, sm_90a, "
         f"{len(_build.KERNELS)} sources)")
     resources = qmm_resources()
@@ -2323,8 +2388,7 @@ def main(argv=None) -> int:
              "_bwd_dq_kernel (pallas_call at :248)")):
         row = dict(flash_rows[name])
         row.pop("checks")
-        if name == "flash_forward":
-            row["ptxas"] = ptxas(name)
+        row["ptxas"] = ptxas(name)
         table.append({"name": name,
                       "source": csrc + "flash_attention.cu",
                       "replaces": f"llm_in_practise_tpu/ops/"

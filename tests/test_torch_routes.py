@@ -346,6 +346,63 @@ def test_chip_smoke_reads_the_thin_and_flash_kernels_ptxas():
         assert set(labels) <= set(cs.PTXAS_LABELS[f"{fmt}_matmul"])
 
 
+def test_chip_smoke_reads_the_flash_backward_ptxas():
+    """qmm_resources reports the wgmma dK/dV and dQ kernels per head_dim
+    (registers, spills and C7515) apart from the forward, and the kernel
+    table files each under its own kernel."""
+    cs = _chip_smoke()
+
+    def entry(kernel, d, regs, spill):
+        name = (f"_ZN51_GLOBAL__N__1_18flash_attention_cu_1{kernel}ILi{d}"
+                "EEEv14CUtensorMap_stS0_S0_S0_PKfS2_P13__nv_bfloat16ii")
+        return (
+            f"ptxas info    : Compiling entry function '{name}' for "
+            "'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
+            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} "
+            "bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 16 barriers, 1600 "
+            "bytes smem\n")
+
+    log = (
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async"
+        " instructions are serialized in the function '_ZN51_GLOBAL__N__1_18"
+        "flash_attention_cu_119flash_bwd_dq_kernelILi64EEEv14CUtensorMap_st'"
+        "\n"
+        + entry("flash_bwd_dkv_kernel", 128, 240, 0)
+        + entry("flash_bwd_dkv_kernel", 64, 200, 0)
+        + entry("flash_bwd_dq_kernel", 128, 238, 24)
+        + entry("flash_bwd_dq_kernel", 64, 180, 0)
+        + entry("flash_fwd_kernel", 128, 168, 0))
+    saved = dict(_build.ptxas_log)
+    try:
+        _build.ptxas_log.clear()
+        _build.ptxas_log["flash_attention"] = log
+        got = cs.qmm_resources()
+    finally:
+        _build.ptxas_log.clear()
+        _build.ptxas_log.update(saved)
+    dkv = got["flash_bwd_dkv_kernelILi128E"]
+    assert "240 registers" in dkv["ptxas"] and "0 bytes spill" in \
+        dkv["ptxas"] and not dkv["c7515"]
+    assert "200 registers" in got["flash_bwd_dkv_kernelILi64E"]["ptxas"]
+    dq = got["flash_bwd_dq_kernelILi128E"]
+    assert "238 registers" in dq["ptxas"] and "24 bytes spill stores" in \
+        dq["ptxas"] and not dq["c7515"]
+    assert got["flash_bwd_dq_kernelILi64E"]["c7515"]
+    assert "168 registers" in got["flash_fwd_kernelILi128E"]["ptxas"]
+    assert set(cs.PTXAS_LABELS["flash_backward_dkv"]) == {
+        "flash_bwd_dkv_kernelILi128E", "flash_bwd_dkv_kernelILi64E"}
+    assert set(cs.PTXAS_LABELS["flash_backward_dq"]) == {
+        "flash_bwd_dq_kernelILi128E", "flash_bwd_dq_kernelILi64E"}
+    # no label of one flash kernel names an instantiation of another
+    flash = [lab for k, labs in cs.PTXAS_LABELS.items()
+             if k.startswith("flash") for lab in labs]
+    assert len(flash) == len(set(flash)) == 6
+    for lab in flash:
+        assert sum(lab in other for other in flash) == 1
+
+
 def _thin_rows_per_block(m: int) -> int:
     """Rows of x per block of the thin-M kernel instantiation that
     ``thin::launch_rows`` picks for ``m`` rows (8 MT)."""
