@@ -53,7 +53,21 @@ Phases, in order; any failure exits non-zero:
    picks for each pass's row count. Then whole-model logits of an AWQ
    model (2 layers), kernels against plain versions, and a greedy
    generation for 8 prompts on it through the engine (every decode
-   projection on int4's thin-M route).
+   projection on int4's thin-M route). Each decode step of these engines
+   is one CUDA graph replay.
+   Between the NF4 and the int4 runs, ``serve_sched`` on the NF4 model:
+   chunked prefill 256, decode blocks of 8, the fused mixed step,
+   ``max_queue`` 4. Six chats, two
+   long prompts (700 and 900 tokens) that chunk-prefill while they
+   decode, two more of each that queue, and a burst past the queue that
+   must get 429: through the engine with the fused step and without it
+   (identical greedy tokens), then over HTTP with the counters zeroed
+   before and read after (B1's launches per route must follow from the
+   engine's forward counts, through graph replays); a decode-only
+   profile of replayed blocks; a sampled block (captured, then
+   replayed); and every captured graph replayed once
+   against its eager body on copies of the same cache and inputs
+   (identical tokens, index and KV bytes).
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
    Qwen3-8B projection shape (both also at ragged shapes,
    ``NF4_FWD_EDGE_SHAPES`` on both forward routes and
@@ -98,7 +112,9 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
 import urllib.request
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
@@ -1256,7 +1272,10 @@ def awq_decode(model, tok, seed: int) -> dict:
     return res
 
 
-def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
+def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok,
+                keep_model: bool = False) -> dict:
+    """The serving cell of ``fmt``; with ``keep_model`` the result holds
+    the model under ``"model"`` for the next phase."""
     import torch
 
     from llm_in_practise_tpu_torch.data.sft import IM_END
@@ -1397,7 +1416,10 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
     out["decode_profile"] = profile_decode(
         engine, [r.prompt_ids for r in reqs], kernel_name)
     log("decode profile:", json.dumps(out["decode_profile"]))
-    return {"launches": launches, "serve": out, "routes": routes}
+    res = {"launches": launches, "serve": out, "routes": routes}
+    if keep_model:
+        res["model"] = model
+    return res
 
 
 def profile_decode(engine, prompts, kernel_name: str, steps: int = 16
@@ -1446,6 +1468,537 @@ def profile_decode(engine, prompts, kernel_name: str, steps: int = 16
         "top_kernels_ms_per_step": {
             e.key[:60]: e.self_device_time_total / 1e3 / steps for e in top},
     }
+
+
+# serve_sched: the engine's scheduling paths (chunked prefill, multi-step
+# decode, the fused mixed step, admission control) at Qwen3-8B width and
+# depth on the NF4 model, every decode block and fused step a CUDA graph
+SCHED = dict(chunked_prefill=256, decode_steps=8, mixed_step=True,
+             max_queue=4)
+SCHED_LONG = (700, 900)      # prompt tokens of the long requests
+SCHED_LONG_TOKENS = 32       # new tokens of a long request
+SCHED_FIRST_SHORT = 6        # short requests before the long ones
+SCHED_PROFILE_BLOCKS = 4     # decode blocks in each timing window
+
+
+def chat(content: str) -> list[dict]:
+    return [{"role": "system", "content": "You are a helpful assistant."},
+            {"role": "user", "content": content}]
+
+
+def prompt_ids(tok, messages) -> list[int]:
+    """The token ids the HTTP server gives ``messages``."""
+    from types import SimpleNamespace
+
+    from llm_in_practise_tpu_torch.serve.api import build_prompt
+
+    return tok.encode(build_prompt([SimpleNamespace(**m) for m in messages]))
+
+
+def long_messages(tok, target: int, start: int) -> list[dict]:
+    """A document question whose chat prompt is ``target`` tokens, or the
+    nearest below that whole words of SURVEY.md from word ``start`` give."""
+    survey = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "SURVEY.md")
+    with open(survey, encoding="utf-8") as f:
+        words = f.read().split()
+    words = (words * 2)[start % len(words):][:4 * target]
+
+    def msgs(k):
+        return chat("Summarize this document: " + " ".join(words[:k]))
+
+    lo, hi = 1, len(words)   # the most words whose prompt fits
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if len(prompt_ids(tok, msgs(mid))) <= target:
+            lo = mid
+        else:
+            hi = mid - 1
+    return msgs(lo)
+
+
+def sched_traffic(tok, seed: int) -> list[list[tuple]]:
+    """The waves of serve_sched as (messages, max_tokens): 6 short chats
+    in two groups of 3 (a group of more than ``max_queue`` would be shed
+    before a step could admit it); 2 long prompts (700 and 900 tokens)
+    that chunk-prefill while the chats decode; 2 more chats and 2 more
+    long prompts, which queue."""
+    import random
+
+    rng = random.Random(seed)
+    shorts = [chat(f"Explain {topic} in a few sentences.")
+              for topic in TOPICS]
+    longs = [long_messages(tok, n, rng.randrange(1 << 30))
+             for n in SCHED_LONG * 2]
+    half = SCHED_FIRST_SHORT // 2
+    return [[(m, MAX_TOKENS) for m in shorts[:half]],
+            [(m, MAX_TOKENS) for m in shorts[half:SCHED_FIRST_SHORT]],
+            [(m, SCHED_LONG_TOKENS) for m in longs[:2]],
+            [(m, MAX_TOKENS) for m in shorts[SCHED_FIRST_SHORT:]]
+            + [(m, SCHED_LONG_TOKENS) for m in longs[2:]]]
+
+
+def sched_direct(engine, tok, traffic, mixed_step: bool) -> dict:
+    """The traffic through ``engine.submit`` and ``engine.step`` (no
+    thread, so the schedule is the same in every run): each of the first
+    three waves followed by one step (its admission and a block), then
+    the last wave (it queues) and one more request, which ``max_queue``
+    must shed."""
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    engine.mixed_step = mixed_step
+    reqs = []
+
+    def submit(wave):
+        for messages, max_tokens in wave:
+            reqs.append(engine.submit(prompt_ids(tok, messages),
+                                      SamplingParams(greedy=True,
+                                                     max_tokens=max_tokens)))
+
+    blocks0 = engine.mixed_blocks
+    for wave in traffic[:-1]:
+        submit(wave)
+        engine.step()
+    submit(traffic[-1])
+    burst = engine.submit(prompt_ids(tok, traffic[0][0][0]),
+                          SamplingParams(greedy=True, max_tokens=MAX_TOKENS))
+    while engine.step():
+        pass
+    return {"tokens": [r.output_ids for r in reqs],
+            "finish": [r.finish_reason for r in reqs],
+            "burst_finish": burst.finish_reason,
+            "mixed_blocks": engine.mixed_blocks - blocks0}
+
+
+def post_429(base: str, body: dict) -> tuple[int, dict]:
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def quantiles(values) -> dict:
+    import numpy as np
+
+    v = np.asarray(list(values), dtype=np.float64)
+    return {"p50": float(np.percentile(v, 50)),
+            "p99": float(np.percentile(v, 99)), "n": int(v.size)}
+
+
+def wait_for(cond, what: str, timeout_s: float = 120.0) -> None:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout_s:
+            raise SystemExit(f"serve_sched: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def sched_http(engine, tok, traffic, model_name: str) -> dict:
+    """The traffic over HTTP, the main path: the first group of chats;
+    once it is admitted the second; after their first decode block the
+    long prompts; once those are in slots the last wave and a burst past
+    ``max_queue``, submitted while the engine loop waits at the start of
+    its next admission (so the burst finds the queue full whatever the
+    timing), which must get 429 ``queue_full``. The kernels' counters are
+    zeroed just before and read just after."""
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(*args, **kwargs):
+        req = submit(*args, **kwargs)
+        seen.append(req)
+        return req
+
+    engine.submit = recording_submit
+    prefill_rows = []
+    prefill = engine._prefill_batch
+
+    def recording_prefill(batch):
+        prefill_rows.append(len(batch) * max(len(r.prompt_ids)
+                                             for _, r in batch))
+        return prefill(batch)
+
+    engine._prefill_batch = recording_prefill
+    mixed_n = []
+    mixed = engine._mixed_dispatch
+
+    def recording_mixed(active, n):
+        mixed_n.append(n)
+        return mixed(active, n)
+
+    engine._mixed_dispatch = recording_mixed
+    gate = threading.Event()   # cleared: the next admission waits
+    gate.set()
+    admit = engine._admit
+
+    def gated_admit():
+        gate.wait()
+        return admit()
+
+    engine._admit = gated_admit
+    server = OpenAIServer(engine, tok, model_name=model_name)
+    port = server.serve(host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{port}"
+    names = ("decode_steps_run", "prefill_batches_run", "chunk_batches_run",
+             "chunk_slots_run", "mixed_blocks", "multi_blocks",
+             "dispatches_total", "requests_shed")
+
+    def body(i, messages, max_tokens):
+        return {"model": model_name, "temperature": 0.0,
+                "max_tokens": max_tokens, "stream": i % 2 == 0,
+                "messages": messages}
+
+    try:
+        zero_counters()
+        replays0 = engine.graphs.replays
+        before = {k: getattr(engine, k) for k in names}
+        t_run = time.monotonic()
+        futs, i = [], 0
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            last = len(traffic) - 1
+            for w, wave in enumerate(traffic):
+                if w == last:
+                    gate.clear()
+                for messages, max_tokens in wave:
+                    futs.append(pool.submit(post_chat, base,
+                                            body(i, messages, max_tokens)))
+                    i += 1
+                if w < last:   # the wave is in slots
+                    wait_for(lambda: len(seen) == i
+                             and engine.pending.qsize() == 0,
+                             f"wave {w}'s admission")
+                if w == 1:     # every chat has its first block's tokens
+                    wait_for(lambda: all(
+                        r.n_generated > 1 or r.finish_reason is not None
+                        for r in seen), "the chats' first block")
+                if w == last:
+                    try:
+                        wait_for(lambda: engine.pending.qsize() == len(wave),
+                                 "wave 3 to queue")
+                        status, err = post_429(
+                            base, body(0, traffic[0][0][0], MAX_TOKENS))
+                    finally:
+                        gate.set()
+            results = [f.result() for f in futs]
+        wall = time.monotonic() - t_run
+        counts = read_counters()
+        routes = read_routes()["nf4_matmul"]
+        after = {k: getattr(engine, k) for k in names}
+        replays = engine.graphs.replays - replays0
+    finally:
+        server.shutdown()
+        engine.submit = submit
+        engine._prefill_batch = prefill
+        engine._mixed_dispatch = mixed
+        engine._admit = admit
+    if engine.error is not None:
+        raise SystemExit(f"serve_sched: engine failed: {engine.error!r}")
+    delta = {k: after[k] - before[k] for k in names}
+    reqs = [r for r in seen if r.finish_reason != "queue_full"]
+    return {"results": results, "reqs": reqs, "wall_s": wall, "t0": t_run,
+            "counts": counts, "routes": routes, "delta": delta,
+            "graph_replays": replays, "prefill_rows": prefill_rows,
+            "mixed_n": mixed_n, "burst": {"status": status, "body": err}}
+
+
+def sched_profile(engine, tok) -> dict:
+    """One decode-only stretch over every slot (no prefill in flight):
+    host wall per block (no profiler), then the device time of as many
+    blocks under torch.profiler. Each block is one graph replay."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    n = engine.decode_steps
+    params = SamplingParams(greedy=True,
+                            max_tokens=(2 * SCHED_PROFILE_BLOCKS + 2) * n)
+    for topic in TOPICS:
+        engine.submit(prompt_ids(tok, chat(f"Explain {topic} briefly.")),
+                      params)
+    engine.step()           # admission and the first block
+    torch.cuda.synchronize()
+    replays0 = engine.graphs.replays
+    launches0 = read_counters()["nf4_matmul"]
+    t0 = time.monotonic()
+    for _ in range(SCHED_PROFILE_BLOCKS):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3 / SCHED_PROFILE_BLOCKS
+    replays = engine.graphs.replays - replays0
+    launches = read_counters()["nf4_matmul"] - launches0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(SCHED_PROFILE_BLOCKS):
+            engine.step()
+        torch.cuda.synchronize()
+    while engine.step():
+        pass
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    out = {"decode_steps_per_block": n, "slots": engine.max_slots,
+           "block_wall_ms": wall_ms, "graph_launches_per_block":
+           replays / SCHED_PROFILE_BLOCKS,
+           "nf4_launches_per_block": launches / SCHED_PROFILE_BLOCKS,
+           "host_wall_per_decode_step_ms": wall_ms / n}
+    if replays != SCHED_PROFILE_BLOCKS:
+        raise SystemExit(f"serve_sched: {replays} graph replays in "
+                         f"{SCHED_PROFILE_BLOCKS} decode blocks")
+    if device_us == 0:
+        out["device_per_decode_step_ms"] = "not measured"
+        return out
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    block_ms = device_us / 1e3 / SCHED_PROFILE_BLOCKS
+    out.update({
+        "device_per_decode_step_ms": block_ms / n,
+        "device_busy_share": block_ms / wall_ms,
+        "kernels_per_block": sum(e.count for e in kernels)
+        / SCHED_PROFILE_BLOCKS,
+        "top_kernels_ms_per_block": {
+            e.key[:60]: e.self_device_time_total / 1e3 / SCHED_PROFILE_BLOCKS
+            for e in top}})
+    return out
+
+
+def sched_sampled(engine) -> dict:
+    """A sampled decode block (temperature 0.8, top-k 50, top-p 0.9, the
+    noise drawn from the engine's generator before each run) through the
+    engine's graph runner twice: the first run captures the variant, the
+    second replays it; :func:`replay_check` then holds it to its eager
+    body."""
+    import numpy as np
+    import torch
+
+    g, b, n = engine.graphs, engine.max_slots, engine.decode_steps
+    arrays = dict(tokens=np.arange(b, dtype=np.int64) + 100,
+                  index=np.arange(b, dtype=np.int64) * 97 + 40,
+                  temperature=np.full(b, 0.8, np.float32),
+                  top_k=np.full(b, 50, np.int64),
+                  top_p=np.full(b, 0.9, np.float32),
+                  greedy=np.zeros(b, bool))
+    replays0 = g.replays
+    toks = []
+    with torch.inference_mode():
+        for _ in range(2):
+            out = g.run("decode", n, all_greedy=False,
+                        generator=engine.generator, **arrays)
+            toks.append(out["toks"].cpu())
+    vocab = engine.model.config.vocab_size
+    res = {"captured": ("decode", n, False) in g.graphs,
+           "replays": g.replays - replays0,
+           "tokens_in_vocab": all(bool(((t >= 0) & (t < vocab)).all())
+                                  for t in toks),
+           "draws_differ": not torch.equal(toks[0], toks[1])}
+    if not (res["captured"] and res["replays"] == 1
+            and res["tokens_in_vocab"]):
+        raise SystemExit(f"serve_sched: the sampled block failed: {res}")
+    return res
+
+
+def replay_check(engine, seed: int) -> dict:
+    """Every captured variant, replayed once, against its eager body run
+    on the card with the kernels, on copies of the same cache and inputs:
+    tokens, next index and every KV row must be identical bytes."""
+    import torch
+
+    gen = torch.Generator(device=engine.device)
+    gen.manual_seed(seed)
+    saved = [(layer["k"].clone(), layer["v"].clone()) for layer in engine.cache]
+
+    def restore():
+        for layer, (k, v) in zip(engine.cache, saved):
+            layer["k"].copy_(k)
+            layer["v"].copy_(v)
+
+    out = {}
+    with torch.inference_mode():   # as the engine's steps run
+        for key in sorted(engine.graphs.graphs):
+            kind, n, all_greedy = key
+            out[f"{kind} n={n} greedy={all_greedy}"] = replay_one(
+                engine, key, gen, restore)
+    restore()
+    del saved
+    if not out or not all(all(r.values()) for r in out.values()):
+        raise SystemExit(f"serve_sched: a replay differs from its eager "
+                         f"body: {out}")
+    return out
+
+
+def replay_one(engine, key, gen, restore) -> dict:
+    """One variant of :func:`replay_check`: set the static inputs (every
+    row at its own depth, inside the fused step's bounds), replay, keep
+    the outputs and the cache, restore the cache, run the eager body."""
+    import torch
+
+    g = engine.graphs
+    x = g.inputs
+    b, c = engine.max_slots, engine.chunked_prefill
+    dev = engine.device
+    vocab = engine.model.config.vocab_size
+    kind, n, all_greedy = key
+    graph, static_out, _ = g.graphs[key]
+    index = torch.arange(b, device=dev) * 97 + 40
+    x["tokens"].copy_(torch.randint(0, vocab, (b,), device=dev,
+                                    generator=gen))
+    x["index"].copy_(index)
+    x["temperature"].fill_(0.8)
+    x["top_k"].fill_(50)
+    x["top_p"].fill_(0.9)
+    x["greedy"].copy_(torch.arange(b, device=dev) % 2 == 0)
+    if all_greedy:
+        x["greedy"].fill_(True)
+    else:
+        g.noise[:n].uniform_(0.0, 1.0, generator=gen)
+    if kind == "mixed":
+        lens = torch.tensor([c, c // 2, 0, 0, c, 0, 1, 0], device=dev)[:b]
+        x["chunk_ids"].copy_(torch.randint(0, vocab, (b, c), device=dev,
+                                           generator=gen))
+        x["starts"].copy_(index)
+        x["lens"].copy_(lens)
+        x["advance"].copy_((lens == 0) * n)
+    restore()
+    graph.replay()
+    torch.cuda.synchronize()
+    got = {k: v.clone() for k, v in static_out.items()}
+    got_kv = [(layer["k"].clone(), layer["v"].clone())
+              for layer in engine.cache]
+    restore()
+    want = g._body(key)
+    torch.cuda.synchronize()
+    same_out = all(torch.equal(got[k], want[k]) for k in got)
+    same_kv = all(torch.equal(k, layer["k"]) and torch.equal(v, layer["v"])
+                  for (k, v), layer in zip(got_kv, engine.cache))
+    return {"tokens_index_identical": same_out, "kv_identical": same_kv}
+
+
+def sched_phase(model, tok, seed: int, card: str) -> dict:
+    """serve_sched on ``model`` (Qwen3-8B width, NF4, full depth): the
+    traffic of :func:`sched_traffic` fused, then sequential
+    (``mixed_step=False``) through the engine directly (their greedy
+    tokens must be identical), then fused over HTTP (the counted main
+    path), then a decode-only profile and the replay-vs-eager check of
+    every captured variant. One engine serves all of them; its graphs are
+    captured on first use."""
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+                             eos_id=tok.token_to_id(IM_END),
+                             cache_dtype=torch.bfloat16, seed=seed, **SCHED)
+    traffic = sched_traffic(tok, seed)
+    lens = [[len(prompt_ids(tok, m)) for m, _ in wave] for wave in traffic]
+    log("serve_sched prompt tokens per wave:", json.dumps(lens))
+    t0 = time.monotonic()
+    fused = sched_direct(engine, tok, traffic, mixed_step=True)
+    t_fused = time.monotonic() - t0
+    t0 = time.monotonic()
+    seq = sched_direct(engine, tok, traffic, mixed_step=False)
+    t_seq = time.monotonic() - t0
+    engine.mixed_step = True
+    n_req = sum(len(w) for w in traffic)
+    direct = {"fused_s": t_fused, "sequential_s": t_seq,
+              "fused_mixed_blocks": fused["mixed_blocks"],
+              "sequential_mixed_blocks": seq["mixed_blocks"],
+              "tokens_identical": fused["tokens"] == seq["tokens"],
+              "finish": fused["finish"],
+              "burst_finish": [fused["burst_finish"], seq["burst_finish"]]}
+    log("serve_sched direct runs:", json.dumps(direct))
+    if (fused["tokens"] != seq["tokens"] or fused["finish"] != seq["finish"]
+            or len(fused["tokens"]) != n_req
+            or any(not t for t in fused["tokens"])):
+        raise SystemExit("serve_sched: the fused and the sequential runs "
+                         "gave different greedy tokens")
+    if fused["mixed_blocks"] < 1 or seq["mixed_blocks"] != 0:
+        raise SystemExit(f"serve_sched: mixed blocks {direct}")
+    if direct["burst_finish"] != ["queue_full", "queue_full"]:
+        raise SystemExit(f"serve_sched: max_queue shed nothing: {direct}")
+
+    http = sched_http(engine, tok, traffic, "qwen3-8b-nf4-sched")
+    d = http["delta"]
+    forwards = (d["decode_steps_run"] + d["prefill_batches_run"]
+                + d["chunk_batches_run"] + d["chunk_slots_run"])
+    c = engine.chunked_prefill
+    rows = (http["prefill_rows"] + [MAX_SLOTS] * d["decode_steps_run"]
+            + [MAX_SLOTS * c] * d["chunk_batches_run"]
+            + [c] * d["chunk_slots_run"])
+    want = route_launches("nf4", rows, PROJ_SHAPES.values(), N_LAYER)
+    per_forward = 7 * N_LAYER
+    launches = http["counts"]["nf4_matmul"]
+    results = http["results"]
+    checks = {
+        "launches_by_route": http["routes"], "expected": want,
+        "decode_forwards": d["decode_steps_run"],
+        "chunk_forwards": d["chunk_batches_run"] + d["chunk_slots_run"],
+        "prefill_rows": http["prefill_rows"],
+        "thin_from_decode": per_forward * d["decode_steps_run"],
+        "wgmma_from_chunks": per_forward * (d["chunk_batches_run"]
+                                            + d["chunk_slots_run"]),
+        "mixed_block_lengths": http["mixed_n"],
+        "graph_replays": http["graph_replays"],
+        "dispatches": d["dispatches_total"],
+        "burst": http["burst"], "streams_done": sum(
+            r.get("done", False) for r in results)}
+    log("serve_sched http checks:", json.dumps(checks))
+    if (http["routes"] != want or launches != per_forward * forwards
+            or sum(http["counts"].values()) != launches
+            or not http["routes"]["thin"] or not http["routes"]["wgmma"]):
+        raise SystemExit(f"serve_sched: nf4_matmul launches {launches} / "
+                         f"{http['routes']} disagree with the engine's "
+                         f"counters ({forwards} forwards): {checks}")
+    if not http["mixed_n"] or max(http["mixed_n"]) < 2:
+        raise SystemExit(f"serve_sched: no fused mixed block with n > 1: "
+                         f"{http['mixed_n']}")
+    if http["burst"]["status"] != 429 or http["burst"]["body"].get(
+            "error", {}).get("code") != "queue_full":
+        raise SystemExit(f"serve_sched: the burst got {http['burst']}")
+    if len(results) != n_req or any(
+            r["finish_reason"] not in ("stop", "length") for r in results):
+        raise SystemExit(f"serve_sched: bad responses {results}")
+    reqs = http["reqs"]
+    short = [r for r in reqs if r.params.max_tokens == MAX_TOKENS]
+    long = [r for r in reqs if r.params.max_tokens == SCHED_LONG_TOKENS]
+
+    def lat(rs):
+        return {"ttft_s": quantiles(r.ttft_s for r in rs),
+                "tpot_s": quantiles(r.tpot_s for r in rs
+                                    if r.tpot_s is not None)}
+
+    profile_out = sched_profile(engine, tok)
+    log("serve_sched decode profile:", json.dumps(profile_out))
+    sampled = sched_sampled(engine)
+    log("serve_sched sampled block:", json.dumps(sampled))
+    replay = replay_check(engine, seed)
+    log("serve_sched replay vs eager:", json.dumps(replay))
+    g = engine.graphs
+    out = {
+        "card": card, "format": "nf4", "layers": N_LAYER,
+        "max_slots": MAX_SLOTS, "cache_len": CACHE_LEN, "kv_dtype": "bfloat16",
+        **{k: v for k, v in SCHED.items()}, "requests": len(reqs),
+        "prompt_tokens": lens, "wall_s": http["wall_s"],
+        "completion_tokens": sum(r.n_generated for r in reqs),
+        "short": lat(short), "long": lat(long),
+        "per_request": [  # in submission order: prompt, new tokens, times
+            {"prompt": len(r.prompt_ids), "tokens": r.n_generated,
+             "submit_s": r.submit_time - http["t0"], "ttft_s": r.ttft_s,
+             "tpot_s": r.tpot_s} for r in reqs],
+        "direct": direct, "checks": checks, "profile": profile_out,
+        "capture_s": {f"{k} n={n} greedy={a}": s
+                      for (k, n, a), s in sorted(g.capture_s.items())},
+        "sampled_block": sampled, "graph_pool_mib": g.pool_bytes / 2**20,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "replay_check": replay}
+    log("serve_sched:", json.dumps(out))
+    return {"launches": launches, "routes": http["routes"], "sched": out}
 
 
 def flash_bound(b: int, length: int, h: int, d: int, products: int,
@@ -2306,9 +2859,17 @@ def main(argv=None) -> int:
     served = {}
     for fmt in ("nf4", "int4", "int8"):
         t0 = time.monotonic()
-        served[fmt] = serve_phase(fmt, N_LAYER, args.seed, card, tok)
-        free()
+        served[fmt] = serve_phase(fmt, N_LAYER, args.seed, card, tok,
+                                  keep_model=fmt == "nf4")
         phase_time(f"serve {fmt}", t0)
+        if fmt == "nf4":   # serve_sched reuses the NF4 model
+            model = served[fmt].pop("model")
+            free()         # the serving phase's engine, cache and graphs
+            t0 = time.monotonic()
+            sched = sched_phase(model, tok, args.seed, card)
+            del model
+            phase_time("serve_sched", t0)
+        free()
     t0 = time.monotonic()
     awq_res = awq_check(tok, args.seed)
     free()
@@ -2357,14 +2918,17 @@ def main(argv=None) -> int:
         "ptxas": ptxas("nf4_matmul"),
         **fwd_routes("nf4", MAX_SLOTS, {
             "serve_nf4": served["nf4"]["routes"],
+            "serve_nf4_sched": sched["routes"],
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
         **decode_fields(decode, "nf4"),
         "thin_rows": thin_checked["nf4"],
         "thin_exactness": {k: v for k, v in thin_exact.items()
                            if " nf4" in k},
-        "launches": served["nf4"]["launches"] + launches["nf4_matmul"],
+        "launches": (served["nf4"]["launches"] + sched["launches"]
+                     + launches["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
+                             "serve_nf4_sched": sched["launches"],
                              "train_nf4": launches["nf4_matmul"]}})
     table = [summary, {
         "name": "nf4_matmul_backward",
@@ -2446,6 +3010,10 @@ def main(argv=None) -> int:
     log("serving:", json.dumps({f: {k: v for k, v in r["serve"].items()
                                     if k != "model_check"}
                                 for f, r in served.items()}))
+    log("serve_sched summary:", json.dumps(
+        {k: v for k, v in sched["sched"].items()
+         if k in ("short", "long", "profile", "capture_s", "graph_pool_mib",
+                  "max_memory_allocated_gib", "wall_s")}))
     log("earlier readings, not measured in this run (PERF.md; mma.sync "
         "designs, NVIDIA H100 80GB HBM3, 700 W), ms per layer's 7 "
         f"projections at M={TRAIN_M}: {json.dumps(EARLIER_MS)}; this run: "

@@ -5,6 +5,10 @@ over the filtered logits, which is what ``jax.random.categorical``
 computes). The two frameworks' generators give different numbers from the
 same seed, so seeded sampling agrees with the JAX package in
 distribution, not bit for bit.
+
+Inside a CUDA graph the function must not read the device from the host
+or draw from a generator: the caller then passes ``all_greedy`` (decided
+on the host) and ``noise``, the uniform draws it filled before the replay.
 """
 
 from __future__ import annotations
@@ -17,12 +21,19 @@ NEG_INF = -1e30
 def sample_token_batched(generator: torch.Generator | None,
                          logits: torch.Tensor, *, temperature: torch.Tensor,
                          top_k: torch.Tensor, top_p: torch.Tensor,
-                         greedy: torch.Tensor) -> torch.Tensor:
+                         greedy: torch.Tensor, all_greedy: bool | None = None,
+                         noise: torch.Tensor | None = None) -> torch.Tensor:
     """Next token per row of ``logits`` (B, vocab), each row with its own
     ``temperature`` (floats), ``top_k`` (ints, 0 disables), ``top_p``
     (floats, >= 1 disables; 0 keeps only the top token) and ``greedy``
-    (bools). Returns (B,) int64."""
-    if bool(greedy.all()):
+    (bools). Returns (B,) int64.
+
+    ``all_greedy`` (default: read from ``greedy`` on the device) skips the
+    draw when every row is greedy. ``noise`` (default: drawn here from
+    ``generator``) is the (B, vocab) f32 uniform draw in [0, 1)."""
+    if all_greedy is None:
+        all_greedy = bool(greedy.all())
+    if all_greedy:
         # every row greedy: nothing to draw (same answer as the full path)
         return torch.argmax(logits, dim=-1)
     n_vocab = logits.shape[-1]
@@ -49,8 +60,9 @@ def sample_token_batched(generator: torch.Generator | None,
     use_p = (top_p < 1.0)[:, None]
     scaled = torch.where(use_p & (scaled < cutoff_logit), NEG_INF, scaled)
 
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device,
-                   dtype=torch.float32)
+    u = noise if noise is not None else torch.rand(
+        scaled.shape, generator=generator, device=scaled.device,
+        dtype=torch.float32)
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
     sampled = torch.argmax(scaled + gumbel, dim=-1)
     return torch.where(greedy, torch.argmax(logits, dim=-1), sampled)

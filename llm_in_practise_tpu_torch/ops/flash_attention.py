@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from llm_in_practise_tpu_torch.ops import _build
+from llm_in_practise_tpu_torch.ops import _build, launch_count
 
 KERNEL_HEAD_DIMS = (64, 128)
 
@@ -156,11 +156,11 @@ def flash_forward(q, k, v, scale: float):
             lse.data_ptr(), b, length, n_head, k.shape[2], d, _strides(q),
             _strides(k), _strides(v), float(scale), stream)
     _raise_on(err, lib, "flash_forward", q.shape)
-    flash_forward.launches += 1
+    launch_count.count(flash_forward)
     return out, lse
 
 
-flash_forward.launches = 0
+launch_count.counter(flash_forward)
 
 
 def backward_inputs(q, k, v, out, lse, dout):
@@ -195,11 +195,11 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, scale: float):
             b, length, n_head, k.shape[2], d, _strides(q), _strides(k),
             _strides(v), _strides(dout), float(scale), stream)
     _raise_on(err, lib, "flash_backward_dkv", q.shape)
-    flash_backward_dkv.launches += 1
+    launch_count.count(flash_backward_dkv)
     return dk, dv
 
 
-flash_backward_dkv.launches = 0
+launch_count.counter(flash_backward_dkv)
 
 
 def flash_backward_dq(q, k, v, dout, lse, delta, scale: float):
@@ -218,11 +218,11 @@ def flash_backward_dq(q, k, v, dout, lse, delta, scale: float):
             n_head, k.shape[2], d, _strides(q), _strides(k), _strides(v),
             _strides(dout), float(scale), stream)
     _raise_on(err, lib, "flash_backward_dq", q.shape)
-    flash_backward_dq.launches += 1
+    launch_count.count(flash_backward_dq)
     return dq
 
 
-flash_backward_dq.launches = 0
+launch_count.counter(flash_backward_dq)
 
 
 def flash_backward(q, k, v, out, lse, dout, scale: float):

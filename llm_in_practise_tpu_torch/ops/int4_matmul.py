@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from llm_in_practise_tpu_torch.ops import _build
+from llm_in_practise_tpu_torch.ops import _build, launch_count
 from llm_in_practise_tpu_torch.ops.nf4_matmul import _OUT_CODES, _aligned
 from llm_in_practise_tpu_torch.quant import int4
 from llm_in_practise_tpu_torch.quant.int4 import Int4Tensor
@@ -182,13 +182,11 @@ def _forward(x: torch.Tensor, t: Int4Tensor, out_dtype=None,
     if err != 0:
         raise _error(lib, err, f"int4_matmul ({route})", m=m, k=k, n=n,
                      group_size=gs)
-    int4_matmul.launches += 1
-    int4_matmul.launches_by_route[route] += 1
+    launch_count.count(int4_matmul, route)
     return out.reshape(*lead, n)
 
 
-int4_matmul.launches = 0
-int4_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
+launch_count.counter(int4_matmul, ROUTES)
 
 
 def int4_matmul_backward(dy: torch.Tensor, t: Int4Tensor, out_dtype=None
@@ -228,11 +226,11 @@ def int4_matmul_backward(dy: torch.Tensor, t: Int4Tensor, out_dtype=None
     if err != 0:
         raise _error(lib, err, "int4_matmul_backward", m=m, k=k, n=n,
                      group_size=t.group_size)
-    int4_matmul_backward.launches += 1
+    launch_count.count(int4_matmul_backward)
     return dx.reshape(*lead, k)
 
 
-int4_matmul_backward.launches = 0
+launch_count.counter(int4_matmul_backward)
 
 
 class Int4Matmul(torch.autograd.Function):

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from llm_in_practise_tpu_torch.ops import _build
+from llm_in_practise_tpu_torch.ops import _build, launch_count
 from llm_in_practise_tpu_torch.ops.nf4_matmul import (
     _OUT_CODES,
     ROUTES,
@@ -167,13 +167,11 @@ def _forward(x: torch.Tensor, t: Int8Tensor, out_dtype=None,
                      out.data_ptr(), m, k, n, _OUT_CODES[out_dtype], stream)
     if err != 0:
         raise _error(lib, err, f"int8_matmul ({route})", m=m, k=k, n=n)
-    int8_matmul.launches += 1
-    int8_matmul.launches_by_route[route] += 1
+    launch_count.count(int8_matmul, route)
     return out.reshape(*lead, n)
 
 
-int8_matmul.launches = 0
-int8_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
+launch_count.counter(int8_matmul, ROUTES)
 
 
 def int8_matmul_backward(dy: torch.Tensor, t: Int8Tensor, out_dtype=None
@@ -222,11 +220,11 @@ def int8_matmul_backward(dy: torch.Tensor, t: Int8Tensor, out_dtype=None
             m, k, n, _OUT_CODES[out_dtype], stream)
     if err != 0:
         raise _error(lib, err, "int8_matmul_backward", m=m, k=k, n=n)
-    int8_matmul_backward.launches += 1
+    launch_count.count(int8_matmul_backward)
     return dx.reshape(*lead, k)
 
 
-int8_matmul_backward.launches = 0
+launch_count.counter(int8_matmul_backward)
 
 
 class Int8Matmul(torch.autograd.Function):

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from llm_in_practise_tpu_torch.ops import _build
+from llm_in_practise_tpu_torch.ops import _build, launch_count
 from llm_in_practise_tpu_torch.quant import nf4
 from llm_in_practise_tpu_torch.quant.nf4 import NF4Tensor
 
@@ -174,13 +174,11 @@ def _forward(x: torch.Tensor, t: NF4Tensor, out_dtype=None,
         raise RuntimeError(
             f"nf4_matmul ({route}) kernel launch failed (m={m}, k={k}, "
             f"n={n}): cuda error {err}: {msg}")
-    nf4_matmul.launches += 1
-    nf4_matmul.launches_by_route[route] += 1
+    launch_count.count(nf4_matmul, route)
     return out.reshape(*lead, n)
 
 
-nf4_matmul.launches = 0
-nf4_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
+launch_count.counter(nf4_matmul, ROUTES)
 
 
 def nf4_matmul_backward_reference(dy: torch.Tensor, t: NF4Tensor,
@@ -236,11 +234,11 @@ def nf4_matmul_backward(dy: torch.Tensor, t: NF4Tensor,
         raise RuntimeError(
             f"nf4_matmul_backward kernel launch failed (m={m}, k={k}, "
             f"n={n}): cuda error {err}: {msg}")
-    nf4_matmul_backward.launches += 1
+    launch_count.count(nf4_matmul_backward)
     return dx.reshape(*lead, k)
 
 
-nf4_matmul_backward.launches = 0
+launch_count.counter(nf4_matmul_backward)
 
 
 class NF4Matmul(torch.autograd.Function):

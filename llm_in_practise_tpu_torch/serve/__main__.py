@@ -2,7 +2,9 @@
 
     python -m llm_in_practise_tpu_torch.serve --quantized_dir DIR \\
         --tokenizer_path TOK.json [--device cpu] [--max_slots 8] \\
-        [--cache_len 512] [--kv-cache-dtype bfloat16] [--port 8000]
+        [--cache_len 512] [--kv-cache-dtype bfloat16] [--port 8000] \\
+        [--enable-chunked-prefill [256]] [--decode-steps 8] \\
+        [--no-mixed-step] [--max-queue N] [--queue-timeout SECONDS]
 
 ``DIR`` holds the ``packed.npz`` + ``manifest.json`` that the JAX
 package's exporters write (``quant/io.py``): NF4, GPTQ/RTN int4, AWQ,
@@ -27,18 +29,12 @@ _NOT_PORTED = {
     "--enable-prefix-caching": (dict(action="store_true"), 3),
     "--session-store": (dict(action="store_true"), 5),
     "--session-ttl": (dict(type=float, default=None), 5),
-    "--enable-chunked-prefill": (dict(type=int, nargs="?", const=256,
-                                      default=None), 2),
     "--tensor-parallel-size": (dict(type=int, default=1), 14),
     "--kv-offload": (dict(action="store_true"), 5),
     "--kv-remote": (dict(default=None), 5),
     "--role": (dict(default="both"), 5),
     "--speculative": (dict(type=int, nargs="?", const=4, default=None), 4),
-    "--decode-steps": (dict(type=int, default=1), 2),
-    "--no-mixed-step": (dict(action="store_true"), 2),
     "--draft-model-path": (dict(default=None), 4),
-    "--max-queue": (dict(type=int, default=None), 2),
-    "--queue-timeout": (dict(type=float, default=None), 2),
     "--trace-file": (dict(default=None), 6),
     "--ttft-slo": (dict(type=float, default=None), 6),
     "--tpot-slo": (dict(type=float, default=None), 6),
@@ -70,6 +66,30 @@ def build_parser() -> argparse.ArgumentParser:
                    default="float32", choices=["float32", "bfloat16", "fp8"])
     p.add_argument("--kv-layout", dest="kv_layout", default="contiguous",
                    choices=["contiguous", "paged"])
+    # scheduling and admission control, with the JAX CLI's meanings
+    p.add_argument("--enable-chunked-prefill", dest="chunked_prefill",
+                   type=int, nargs="?", const=256, default=None,
+                   metavar="CHUNK",
+                   help="prefill long prompts in CHUNK-token steps "
+                        "interleaved with decode (default 256)")
+    p.add_argument("--decode-steps", dest="decode_steps", type=int,
+                   default=1, metavar="N",
+                   help="decode N tokens per dispatch (multi-step "
+                        "scheduling); on the card each block is one CUDA "
+                        "graph replay")
+    p.add_argument("--no-mixed-step", dest="mixed_step",
+                   action="store_false", default=True,
+                   help="disable the fused mixed step (default on: while "
+                        "prompts chunk-prefill and slots decode, one "
+                        "dispatch runs the chunk and the decode block)")
+    p.add_argument("--max-queue", dest="max_queue", type=int, default=None,
+                   metavar="N",
+                   help="admission control: reject (HTTP 429 queue_full) "
+                        "once N requests wait")
+    p.add_argument("--queue-timeout", dest="queue_timeout", type=float,
+                   default=None, metavar="SECONDS",
+                   help="admission control: shed requests that waited "
+                        "past this deadline (HTTP 429 queue_full)")
     for flag, (kw, _) in _NOT_PORTED.items():
         p.add_argument(flag, dest=flag.lstrip("-").replace("-", "_"), **kw)
     return p
@@ -119,7 +139,10 @@ def build_server(args):
     engine = InferenceEngine(
         model, max_slots=args.max_slots, cache_len=args.cache_len,
         eos_id=tok.token_to_id(IM_END),
-        cache_dtype=_KV_DTYPES[args.kv_cache_dtype])
+        cache_dtype=_KV_DTYPES[args.kv_cache_dtype],
+        chunked_prefill=args.chunked_prefill, decode_steps=args.decode_steps,
+        mixed_step=args.mixed_step, max_queue=args.max_queue,
+        queue_timeout_s=args.queue_timeout)
     return OpenAIServer(engine, tok, model_name=args.model_name)
 
 

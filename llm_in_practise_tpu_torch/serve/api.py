@@ -5,7 +5,9 @@ Port of the chat part of ``llm_in_practise_tpu/serve/api.py``:
 - ``POST /v1/chat/completions``, non-streaming and SSE streaming
   (``data:`` chunks, then ``data: [DONE]``);
 - the ChatML generation prompt built from the OpenAI messages;
-- usage accounting, ``GET /v1/models``, ``GET /health``.
+- usage accounting, ``GET /v1/models``, ``GET /health``;
+- 429 ``queue_full`` (``rate_limit_error``) for a request the engine's
+  admission control shed, at submit or after its queue timeout.
 
 Built on the stdlib ``ThreadingHTTPServer``. Handler threads only submit
 requests and read token queues; the engine's own thread does every device
@@ -69,6 +71,19 @@ class OpenAIServer:
         handle = self.engine.submit(prompt_ids, params)
         req_id = schemas.completion_id()
 
+        def queue_full_429(message):
+            # one shape for both shed paths (max_queue at submit, and a
+            # later queue_timeout shed): a gateway's retry keys on it
+            return send_json(429, {"error": {
+                "message": message + " — retry later or against another "
+                                     "replica",
+                "type": "rate_limit_error", "code": "queue_full"}})
+
+        # admission control: a max_queue rejection is synchronous at
+        # submit, so it is answered before any stream starts
+        if handle.finish_reason == "queue_full":
+            return queue_full_429("engine queue full")
+
         def engine_dead_503():
             return send_json(503, {"error": {
                 "message": "engine is not running; retry against another "
@@ -82,6 +97,8 @@ class OpenAIServer:
                 first = handle.next_item()
             except EngineDeadError:
                 return engine_dead_503()
+            if first is _FINISH and handle.finish_reason == "queue_full":
+                return queue_full_429("request timed out waiting for a slot")
 
             def chunks():
                 yield schemas.chat_completion_chunk(
@@ -106,6 +123,8 @@ class OpenAIServer:
             out_ids = handle.result()
         except EngineDeadError:
             return engine_dead_503()
+        if handle.finish_reason == "queue_full":  # queue_timeout shed
+            return queue_full_429("request timed out waiting for a slot")
         text = self.tokenizer.decode(out_ids)
         return send_json(200, schemas.chat_completion_response(
             req_id=req_id, model=req.model, text=text,

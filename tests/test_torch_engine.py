@@ -126,9 +126,8 @@ def test_slot_reuse_and_budget_bookkeeping():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(prefix_cache=True), dict(chunked_prefill=64), dict(decode_steps=4),
-    dict(speculative_k=4), dict(kv_layout="paged"), dict(mesh=object()),
-    dict(adapter_registry=object()), dict(max_queue=4)])
+    dict(prefix_cache=True), dict(speculative_k=4), dict(kv_layout="paged"),
+    dict(mesh=object()), dict(adapter_registry=object())])
 def test_unported_engine_knobs_raise(knob):
     model = tiny_port_model(64, seed=5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

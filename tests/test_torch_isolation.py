@@ -117,10 +117,15 @@ def test_cli_rejects_unported_flags():
 
     base = ["--quantized_dir", "d", "--tokenizer_path", "t"]
     check_not_ported(build_parser().parse_args(base))  # the ported set
+    # the scheduling and admission flags are ported: they parse and pass
+    for extra in (["--enable-chunked-prefill"], ["--decode-steps", "4"],
+                  ["--no-mixed-step"], ["--max-queue", "4"],
+                  ["--queue-timeout", "2.5"]):
+        check_not_ported(build_parser().parse_args(base + extra))
     for extra in (["--enable-prefix-caching"], ["--speculative", "4"],
-                  ["--decode-steps", "4"], ["--kv-layout", "paged"],
+                  ["--kv-layout", "paged"],
                   ["--tensor-parallel-size", "2"], ["--scan-layers"],
-                  ["--lora-modules", "a=b"], ["--enable-chunked-prefill"]):
+                  ["--lora-modules", "a=b"], ["--session-store"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             check_not_ported(build_parser().parse_args(base + extra))
 
