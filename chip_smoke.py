@@ -95,7 +95,24 @@ Phases, in order; any failure exits non-zero:
    every kernel's launches per step must equal the count derived from
    the model (every NF4 forward on the wgmma route), and one more step is
    profiled.
-9. Print the kernel summary (all nine kernels), the card, and the final
+9. Checkpoints (``ckpt``), at Qwen3-8B width with tied embeddings and
+   seeded bf16 weights, ``CKPT_LAYERS`` (18) layers deep (the card's
+   machine takes 45 GiB of disk writes per run), every file deleted after
+   its check: the state written as an HF directory in the published layout
+   (five safetensors shards, an index, ``config.json``); ``convert_hf``
+   to an NF4 and to an int8 export, each served over HTTP by
+   ``serve.build_server`` (the 8 greedy chats, admitted together) with
+   tokens equal to a model quantized in memory from the same state, and
+   B1 / B8 launches counted; ``train --model_dir --adapter_dir`` for two
+   steps (B1, B2, B3-B5 launch; the restored adapter has the trained
+   shapes, f32, a nonzero ``b``); ``merge_lora`` (``model.msgpack``
+   equal to an in-memory merge, with its chunked embedding, and the f32
+   HF export equal after a cast to bf16); ``serve --model_path`` dense,
+   one graph replay per decode step, and ``infer.generate``'s greedy ids
+   for the first prompt equal to a one-slot server's answer on the same
+   model (an 8-slot engine rounds the f32 head otherwise). Bytes,
+   seconds and GB/s of every read and write, host and card peaks.
+10. Print the kernel summary (all nine kernels), the card, and the final
    status line.
 
 Needs the repository checkout beside it (it imports the port) and CUDA.
@@ -105,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import gc
 import json
 import math
@@ -2797,6 +2815,540 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
     return {"launches": counts, "routes": step_routes, "train": out}
 
 
+# ckpt phase: every file of the lifecycle at Qwen3-8B width. The published
+# Qwen/Qwen3-8B checkpoint is five safetensors shards plus an index; its
+# config.json keys below, tied as in the other cells (the published 8B has
+# its own lm_head: the tie is the cells' cut). Depth is cut to 18 of 36
+# layers: the card's machine takes 45 GiB of disk writes per run, deleted
+# files included (a 36-layer run was stopped at 56.4 GiB), and the phase
+# writes 1.71 GiB per layer (bf16 HF dir and model.msgpack, NF4 and int8
+# exports, f32 HF export) plus 6.96 GiB for the embedding: 37.7 GiB at 18.
+CKPT_LAYERS = 18
+CKPT_SHARDS = 5
+CKPT_TRAIN_STEPS = 2
+CKPT_HF_CONFIG = {
+    "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+    "vocab_size": 151936, "hidden_size": 4096, "intermediate_size": 12288,
+    "num_hidden_layers": CKPT_LAYERS, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "max_position_embeddings": 40960,
+    "tie_word_embeddings": True, "torch_dtype": "bfloat16"}
+
+
+def path_bytes(path: str) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def io_row(path: str, seconds: float) -> dict:
+    n = path_bytes(path)
+    return {"bytes": n, "s": seconds, "gb_s": n / seconds / 1e9}
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, sink: dict, key: str):
+    """Time each call of ``module.name`` into ``sink[key]`` while open."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.monotonic()
+        out = fn(*args, **kwargs)
+        sink[key] = time.monotonic() - t0
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def ckpt_state(cfg, seed: int) -> dict:
+    """The phase's seeded bf16 state, on the card, in the port's names."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, bf16 = cfg.hidden_size, torch.bfloat16
+
+    def randn(*shape):
+        return (torch.randn(*shape, device=dev, generator=gen) * 0.02).to(
+            bf16)
+
+    state = {"tok_embed.weight": randn(cfg.vocab_size, d),
+             "ln_f.scale": torch.ones(d, device=dev, dtype=bf16)}
+    for i in range(cfg.n_layer):
+        p = f"blocks.{i}"
+        for name in ("ln1", "ln2"):
+            state[f"{p}.{name}.scale"] = torch.ones(d, device=dev, dtype=bf16)
+        for name in ("q_norm", "k_norm"):
+            state[f"{p}.attn.{name}.scale"] = torch.ones(
+                cfg.head_dim, device=dev, dtype=bf16)
+        for name, (k, n) in PROJ_SHAPES.items():
+            sub = "mlp" if name in ("gate_proj", "up_proj", "down_proj") \
+                else "attn"
+            state[f"{p}.{sub}.{name}.kernel"] = randn(k, n)
+    return state
+
+
+def write_hf_dir(path: str, state: dict) -> None:
+    """``state`` as the published layout: ``CKPT_SHARDS`` bf16 shards of
+    about equal size, ``model.safetensors.index.json``, ``config.json``
+    (fixture code: safetensors' own writer, not the port's)."""
+    import safetensors.torch
+
+    from llm_in_practise_tpu_torch.models.hf_loader import _hf_name
+
+    os.makedirs(path, exist_ok=True)
+    names = list(state)
+    total = sum(t.numel() * t.element_size() for t in state.values())
+    shards, cur, size = [], [], 0
+    for name in names:
+        cur.append(name)
+        size += state[name].numel() * state[name].element_size()
+        if size >= total * (len(shards) + 1) / CKPT_SHARDS:
+            shards.append(cur)
+            cur = []
+    if cur:
+        shards.append(cur)
+    weight_map = {}
+    for i, part in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        tensors = {}
+        for name in part:
+            hf, transpose = _hf_name(name)
+            t = state[name]
+            tensors[hf] = (t.t() if transpose else t).contiguous().cpu()
+            weight_map[hf] = fname
+        safetensors.torch.save_file(tensors, os.path.join(path, fname),
+                                    metadata={"format": "pt"})
+        del tensors
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=2)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(CKPT_HF_CONFIG, f, indent=2)
+
+
+def ckpt_chats() -> list[list[dict]]:
+    """The NF4 serving cell's 8 chats."""
+    return [[{"role": "system", "content": "You are a helpful assistant."},
+             {"role": "user",
+              "content": f"Explain {TOPICS[i]} in a few sentences."}]
+            for i in range(MAX_SLOTS)]
+
+
+def direct_tokens(model, tok, seed: int) -> list[list[int]]:
+    """Greedy tokens of the 8 chats through a fresh engine, all submitted
+    before its first step: the batches the gated HTTP run forms."""
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.engine import (
+        InferenceEngine,
+        SamplingParams,
+    )
+
+    engine = InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+                             eos_id=tok.token_to_id(IM_END),
+                             cache_dtype=torch.bfloat16, seed=seed)
+    params = SamplingParams(temperature=0.0, greedy=True,
+                            max_tokens=MAX_TOKENS)
+    reqs = [engine.submit(prompt_ids(tok, m), params) for m in ckpt_chats()]
+    with torch.inference_mode():
+        while engine.step():
+            pass
+    if engine.error is not None:
+        raise SystemExit(f"engine failed: {engine.error!r}")
+    return [list(r.output_ids) for r in reqs]
+
+
+def served_chats(argv: list[str], tok, timings: dict) -> dict:
+    """``serve.build_server(argv)``, then the 8 chats over HTTP (4
+    streamed), submitted one by one in a fixed order while the engine
+    waits at its next admission, so they are admitted together as in
+    :func:`direct_tokens`. Counters are zeroed before and read after;
+    then the first chat alone."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ckpt import checkpoint as ckpt_mod
+    from llm_in_practise_tpu_torch.quant import io as quant_io
+    from llm_in_practise_tpu_torch.serve.__main__ import (
+        build_parser,
+        build_server,
+    )
+
+    t0 = time.monotonic()
+    with timed_calls(quant_io, "load_packed", timings, "read_s"), \
+            timed_calls(ckpt_mod, "restore_checkpoint", timings, "read_s"):
+        server = build_server(build_parser().parse_args(argv))
+    timings["build_server_s"] = time.monotonic() - t0
+    engine = server.engine
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(*args, **kwargs):
+        req = submit(*args, **kwargs)
+        seen.append(req)
+        return req
+
+    engine.submit = recording_submit
+    gate = threading.Event()
+    gate.set()
+    admit = engine._admit
+
+    def gated_admit():
+        gate.wait()
+        return admit()
+
+    engine._admit = gated_admit
+    port = server.serve(host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{port}"
+
+    def body(i, stream):
+        return {"model": "qwen3-h100", "temperature": 0.0,
+                "max_tokens": MAX_TOKENS, "stream": stream,
+                "messages": ckpt_chats()[i]}
+
+    try:
+        post_chat(base, body(0, False))  # warm-up: builds and captures
+        torch.cuda.synchronize()
+        seen.clear()
+        gate.clear()
+        zero_counters()
+        replays0 = engine.graphs.replays
+        steps0 = (engine.decode_steps_run, engine.prefill_batches_run)
+        t_run = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(MAX_SLOTS) as pool:
+            futs = []
+            for i in range(MAX_SLOTS):
+                futs.append(pool.submit(post_chat, base, body(i, i % 2 == 1)))
+                wait_for(lambda: engine.pending.qsize() == i + 1,
+                         f"chat {i} to queue")
+            gate.set()
+            results = [f.result() for f in futs]
+        wall = time.monotonic() - t_run
+        counts, routes = read_counters(), read_routes()
+        decode_steps = engine.decode_steps_run - steps0[0]
+        prefills = engine.prefill_batches_run - steps0[1]
+        replays = engine.graphs.replays - replays0
+        reqs = list(seen)
+        seen.clear()
+        post_chat(base, body(0, False))
+        solo = list(seen[0].output_ids)
+    finally:
+        server.shutdown()
+        gate.set()
+    if engine.error is not None:
+        raise SystemExit(f"engine failed: {engine.error!r}")
+    if sum(r.get("done", False) for r in results) != MAX_SLOTS // 2 or any(
+            r["finish_reason"] not in ("stop", "length") for r in results):
+        raise SystemExit(f"a chat did not complete or stream: {results}")
+    if replays != decode_steps:
+        raise SystemExit(f"{replays} graph replays for {decode_steps} "
+                         "decode steps: a decode step ran outside its graph")
+    return {"model": engine.model, "solo": solo,
+            "tokens": [list(r.output_ids) for r in reqs],
+            "counts": counts, "routes": routes, "forwards":
+            decode_steps + prefills, "decode_steps": decode_steps,
+            "graph_replays": replays, "wall_s": wall,
+            "ttft_p50_s": statistics.median(r.ttft_s for r in reqs),
+            "tpot_p50_s": statistics.median(r.tpot_s for r in reqs
+                                            if r.tpot_s is not None)}
+
+
+def one_slot_chat(model, tok, messages) -> list[int]:
+    """Greedy tokens of one chat over HTTP from a server whose engine has
+    one slot, on ``model``: its decode runs one row, as ``generate``'s
+    does. (cuBLAS's f32 GEMM of the tied head gives row 0 other rounding
+    at 8 rows than at 1: 9.5e-6 apart in a probe on the card, enough to
+    flip a near-tie of random weights' logits.)"""
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    engine = InferenceEngine(model, max_slots=1, cache_len=CACHE_LEN,
+                             eos_id=tok.token_to_id(IM_END),
+                             cache_dtype=torch.bfloat16)
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(*args, **kwargs):
+        seen.append(submit(*args, **kwargs))
+        return seen[-1]
+
+    engine.submit = recording_submit
+    server = OpenAIServer(engine, tok, model_name="qwen3-h100")
+    port = server.serve(host="127.0.0.1", port=0, background=True)
+    try:
+        post_chat(f"http://127.0.0.1:{port}", {
+            "model": "qwen3-h100", "temperature": 0.0,
+            "max_tokens": MAX_TOKENS, "messages": messages})
+    finally:
+        server.shutdown()
+    if engine.error is not None:
+        raise SystemExit(f"engine failed: {engine.error!r}")
+    return list(seen[0].output_ids)
+
+
+def ckpt_phase(seed: int, card: str, tok, nf4_cell: dict) -> dict:
+    """The lifecycle's files at Qwen3-8B width and full depth: an HF
+    directory written from seeded weights, ``convert_hf`` to NF4 and to
+    int8 exports served over HTTP (tokens equal to a model quantized in
+    memory from the same state), ``train --model_dir --adapter_dir``,
+    ``merge_lora`` (``model.msgpack`` equal to an in-memory merge, its
+    chunked embedding, the f32 HF export), and ``serve --model_path`` with
+    ``infer.generate`` against the server. Each file is deleted after its
+    check."""
+    import resource
+    import shutil
+
+    import torch
+
+    from llm_in_practise_tpu_torch import convert_hf as convert_mod
+    from llm_in_practise_tpu_torch import merge_lora as merge_mod
+    from llm_in_practise_tpu_torch.ckpt.checkpoint import restore_checkpoint
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.infer.generate import generate
+    from llm_in_practise_tpu_torch.models.convert import (
+        lora_from_jax,
+        params_from_jax,
+    )
+    from llm_in_practise_tpu_torch.models.hf_loader import (
+        load_config,
+        load_qwen3,
+    )
+    from llm_in_practise_tpu_torch.peft.lora import LoRAConfig, merge_lora
+    from llm_in_practise_tpu_torch.peft.qlora import quantize_base
+    from llm_in_practise_tpu_torch.quant import io as quant_io
+    from llm_in_practise_tpu_torch.models.qwen3 import Qwen3, Qwen3Config
+    from llm_in_practise_tpu_torch.serve.quantized import QuantizedModel
+    from llm_in_practise_tpu_torch.train import __main__ as train_mod
+
+    t_phase = time.monotonic()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "ckpt_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    hf, tok_path = os.path.join(root, "hf"), os.path.join(root, "tok.json")
+    adapter, merged_dir = os.path.join(root, "adapter"), os.path.join(
+        root, "merged")
+    tok.save(tok_path)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"card": card, "free_disk_gb_at_start":
+           shutil.disk_usage(root).free / 1e9, "io": {}, "serve": {}}
+    io = out["io"]
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        state = ckpt_state(Qwen3Config.from_hf_config(CKPT_HF_CONFIG), seed)
+        t0 = time.monotonic()
+        write_hf_dir(hf, state)
+        io["hf_dir_write"] = io_row(hf, time.monotonic() - t0)
+        log("ckpt: HF dir written:", json.dumps(io["hf_dir_write"]))
+        cfg = load_config(hf)
+        refs = {}
+        for fmt in ("nf4", "int8"):
+            model = QuantizedModel(Qwen3(cfg, device="meta"),
+                                   quantize_base(dict(state), fmt=fmt))
+            refs[fmt] = direct_tokens(model, tok, seed)
+            del model
+            free()
+        del state
+        free()
+
+        launches = {}
+        for fmt, kernel in (("nf4", "nf4_matmul"), ("int8", "int8_matmul")):
+            export = os.path.join(root, fmt)
+            t = {}
+            t0 = time.monotonic()
+            with timed_calls(convert_mod, "load_qwen3", t, "read_s"), \
+                    timed_calls(quant_io, "save_packed", t, "write_s"):
+                convert_mod.main(["--model_dir", hf, "--out_dir", export,
+                                  "--quantization", fmt])
+            t["convert_s"] = time.monotonic() - t0
+            io[f"convert_{fmt}_read_hf"] = io_row(hf, t["read_s"])
+            io[f"convert_{fmt}_write_export"] = io_row(export, t["write_s"])
+            free()
+            res = served_chats(["--quantized_dir", export, "--tokenizer_path",
+                                tok_path, "--max_slots", str(MAX_SLOTS),
+                                "--cache_len", str(CACHE_LEN),
+                                "--kv-cache-dtype", "bfloat16"], tok, t)
+            io[f"serve_{fmt}_read_export"] = io_row(export, t["read_s"])
+            n = res["counts"][kernel]
+            if res["tokens"] != refs[fmt]:
+                raise SystemExit(
+                    f"{fmt}: the served export's tokens differ from the "
+                    "in-memory model's")
+            if (n == 0 or n != 7 * cfg.n_layer * res["forwards"]
+                    or sum(res["counts"].values()) != n):
+                raise SystemExit(f"{kernel} launches {n} != 7 x "
+                                 f"{cfg.n_layer} x {res['forwards']} "
+                                 "forward passes, or "
+                                 f"another kernel served: {res['counts']}")
+            launches[kernel] = n
+            out["serve"][fmt] = {
+                k: res[k] for k in ("forwards", "decode_steps",
+                                    "graph_replays", "wall_s", "ttft_p50_s",
+                                    "tpot_p50_s")}
+            out["serve"][fmt].update(
+                kernel_launches=n, routes=res["routes"][kernel],
+                tokens_equal_in_memory=True,
+                convert_s=t["convert_s"], build_server_s=t["build_server_s"])
+            log(f"ckpt: {fmt} export served:", json.dumps(out["serve"][fmt]))
+            del res
+            free()
+            shutil.rmtree(export)
+
+        # QLoRA from the HF dir; the adapter through the port's codec
+        t = {}
+        zero_counters()
+        t0 = time.monotonic()
+        with timed_calls(train_mod, "load_qwen3", t, "read_s"), \
+                timed_calls(train_mod, "save_named", t, "write_s"):
+            rc = train_mod.main(["--model_dir", hf, "--adapter_dir", adapter,
+                                 "--steps", str(CKPT_TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        train_counts = read_counters()
+        out["train"] = {"rc": rc, "s": time.monotonic() - t0,
+                        "launches": {k: v for k, v in train_counts.items()
+                                     if v}}
+        io["train_read_hf"] = io_row(hf, t["read_s"])
+        io["adapter_write"] = io_row(adapter, t["write_s"])
+        free()
+        train_kernels = ("nf4_matmul", "nf4_matmul_backward", "flash_forward",
+                         "flash_backward_dkv", "flash_backward_dq")
+        if rc != 0 or any(train_counts[k] == 0 for k in train_kernels):
+            raise SystemExit(f"train --model_dir failed or a kernel did not "
+                             f"launch: rc {rc}, {train_counts}")
+        atree, ameta = restore_checkpoint(os.path.join(adapter,
+                                                       "adapter.msgpack"))
+        lcfg = LoRAConfig.from_dict(ameta["lora_config"])
+        want_keys = {f"block_{i}/attn/{p}/kernel" for i in range(cfg.n_layer)
+                     for p in ("q_proj", "v_proj")}
+        shapes_ok = all(
+            tuple(ab["a"].shape) == (PROJ_SHAPES[k.split("/")[2]][0], lcfg.r)
+            and tuple(ab["b"].shape) == (lcfg.r,
+                                         PROJ_SHAPES[k.split("/")[2]][1])
+            and ab["a"].dtype == ab["b"].dtype == torch.float32
+            for k, ab in atree.items())
+        b_moved = all(bool(ab["b"].abs().sum() > 0) for ab in atree.values())
+        out["train"]["adapter"] = {"entries": len(atree),
+                                   "shapes_f32": shapes_ok,
+                                   "b_nonzero": b_moved, "r": lcfg.r}
+        if set(atree) != want_keys or not shapes_ok or not b_moved:
+            raise SystemExit(f"restored adapter is wrong: {out['train']}")
+        log("ckpt: train:", json.dumps(out["train"]))
+
+        # merge: model.msgpack + the f32 HF export
+        t = {}
+        with timed_calls(merge_mod, "load_qwen3", t, "read_s"), \
+                timed_calls(merge_mod, "save_named", t, "msgpack_write_s"), \
+                timed_calls(merge_mod, "save_qwen3", t, "f32_write_s"):
+            merge_mod.main(["--adapter_dir", adapter, "--model_dir", hf,
+                            "--out_dir", merged_dir])
+        msgpack_path = os.path.join(merged_dir, "model.msgpack")
+        f32_path = os.path.join(merged_dir, "model.safetensors")
+        io["merge_read_hf"] = io_row(hf, t["read_s"])
+        io["model_msgpack_write"] = io_row(msgpack_path, t["msgpack_write_s"])
+        io["hf_f32_export_write"] = io_row(f32_path, t["f32_write_s"])
+        out["disk_gb_at_peak"] = path_bytes(root) / 1e9
+        free()
+        import mmap
+
+        with open(msgpack_path, "rb") as f, mmap.mmap(
+                f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+            chunked = mm.rfind(b"__msgpack_chunked_array__") >= 0
+        t0 = time.monotonic()
+        tree, meta = restore_checkpoint(msgpack_path)
+        io["model_msgpack_read"] = io_row(msgpack_path,
+                                          time.monotonic() - t0)
+        restored = params_from_jax(tree, cfg)
+        del tree
+        t0 = time.monotonic()
+        _, base = load_qwen3(hf)
+        io["check_read_hf"] = io_row(hf, time.monotonic() - t0)
+        lora = {n: {k: v.cuda() for k, v in ab.items()}
+                for n, ab in lora_from_jax(atree, cfg).items()}
+        merged = merge_lora(base, lora, lcfg)
+        del base
+        same_msgpack = sorted(restored) == sorted(merged) and all(
+            restored[n].dtype == torch.bfloat16
+            and torch.equal(restored[n].cuda(), merged[n]) for n in merged)
+        del restored
+        shutil.rmtree(hf)
+        t0 = time.monotonic()
+        _, export = load_qwen3(merged_dir)
+        io["hf_f32_export_read"] = io_row(f32_path, time.monotonic() - t0)
+        same_export = sorted(export) == sorted(merged) and all(
+            torch.equal(export[n], merged[n]) for n in merged)
+        del export, merged, lora
+        free()
+        os.remove(f32_path)
+        out["merge"] = {"chunked_embedding": chunked,
+                        "config_matches": meta["config"] == cfg.to_dict(),
+                        "msgpack_equals_in_memory_merge": same_msgpack,
+                        "f32_export_equals": same_export}
+        log("ckpt: merge:", json.dumps(out["merge"]))
+        if not all(out["merge"].values()):
+            raise SystemExit(f"merged checkpoint checks failed: "
+                             f"{out['merge']}")
+
+        # the merged model, dense, behind the server; generate against it
+        t = {}
+        res = served_chats(["--model_path", msgpack_path, "--tokenizer_path",
+                            tok_path, "--max_slots", str(MAX_SLOTS),
+                            "--cache_len", str(CACHE_LEN),
+                            "--kv-cache-dtype", "bfloat16"], tok, t)
+        io["serve_dense_read_msgpack"] = io_row(msgpack_path, t["read_s"])
+        eos = tok.token_to_id(IM_END)
+        first = prompt_ids(tok, ckpt_chats()[0])
+        ids = generate(res["model"], [first], greedy=True,
+                       max_new_tokens=MAX_TOKENS, eos_id=eos,
+                       cache_len=CACHE_LEN, cache_dtype=torch.bfloat16)
+        new = ids[0, len(first):].tolist()
+        new = new[:new.index(eos)] if eos in new else new
+        one_slot = one_slot_chat(res["model"], tok, ckpt_chats()[0])
+        out["serve"]["dense"] = {
+            k: res[k] for k in ("forwards", "decode_steps", "graph_replays",
+                                "wall_s", "ttft_p50_s", "tpot_p50_s")}
+        out["serve"]["dense"].update(
+            kernel_launches=sum(res["counts"].values()),
+            build_server_s=t["build_server_s"],
+            generate_equals_one_slot_server=new == one_slot,
+            generate_equals_8_slot_server_alone=new == res["solo"],
+            generate_equals_8_slot_server_batched=new == res["tokens"][0],
+            generated=len(new))
+        log("ckpt: dense served:", json.dumps(out["serve"]["dense"]))
+        if new != one_slot or not new:
+            raise SystemExit("infer.generate's greedy ids differ from the "
+                             "one-slot server's for the first prompt")
+        del res
+        free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {"ckpt_serve_nf4": launches.get("nf4_matmul", 0),
+                       "ckpt_serve_int8": launches.get("int8_matmul", 0),
+                       "ckpt_train": {k: v for k, v in train_counts.items()
+                                      if v}}
+    out["written_gib"] = sum(row["bytes"] for key, row in io.items()
+                             if "write" in key) / 2**30
+    out["host_peak_rss_gb"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1e6
+    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["nf4_cell"] = {k: nf4_cell[k] for k in ("ttft_p50_s", "tpot_p50_s")}
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2890,6 +3442,11 @@ def main(argv=None) -> int:
     trained = train_phase(N_LAYER, args.seed, card)
     phase_time("train", t0)
     launches = trained["launches"]
+    free()
+    t0 = time.monotonic()
+    ckpt = ckpt_phase(args.seed, card, tok, served["nf4"]["serve"])
+    phase_time("ckpt", t0)
+    ckpt_train = ckpt["launches"]["ckpt_train"]
 
     csrc = "llm_in_practise_tpu_torch/csrc/"
 
@@ -2926,10 +3483,15 @@ def main(argv=None) -> int:
         "thin_exactness": {k: v for k, v in thin_exact.items()
                            if " nf4" in k},
         "launches": (served["nf4"]["launches"] + sched["launches"]
-                     + launches["nf4_matmul"]),
+                     + launches["nf4_matmul"]
+                     + ckpt["launches"]["ckpt_serve_nf4"]
+                     + ckpt_train["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
                              "serve_nf4_sched": sched["launches"],
-                             "train_nf4": launches["nf4_matmul"]}})
+                             "train_nf4": launches["nf4_matmul"],
+                             "ckpt_serve_nf4":
+                                 ckpt["launches"]["ckpt_serve_nf4"],
+                             "ckpt_train": ckpt_train["nf4_matmul"]}})
     table = [summary, {
         "name": "nf4_matmul_backward",
         "source": csrc + "nf4_matmul_bwd.cu",
@@ -2941,8 +3503,10 @@ def main(argv=None) -> int:
                                   KERNEL_TOL for r in b2
                                   if "planted_zero_absmax_rel_err" in r),
         "ptxas": ptxas("nf4_matmul_backward"),
-        "launches": launches["nf4_matmul_backward"],
-        "launches_by_path": {"train_nf4": launches["nf4_matmul_backward"]},
+        "launches": (launches["nf4_matmul_backward"]
+                     + ckpt_train["nf4_matmul_backward"]),
+        "launches_by_path": {"train_nf4": launches["nf4_matmul_backward"],
+                             "ckpt_train": ckpt_train["nf4_matmul_backward"]},
         "route": "cuda"}]
     for name, line, fn in (
             ("flash_forward", 55, "_fwd_kernel (pallas_call at :101)"),
@@ -2958,8 +3522,9 @@ def main(argv=None) -> int:
                       "replaces": f"llm_in_practise_tpu/ops/"
                                   f"flash_attention.py:{line}",
                       "tpu_function": fn, **row,
-                      "launches": launches[name],
-                      "launches_by_path": {"train_nf4": launches[name]},
+                      "launches": launches[name] + ckpt_train[name],
+                      "launches_by_path": {"train_nf4": launches[name],
+                                           "ckpt_train": ckpt_train[name]},
                       "route": "cuda"})
     # B6-B9: launches on the PTQ serving runs and the PTQ step checks
     for name, fmt, src, line, fn, at_decode in (
@@ -2978,6 +3543,8 @@ def main(argv=None) -> int:
             by_path = {f"serve_{fmt}": served[fmt]["launches"], **by_path}
         if name == "int4_matmul":
             by_path["serve_awq"] = awq_res["decode"]["launches"]
+        if name == "int8_matmul":
+            by_path["ckpt_serve_int8"] = ckpt["launches"]["ckpt_serve_int8"]
         row = ptq_summary(ptq_rows, name, case,
                           MAX_SLOTS if at_decode else TRAIN_M)
         row["ptxas"] = ptxas(name)
@@ -3010,6 +3577,7 @@ def main(argv=None) -> int:
     log("serving:", json.dumps({f: {k: v for k, v in r["serve"].items()
                                     if k != "model_check"}
                                 for f, r in served.items()}))
+    log("ckpt summary:", json.dumps(ckpt))
     log("serve_sched summary:", json.dumps(
         {k: v for k, v in sched["sched"].items()
          if k in ("short", "long", "profile", "capture_s", "graph_pool_mib",

@@ -1,4 +1,7 @@
-"""Per-row token sampling (port of ``infer/sampling.py:46-90``).
+"""Token sampling (port of ``infer/sampling.py:17-90``): per-row
+(:func:`sample_token_batched`, the engine's) and unbatched
+(:func:`sample_token`, ``generate``'s), over the same filtering
+(:func:`filter_logits`).
 
 The random draw comes from an explicit ``torch.Generator`` (Gumbel-max
 over the filtered logits, which is what ``jax.random.categorical``
@@ -18,24 +21,12 @@ import torch
 NEG_INF = -1e30
 
 
-def sample_token_batched(generator: torch.Generator | None,
-                         logits: torch.Tensor, *, temperature: torch.Tensor,
-                         top_k: torch.Tensor, top_p: torch.Tensor,
-                         greedy: torch.Tensor, all_greedy: bool | None = None,
-                         noise: torch.Tensor | None = None) -> torch.Tensor:
-    """Next token per row of ``logits`` (B, vocab), each row with its own
-    ``temperature`` (floats), ``top_k`` (ints, 0 disables), ``top_p``
-    (floats, >= 1 disables; 0 keeps only the top token) and ``greedy``
-    (bools). Returns (B,) int64.
-
-    ``all_greedy`` (default: read from ``greedy`` on the device) skips the
-    draw when every row is greedy. ``noise`` (default: drawn here from
-    ``generator``) is the (B, vocab) f32 uniform draw in [0, 1)."""
-    if all_greedy is None:
-        all_greedy = bool(greedy.all())
-    if all_greedy:
-        # every row greedy: nothing to draw (same answer as the full path)
-        return torch.argmax(logits, dim=-1)
+def filter_logits(logits: torch.Tensor, *, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """``logits`` (B, vocab) over each row's temperature, with the tokens
+    that row's top-k and then top-p filters drop set to ``NEG_INF``
+    (``top_k`` 0 and ``top_p`` >= 1 disable; ``top_p`` 0 keeps only the
+    top token)."""
     n_vocab = logits.shape[-1]
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
 
@@ -58,11 +49,58 @@ def sample_token_batched(generator: torch.Generator | None,
     cutoff_logit = torch.amin(
         torch.where(cutoff_mask, torch.inf, sorted_desc), dim=-1, keepdim=True)
     use_p = (top_p < 1.0)[:, None]
-    scaled = torch.where(use_p & (scaled < cutoff_logit), NEG_INF, scaled)
+    return torch.where(use_p & (scaled < cutoff_logit), NEG_INF, scaled)
 
+
+def _gumbel_argmax(scaled: torch.Tensor, generator, noise) -> torch.Tensor:
     u = noise if noise is not None else torch.rand(
         scaled.shape, generator=generator, device=scaled.device,
         dtype=torch.float32)
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
-    sampled = torch.argmax(scaled + gumbel, dim=-1)
+    return torch.argmax(scaled + gumbel, dim=-1)
+
+
+def sample_token(generator: torch.Generator | None, logits: torch.Tensor, *,
+                 temperature: float = 1.0, top_k: int | None = None,
+                 top_p: float | None = None,
+                 greedy: bool = False) -> torch.Tensor:
+    """Next token ids from ``(..., vocab)`` logits, one setting for every
+    row (JAX ``sample_token``): argmax when ``greedy`` or ``temperature``
+    is 0, else a draw from ``generator`` over the filtered logits."""
+    if greedy or temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    flat = logits.reshape(-1, logits.shape[-1])
+    rows = flat.shape[0]
+
+    def full(value, dtype):
+        return torch.full((rows,), value, dtype=dtype, device=flat.device)
+
+    scaled = filter_logits(
+        flat, temperature=full(temperature, torch.float32),
+        top_k=full(top_k or 0, torch.long),
+        top_p=full(1.0 if top_p is None else top_p, torch.float32))
+    return _gumbel_argmax(scaled, generator, None).reshape(logits.shape[:-1])
+
+
+def sample_token_batched(generator: torch.Generator | None,
+                         logits: torch.Tensor, *, temperature: torch.Tensor,
+                         top_k: torch.Tensor, top_p: torch.Tensor,
+                         greedy: torch.Tensor, all_greedy: bool | None = None,
+                         noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Next token per row of ``logits`` (B, vocab), each row with its own
+    ``temperature`` (floats), ``top_k`` (ints, 0 disables), ``top_p``
+    (floats, >= 1 disables; 0 keeps only the top token) and ``greedy``
+    (bools). Returns (B,) int64.
+
+    ``all_greedy`` (default: read from ``greedy`` on the device) skips the
+    draw when every row is greedy. ``noise`` (default: drawn here from
+    ``generator``) is the (B, vocab) f32 uniform draw in [0, 1)."""
+    if all_greedy is None:
+        all_greedy = bool(greedy.all())
+    if all_greedy:
+        # every row greedy: nothing to draw (same answer as the full path)
+        return torch.argmax(logits, dim=-1)
+    scaled = filter_logits(logits, temperature=temperature, top_k=top_k,
+                           top_p=top_p)
+    sampled = _gumbel_argmax(scaled, generator, noise)
     return torch.where(greedy, torch.argmax(logits, dim=-1), sampled)

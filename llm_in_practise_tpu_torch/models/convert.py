@@ -7,7 +7,13 @@ their fields) and returns the port's flat state ``{name: tensor |
 quantized leaf}``, byte for byte. Names map ``block_{i}/attn/q_proj/kernel`` to
 ``blocks.{i}.attn.q_proj.kernel`` and ``tok_embed/embedding`` to
 ``tok_embed.weight``; kernels keep their ``(in, out)`` layout.
-:func:`lora_from_jax` carries a JAX LoRA tree across the same way.
+:func:`lora_from_jax` carries a JAX LoRA tree across the same way. A
+stacked scan-layout tree (``blocks/block/...`` leaves with a leading
+``n_layer`` axis, JAX ``models/qwen3.py:307``) is unstacked on the way
+(:func:`unstack_layer_params`): the port runs the unrolled blocks.
+:func:`params_to_jax` and :func:`lora_to_jax` are the inverse carriers,
+whose trees the JAX package's ``restore_checkpoint``, ``merge_lora`` and
+``Qwen3.apply`` take unchanged.
 """
 
 from __future__ import annotations
@@ -38,10 +44,12 @@ def _has(leaf, *fields) -> bool:
 
 
 def nf4_from_like(leaf) -> NF4Tensor:
+    scale = to_tensor(leaf.absmax_scale)
+    offset = to_tensor(leaf.absmax_offset)
+    if scale.ndim == 1:   # one weight (a stacked leaf has one per layer)
+        offset = offset.reshape(())
     return NF4Tensor(
-        to_tensor(leaf.packed), to_tensor(leaf.absmax_q),
-        to_tensor(leaf.absmax_scale),
-        to_tensor(leaf.absmax_offset).reshape(()),
+        to_tensor(leaf.packed), to_tensor(leaf.absmax_q), scale, offset,
         tuple(int(s) for s in leaf.shape), str(leaf.layout))
 
 
@@ -115,19 +123,58 @@ def expected_names(cfg) -> set[str]:
     return names
 
 
+def _layer(leaf, i: int):
+    """Layer ``i`` of a stacked leaf: every component sliced along axis 0.
+    A quantized leaf's ``shape`` drops its layer axis when it has one
+    (quantized after stacking keeps the per-layer shape)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf[i]
+    if isinstance(leaf, AWQTensor):
+        return AWQTensor(_layer(leaf.q, i), leaf.inv_scale[i])
+    if isinstance(leaf, NF4Tensor):
+        if leaf.absmax_scale.ndim != 2:
+            raise ValueError(
+                "an NF4 leaf quantized over the stacked axis has no layer "
+                "boundaries; quantize each layer, then stack")
+        parts = (leaf.packed, leaf.absmax_q, leaf.absmax_scale,
+                 leaf.absmax_offset)
+        return NF4Tensor(*(p[i] for p in parts), leaf.shape, leaf.layout)
+    if isinstance(leaf, Int4Tensor):
+        shape = leaf.shape[1:] if len(leaf.shape) == 3 else leaf.shape
+        return Int4Tensor(leaf.packed[i], leaf.scales[i], leaf.zeros[i],
+                          leaf.group_size, tuple(shape))
+    if isinstance(leaf, Int8Tensor):
+        shape = leaf.shape[1:] if len(leaf.shape) == 3 else leaf.shape
+        return Int8Tensor(leaf.q[i], leaf.scale[i], tuple(shape))
+    raise TypeError(f"cannot unstack a {type(leaf).__name__}")
+
+
+def unstack_layer_params(flat: dict, n_layer: int) -> dict:
+    """Flat ``{"a/b/c": leaf}`` tree in the scan layout -> the unrolled
+    layout (JAX ``models/qwen3.py:349``): each ``blocks/block/<rest>``
+    leaf becomes ``block_{i}/<rest>`` for every layer; other entries pass
+    through. Leaves are the port's (tensors and quantized leaves)."""
+    out, stacked = {}, {}
+    for path, leaf in flat.items():
+        if path.startswith("blocks/block/"):
+            stacked[path[len("blocks/block/"):]] = leaf
+        else:
+            out[path] = leaf
+    for i in range(n_layer):
+        for rest, leaf in stacked.items():
+            out[f"block_{i}/{rest}"] = _layer(leaf, i)
+    return out
+
+
 def params_from_jax(tree: Mapping, cfg) -> dict:
-    """Flax Qwen3 param tree -> the port's state (see module doc)."""
+    """Flax Qwen3 param tree, unrolled or stacked -> the port's state (see
+    module doc)."""
     if "params" in tree and len(tree) == 1:
         tree = tree["params"]
-    if "blocks" in tree and not any(k.startswith("block_") for k in tree):
-        raise NotImplementedError(
-            "stacked scan-layers trees are not ported; unstack them with "
-            "the JAX package's unstack_layer_params first")
-    state = {}
-    for path, leaf in flatten(tree).items():
-        quant = quant_from_like(leaf)
-        state[port_name(path)] = quant if quant is not None else to_tensor(
-            leaf)
+    flat = {path: quant_from_like(leaf) or to_tensor(leaf)
+            for path, leaf in flatten(tree).items()}
+    flat = unstack_layer_params(flat, cfg.n_layer)
+    state = {port_name(path): leaf for path, leaf in flat.items()}
     want = expected_names(cfg)
     unknown, missing = sorted(set(state) - want), sorted(want - set(state))
     if unknown or missing:
@@ -140,15 +187,49 @@ def params_from_jax(tree: Mapping, cfg) -> dict:
 def lora_from_jax(tree: Mapping, cfg) -> dict:
     """A JAX LoRA tree ``{"block_i/attn/q_proj/kernel": {"a", "b"}}``
     (numpy or torch leaves) -> the port's ``{port_name: {"a", "b"}}``,
-    byte for byte. Every key must name a kernel of ``cfg``'s model."""
-    want = expected_names(cfg)
-    out = {}
+    byte for byte. An adapter trained in the scan layout
+    (``blocks/block/...`` keys, ``a`` and ``b`` stacked over layers, JAX
+    ``peft/lora.py:85-87``) is unstacked. Every key must name a kernel of
+    ``cfg``'s model."""
+    flat = {}
     for path, ab in tree.items():
-        name = port_name(path)
-        if name not in want or not name.endswith(".kernel"):
-            raise ValueError(f"LoRA entry {path!r} names no kernel of the "
-                             "model")
         if set(ab) != {"a", "b"}:
             raise ValueError(f"LoRA entry {path!r} must hold 'a' and 'b'")
-        out[name] = {"a": to_tensor(ab["a"]), "b": to_tensor(ab["b"])}
+        flat[f"{path}/a"] = to_tensor(ab["a"])
+        flat[f"{path}/b"] = to_tensor(ab["b"])
+    flat = unstack_layer_params(flat, cfg.n_layer)
+    want = expected_names(cfg)
+    out = {}
+    for path, t in flat.items():
+        kernel, _, part = path.rpartition("/")
+        name = port_name(kernel)
+        if name not in want or not name.endswith(".kernel"):
+            raise ValueError(f"LoRA entry {kernel!r} names no kernel of the "
+                             "model")
+        out.setdefault(name, {})[part] = t
     return out
+
+
+def params_to_jax(state: Mapping, cfg) -> dict:
+    """The port's state -> a flax Qwen3 param tree (nested dicts,
+    ``block_i/attn/q_proj/kernel``), leaves passed through as they are
+    (tensors on any device, or quantized leaves)."""
+    unknown = sorted(set(state) - expected_names(cfg))
+    if unknown:
+        raise ValueError(f"state names no parameter of the config: "
+                         f"{unknown[:8]}")
+    tree: dict = {}
+    for name, leaf in state.items():
+        *parents, last = flax_path(name).split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree
+
+
+def lora_to_jax(lora: Mapping) -> dict:
+    """The port's ``{port_name: {"a", "b"}}`` -> the JAX LoRA tree
+    ``{"block_i/attn/q_proj/kernel": {"a", "b"}}`` (detached tensors)."""
+    return {flax_path(name): {"a": ab["a"].detach(), "b": ab["b"].detach()}
+            for name, ab in lora.items()}

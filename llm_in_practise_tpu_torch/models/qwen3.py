@@ -10,7 +10,11 @@ SwiGLU MLP, RMSNorm, no biases. The dtype rules follow the flax model:
 - the LM head runs in f32 (a tied head keeps one f32 copy of the
   embedding table rather than casting it on every step).
 
-Unrolled layout only: ``scan_layers=True`` raises. Parameter names follow
+The blocks always run unrolled. ``scan_layers`` is a layout of the JAX
+param tree (one compiled block for XLA's compile time); the port accepts
+the flag and runs the same unrolled blocks, so logits are the same with
+and without it (a stacked tree is unstacked by
+:func:`~.convert.params_from_jax`). Parameter names follow
 the flax paths with ``block_{i}`` written ``blocks.{i}`` (see
 :mod:`.convert`); kernels keep the JAX ``(in, out)`` layout.
 
@@ -240,10 +244,6 @@ class Qwen3(nn.Module):
 
     def __init__(self, cfg: Qwen3Config, *, device=None, dtype=torch.float32):
         super().__init__()
-        if cfg.scan_layers:
-            raise NotImplementedError(
-                "scan_layers=True is not ported: the PyTorch port runs the "
-                "unrolled layout (ROADMAP.md, queue A: later engine paths)")
         if cfg.attn_impl not in ("auto", "dense", "flash"):
             raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
         self.cfg = cfg

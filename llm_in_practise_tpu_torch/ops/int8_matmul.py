@@ -21,7 +21,8 @@ cuBLAS is in ``PERF.md``). The weight is a frozen export:
 :class:`Int8Matmul` differentiates with respect to ``x`` only.
 ``int8_matmul.launches`` and ``int8_matmul_backward.launches`` count the
 kernel launches, and ``int8_matmul.launches_by_route`` the forward's by
-route. Stacked (3-D) leaves are not ported.
+route. A stacked (3-D) leaf raises ``ValueError``: a scan-layout tree is
+unstacked before it reaches a model.
 """
 
 from __future__ import annotations
@@ -39,10 +40,10 @@ from llm_in_practise_tpu_torch.quant.int8 import Int8Tensor
 
 def _two_d(t: Int8Tensor) -> None:
     if t.q.ndim != 2:
-        raise NotImplementedError(
-            f"stacked int8 leaves (q of shape {tuple(t.q.shape)}) are not "
-            "ported; unstack the scan-layers tree first (ROADMAP.md queue A "
-            "item 7)")
+        raise ValueError(
+            f"a stacked int8 leaf (q of shape {tuple(t.q.shape)}) has no "
+            "single weight to multiply; unstack the scan-layout tree first "
+            "(models.convert.unstack_layer_params)")
 
 
 def int8_matmul_reference(x: torch.Tensor, t: Int8Tensor,

@@ -101,10 +101,9 @@ def apply_lora(state: dict, lora: dict, cfg: LoRAConfig) -> dict:
 
 def merge_lora(state: dict, lora: dict, cfg: LoRAConfig) -> dict:
     """``merge_and_unload()`` parity: the adapted weights, detached, on
-    the CPU, for export or serving."""
+    the device they were given on, for export or serving."""
     with torch.no_grad():
-        return {n: t.detach().cpu()
-                for n, t in apply_lora(state, lora, cfg).items()}
+        return {n: t.detach() for n, t in apply_lora(state, lora, cfg).items()}
 
 
 def count_params(tree) -> int:

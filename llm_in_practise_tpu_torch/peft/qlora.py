@@ -1,14 +1,25 @@
 """QLoRA: NF4-quantized frozen base + trainable LoRA factors.
 
-Port of ``llm_in_practise_tpu/peft/qlora.py:22-40, 205-211``: which
-kernels quantize, and the memory report. The base is stored as NF4 and
-streamed through the kernels (:mod:`.fused`); only the LoRA factors
-train.
+Port of ``llm_in_practise_tpu/peft/qlora.py:22-57, 112, 205-211``: which
+kernels quantize, into which format, and the memory report. The base is
+stored as NF4 and streamed through the kernels (:mod:`.fused`); only the
+LoRA factors train. int8 is the W8A16 serving format of
+``convert_hf --quantization int8``.
+
+The JAX package's ``quantize_base_lowmem`` exists because one jitted
+program over the whole tree keeps every leaf's temporaries live at once
+on a 16 GiB TPU. Eager PyTorch quantizes leaf by leaf on the leaf's own
+device and frees each leaf's temporaries before the next, so
+:func:`quantize_base` is that function; a caller that hands over its
+leaves one at a time (``convert_hf``) frees each bf16 leaf as its packed
+leaf lands.
 """
 
 from __future__ import annotations
 
-from llm_in_practise_tpu_torch.quant import nf4
+from llm_in_practise_tpu_torch.quant import int8, nf4
+
+_QUANTIZE_TREE = {"nf4": nf4.quantize_tree, "int8": int8.quantize_tree}
 
 
 def _quant_predicate(name: str, leaf, min_size: int) -> bool:
@@ -22,10 +33,16 @@ def _quant_predicate(name: str, leaf, min_size: int) -> bool:
     return "embed" not in name and "lm_head" not in name
 
 
-def quantize_base(state: dict, *, min_size: int = 4096) -> dict:
-    """NF4-quantize the Dense kernels of a flat state (see
-    :func:`_quant_predicate`); everything else passes through."""
-    return nf4.quantize_tree(
+def quantize_base(state: dict, *, min_size: int = 4096,
+                  fmt: str = "nf4") -> dict:
+    """Quantize the Dense kernels of a flat state (see
+    :func:`_quant_predicate`) to ``fmt`` (``"nf4"``, the QLoRA base, or
+    ``"int8"``, the W8A16 serving format), leaf by leaf on each leaf's
+    device; everything else passes through."""
+    if fmt not in _QUANTIZE_TREE:
+        raise ValueError(f"fmt must be one of {sorted(_QUANTIZE_TREE)}, got "
+                         f"{fmt!r}")
+    return _QUANTIZE_TREE[fmt](
         state, lambda n, leaf: _quant_predicate(n, leaf, min_size))
 
 

@@ -1,15 +1,19 @@
-"""Serve a packed quantized Qwen3 export over the OpenAI API on the card.
+"""Serve a Qwen3 over the OpenAI API on the card.
 
-    python -m llm_in_practise_tpu_torch.serve --quantized_dir DIR \\
-        --tokenizer_path TOK.json [--device cpu] [--max_slots 8] \\
-        [--cache_len 512] [--kv-cache-dtype bfloat16] [--port 8000] \\
-        [--enable-chunked-prefill [256]] [--decode-steps 8] \\
+    python -m llm_in_practise_tpu_torch.serve [--model_path MODEL.msgpack \\
+        | --quantized_dir DIR] --tokenizer_path TOK.json [--device cpu] \\
+        [--max_slots 8] [--cache_len 512] [--kv-cache-dtype bfloat16] \\
+        [--port 8000] [--enable-chunked-prefill [256]] [--decode-steps 8] \\
         [--no-mixed-step] [--max-queue N] [--queue-timeout SECONDS]
 
-``DIR`` holds the ``packed.npz`` + ``manifest.json`` that the JAX
-package's exporters write (``quant/io.py``): NF4, GPTQ/RTN int4, AWQ,
-int8, or a tree that mixes them (the ``"mixed"`` preset: int8 MLP, NF4
-attention); each projection runs its format's Hopper kernel.
+``DIR`` holds the ``packed.npz`` + ``manifest.json`` that either
+package's exporters write (``quant/io.py``, ``convert_hf``): NF4,
+GPTQ/RTN int4, AWQ, int8, or a tree that mixes them (the ``"mixed"``
+preset: int8 MLP, NF4 attention); each projection runs its format's
+Hopper kernel. Without ``--quantized_dir`` the input is ``--model_path``
+(default ``$TMPDIR/qwen3_merged/model.msgpack``), a merged dense model
+written by either package's ``merge_lora``, served in its own dtype.
+``--scan-layers`` is accepted: the port runs the unrolled blocks.
 ``TOK.json`` is a BPE tokenizer saved by either package. The flags of
 the JAX package's ``examples/serve_openai.py`` that this port does not
 have yet are accepted and raise ``NotImplementedError`` naming their
@@ -19,12 +23,13 @@ ROADMAP.md item.
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 
 import torch
 
 # JAX CLI flag -> (argparse kwargs, ROADMAP.md queue A item)
 _NOT_PORTED = {
-    "--model_path": (dict(default=None), 7),
     "--lora-modules": (dict(nargs="*", default=None), 5),
     "--enable-prefix-caching": (dict(action="store_true"), 3),
     "--session-store": (dict(action="store_true"), 5),
@@ -41,7 +46,6 @@ _NOT_PORTED = {
     "--kv-page-size": (dict(type=int, default=None), 3),
     "--kv-pool-tokens": (dict(type=int, default=None), 3),
     "--tp-quantized-collectives": (dict(action="store_true"), 14),
-    "--scan-layers": (dict(action="store_true"), 7),
 }
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -49,10 +53,18 @@ _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m llm_in_practise_tpu_torch.serve")
-    p.add_argument("--quantized_dir", required=True,
+    p.add_argument("--model_path",
+                   default=os.path.join(tempfile.gettempdir(),
+                                        "qwen3_merged", "model.msgpack"),
+                   help="merged model checkpoint (model.msgpack with its "
+                        "model.json), served when --quantized_dir is absent")
+    p.add_argument("--quantized_dir", default=None,
                    help="packed export (packed.npz + manifest.json) in nf4, "
                         "int4 (GPTQ/RTN), awq, int8 or mixed format; the "
                         "export's method is printed at load")
+    p.add_argument("--scan-layers", dest="scan_layers", action="store_true",
+                   help="accepted as in the JAX CLI: the port runs the "
+                        "unrolled blocks either way")
     p.add_argument("--tokenizer_path", required=True)
     p.add_argument("--model_name", default="qwen3-h100")
     p.add_argument("--host", default="0.0.0.0")
@@ -113,10 +125,12 @@ def check_not_ported(args) -> None:
 
 
 def build_server(args):
-    """Load the export, build the model, engine and server (not started)."""
+    """Load the export or the merged model, build the model, engine and
+    server (not started)."""
     from llm_in_practise_tpu_torch.core.device import resolve_device
     from llm_in_practise_tpu_torch.data.bpe import BPETokenizer
     from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.infer.generate import load_model
     from llm_in_practise_tpu_torch.models.convert import params_from_jax
     from llm_in_practise_tpu_torch.models.qwen3 import Qwen3, Qwen3Config
     from llm_in_practise_tpu_torch.quant.io import load_packed
@@ -126,16 +140,24 @@ def build_server(args):
 
     device = resolve_device(args.device)
     tok = BPETokenizer.load(args.tokenizer_path)
-    tree, meta = load_packed(args.quantized_dir)
-    if meta.get("family", "qwen3") != "qwen3":
-        raise NotImplementedError(
-            f"model family {meta.get('family')!r} is not ported; the "
-            "PyTorch server serves Qwen3 exports")
-    cfg = Qwen3Config.from_dict(meta["config"])
-    print(f"packed model: {args.quantized_dir} ({meta.get('method')}, ppl "
-          f"{meta.get('ppl')})", flush=True)
-    state = params_from_jax(tree, cfg)
-    model = QuantizedModel(Qwen3(cfg, device="meta"), state, device=device)
+    if args.quantized_dir:
+        tree, meta = load_packed(args.quantized_dir)
+        if meta.get("family", "qwen3") != "qwen3":
+            raise NotImplementedError(
+                f"model family {meta.get('family')!r} is not ported; the "
+                "PyTorch server serves Qwen3 exports")
+        cfg = Qwen3Config.from_dict(meta["config"])
+        print(f"packed model: {args.quantized_dir} ({meta.get('method')}, "
+              f"ppl {meta.get('ppl')})", flush=True)
+        state = params_from_jax(tree, cfg)
+        model = QuantizedModel(Qwen3(cfg, device="meta"), state,
+                               device=device)
+    else:
+        model = load_model(args.model_path, device)
+        print(f"model: {args.model_path}", flush=True)
+    if args.scan_layers:
+        print("--scan-layers: the port runs the unrolled blocks (the scan "
+              "layout is a layout of the JAX param tree)", flush=True)
     engine = InferenceEngine(
         model, max_slots=args.max_slots, cache_len=args.cache_len,
         eos_id=tok.token_to_id(IM_END),
@@ -150,7 +172,8 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     check_not_ported(args)
     server = build_server(args)
-    print(f"serving {args.quantized_dir} on {args.host}:{args.port} "
+    print(f"serving {args.quantized_dir or args.model_path} on "
+          f"{args.host}:{args.port} "
           f"({server.engine.device}; /v1/chat/completions, /v1/models, "
           "/health)", flush=True)
     server.serve(host=args.host, port=args.port)

@@ -2,27 +2,36 @@
 ``examples/qwen3_qlora_fsdp.py`` for one device).
 
     python -m llm_in_practise_tpu_torch.train --steps 30
+    python -m llm_in_practise_tpu_torch.train --model_dir HF_DIR \
+        --adapter_dir OUT --steps 30
     python -m llm_in_practise_tpu_torch.train --steps 2 --device cpu
 
-Builds a ChatML-aware BPE tokenizer on the self-cognition records, a
-small random Qwen3 (seeded), quantizes its block kernels to NF4
-(double-quantized absmax, bitsandbytes parity), attaches LoRA factors to
-``attn/(q_proj|v_proj)``, and runs ``--steps`` AdamW steps of next-token
-cross-entropy on the assistant turns, printing the loss. Every NF4
+Builds a ChatML-aware BPE tokenizer on the self-cognition records, takes
+a Qwen3 from an HF checkpoint (``--model_dir``, bf16) or else a small
+random one (seeded), quantizes its block kernels to NF4 (double-quantized
+absmax, bitsandbytes parity), attaches LoRA factors to
+``attn/(q_proj|v_proj)``, runs ``--steps`` AdamW steps of next-token
+cross-entropy on the assistant turns, printing the loss, and saves the
+adapter to ``--adapter_dir/adapter.msgpack`` (flax's msgpack format, with
+``lora_config`` and the model ``config`` in ``adapter.json``; JAX's
+``restore_checkpoint`` and ``examples/merge_lora.py`` read it). Every NF4
 projection runs the NF4 kernels forward and backward, and attention the
-flash kernels (forward, dK/dV and dQ). It runs on the card unless
-``--device cpu`` is given (then the kernels' plain versions run); on the
-card it ends by printing each kernel's launch count.
+flash kernels (forward, dK/dV and dQ; head_dim 64 or 128). It runs on the
+card unless ``--device cpu`` is given (then the kernels' plain versions
+run); on the card it ends by printing each kernel's launch count.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 
 import numpy as np
 import torch
 
+from llm_in_practise_tpu_torch.ckpt.checkpoint import save_named
 from llm_in_practise_tpu_torch.core.device import resolve_device
 from llm_in_practise_tpu_torch.data.bpe import BPETokenizer
 from llm_in_practise_tpu_torch.data.sft import (
@@ -34,6 +43,8 @@ from llm_in_practise_tpu_torch.data.sft import (
     substitute_placeholders,
     to_chat_messages,
 )
+from llm_in_practise_tpu_torch.models.convert import lora_to_jax
+from llm_in_practise_tpu_torch.models.hf_loader import load_config, load_qwen3
 from llm_in_practise_tpu_torch.models.qwen3 import (
     Qwen3,
     init_params,
@@ -68,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m llm_in_practise_tpu_torch.train",
         description=__doc__.split("\n\n")[0])
     p.add_argument("--model_dir", default=None,
-                   help="HF Qwen3 checkpoint (not ported yet)")
+                   help="HF Qwen3 checkpoint (config.json + safetensors); "
+                        "default a small random Qwen3")
     p.add_argument("--name", default="MyBot")
     p.add_argument("--author", default="MyTeam")
     p.add_argument("--fsdp", type=int, default=1,
@@ -82,8 +94,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gradient-checkpointing", dest="gradient_checkpointing",
                    action="store_true",
                    help="recompute each block in the backward")
-    p.add_argument("--adapter_dir", default=None,
-                   help="where to save the adapter (not ported yet)")
+    p.add_argument("--adapter_dir",
+                   default=os.path.join(tempfile.gettempdir(),
+                                        "qwen3_qlora_adapter"),
+                   help="where the trained adapter is saved "
+                        "(adapter.msgpack + adapter.json)")
     p.add_argument("--tokenizer_path", default=None,
                    help="BPE tokenizer JSON to load, or to save after "
                         "training one")
@@ -94,14 +109,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_not_ported(args) -> None:
     """Flags of the JAX example that this slice does not port."""
-    if args.model_dir:
-        raise NotImplementedError(
-            "--model_dir needs the HF checkpoint loader, which is not "
-            "ported (ROADMAP.md queue A item 7)")
-    if args.adapter_dir:
-        raise NotImplementedError(
-            "--adapter_dir needs adapter save/restore, which is not ported "
-            "(ROADMAP.md queue A item 13)")
     if args.fsdp > 1:
         raise NotImplementedError(
             "--fsdp > 1 needs the distributed layer, which is not ported "
@@ -129,6 +136,17 @@ def build_tokenizer(records, name: str, author: str,
     return tok
 
 
+def tiny_model(vocab_size: int, max_length: int, gen: torch.Generator,
+               device, *, remat: bool = False):
+    """``(cfg, state)`` of the small random Qwen3 trained without
+    ``--model_dir``: bf16 compute and head_dim 64 (what the card's kernels
+    take), weights drawn from ``gen`` seeded with 0 on ``device``."""
+    cfg = qwen3_config(vocab_size, max_seq_len=max_length, head_dim=64,
+                       compute_dtype="bfloat16", remat=remat)
+    gen.manual_seed(0)
+    return cfg, init_params(cfg, gen, device=device)
+
+
 def shifted_loss(model, batch):
     """Next-token cross-entropy on the assistant labels (the JAX
     example's loss): logits at t predict labels at t + 1."""
@@ -146,14 +164,17 @@ def main(argv=None) -> int:
     records = self_cognition_records(n=64)
     tok = build_tokenizer(records, args.name, args.author,
                           args.tokenizer_path)
-    # bf16 compute and head_dim 64: what the card's kernels take (the
-    # flash kernels raise on any other dtype or head_dim)
-    cfg = qwen3_config(tok.get_vocab_size(), max_seq_len=args.max_length,
-                       head_dim=64, compute_dtype="bfloat16",
-                       remat=args.gradient_checkpointing)
     gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = init_params(cfg, gen, device=device)
+    if args.model_dir:
+        # bf16 compute; head_dim from the config (the flash kernels take
+        # 64 and 128 and raise on any other)
+        cfg = load_config(args.model_dir).replace(
+            remat=args.gradient_checkpointing)
+        params = load_qwen3(args.model_dir, device=device)[1]
+    else:
+        cfg, params = tiny_model(tok.get_vocab_size(), args.max_length,
+                                 gen, device,
+                                 remat=args.gradient_checkpointing)
 
     qparams = quantize_base(params)
     print(memory_report(params, qparams))
@@ -185,6 +206,10 @@ def main(argv=None) -> int:
         if step % 10 == 0 or step == args.steps - 1:
             print(f"step {step} | loss {loss:.4f}", flush=True)
     print(f"trained {args.steps} steps on {device}; final loss {loss:.4f}")
+    path = save_named(
+        args.adapter_dir, lora_to_jax(model.lora_state()), "adapter",
+        metadata={"lora_config": lcfg.to_dict(), "config": cfg.to_dict()})
+    print(f"adapter saved -> {path}")
     if device.type == "cuda":
         print("kernel launches:", ", ".join(
             f"{fn.__name__} {fn.launches}" for fn in (

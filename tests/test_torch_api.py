@@ -186,9 +186,10 @@ def test_cli_serves_a_packed_export_written_by_jax(tmp_path, served):
 def test_packed_int8_leaves_are_not_ported(tmp_path):
     """2-D int8 leaves are ported: they read back byte for byte
     (``tests/test_torch_ptq_serve.py`` serves them). Stacked 3-D leaves
-    (the scan layout) read back too, but the kernel path refuses them,
-    naming the ROADMAP.md item that ports the scan layout."""
+    (the scan layout) read back too; the kernel path refuses one as it
+    stands (``ValueError``), and once unstacked each layer serves."""
     from llm_in_practise_tpu.quant import int8 as jax_int8
+    from llm_in_practise_tpu_torch.models.convert import unstack_layer_params
     from llm_in_practise_tpu_torch.ops.int8_matmul import int8_matmul
 
     rng = np.random.default_rng(0)
@@ -203,5 +204,10 @@ def test_packed_int8_leaves_are_not_ported(tmp_path):
                                       np.asarray(want.scale))
         assert tuple(tree[key].shape) == tuple(want.shape)
     assert int8_matmul(torch.ones(3, 64), tree["w"]).shape == (3, 32)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="unstack_layer_params"):
         int8_matmul(torch.ones(3, 64), tree["s"])
+    layers = unstack_layer_params({"blocks/block/s": tree["s"]}, 2)
+    for i in range(2):
+        got = layers[f"block_{i}/s"]
+        np.testing.assert_array_equal(got.q.numpy(), np.asarray(stacked.q[i]))
+        assert int8_matmul(torch.ones(3, 64), got).shape == (3, 32)

@@ -126,10 +126,22 @@ def test_backward_rounding_point_is_pinned():
 
 
 def test_stacked_leaf_raises_on_the_kernel_path():
+    """A stacked leaf has no single weight: the kernel path raises
+    ``ValueError`` naming ``unstack_layer_params``, whose layers each run."""
+    from llm_in_practise_tpu_torch.models.convert import unstack_layer_params
+
     w = np.random.default_rng(3).normal(0, 0.02, (2, 64, 32)).astype(
         np.float32)
     t = port_int8.quantize(w)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="unstack_layer_params"):
         port_mm.int8_matmul(torch.zeros(4, 64), t)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="unstack_layer_params"):
         port_mm.int8_matmul_backward(torch.zeros(4, 32), t)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (4, 64)).astype(np.float32))
+    layers = unstack_layer_params({"blocks/block/k": t}, 2)
+    for i in range(2):
+        layer = layers[f"block_{i}/k"]
+        assert layer.shape == (64, 32)
+        assert torch.equal(port_mm.int8_matmul(x, layer),
+                           port_mm.int8_matmul(x, port_int8.quantize(w[i])))

@@ -120,11 +120,14 @@ def test_cli_rejects_unported_flags():
     # the scheduling and admission flags are ported: they parse and pass
     for extra in (["--enable-chunked-prefill"], ["--decode-steps", "4"],
                   ["--no-mixed-step"], ["--max-queue", "4"],
-                  ["--queue-timeout", "2.5"]):
+                  ["--queue-timeout", "2.5"], ["--scan-layers"],
+                  ["--model_path", "m.msgpack"]):
         check_not_ported(build_parser().parse_args(base + extra))
+    # --quantized_dir is optional: without it --model_path is the input
+    check_not_ported(build_parser().parse_args(["--tokenizer_path", "t"]))
     for extra in (["--enable-prefix-caching"], ["--speculative", "4"],
                   ["--kv-layout", "paged"],
-                  ["--tensor-parallel-size", "2"], ["--scan-layers"],
+                  ["--tensor-parallel-size", "2"], ["--kv-offload"],
                   ["--lora-modules", "a=b"], ["--session-store"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             check_not_ported(build_parser().parse_args(base + extra))

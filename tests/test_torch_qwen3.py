@@ -116,17 +116,22 @@ def test_config_round_trips_from_hf_and_dict():
 
 
 def test_unported_layouts_raise():
+    # every layout is ported now. scan_layers is a layout of the JAX param
+    # tree: the port accepts the flag and runs the same unrolled blocks, so
+    # the logits are identical. The flash layout builds on the CPU (the
+    # kernels' plain versions) and gives the dense model's logits, with
+    # and without remat
     cfg = Qwen3Config.from_dict(
         jax_qwen3_config(64, n_layer=1).to_dict())
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        Qwen3(cfg.replace(scan_layers=True), device="cpu")
-    # the flash layout is ported: it builds on the CPU (the kernels' plain
-    # versions) and gives the dense model's logits, with and without remat
     dense = tiny_port_model(64, seed=3, n_layer=2)
     state = {n: p.detach() for n, p in dense.named_parameters()}
     ids = torch.from_numpy(np.random.default_rng(4).integers(0, 64, (2, 9)))
     with torch.no_grad():
         want = dense(ids)
+    scan = Qwen3(dense.cfg.replace(scan_layers=True), device="cpu")
+    scan.load_state(state)
+    with torch.no_grad():
+        assert torch.equal(scan(ids), want)
     for remat in (False, True):
         flash = Qwen3(dense.cfg.replace(attn_impl="flash", remat=remat),
                       device="cpu")

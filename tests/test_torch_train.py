@@ -289,6 +289,31 @@ def test_quantize_base_and_memory_report_match_jax(tiny_params):
             == jax_qlora.memory_report(params, jq))
 
 
+def test_quantize_base_int8_matches_jax_lowmem(tiny_params):
+    """``fmt="int8"``: the W8A16 serving format of ``convert_hf``, as JAX
+    ``quantize_base_lowmem(fmt="int8")`` (which the port does not need:
+    eager quantization is leaf by leaf) quantizes the same kernels."""
+    from llm_in_practise_tpu_torch.quant.int8 import Int8Tensor
+
+    params, cfg, state = tiny_params
+    jq = jax_qlora.quantize_base_lowmem(params, min_size=2048, fmt="int8",
+                                        cast_rest_above=None)
+    got = qlora.quantize_base(state, min_size=2048, fmt="int8")
+    jq_flat = params_from_jax(jax.tree.map(np.asarray, jq), cfg)
+    quantized = sorted(n for n, v in got.items() if isinstance(v, Int8Tensor))
+    assert quantized == sorted(n for n, v in jq_flat.items()
+                               if isinstance(v, Int8Tensor))
+    assert len(quantized) == 14
+    for n in quantized:
+        np.testing.assert_array_equal(got[n].q.numpy(), jq_flat[n].q.numpy())
+        # one f32 ulp: XLA divides by 127 as a multiply by its reciprocal
+        np.testing.assert_allclose(got[n].scale.numpy(),
+                                   jq_flat[n].scale.numpy(), rtol=2**-23,
+                                   atol=0)
+    with pytest.raises(ValueError, match="fmt must be one of"):
+        qlora.quantize_base(state, fmt="mixed")
+
+
 def _step_kernel_calls(monkeypatch, fmt: str, n_layer: int) -> dict:
     """Kernel calls of one remat QLoRA step over a ``fmt`` base, counted at
     the kernels' wrappers."""
@@ -369,16 +394,22 @@ def test_remat_step_kernel_calls_over_ptq_bases(monkeypatch, fmt):
 # ---------------------------------------------------------------------- CLI
 
 
-def test_train_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
+def test_train_cli_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
+    adapter = str(tmp_path / "adapter")
     assert train_cli.main(["--steps", "2", "--device", "cpu",
                            "--max_length", "32", "--batch_size", "2",
-                           "--gradient-checkpointing"]) == 0
+                           "--gradient-checkpointing",
+                           "--adapter_dir", adapter]) == 0
     out = capsys.readouterr().out
     assert "step 1 | loss" in out and "trainable params" in out
+    assert f"adapter saved -> {adapter}/adapter.msgpack" in out
     parser = train_cli.build_parser()
-    train_cli.check_not_ported(parser.parse_args([]))
-    for extra, item in ((["--model_dir", "m"], "item 7"),
-                        (["--adapter_dir", "a"], "item 13"),
-                        (["--fsdp", "2"], "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_cli.main(extra + ["--device", "cpu"])
+    # --model_dir and --adapter_dir are ported (tests/test_torch_generate.py
+    # trains from an HF dir); --fsdp > 1 still raises
+    train_cli.check_not_ported(parser.parse_args(
+        ["--model_dir", "m", "--adapter_dir", "a"]))
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        train_cli.main(["--model_dir", str(tmp_path / "m"), "--device", "cpu",
+                        "--adapter_dir", adapter])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        train_cli.main(["--fsdp", "2", "--device", "cpu"])
