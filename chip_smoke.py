@@ -68,6 +68,26 @@ Phases, in order; any failure exits non-zero:
    replayed); and every captured graph replayed once
    against its eager body on copies of the same cache and inputs
    (identical tokens, index and KV bytes).
+   Then ``serve_paged`` on the same model (paged KV and the prefix
+   cache; decode blocks of 8): a 512-token system prompt (32 pages of 16)
+   and 8 user turns of 24-59 tokens, driven step by step through five
+   engines: paged and contiguous without a prefix cache (identical
+   greedy tokens), paged with the page index and contiguous with its row
+   cache (identical tokens; the sharers hit the 32 pages: tokens saved,
+   shared pages at the peak, no leaked reference after the index is
+   cleared), and paged fp8 (the system prompt's layer-0 pages are the
+   saturating fp8 cast of the bf16 engine's, byte for byte; half the
+   pool bytes; where each stream departs from bf16, a reading). Then a
+   pool of 2048 tokens under 8 requests of about 300 + 256 tokens
+   (preemption by recompute must fire, nothing leaks, every emitted
+   token is among the top 5 of a teacher-forced forward); a server built
+   with the CLI's defaults (paged) answers the 8 chats (4 streamed),
+   ``/debug/kv`` reports the paged layout and a 512-token pool answers a
+   700-token prompt with 422; a decode profile of that engine beside a
+   contiguous one (TPOT, device time, busy share, kernels per step, the
+   view's gather and scatter, graphs and pool); and a 2-layer int8 model
+   serves the shared-prefix traffic paged with the tokens of its
+   contiguous run (B8 launched).
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
    Qwen3-8B projection shape (both also at ragged shapes,
    ``NF4_FWD_EDGE_SHAPES`` on both forward routes and
@@ -1260,7 +1280,7 @@ def awq_decode(model, tok, seed: int) -> dict:
     prefill = engine._prefill_batch
 
     def recording_prefill(batch):
-        passes.append(len(batch) * max(len(r.prompt_ids) for _, r in batch))
+        passes.append(len(batch) * max(len(r.prompt_ids) for _, r, _ in batch))
         return prefill(batch)
 
     engine._prefill_batch = recording_prefill
@@ -1328,7 +1348,7 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok,
 
     def recording_prefill(batch):
         prefill_rows.append(len(batch) * max(len(r.prompt_ids)
-                                             for _, r in batch))
+                                             for _, r, _ in batch))
         return prefill(batch)
 
     engine._prefill_batch = recording_prefill
@@ -1639,7 +1659,7 @@ def sched_http(engine, tok, traffic, model_name: str) -> dict:
 
     def recording_prefill(batch):
         prefill_rows.append(len(batch) * max(len(r.prompt_ids)
-                                             for _, r in batch))
+                                             for _, r, _ in batch))
         return prefill(batch)
 
     engine._prefill_batch = recording_prefill
@@ -1809,7 +1829,7 @@ def sched_sampled(engine) -> dict:
                         generator=engine.generator, **arrays)
             toks.append(out["toks"].cpu())
     vocab = engine.model.config.vocab_size
-    res = {"captured": ("decode", n, False) in g.graphs,
+    res = {"captured": ("decode", n, False, None, None) in g.graphs,
            "replays": g.replays - replays0,
            "tokens_in_vocab": all(bool(((t >= 0) & (t < vocab)).all())
                                   for t in toks),
@@ -1838,7 +1858,7 @@ def replay_check(engine, seed: int) -> dict:
     out = {}
     with torch.inference_mode():   # as the engine's steps run
         for key in sorted(engine.graphs.graphs):
-            kind, n, all_greedy = key
+            kind, n, all_greedy = key[:3]
             out[f"{kind} n={n} greedy={all_greedy}"] = replay_one(
                 engine, key, gen, restore)
     restore()
@@ -1860,7 +1880,7 @@ def replay_one(engine, key, gen, restore) -> dict:
     b, c = engine.max_slots, engine.chunked_prefill
     dev = engine.device
     vocab = engine.model.config.vocab_size
-    kind, n, all_greedy = key
+    kind, n, all_greedy = key[:3]
     graph, static_out, _ = g.graphs[key]
     index = torch.arange(b, device=dev) * 97 + 40
     x["tokens"].copy_(torch.randint(0, vocab, (b,), device=dev,
@@ -2011,12 +2031,565 @@ def sched_phase(model, tok, seed: int, card: str) -> dict:
              "tpot_s": r.tpot_s} for r in reqs],
         "direct": direct, "checks": checks, "profile": profile_out,
         "capture_s": {f"{k} n={n} greedy={a}": s
-                      for (k, n, a), s in sorted(g.capture_s.items())},
+                      for (k, n, a, *_), s in sorted(g.capture_s.items())},
         "sampled_block": sampled, "graph_pool_mib": g.pool_bytes / 2**20,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         "replay_check": replay}
     log("serve_sched:", json.dumps(out))
     return {"launches": launches, "routes": http["routes"], "sched": out}
+
+
+# serve_paged: paged KV and the prefix cache (vLLM's --enable-prefix-caching,
+# --kv-cache-dtype fp8 and a page pool below the contiguous reservation,
+# as examples/serve_openai.py:144,243-268 mirrors them) on the NF4 model
+PAGED = dict(decode_steps=8)
+PAGED_PREFIX = 512           # shared system prompt tokens: 32 pages of 16
+PAGED_TURNS = tuple(24 + 5 * i for i in range(MAX_SLOTS))  # user turns
+PAGED_POOL = 2048            # --kv-pool-tokens of the pool-pressure run
+PAGED_PRESSURE_PROMPT = 300  # prompt tokens of a pool-pressure request
+PAGED_PRESSURE_TOKENS = 256  # and its new tokens
+PAGED_INT8_LAYERS = 2
+PAGED_TOP_K = 5              # teacher-forced check: an emitted token is
+#                              among the reference logits' top 5
+
+
+def paged_traffic(tok) -> tuple[list[int], list[list[int]]]:
+    """The shared-prefix traffic, as token ids: a system prompt of exactly
+    ``PAGED_PREFIX`` tokens (ChatML from words of SURVEY.md) and 8 user
+    turns of 24-59 tokens that differ in their first page."""
+    survey = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "SURVEY.md")
+    with open(survey, encoding="utf-8") as f:
+        words = f.read().split()
+    system = prompt_ids(tok, [{"role": "system",
+                               "content": " ".join(words[:1500])}])
+    if len(system) < PAGED_PREFIX:
+        raise SystemExit(f"serve_paged: a system prompt of {len(system)} "
+                         f"tokens, under {PAGED_PREFIX}")
+    turns = []
+    for i, n in enumerate(PAGED_TURNS):
+        text = (f"Question {i + 1}: explain {TOPICS[i]} in a few sentences. "
+                + " ".join(words[2000 + 97 * i:][:200]))
+        turns.append(tok.encode(text)[:n])
+    return system[:PAGED_PREFIX], turns
+
+
+def paged_engine(model, tok, seed: int, **kw):
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    kw.setdefault("cache_dtype", torch.bfloat16)
+    return InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+                           eos_id=tok.token_to_id(IM_END), seed=seed,
+                           **{**PAGED, **kw})
+
+
+def paged_drive(engine, system, turns) -> dict:
+    """The shared-prefix traffic through ``engine``, one step at a time,
+    the same steps for every engine: the system prompt alone (2 new
+    tokens), then turn 0, which decodes two steps before the 7 sharers
+    arrive together. Greedy, ``MAX_TOKENS`` new tokens each."""
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    sp = SamplingParams(greedy=True, max_tokens=MAX_TOKENS)
+    first = engine.submit(system, SamplingParams(greedy=True, max_tokens=2))
+    while engine.step():
+        pass
+    reqs = [engine.submit(system + turns[0], sp)]
+    shared_peak = 0
+
+    def step():
+        nonlocal shared_peak
+        busy = engine.step()
+        if engine.paged is not None:
+            shared_peak = max(shared_peak, engine.paged.pool.shared_pages)
+        return busy
+
+    step()
+    step()
+    reqs += [engine.submit(system + t, sp) for t in turns[1:]]
+    while step():
+        pass
+    if engine.error is not None:
+        raise SystemExit(f"serve_paged: engine failed: {engine.error!r}")
+    pc = engine.prefix_cache
+    g = engine.graphs
+    return {"system": list(first.output_ids),
+            "graphs": [{"kind": k, "n": n, "greedy": a, "width": w,
+                        "capture_s": c}
+                       for (k, n, a, w, _), c in g.capture_s.items()],
+            "graph_pool_mib": g.pool_bytes / 2**20,
+            "tokens": [list(r.output_ids) for r in reqs],
+            "finish": [r.finish_reason for r in reqs],
+            "shared_pages_peak": shared_peak,
+            "hits": pc.hits if pc else 0,
+            "tokens_saved": pc.tokens_saved if pc else 0,
+            "tpot_p50_s": statistics.median(r.tpot_s for r in reqs
+                                            if r.tpot_s is not None)}
+
+
+def first_divergence(a: list[list[int]], b: list[list[int]]) -> list:
+    """Per stream: the first token index where ``a`` and ``b`` part, or
+    None where they are equal."""
+    out = []
+    for x, y in zip(a, b):
+        out.append(None if x == y else next(
+            (i for i, (p, q) in enumerate(zip(x, y)) if p != q),
+            min(len(x), len(y))))
+    return out
+
+
+def system_pages(engine, system) -> list:
+    """The per-layer K and V rows of the system prompt, read back from the
+    pages the prefix index holds for it."""
+    import numpy as np
+    import torch
+
+    P = engine.paged.page_size
+    pages = engine.prefix_cache.lookup(system + [0])
+    try:
+        rows = torch.from_numpy(np.concatenate(
+            [np.arange(p * P, (p + 1) * P) for p in pages])).to(
+                engine.device)
+        return [{k: layer[k].index_select(0, rows).clone()
+                 for k in ("k", "v")} for layer in engine.paged.kv]
+    finally:
+        engine.paged.pool.release(pages)
+
+
+def teacher_forced(model, prompts, streams) -> list:
+    """Per stream, how many of its tokens are among the top
+    ``PAGED_TOP_K`` of the model's logits over the prompt and the stream
+    before it, in one cached forward (dense attention, no flash): a
+    check that tolerates a rounding-level near-tie but not a token from
+    corrupted KV. The forward's kernel launches are not counted."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import launch_count
+
+    before = launch_count.snapshot()
+    out = []
+    try:
+        with torch.inference_mode():
+            for prompt, toks in zip(prompts, streams):
+                if not toks:
+                    out.append(0)
+                    continue
+                ids = torch.tensor([prompt + toks[:-1]],
+                                   device=model.device)
+                cache = model.init_cache(1, ids.shape[1],
+                                         dtype=torch.bfloat16)
+                logits, _ = model(ids, cache=cache)
+                top = logits[0, len(prompt) - 1:].topk(PAGED_TOP_K).indices
+                want = torch.tensor(toks, device=model.device)[:, None]
+                out.append(int((top == want).any(-1).sum()))
+    finally:
+        launch_count.restore(before)
+    return out
+
+
+def gather_scatter_ms(engine, width: int, reps: int = 20) -> dict:
+    """Device ms (CUDA events) of one paged decode step's view gather and
+    window scatter at ``width``, on the engine's pool and block tables."""
+    import numpy as np
+    import torch
+
+    from llm_in_practise_tpu_torch.serve.paged_kv import (
+        gather_view,
+        scatter_window,
+        window_idx,
+    )
+
+    pg, b = engine.paged, engine.max_slots
+    dev = engine.device
+    index = np.minimum(engine._decode_index(), width - 1)
+    gidx = torch.from_numpy(pg.gather_idx(width).reshape(-1).astype(
+        np.int64)).to(dev)
+    vidx = torch.from_numpy(window_idx(index, width, 1).reshape(-1)).to(dev)
+    # the write-back of a step whose rows are all dead: the trash page
+    sidx = torch.from_numpy(pg.scatter_idx(index, np.zeros(b, np.int64), 1)
+                            .reshape(-1).astype(np.int64)).to(dev)
+    idx_t = torch.from_numpy(index).to(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.inference_mode():
+        g, _ = gather_view(pg, gidx, b, idx_t)
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(reps):
+            g, _ = gather_view(pg, gidx, b, idx_t)
+        ev[1].record()
+        for _ in range(reps):
+            scatter_window(pg, g, vidx, sidx)
+        ev[2].record()
+        torch.cuda.synchronize()
+    view_bytes = pg.view_bytes(width)
+    return {"width": width, "view_mib": view_bytes / 2**20,
+            "gather_ms": ev[0].elapsed_time(ev[1]) / reps,
+            "scatter_ms": ev[1].elapsed_time(ev[2]) / reps,
+            # the gather reads and writes the view once: its bound
+            "gather_bound_ms": 2 * view_bytes / H100_BYTES_PER_S * 1e3}
+
+
+def paged_tpot(engine, prompts) -> float:
+    """TPOT p50 of the 8 chats through ``engine``, all submitted at once
+    and stepped to the end (no profiler)."""
+    import torch
+
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    params = SamplingParams(greedy=True, max_tokens=MAX_TOKENS)
+    reqs = [engine.submit(p, params) for p in prompts]
+    while engine.step():
+        pass
+    torch.cuda.synchronize()
+    return statistics.median(r.tpot_s for r in reqs if r.tpot_s is not None)
+
+
+def paged_numerics(seed: int) -> dict:
+    """Readings, not checks: why byte identity needs equal shapes on the
+    card (decode attention over a 512-wide view against the same keys in
+    a 1024-wide one; a 20-row suffix against 20 one-row decodes), and
+    what torch's plain fp8 cast does there past 448."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ops.attention import dense_attention
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).bfloat16()
+
+    # rows at depths up to 500, all inside the narrow view; 4 draws
+    off = torch.tensor([100, 200, 300, 400, 450, 480, 495, 500], device=dev)
+    width_diff = 0.0
+    with torch.inference_mode():
+        for _ in range(4):
+            q, k, v = (rand(8, 1, 32, 128), rand(8, 1024, 8, 128),
+                       rand(8, 1024, 8, 128))
+            wide = dense_attention(q, k, v, q_offset=off)
+            narrow = dense_attention(q, k[:, :512].contiguous(),
+                                     v[:, :512].contiguous(), q_offset=off)
+            width_diff = max(width_diff,
+                             float((wide - narrow).float().abs().max()))
+        qs = rand(1, 20, 32, 128)
+        suffix = dense_attention(qs, k[:1], v[:1], q_offset=300)
+        rows = torch.cat([dense_attention(
+            qs[:, j:j + 1], k[:1], v[:1],
+            q_offset=torch.tensor([300 + j], device=dev)) for j in range(20)],
+            1)
+        cast = torch.tensor([447.0, 500.0, -1e4], device=dev).to(
+            torch.float8_e4m3fn).float().tolist()
+    return {"decode_attention_w512_vs_w1024_max_abs": width_diff,
+            "suffix20_vs_decodes_max_abs":
+            float((suffix - rows).float().abs().max()),
+            "plain_fp8_cast_447_500_-1e4": [str(x) for x in cast]}
+
+
+def paged_http(model, tok, seed: int, card: str) -> dict:
+    """A server built with the CLI's defaults (paged, pages of 16, a pool
+    of max_slots x cache_len) answers the NF4 cell's 8 chats (4
+    streamed); ``GET /debug/kv`` reports the paged layout; a second one
+    with a pool of half a slot's cache answers a 700-token prompt with
+    422, streamed or not."""
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.__main__ import (
+        build_engine,
+        build_parser,
+    )
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+
+    argv = ["--tokenizer_path", "-", "--max_slots", str(MAX_SLOTS),
+            "--cache_len", str(CACHE_LEN), "--kv-cache-dtype", "bfloat16"]
+    eos = tok.token_to_id(IM_END)
+    engine = build_engine(model, build_parser().parse_args(argv), eos_id=eos)
+    small = build_engine(model, build_parser().parse_args(
+        argv + ["--kv-pool-tokens", str(CACHE_LEN // 2)]), eos_id=eos)
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(*args, **kwargs):
+        seen.append(submit(*args, **kwargs))
+        return seen[-1]
+
+    engine.submit = recording_submit
+    servers = [OpenAIServer(e, tok, model_name="qwen3-8b-nf4-paged")
+               for e in (engine, small)]
+    bases = []
+    for server in servers:
+        port = server.serve(host="127.0.0.1", port=0, background=True)
+        bases.append(f"http://127.0.0.1:{port}")
+
+    def body(messages, stream=False):
+        return {"model": "qwen3-8b-nf4-paged", "temperature": 0.0,
+                "max_tokens": MAX_TOKENS, "stream": stream,
+                "messages": messages}
+
+    try:
+        post_chat(bases[0], body(ckpt_chats()[0]))   # warm-up
+        seen.clear()
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(MAX_SLOTS) as pool:
+            futs = [pool.submit(post_chat, bases[0],
+                                body(m, i % 2 == 1))
+                    for i, m in enumerate(ckpt_chats())]
+            results = [f.result() for f in futs]
+        wall = time.monotonic() - t0
+        with urllib.request.urlopen(bases[0] + "/debug/kv", timeout=60) as r:
+            debug_kv = json.loads(r.read())
+        big = long_messages(tok, 700, 0)
+        status, err = post_429(bases[1], body(big))
+        status_stream, err_stream = post_429(bases[1], body(big, True))
+    finally:
+        for s in servers:
+            s.shutdown()
+    if engine.error is not None:
+        raise SystemExit(f"serve_paged: engine failed: {engine.error!r}")
+    reqs = list(seen)
+    res = {"requests": len(results), "wall_s": wall,
+           "streams_done": sum(r.get("done", False) for r in results),
+           "finish": [r["finish_reason"] for r in results],
+           "tpot_p50_s": statistics.median(r.tpot_s for r in reqs
+                                           if r.tpot_s is not None),
+           "ttft_p50_s": statistics.median(r.ttft_s for r in reqs),
+           "debug_kv": {k: debug_kv.get(k) for k in (
+               "layout", "page_size", "pages_total", "pages_free",
+               "pool_bytes", "preemptions", "rejected_too_large")},
+           "too_large": [status, status_stream],
+           "too_large_detail": err.get("error", {}).get("detail")}
+    if (len(results) != MAX_SLOTS or res["streams_done"] != MAX_SLOTS // 2
+            or any(f not in ("stop", "length") for f in res["finish"])
+            or debug_kv.get("layout") != "paged"
+            or debug_kv.get("pages_free") != debug_kv.get("pages_total")
+            or [status, status_stream] != [422, 422]
+            or {err["error"].get("code"), err_stream["error"].get("code")}
+            != {"prompt_too_large"}):
+        raise SystemExit(f"serve_paged: the HTTP checks failed: {res}")
+    res["engine"] = engine
+    return res
+
+
+def paged_profile(engine, contiguous, tok, card: str) -> dict:
+    """The paged engine beside a contiguous one on the same 8 chats (decode
+    steps of 1, as the CLI's default): TPOT p50, a decode profile of
+    each (:func:`profile_decode`), the paged step's gather and scatter,
+    and the graphs the paged engine captured."""
+    prompts = [prompt_ids(tok, m) for m in ckpt_chats()]
+    tpot = {"paged": paged_tpot(engine, prompts),
+            "contiguous": paged_tpot(contiguous, prompts)}
+    prof = {"paged": profile_decode(engine, prompts, "nf4_matmul"),
+            "contiguous": profile_decode(contiguous, prompts, "nf4_matmul")}
+    # the view widths of the profiled steps, and the cache's full width
+    width = engine._paged_width(int(max(len(p) for p in prompts)) + 33)
+    g = engine.graphs
+    return {
+        "card": card, "tpot_p50_s": tpot,
+        "tpot_ratio_paged_over_contiguous": tpot["paged"]
+        / tpot["contiguous"],
+        "profile": prof,
+        "gather_scatter": [gather_scatter_ms(engine, w)
+                           for w in (width, CACHE_LEN)],
+        "graphs": [{"kind": k, "n": n, "greedy": a, "width": w,
+                    "capture_s": s}
+                   for (k, n, a, w, _), s in sorted(
+                       g.capture_s.items(), key=lambda kv: str(kv[0]))],
+        "graph_pool_mib": g.pool_bytes / 2**20}
+
+
+def paged_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
+    """serve_paged on the NF4 model (Qwen3-8B width, full depth): the
+    shared-prefix traffic on five engines, the pool-pressure run, fp8 KV,
+    a 2-layer int8 model, HTTP through the CLI's defaults and a decode
+    profile beside the contiguous layout. Launch counters are zeroed at
+    its start; every check below exits non-zero."""
+    import gc
+
+    import torch
+
+    from llm_in_practise_tpu_torch.models.layers import to_kv_dtype
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    numerics = paged_numerics(seed)
+    log("serve_paged numerics (readings):", json.dumps(numerics))
+    system, turns = paged_traffic(tok)
+    runs = {}
+    keep = {}
+    for name, kw in (("contiguous", {}),
+                     ("paged", {"kv_layout": "paged"}),
+                     ("contiguous_prefix", {"prefix_cache": True}),
+                     ("paged_prefix", {"kv_layout": "paged",
+                                       "prefix_cache": True}),
+                     ("paged_prefix_fp8", {
+                         "kv_layout": "paged", "prefix_cache": True,
+                         "cache_dtype": torch.float8_e4m3fn})):
+        t0 = time.monotonic()
+        engine = paged_engine(model, tok, seed, **kw)
+        runs[name] = paged_drive(engine, system, turns)
+        runs[name]["wall_s"] = time.monotonic() - t0
+        if name.startswith("paged_prefix"):
+            keep[name] = {"pages": system_pages(engine, system),
+                          "pool_bytes": engine.paged.pool_bytes,
+                          "finite": all(bool(torch.isfinite(
+                              layer[k].float()).all())
+                              for layer in engine.paged.kv
+                              for k in ("k", "v"))}
+            engine.prefix_cache.clear()
+            engine.paged.pool.check_leaks(0)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    bf, f8 = keep["paged_prefix"], keep["paged_prefix_fp8"]
+    f8_layers = [all(torch.equal(
+        to_kv_dtype(b[k], torch.float8_e4m3fn).view(torch.uint8),
+        f[k].view(torch.uint8)) for k in ("k", "v"))
+        for b, f in zip(bf["pages"], f8["pages"])]
+    shared = {
+        "prefix_tokens": len(system), "turn_tokens": list(PAGED_TURNS),
+        "paged_equals_contiguous":
+            runs["paged"]["tokens"] == runs["contiguous"]["tokens"]
+            and runs["paged"]["system"] == runs["contiguous"]["system"],
+        "paged_prefix_equals_contiguous_prefix":
+            runs["paged_prefix"]["tokens"]
+            == runs["contiguous_prefix"]["tokens"],
+        "tokens_saved": runs["paged_prefix"]["tokens_saved"],
+        "tokens_saved_contiguous": runs["contiguous_prefix"]["tokens_saved"],
+        "shared_pages_peak": runs["paged_prefix"]["shared_pages_peak"],
+        # readings: a prefix hit computes the suffix with other shapes
+        # than a cold prefill (cuBLAS and the kernels round by shape)
+        "prefix_hit_vs_cold_first_divergence": first_divergence(
+            runs["paged_prefix"]["tokens"], runs["contiguous"]["tokens"]),
+        "tpot_p50_s": {k: r["tpot_p50_s"] for k, r in runs.items()},
+        "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+        "graphs": {k: r["graphs"] for k, r in runs.items()},
+        "graph_pool_mib": {k: r["graph_pool_mib"] for k, r in runs.items()},
+        "finish": runs["paged"]["finish"]}
+    fp8 = {"layer0_pages_equal_saturating_cast": f8_layers[0],
+           "layers_equal": sum(f8_layers),
+           "pool_bytes": [f8["pool_bytes"], bf["pool_bytes"]],
+           "pool_finite": f8["finite"],
+           "stream_departs_from_bf16_at": first_divergence(
+               runs["paged_prefix_fp8"]["tokens"],
+               runs["paged_prefix"]["tokens"])}
+    del keep, bf, f8
+    log("serve_paged shared prefix:", json.dumps(shared))
+    log("serve_paged fp8:", json.dumps(fp8))
+    if not (shared["paged_equals_contiguous"]
+            and shared["paged_prefix_equals_contiguous_prefix"]
+            and shared["tokens_saved"] >= (MAX_SLOTS - 1) * PAGED_PREFIX
+            and shared["shared_pages_peak"] >= PAGED_PREFIX // 16):
+        raise SystemExit(f"serve_paged: the shared-prefix checks failed: "
+                         f"{shared}")
+    if not (fp8["layer0_pages_equal_saturating_cast"] and fp8["pool_finite"]
+            and 2 * fp8["pool_bytes"][0] == fp8["pool_bytes"][1]):
+        raise SystemExit(f"serve_paged: the fp8 checks failed: {fp8}")
+
+    # pool pressure: 8 x (300 + 256) tokens of demand on a 2048-token pool
+    t0 = time.monotonic()
+    docs = [prompt_ids(tok, long_messages(tok, PAGED_PRESSURE_PROMPT, 311 * i))
+            for i in range(MAX_SLOTS)]
+    sp = SamplingParams(greedy=True, max_tokens=PAGED_PRESSURE_TOKENS)
+    out = {}
+    for name, kw in (("contiguous", {}),
+                     ("paged", {"kv_layout": "paged", "prefix_cache": True,
+                                "kv_pool_tokens": PAGED_POOL})):
+        engine = paged_engine(model, tok, seed, **kw)
+        reqs = [engine.submit(d, sp) for d in docs]
+        while engine.step():
+            pass
+        if engine.error is not None:
+            raise SystemExit(f"serve_paged: engine failed: {engine.error!r}")
+        out[name] = {"tokens": [list(r.output_ids) for r in reqs],
+                     "finish": [r.finish_reason for r in reqs]}
+        if engine.paged is not None:
+            out[name]["preemptions"] = engine.preemptions
+            out[name]["pool_mib"] = engine.paged.pool_bytes / 2**20
+            engine.prefix_cache.clear()
+            engine.paged.pool.check_leaks(0)
+            out[name]["leaks"] = 0
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    streams = out["paged"]["tokens"]
+    agree = teacher_forced(model, docs, streams)
+    pressure = {
+        "prompt_tokens": [len(d) for d in docs],
+        "pool_tokens": PAGED_POOL, "pool_mib": out["paged"]["pool_mib"],
+        "preemptions": out["paged"]["preemptions"],
+        "finish": out["paged"]["finish"],
+        "tokens": [len(t) for t in streams],
+        f"top{PAGED_TOP_K}_agreeing": agree,
+        "identical_to_contiguous": sum(
+            a == b for a, b in zip(streams, out["contiguous"]["tokens"])),
+        "first_divergence_from_contiguous": first_divergence(
+            streams, out["contiguous"]["tokens"]),
+        "wall_s": time.monotonic() - t0}
+    log("serve_paged pool pressure:", json.dumps(pressure))
+    if (pressure["preemptions"] < 1 or agree != pressure["tokens"]
+            or any(f not in ("stop", "length") for f in pressure["finish"])
+            or any(n != PAGED_PRESSURE_TOKENS
+                   for n, f in zip(pressure["tokens"], pressure["finish"])
+                   if f == "length")):
+        raise SystemExit(f"serve_paged: the pool-pressure checks failed: "
+                         f"{pressure}")
+
+    http = paged_http(model, tok, seed, card)
+    engine = http.pop("engine")
+    log("serve_paged http:", json.dumps(http))
+    contiguous = paged_engine(model, tok, seed, decode_steps=1)
+    profile = paged_profile(engine, contiguous, tok, card)
+    del engine, contiguous
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("serve_paged profile:", json.dumps(profile))
+    counts, routes = read_counters(), read_routes()
+
+    # a 2-layer int8 model: the shared-prefix traffic paged and contiguous
+    cfg, int8_model = build_model("int8", PAGED_INT8_LAYERS, seed)
+    int8 = {}
+    for name, kw in (("contiguous", {}), ("paged", {"kv_layout": "paged"})):
+        engine = paged_engine(int8_model, tok, seed, **kw)
+        before = read_counters()["int8_matmul"]
+        int8[name] = paged_drive(engine, system, turns)
+        int8[name]["int8_launches"] = read_counters()["int8_matmul"] - before
+        del engine
+    del int8_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_res = {"layers": PAGED_INT8_LAYERS,
+                "paged_equals_contiguous":
+                    int8["paged"]["tokens"] == int8["contiguous"]["tokens"],
+                "int8_launches_paged": int8["paged"]["int8_launches"]}
+    log("serve_paged int8:", json.dumps(int8_res))
+    if not (int8_res["paged_equals_contiguous"]
+            and int8_res["int8_launches_paged"] > 0):
+        raise SystemExit(f"serve_paged: the int8 checks failed: {int8_res}")
+    counts_all = read_counters()
+    nf4_routes = routes["nf4_matmul"]
+    if not (nf4_routes["thin"] and nf4_routes["wgmma"]):
+        raise SystemExit(f"serve_paged: B1 did not launch on both routes: "
+                         f"{nf4_routes}")
+    res = {"card": card, "layers": N_LAYER, "max_slots": MAX_SLOTS,
+           "cache_len": CACHE_LEN, **PAGED, "shared_prefix": shared,
+           "fp8": fp8, "pool_pressure": pressure, "http": http,
+           "profile": profile, "int8": int8_res, "numerics": numerics,
+           "nf4_cell_tpot_p50_s": nf4_cell["tpot_p50_s"],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "phase_wall_s": time.monotonic() - t_phase}
+    log("serve_paged:", json.dumps({k: v for k, v in res.items()
+                                    if k in ("phase_wall_s",
+                                             "max_memory_allocated_gib",
+                                             "nf4_cell_tpot_p50_s")}))
+    return {"paged": res, "launches": counts["nf4_matmul"],
+            "routes": nf4_routes,
+            "int8_launches": counts_all["int8_matmul"]
+            - counts["int8_matmul"]}
 
 
 def flash_bound(b: int, length: int, h: int, d: int, products: int,
@@ -2942,11 +3515,13 @@ def ckpt_chats() -> list[list[dict]]:
 
 
 def direct_tokens(model, tok, seed: int) -> list[list[int]]:
-    """Greedy tokens of the 8 chats through a fresh engine, all submitted
-    before its first step: the batches the gated HTTP run forms."""
+    """Greedy tokens of the 8 chats through a fresh engine in the CLI's
+    default KV layout (the served engines'), all submitted before its
+    first step: the batches the gated HTTP run forms."""
     import torch
 
     from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.__main__ import build_parser
     from llm_in_practise_tpu_torch.serve.engine import (
         InferenceEngine,
         SamplingParams,
@@ -2954,7 +3529,9 @@ def direct_tokens(model, tok, seed: int) -> list[list[int]]:
 
     engine = InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
                              eos_id=tok.token_to_id(IM_END),
-                             cache_dtype=torch.bfloat16, seed=seed)
+                             cache_dtype=torch.bfloat16, seed=seed,
+                             kv_layout=build_parser().get_default(
+                                 "kv_layout"))
     params = SamplingParams(temperature=0.0, greedy=True,
                             max_tokens=MAX_TOKENS)
     reqs = [engine.submit(prompt_ids(tok, m), params) for m in ckpt_chats()]
@@ -2970,8 +3547,10 @@ def served_chats(argv: list[str], tok, timings: dict) -> dict:
     """``serve.build_server(argv)``, then the 8 chats over HTTP (4
     streamed), submitted one by one in a fixed order while the engine
     waits at its next admission, so they are admitted together as in
-    :func:`direct_tokens`. Counters are zeroed before and read after;
-    then the first chat alone."""
+    :func:`direct_tokens`: once to build the kernels and capture every
+    graph the run takes (each paged view width has its own), then with
+    the counters zeroed before and read after; then the first chat
+    alone."""
     import torch
 
     from llm_in_practise_tpu_torch.ckpt import checkpoint as ckpt_mod
@@ -3013,15 +3592,8 @@ def served_chats(argv: list[str], tok, timings: dict) -> dict:
                 "max_tokens": MAX_TOKENS, "stream": stream,
                 "messages": ckpt_chats()[i]}
 
-    try:
-        post_chat(base, body(0, False))  # warm-up: builds and captures
-        torch.cuda.synchronize()
-        seen.clear()
+    def gated_batch():
         gate.clear()
-        zero_counters()
-        replays0 = engine.graphs.replays
-        steps0 = (engine.decode_steps_run, engine.prefill_batches_run)
-        t_run = time.monotonic()
         with concurrent.futures.ThreadPoolExecutor(MAX_SLOTS) as pool:
             futs = []
             for i in range(MAX_SLOTS):
@@ -3029,7 +3601,17 @@ def served_chats(argv: list[str], tok, timings: dict) -> dict:
                 wait_for(lambda: engine.pending.qsize() == i + 1,
                          f"chat {i} to queue")
             gate.set()
-            results = [f.result() for f in futs]
+            return [f.result() for f in futs]
+
+    try:
+        gated_batch()   # warm-up: builds and captures
+        torch.cuda.synchronize()
+        seen.clear()
+        zero_counters()
+        replays0 = engine.graphs.replays
+        steps0 = (engine.decode_steps_run, engine.prefill_batches_run)
+        t_run = time.monotonic()
+        results = gated_batch()
         wall = time.monotonic() - t_run
         counts, routes = read_counters(), read_routes()
         decode_steps = engine.decode_steps_run - steps0[0]
@@ -3419,8 +4001,13 @@ def main(argv=None) -> int:
             free()         # the serving phase's engine, cache and graphs
             t0 = time.monotonic()
             sched = sched_phase(model, tok, args.seed, card)
-            del model
             phase_time("serve_sched", t0)
+            free()         # serve_sched's engine, cache and graphs
+            t0 = time.monotonic()
+            paged = paged_phase(model, tok, args.seed, card,
+                                served[fmt]["serve"])
+            del model
+            phase_time("serve_paged", t0)
         free()
     t0 = time.monotonic()
     awq_res = awq_check(tok, args.seed)
@@ -3476,6 +4063,7 @@ def main(argv=None) -> int:
         **fwd_routes("nf4", MAX_SLOTS, {
             "serve_nf4": served["nf4"]["routes"],
             "serve_nf4_sched": sched["routes"],
+            "serve_nf4_paged": paged["routes"],
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
         **decode_fields(decode, "nf4"),
@@ -3483,11 +4071,12 @@ def main(argv=None) -> int:
         "thin_exactness": {k: v for k, v in thin_exact.items()
                            if " nf4" in k},
         "launches": (served["nf4"]["launches"] + sched["launches"]
-                     + launches["nf4_matmul"]
+                     + paged["launches"] + launches["nf4_matmul"]
                      + ckpt["launches"]["ckpt_serve_nf4"]
                      + ckpt_train["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
                              "serve_nf4_sched": sched["launches"],
+                             "serve_nf4_paged": paged["launches"],
                              "train_nf4": launches["nf4_matmul"],
                              "ckpt_serve_nf4":
                                  ckpt["launches"]["ckpt_serve_nf4"],
@@ -3545,6 +4134,7 @@ def main(argv=None) -> int:
             by_path["serve_awq"] = awq_res["decode"]["launches"]
         if name == "int8_matmul":
             by_path["ckpt_serve_int8"] = ckpt["launches"]["ckpt_serve_int8"]
+            by_path["serve_paged_int8"] = paged["int8_launches"]
         row = ptq_summary(ptq_rows, name, case,
                           MAX_SLOTS if at_decode else TRAIN_M)
         row["ptxas"] = ptxas(name)
@@ -3578,6 +4168,10 @@ def main(argv=None) -> int:
                                     if k != "model_check"}
                                 for f, r in served.items()}))
     log("ckpt summary:", json.dumps(ckpt))
+    log("serve_paged summary:", json.dumps(
+        {k: v for k, v in paged["paged"].items()
+         if k in ("profile", "phase_wall_s", "max_memory_allocated_gib",
+                  "nf4_cell_tpot_p50_s")}))
     log("serve_sched summary:", json.dumps(
         {k: v for k, v in sched["sched"].items()
          if k in ("short", "long", "profile", "capture_s", "graph_pool_mib",

@@ -38,6 +38,17 @@ def cache_positions(index: torch.Tensor | int, batch: int, length: int, *,
     return (index + ar)[None, :].expand(batch, length)
 
 
+def to_kv_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in the cache's dtype. A float8 cache saturates: values past
+    the format's largest finite value (448 in e4m3fn) store that value,
+    where a plain cast gives NaN on the card (and JAX's cast NaN from
+    about 464 on). Below it the bytes are the plain cast's."""
+    if dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        top = torch.finfo(dtype).max
+        x = x.clamp(-top, top)
+    return x.to(dtype)
+
+
 def cache_update(buf: torch.Tensor, new: torch.Tensor,
                  index: torch.Tensor) -> torch.Tensor:
     """Write ``new`` (B, L, ...) into ``buf`` (B, max_len, ...) at ``index``.
@@ -50,7 +61,7 @@ def cache_update(buf: torch.Tensor, new: torch.Tensor,
     """
     b, l = new.shape[:2]
     max_len = buf.shape[1]
-    new = new.to(buf.dtype)
+    new = to_kv_dtype(new, buf.dtype)
     if isinstance(index, int):
         start = min(max(index, 0), max_len - l)
         buf.narrow(1, start, l).copy_(new)

@@ -2,8 +2,10 @@
 
     python -m llm_in_practise_tpu_torch.serve [--model_path MODEL.msgpack \\
         | --quantized_dir DIR] --tokenizer_path TOK.json [--device cpu] \\
-        [--max_slots 8] [--cache_len 512] [--kv-cache-dtype bfloat16] \\
-        [--port 8000] [--enable-chunked-prefill [256]] [--decode-steps 8] \\
+        [--max_slots 8] [--cache_len 512] [--kv-cache-dtype bfloat16|fp8] \\
+        [--kv-layout paged|contiguous] [--kv-page-size 16] \\
+        [--kv-pool-tokens N] [--enable-prefix-caching] [--port 8000] \\
+        [--enable-chunked-prefill [256]] [--decode-steps 8] \\
         [--no-mixed-step] [--max-queue N] [--queue-timeout SECONDS]
 
 ``DIR`` holds the ``packed.npz`` + ``manifest.json`` that either
@@ -13,7 +15,10 @@ preset: int8 MLP, NF4 attention); each projection runs its format's
 Hopper kernel. Without ``--quantized_dir`` the input is ``--model_path``
 (default ``$TMPDIR/qwen3_merged/model.msgpack``), a merged dense model
 written by either package's ``merge_lora``, served in its own dtype.
-``--scan-layers`` is accepted: the port runs the unrolled blocks.
+``--scan-layers`` is accepted: the port runs the unrolled blocks; as in
+the JAX CLI it needs ``--kv-layout contiguous``. The KV layout defaults
+to ``paged``, as the JAX CLI's does; ``fp8`` stores the KV as
+``torch.float8_e4m3fn`` (a saturating cast).
 ``TOK.json`` is a BPE tokenizer saved by either package. The flags of
 the JAX package's ``examples/serve_openai.py`` that this port does not
 have yet are accepted and raise ``NotImplementedError`` naming their
@@ -31,7 +36,6 @@ import torch
 # JAX CLI flag -> (argparse kwargs, ROADMAP.md queue A item)
 _NOT_PORTED = {
     "--lora-modules": (dict(nargs="*", default=None), 5),
-    "--enable-prefix-caching": (dict(action="store_true"), 3),
     "--session-store": (dict(action="store_true"), 5),
     "--session-ttl": (dict(type=float, default=None), 5),
     "--tensor-parallel-size": (dict(type=int, default=1), 14),
@@ -43,12 +47,11 @@ _NOT_PORTED = {
     "--trace-file": (dict(default=None), 6),
     "--ttft-slo": (dict(type=float, default=None), 6),
     "--tpot-slo": (dict(type=float, default=None), 6),
-    "--kv-page-size": (dict(type=int, default=None), 3),
-    "--kv-pool-tokens": (dict(type=int, default=None), 3),
     "--tp-quantized-collectives": (dict(action="store_true"), 14),
 }
 
-_KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "fp8": torch.float8_e4m3fn}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,8 +79,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache_len", type=int, default=512)
     p.add_argument("--kv-cache-dtype", dest="kv_cache_dtype",
                    default="float32", choices=["float32", "bfloat16", "fp8"])
-    p.add_argument("--kv-layout", dest="kv_layout", default="contiguous",
-                   choices=["contiguous", "paged"])
+    p.add_argument("--kv-layout", dest="kv_layout", default="paged",
+                   choices=["paged", "contiguous"],
+                   help="KV cache layout: 'paged' (default) carves one pool "
+                        "into pages behind per-slot block tables (admission "
+                        "reserves actual pages, prefixes share refcounted "
+                        "pages); 'contiguous' gives each slot a cache_len "
+                        "region")
+    p.add_argument("--kv-page-size", dest="kv_page_size", type=int,
+                   default=16, metavar="TOKENS",
+                   help="tokens per KV page (paged layout)")
+    p.add_argument("--kv-pool-tokens", dest="kv_pool_tokens", type=int,
+                   default=None, metavar="TOKENS",
+                   help="page-pool capacity in tokens (paged layout); "
+                        "default max_slots*cache_len")
+    p.add_argument("--enable-prefix-caching", dest="prefix_caching",
+                   action="store_true",
+                   help="reuse prompt-prefix KV across requests (paged: "
+                        "shared refcounted pages; contiguous: copied rows)")
     # scheduling and admission control, with the JAX CLI's meanings
     p.add_argument("--enable-chunked-prefill", dest="chunked_prefill",
                    type=int, nargs="?", const=256, default=None,
@@ -115,13 +134,15 @@ def check_not_ported(args) -> None:
             raise NotImplementedError(
                 f"{flag} is not ported to the PyTorch server yet "
                 f"(ROADMAP.md queue A item {item})")
-    if args.kv_layout == "paged":
-        raise NotImplementedError(
-            "--kv-layout paged is not ported yet (ROADMAP.md queue A item 3)")
-    if args.kv_cache_dtype == "fp8":
-        raise NotImplementedError(
-            "--kv-cache-dtype fp8 is not ported yet (ROADMAP.md queue A "
-            "item 3)")
+
+
+def validate_args(args, error) -> None:
+    """The JAX CLI's own argument check (``examples/serve_openai.py:95``):
+    the scan layout serves contiguous KV only."""
+    if args.scan_layers and args.kv_layout == "paged":
+        error("--scan-layers serves with --kv-layout contiguous only "
+              "(the paged pool supports the unrolled cache layout; pass "
+              "--kv-layout contiguous explicitly)")
 
 
 def build_server(args):
@@ -135,7 +156,6 @@ def build_server(args):
     from llm_in_practise_tpu_torch.models.qwen3 import Qwen3, Qwen3Config
     from llm_in_practise_tpu_torch.quant.io import load_packed
     from llm_in_practise_tpu_torch.serve.api import OpenAIServer
-    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
     from llm_in_practise_tpu_torch.serve.quantized import QuantizedModel
 
     device = resolve_device(args.device)
@@ -158,18 +178,28 @@ def build_server(args):
     if args.scan_layers:
         print("--scan-layers: the port runs the unrolled blocks (the scan "
               "layout is a layout of the JAX param tree)", flush=True)
-    engine = InferenceEngine(
-        model, max_slots=args.max_slots, cache_len=args.cache_len,
-        eos_id=tok.token_to_id(IM_END),
-        cache_dtype=_KV_DTYPES[args.kv_cache_dtype],
-        chunked_prefill=args.chunked_prefill, decode_steps=args.decode_steps,
-        mixed_step=args.mixed_step, max_queue=args.max_queue,
-        queue_timeout_s=args.queue_timeout)
+    engine = build_engine(model, args, eos_id=tok.token_to_id(IM_END))
     return OpenAIServer(engine, tok, model_name=args.model_name)
 
 
+def build_engine(model, args, *, eos_id: int | None):
+    """The engine the CLI's ``args`` describe, over a loaded model."""
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    return InferenceEngine(
+        model, max_slots=args.max_slots, cache_len=args.cache_len,
+        eos_id=eos_id, cache_dtype=_KV_DTYPES[args.kv_cache_dtype],
+        chunked_prefill=args.chunked_prefill, decode_steps=args.decode_steps,
+        mixed_step=args.mixed_step, kv_layout=args.kv_layout,
+        kv_page_size=args.kv_page_size, kv_pool_tokens=args.kv_pool_tokens,
+        prefix_cache=args.prefix_caching, max_queue=args.max_queue,
+        queue_timeout_s=args.queue_timeout)
+
+
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    validate_args(args, parser.error)
     check_not_ported(args)
     server = build_server(args)
     print(f"serving {args.quantized_dir or args.model_path} on "

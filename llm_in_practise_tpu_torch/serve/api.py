@@ -7,12 +7,16 @@ Port of the chat part of ``llm_in_practise_tpu/serve/api.py``:
 - the ChatML generation prompt built from the OpenAI messages;
 - usage accounting, ``GET /v1/models``, ``GET /health``;
 - 429 ``queue_full`` (``rate_limit_error``) for a request the engine's
-  admission control shed, at submit or after its queue timeout.
+  admission control shed, at submit or after its queue timeout;
+- 422 ``prompt_too_large`` with the page math for a prompt that can never
+  fit a paged engine's pool (JAX ``api.py:484-497``);
+- ``GET /debug/kv``: the engine's KV layout report (JAX ``api.py:1123``).
 
 Built on the stdlib ``ThreadingHTTPServer``. Handler threads only submit
 requests and read token queues; the engine's own thread does every device
-operation. ``/metrics``, ``/v1/embeddings``, the debug routes and the
-disaggregation handoff are not ported yet (ROADMAP.md queue A items 5-6).
+operation. ``/metrics``, ``/v1/embeddings``, the other debug routes and
+the disaggregation handoff are not ported yet (ROADMAP.md queue A items
+5-6).
 """
 
 from __future__ import annotations
@@ -79,6 +83,20 @@ class OpenAIServer:
                                      "replica",
                 "type": "rate_limit_error", "code": "queue_full"}})
 
+        # a paged prompt that can never fit the pool is a client error,
+        # not load: 422 with the page math, at submit, before any stream
+        if handle.finish_reason == "too_large":
+            detail = self.engine.page_capacity_detail(len(prompt_ids))
+            return send_json(422, {"error": {
+                "message": (
+                    "prompt can never fit this replica's KV page pool: "
+                    f"{detail['pages_needed']} pages needed (prompt "
+                    f"{detail['prompt_tokens']} tokens + 1 at page_size "
+                    f"{detail['page_size']}) vs {detail['pages_capacity']} "
+                    "pages capacity"),
+                "type": "invalid_request_error",
+                "code": "prompt_too_large",
+                "detail": detail}})
         # admission control: a max_queue rejection is synchronous at
         # submit, so it is answered before any stream starts
         if handle.finish_reason == "queue_full":
@@ -163,6 +181,8 @@ class OpenAIServer:
             def do_GET(self):
                 if self.path == "/health":
                     return self._json(200, {"status": "ok"})
+                if self.path == "/debug/kv":
+                    return self._json(200, server.engine.debug_kv())
                 if self.path == "/v1/models":
                     return self._json(200, {
                         "object": "list",

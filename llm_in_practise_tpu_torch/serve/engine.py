@@ -1,10 +1,12 @@
-"""Continuous-batching inference engine, contiguous KV core.
+"""Continuous-batching inference engine.
 
-Port of ``llm_in_practise_tpu/serve/engine.py`` (the contiguous layout):
+Port of ``llm_in_practise_tpu/serve/engine.py``:
 
-- **Slot-based KV cache**: one ``(max_slots, cache_len, n_kv_head,
-  head_dim)`` buffer pair per layer. Requests are admitted into free slots
-  mid-flight; every step decodes all slots in one batched forward.
+- **Slot-based KV cache**, in one of two layouts: ``"contiguous"``, one
+  ``(max_slots, cache_len, n_kv_head, head_dim)`` buffer pair per layer,
+  or ``"paged"``, a page pool behind per-slot block tables
+  (:mod:`.paged_kv`). Requests are admitted into free slots mid-flight;
+  every step decodes all slots in one batched forward.
 - **Per-slot positions**: the host keeps each slot's depth and hands the
   forward a ``(max_slots,)`` index vector; writes land per slot and the
   causal mask uses per-slot offsets.
@@ -21,6 +23,14 @@ Port of ``llm_in_practise_tpu/serve/engine.py`` (the contiguous layout):
   mixed step and admission control, over the shared bodies of
   :mod:`.mixed_step`; on the card each decode block and fused step is one
   CUDA graph replay (:mod:`.graphs`).
+- **Paged KV** (JAX ``engine.py:1436-1877`` and the paged host paths):
+  admission reserves the pages a prompt needs, decode grows a slot a
+  page at a time, a dry pool preempts the youngest slot by recompute,
+  and each paged step gathers the slots' pages into a transient view,
+  runs the unchanged step body on it and scatters the fresh rows back.
+- **Prefix caching**: the paged layout shares physical pages through
+  :class:`~.prefix_cache.PagedPrefixIndex` (copy-on-write); the
+  contiguous layout copies rows through :class:`~.prefix_cache.PrefixCache`.
 
 Threading: HTTP handler threads call :meth:`InferenceEngine.submit`,
 which touches no tensor; one background thread runs :meth:`step` and
@@ -46,6 +56,20 @@ from llm_in_practise_tpu_torch.serve.mixed_step import (
     batched_chunk,
     plan_decode_block,
 )
+from llm_in_practise_tpu_torch.serve.paged_kv import (
+    PagedHit,
+    PagedKV,
+    gather_view,
+    pages_for,
+    scatter_window,
+    window_idx,
+)
+from llm_in_practise_tpu_torch.serve.prefix_cache import (
+    PagedPrefixIndex,
+    PrefixCache,
+    PrefixEntry,
+    slice_cache_rows,
+)
 
 _log = logging.getLogger(__name__)
 
@@ -63,6 +87,7 @@ class SamplingParams:
 
 
 _FINISH = object()  # sentinel closing a request's token queue
+_UNSET = object()   # "not looked up yet" (a prefix hit may be None)
 
 
 class EngineDeadError(RuntimeError):
@@ -87,6 +112,15 @@ class Request:
     output_ids: list[int] = dataclasses.field(default_factory=list)
     engine: "InferenceEngine | None" = dataclasses.field(
         default=None, repr=False, compare=False)
+    # paged preemption by recompute: the request re-enters the queue with
+    # ``prompt_ids`` extended to everything already emitted but the last
+    # token, ``resume_last`` holding that token (its KV is the next
+    # decode's to write) and ``resume_budget`` the tokens still owed;
+    # re-admission resumes decoding without emitting or sampling
+    resume_last: int | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    resume_budget: int = dataclasses.field(
+        default=0, repr=False, compare=False)
 
     def next_item(self, poll_s: float = 1.0):
         """Next queue item: a token id or the finish sentinel. The wait is
@@ -157,6 +191,13 @@ class InferenceEngine:
       request finishes at once with ``finish_reason="queue_full"`` and no
       tokens.
 
+    - ``kv_layout``: ``"contiguous"`` or ``"paged"`` (``kv_page_size``
+      tokens per page, a pool of ``kv_pool_tokens``, by default
+      ``max_slots * cache_len``). A paged prompt that can never fit the
+      pool finishes at submit with ``finish_reason="too_large"``.
+    - ``prefix_cache``: ``True`` or a :class:`~.prefix_cache.PrefixCache`
+      (its budget knobs carry over to the paged index).
+
     On the card each decode block and each fused mixed step is one CUDA
     graph replay (:mod:`.graphs`).
     """
@@ -168,21 +209,24 @@ class InferenceEngine:
                  speculative_k: int | None = None, draft_model=None,
                  decode_steps: int = 1, prefill_budget: int = 1,
                  mixed_step: bool = True, kv_layout: str = "contiguous",
-                 adapter_registry=None, max_queue: int | None = None,
+                 kv_page_size: int = 16, kv_pool_tokens: int | None = None,
+                 adapter_registry=None, kv_pool=None, handoff=None,
+                 session_store=None, max_queue: int | None = None,
                  queue_timeout_s: float | None = None):
-        if prefix_cache:
-            raise _not_ported("prefix_cache", 3, "prefix KV reuse")
         if speculative_k is not None or draft_model is not None:
             raise _not_ported("speculative_k", 4, "speculative decoding")
-        if kv_layout != "contiguous":
-            if kv_layout == "paged":
-                raise _not_ported("kv_layout='paged'", 3, "paged KV")
+        if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
                              f"got {kv_layout!r}")
         if mesh is not None:
             raise _not_ported("mesh", 14, "sharded serving")
         if adapter_registry is not None:
             raise _not_ported("adapter_registry", 5, "LoRA serving")
+        if kv_pool is not None or handoff is not None:
+            raise _not_ported("kv_pool / handoff", 5,
+                              "KV tiers and the disaggregated handoff")
+        if session_store is not None:
+            raise _not_ported("session_store", 5, "session-native serving")
         if chunked_prefill is not None and chunked_prefill < 1:
             raise ValueError(
                 f"chunked_prefill must be >= 1, got {chunked_prefill}")
@@ -211,12 +255,45 @@ class InferenceEngine:
         self.queue_timeout_s = queue_timeout_s
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self.cache = model.init_cache(max_slots, self.cache_len,
-                                      dtype=cache_dtype)
+        # KV layout: the contiguous cache, or the page pool (no contiguous
+        # cache exists then: every paged step gathers a transient view)
+        self.paged: PagedKV | None = None
+        self.cache = None
+        if kv_layout == "paged":
+            self.paged = PagedKV(
+                model, max_slots=max_slots, cache_len=self.cache_len,
+                page_size=kv_page_size,
+                pool_tokens=(kv_pool_tokens if kv_pool_tokens is not None
+                             else max_slots * self.cache_len),
+                dtype=cache_dtype)
+        else:
+            self.cache = model.init_cache(max_slots, self.cache_len,
+                                          dtype=cache_dtype)
+        self.preemptions = 0            # paged pool-pressure preemptions
+        self.rejected_too_large = 0     # prompts that can NEVER fit the pool
+        self._paged_admit_blocked = False
+        # prefix caching (vLLM APC): the paged layout shares physical
+        # pages through the page index, whose LRU the pool reclaims from
+        # before admission fails; the contiguous layout copies rows
+        if self.paged is not None:
+            idx = None
+            if prefix_cache:
+                kw = {}
+                if isinstance(prefix_cache, PrefixCache):
+                    kw = dict(max_tokens=prefix_cache.max_tokens,
+                              min_prefix=prefix_cache.min_prefix)
+                idx = PagedPrefixIndex(self.paged.pool, **kw)
+                self.paged.pool.reclaim = idx.evict_pages
+            self.prefix_cache = idx
+        elif prefix_cache is True:
+            self.prefix_cache = PrefixCache()
+        else:
+            self.prefix_cache = prefix_cache or None
         self.graphs = StepGraphs(model, self.cache, max_slots=max_slots,
                                  chunk=chunked_prefill,
                                  decode_steps=decode_steps,
-                                 capture=self.device.type == "cuda")
+                                 capture=self.device.type == "cuda",
+                                 paged=self.paged)
 
         # host-side slot table: slot_len mirrors each slot's cache depth,
         # so no finish check ever waits on the device
@@ -231,12 +308,17 @@ class InferenceEngine:
         self._top_k = np.zeros((max_slots,), np.int64)
         self._top_p = np.ones((max_slots,), np.float32)
         self._greedy = np.zeros((max_slots,), bool)
+        # a ready slot's whole sequence: the prompt, then every emitted
+        # token (the last one's KV is the next decode's to write); the
+        # paged layout registers its pages from it and preemption
+        # requeues it as the resumed prompt
+        self.slot_hist: list[list[int] | None] = [None] * max_slots
 
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self._uid = itertools.count()
         self._lock = threading.Lock()
         # serializes the max_queue check-then-put (two HTTP threads must
-        # not both see depth N-1) and the shed count
+        # not both see depth N-1) and the shed and too-large counts
         self._submit_lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -245,8 +327,9 @@ class InferenceEngine:
         self._mixed_fallbacks_logged: set[str] = set()
         # counters: forward passes by kind (decode tokens stepped over
         # every slot; one-shot prefill batches; batched chunks over every
-        # slot, the fused step's included; single-slot chunks), blocks,
-        # sheds, and step-path dispatches (the JAX DispatchMeter's count)
+        # slot, the fused step's included; single-slot chunks and
+        # suffixes), blocks, sheds, and step-path dispatches (the JAX
+        # DispatchMeter's count)
         self.decode_steps_run = 0
         self.prefill_batches_run = 0
         self.chunk_batches_run = 0
@@ -260,13 +343,19 @@ class InferenceEngine:
 
     # --- submission ----------------------------------------------------------
 
-    def submit(self, prompt_ids, params: SamplingParams | None = None) -> Request:
+    def submit(self, prompt_ids, params: SamplingParams | None = None, *,
+               kv_entry=None, session_id: str | None = None) -> Request:
         """Queue a request; safe from any thread (touches no tensor). Past
-        ``max_queue`` waiting requests it is shed at once."""
+        ``max_queue`` waiting requests it is shed at once; a paged prompt
+        that can never fit the pool finishes at once as ``too_large``."""
         params = params or SamplingParams()
         if params.constraint is not None:
             raise _not_ported("SamplingParams.constraint", 5,
                               "structured output")
+        if kv_entry is not None:
+            raise _not_ported("kv_entry", 5, "the disaggregated handoff")
+        if session_id is not None:
+            raise _not_ported("session_id", 5, "session-native serving")
         prompt_ids = list(map(int, prompt_ids))
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -274,6 +363,17 @@ class InferenceEngine:
         if len(prompt_ids) > max_prompt:  # sliding-window crop
             prompt_ids = prompt_ids[-max_prompt:]
         req = Request(next(self._uid), prompt_ids, params, engine=self)
+        if (self.paged is not None
+                and not self.paged.fits_ever(len(prompt_ids) + 1)):
+            # its pages and the first decode's exceed the pool even when
+            # empty: fail now with a reason the API answers with 422,
+            # not after aging in the queue
+            with self._submit_lock:
+                self.rejected_too_large += 1
+            req.finish_time = time.monotonic()
+            req.finish_reason = "too_large"
+            req.tokens.put(_FINISH)
+            return req
         with self._submit_lock:
             shed = (self.max_queue is not None
                     and self.pending.qsize() >= self.max_queue)
@@ -298,47 +398,67 @@ class InferenceEngine:
 
     def _admit(self) -> bool:
         """Shed the stale head of the queue, then move pending requests into
-        free slots: long prompts start a chunked prefill, the rest prefill
-        together in one batched forward."""
+        free slots: prefix hits and long prompts take their own paths
+        (:meth:`_begin_prefill`), the rest prefill together in one batched
+        forward. A dry page pool stops admission for this step."""
         timeout_s = self.queue_timeout_s
         if timeout_s is not None:
-            # FIFO: staleness is monotone from the head
+            # FIFO: staleness is monotone from the head; a preempted
+            # request resumes a live stream and is never shed
             now = time.monotonic()
             while True:
                 with self.pending.mutex:
                     head = self.pending.queue[0] if self.pending.queue else None
-                    if head is None or now - head.submit_time <= timeout_s:
+                    if (head is None or head.resume_last is not None
+                            or now - head.submit_time <= timeout_s):
                         break
                     self.pending.queue.popleft()
                 self._shed(head)
+        self._paged_admit_blocked = False
         admitted = False
-        batch: list[tuple[int, Request]] = []
+        batch: list[tuple[int, Request, int]] = []
+        deferred: list[tuple[int, Request, int]] = []
+        seen: set[tuple[int, ...]] = set()
         for slot in range(self.max_slots):
             if self.slot_req[slot] is not None:
                 continue
+            if self._paged_admit_blocked:
+                break   # the pool could not cover the last admission
             req = None
             while req is None:
                 try:
                     req = self.pending.get_nowait()
                 except queue.Empty:
                     break
-                if (timeout_s is not None
+                if (timeout_s is not None and req.resume_last is None
                         and time.monotonic() - req.submit_time > timeout_s):
                     self._shed(req)
                     req = None
             if req is None:
                 break
             plen = len(req.prompt_ids)
-            self.slot_req[slot] = req   # reserved; activated after prefill
-            self.slot_ready[slot] = False
-            if self._should_chunk(0, plen):
-                self.slot_prefill[slot] = {"req": req, "plen": plen,
-                                           "done": 0, "last_logits": None}
+            hit = self._lookup_prefix(req, plen)
+            if hit is None and not self._should_chunk(0, plen):
+                self.slot_req[slot] = req   # reserved; activated after prefill
+                self.slot_ready[slot] = False
+                key = tuple(req.prompt_ids)
+                if (self.prefix_cache is not None
+                        and plen >= self.prefix_cache.min_prefix):
+                    if key in seen:
+                        # a duplicate of a prompt prefilling in this
+                        # burst: a prefix hit once the batch stored it
+                        deferred.append((slot, req, plen))
+                        admitted = True
+                        continue
+                    seen.add(key)
+                batch.append((slot, req, plen))
             else:
-                batch.append((slot, req))
+                self._begin_prefill(req, slot, plen, hit)
             admitted = True
         if batch:
             self._prefill_batch(batch)
+        for slot, req, plen in deferred:
+            self._begin_prefill(req, slot, plen)   # a fresh lookup
         return admitted
 
     def _chunk_span(self, rem: int) -> int:
@@ -361,37 +481,135 @@ class InferenceEngine:
         return self._chunked_fits(done, rem) and (
             rem > self.chunked_prefill or not self._oneshot_fits(done, rem))
 
-    def _prefill_batch(self, batch: list[tuple[int, Request]]) -> None:
+    def _lookup_prefix(self, req: Request, plen: int):
+        """This request's prefix hit: a :class:`~.paged_kv.PagedHit` in
+        the paged layout, a :class:`~.prefix_cache.PrefixEntry` in the
+        contiguous one (L1 only: the JAX kv-pool tiers are queue A item
+        5), or None. Every hit's suffix fits: the port's one-shot writes
+        exactly the suffix's rows."""
+        if self.prefix_cache is None:
+            return None
+        if self.paged is not None:
+            return self._paged_lookup(req)
+        return self.prefix_cache.lookup(req.prompt_ids)
+
+    def _begin_prefill(self, req: Request, slot: int, plen: int,
+                       hit=_UNSET) -> None:
+        """Route one admitted request: full prefix hit -> the stored rows
+        and logits; a long remainder (chunked prefill on) -> one chunk per
+        step; otherwise the suffix (or, cold, the prompt) at once."""
+        if hit is _UNSET:
+            hit = self._lookup_prefix(req, plen)
+        if self.paged is not None:
+            return self._paged_begin_prefill(req, slot, plen, hit)
+        if hit is not None:
+            self._insert_rows(slot, hit.rows)
+            if hit.length == plen:
+                self._activate(slot, req, plen, hit.last_logits)
+                return
+        done = hit.length if hit is not None else 0
+        if self._should_chunk(done, plen - done):
+            self.slot_req[slot] = req   # reserved; activated after prefill
+            self.slot_ready[slot] = False
+            self.slot_prefill[slot] = {"req": req, "plen": plen,
+                                       "done": done, "last_logits": None}
+            return
+        if hit is None:
+            self._prefill_batch([(slot, req, plen)])
+            return
+        suffix = req.prompt_ids[done:]
+        last = self._chunk_slot(slot, suffix, done, width=len(suffix))
+        self._store_prefix(req, plen, self._slot_rows(slot, plen), last)
+        self._activate(slot, req, plen, last)
+
+    def _prefill_batch(self, batch: list[tuple[int, Request, int]]) -> None:
+        """One-shot prefill of several prompts in one forward, right-padded
+        to the longest. In the paged layout each member first reserves
+        its prompt's pages (+1 decode token); a dry pool requeues it and
+        stops admission for this step."""
+        if self.paged is not None:
+            kept, blocked = [], []
+            for slot, req, plen in batch:
+                if (not self._paged_admit_blocked
+                        and self.paged.extend(slot, plen + 1)):
+                    kept.append((slot, req, plen))
+                else:
+                    self.slot_req[slot] = None
+                    self.slot_ready[slot] = False
+                    self._paged_admit_blocked = True
+                    blocked.append(req)
+            # in reverse, so the oldest blocked member ends at the head
+            with self.pending.mutex:
+                for req in reversed(blocked):
+                    self.pending.queue.appendleft(req)
+            batch = kept
+            if not batch:
+                return
         dev = self.device
         n = len(batch)
-        lens = [len(req.prompt_ids) for _, req in batch]
+        lens = [plen for _, _, plen in batch]
         width = max(lens)
         ids = np.zeros((n, width), np.int64)
-        for j, (_, req) in enumerate(batch):
-            ids[j, :lens[j]] = req.prompt_ids
+        for j, (_, req, plen) in enumerate(batch):
+            ids[j, :plen] = req.prompt_ids
         pre = self.model.init_cache(n, width, dtype=self.cache_dtype)
         hidden, pre = self.model(torch.from_numpy(ids).to(dev), cache=pre,
                                  return_hidden=True)
         last_pos = torch.tensor(lens, device=dev) - 1
         last = hidden[torch.arange(n, device=dev), last_pos]     # (n, D)
         logits = self.model.head(last).to(torch.float32)         # (n, V)
-        slots = torch.tensor([s for s, _ in batch], device=dev)
-        for eng, layer in zip(self.cache, pre):
-            eng["k"][slots, :width] = layer["k"]
-            eng["v"][slots, :width] = layer["v"]
+        slots = [s for s, _, _ in batch]
+        if self.paged is not None:
+            self.paged.write_rows(
+                pre, self.paged.rows_scatter_idx(slots, lens, width))
+        else:
+            idx = torch.tensor(slots, device=dev)
+            for eng, layer in zip(self.cache, pre):
+                eng["k"][idx, :width] = layer["k"]
+                eng["v"][idx, :width] = layer["v"]
         first = sample_token_batched(
             self.generator, logits,
             temperature=torch.tensor(
-                [r.params.temperature for _, r in batch], device=dev),
-            top_k=torch.tensor([r.params.top_k for _, r in batch], device=dev),
-            top_p=torch.tensor([r.params.top_p for _, r in batch], device=dev),
-            greedy=torch.tensor([r.params.greedy for _, r in batch],
+                [r.params.temperature for _, r, _ in batch], device=dev),
+            top_k=torch.tensor([r.params.top_k for _, r, _ in batch],
+                               device=dev),
+            top_p=torch.tensor([r.params.top_p for _, r, _ in batch],
+                               device=dev),
+            greedy=torch.tensor([r.params.greedy for _, r, _ in batch],
                                 device=dev),
         ).cpu().numpy()
         self.prefill_batches_run += 1
         self.dispatches_total += 1
-        for j, (slot, req) in enumerate(batch):
-            self._activate_with_token(slot, req, lens[j], int(first[j]))
+        for j, (slot, req, plen) in enumerate(batch):
+            if self.paged is not None:
+                self._paged_store_prefix(req, plen, slot)
+            elif self.prefix_cache is not None:
+                self._store_prefix(req, plen, slice_cache_rows(
+                    [{k: layer[k][j:j + 1] for k in ("k", "v")}
+                     for layer in pre], plen), logits[j:j + 1])
+            self._activate_with_token(slot, req, plen, int(first[j]))
+
+    def _insert_rows(self, slot: int, rows) -> None:
+        """Copy stored prefix rows into ``slot``'s first positions."""
+        for layer, r in zip(self.cache, rows):
+            for key in ("k", "v"):
+                layer[key][slot, :r[key].shape[1]] = r[key][0]
+
+    def _slot_rows(self, slot: int, width: int) -> list:
+        """A copy of ``slot``'s first ``width`` KV rows (a prefix entry)."""
+        return slice_cache_rows([{k: layer[k][slot:slot + 1]
+                                  for k in ("k", "v")}
+                                 for layer in self.cache], width)
+
+    def _store_prefix(self, req: Request, plen: int, rows,
+                      last_logits) -> None:
+        """Keep a finished prompt's rows and last logits in the
+        contiguous layout's prefix cache."""
+        if self.prefix_cache is None:
+            return
+        self.prefix_cache.put(req.prompt_ids, PrefixEntry(
+            length=plen, bucket=rows[0]["k"].shape[1], rows=rows,
+            last_logits=last_logits))
 
     def _prefill_entries(self) -> list[tuple[int, dict, list[int]]]:
         """(slot, state, next chunk's token ids) of every mid-prefill slot."""
@@ -420,23 +638,31 @@ class InferenceEngine:
         """Advance every mid-prefill slot one chunk per budget unit: several
         together in one batched chunk over every slot, a lone one (or any,
         when an occupied row lacks the chunk's dead-write window) through
-        the single-slot chunk. Then activate finished prompts."""
+        the single-slot chunk; in the paged layout always the batched
+        chunk (discarded writes go to the trash page). Then activate
+        finished prompts. Admission reserved every prompt page, so no
+        chunk allocates."""
         c = self.chunked_prefill
         progressed = False
         while budget > 0 and self.slot_prefill:
             entries = self._prefill_entries()
-            batchable = len(entries) > 1 and all(
+            batchable = self.paged is not None or (len(entries) > 1 and all(
                 int(self.slot_len[s]) + c <= self.cache_len
                 for s in range(self.max_slots)
                 if s not in self.slot_prefill
-                and self.slot_req[s] is not None)   # free rows are dead
+                and self.slot_req[s] is not None))   # free rows are dead
             if batchable:
                 tok, starts, lens = self._chunk_batch_rows(entries)
-                dev = self.device
-                last, _ = batched_chunk(
-                    self.model, self.cache, torch.from_numpy(tok).to(dev),
-                    torch.from_numpy(starts).to(dev),
-                    torch.from_numpy(lens).to(dev))
+                if self.paged is not None:
+                    last = self._paged_chunk_dispatch(entries, tok, starts,
+                                                      lens)
+                else:
+                    dev = self.device
+                    last, _ = batched_chunk(
+                        self.model, self.cache,
+                        torch.from_numpy(tok).to(dev),
+                        torch.from_numpy(starts).to(dev),
+                        torch.from_numpy(lens).to(dev))
                 self.chunk_batches_run += 1
                 self.dispatches_total += 1
                 for slot, st, chunk in entries:
@@ -452,13 +678,14 @@ class InferenceEngine:
             self._finalize_prefills()
         return progressed
 
-    def _chunk_slot(self, slot: int, chunk: list[int], done: int
-                    ) -> torch.Tensor:
-        """One padded chunk of ``slot`` at ``done``, against a one-slot view
-        of the cache (its writes land in the slot's own rows). Returns the
-        (1, vocab) f32 logits at the chunk's last real position."""
+    def _chunk_slot(self, slot: int, chunk: list[int], done: int,
+                    width: int | None = None) -> torch.Tensor:
+        """One chunk of ``slot`` at ``done``, padded to ``width`` (default
+        ``chunked_prefill``), against a one-slot view of the cache (its
+        writes land in the slot's own rows). Returns the (1, vocab) f32
+        logits at the chunk's last real position."""
         dev = self.device
-        ids = np.zeros((1, self.chunked_prefill), np.int64)
+        ids = np.zeros((1, width or self.chunked_prefill), np.int64)
         ids[0, :len(chunk)] = chunk
         view = [{"k": layer["k"][slot:slot + 1],
                  "v": layer["v"][slot:slot + 1],
@@ -471,18 +698,28 @@ class InferenceEngine:
         return self.model.head(hidden[:, len(chunk) - 1]).to(torch.float32)
 
     def _finalize_prefills(self) -> None:
-        """Activate every chunked prefill whose prompt is fully fed."""
+        """Activate every chunked prefill whose prompt is fully fed, and
+        store its prefix."""
         for slot in list(self.slot_prefill):
             st = self.slot_prefill[slot]
             if st["done"] < st["plen"]:
                 continue
+            req, plen = st["req"], st["plen"]
             del self.slot_prefill[slot]
-            self._activate(slot, st["req"], st["plen"], st["last_logits"])
+            if self.paged is not None:
+                self._paged_store_prefix(req, plen, slot)
+            elif self.prefix_cache is not None:
+                self._store_prefix(req, plen, self._slot_rows(slot, plen),
+                                   st["last_logits"])
+            self._activate(slot, req, plen, st["last_logits"])
 
     def _activate(self, slot: int, req: Request, plen: int,
                   last_logits: torch.Tensor) -> None:
         """Sample the first token from the prompt's last logits and make the
-        slot decodable."""
+        slot decodable. A preempted request resumes without sampling: its
+        next token was emitted before the preemption."""
+        if req.resume_last is not None:
+            return self._activate_with_token(slot, req, plen, 0)
         dev, p = self.device, req.params
         first = sample_token_batched(
             self.generator, last_logits,
@@ -494,17 +731,28 @@ class InferenceEngine:
 
     def _activate_with_token(self, slot: int, req: Request, plen: int,
                              first_id: int) -> None:
-        req.first_token_time = time.monotonic()
+        resumed = req.resume_last is not None
+        if resumed:
+            # the prompt is the emitted history but its last token, whose
+            # KV the next decode writes; nothing is emitted and the TTFT
+            # stamp stays the original one
+            first_id = req.resume_last
+            req.resume_last = None
+        else:
+            req.first_token_time = time.monotonic()
         self.slot_req[slot] = req
         self.slot_ready[slot] = True
         self.slot_last_token[slot] = first_id
         self.slot_len[slot] = plen
-        self.slot_budget[slot] = req.params.max_tokens - 1
+        self.slot_budget[slot] = (req.resume_budget if resumed
+                                  else req.params.max_tokens - 1)
         self._temperature[slot] = req.params.temperature
         self._top_k[slot] = req.params.top_k
         self._top_p[slot] = req.params.top_p
         self._greedy[slot] = req.params.greedy
-        self._emit(slot, first_id)
+        self.slot_hist[slot] = list(req.prompt_ids) + [first_id]
+        if not resumed:
+            self._emit(slot, first_id)
 
     # --- emission and finish -------------------------------------------------
 
@@ -523,18 +771,29 @@ class InferenceEngine:
                               ("length" if not budget_left else "cache"))
 
     def _finish_slot(self, slot: int, reason: str) -> None:
+        """Finish ``slot``'s request and free the slot. In the paged layout
+        its full pages are indexed for sharing on the way out (a follow-up
+        turn reuses the conversation's KV) and its block table releases
+        its references."""
         req = self.slot_req[slot]
         req.finish_time = time.monotonic()
         req.finish_reason = reason
+        if self.paged is not None:
+            hist = self.slot_hist[slot]
+            if hist:
+                self._paged_register_pages(hist[:-1], slot)
+            self.paged.release_slot(slot)
         req.tokens.put(_FINISH)
         self.slot_req[slot] = None
         self.slot_ready[slot] = False
         self.slot_budget[slot] = 0
+        self.slot_hist[slot] = None
 
     def _commit_token(self, slot: int, tok: int) -> None:
         self.slot_budget[slot] -= 1
         self.slot_len[slot] += 1
         self.slot_last_token[slot] = tok
+        self.slot_hist[slot].append(tok)
         self._emit(slot, tok)
 
     def _commit_block(self, active: list[int], toks, n: int) -> None:
@@ -552,6 +811,252 @@ class InferenceEngine:
     def _ready_slots(self) -> list[int]:
         return [s for s, r in enumerate(self.slot_req)
                 if r is not None and self.slot_ready[s]]
+
+    # --- paged KV (JAX engine.py:1436-1877, 2688-2858, 3111-3185) -----------
+
+    def _pg(self, a: np.ndarray) -> torch.Tensor:
+        """A host index array, flattened, as an int64 device tensor."""
+        return torch.from_numpy(
+            np.ascontiguousarray(a, np.int64).reshape(-1)).to(self.device)
+
+    def _paged_width(self, need: int) -> int:
+        """The view width covering ``need`` rows: ``page_size`` doubled up
+        to ``cache_len`` (one CUDA graph per width, as JAX compiles one
+        program per bucket)."""
+        w = self.paged.page_size
+        while w < need:
+            w *= 2
+        w = min(w, self.cache_len)
+        if w < need:
+            raise AssertionError(f"paged view width {w} < needed {need} "
+                                 f"(cache_len {self.cache_len})")
+        return w
+
+    def _paged_index_vec(self, width: int, wwin: int) -> np.ndarray:
+        """Each row's pinned index for a decode-family step
+        (:meth:`_decode_index`), clamped so even a dead row's in-view
+        writes stay inside the view (their scatter targets are trash)."""
+        return np.minimum(self._decode_index(), max(width - wwin, 0))
+
+    def _paged_lookup(self, req: Request) -> PagedHit | None:
+        """Paged admission's prefix hit: the page index's longest
+        full-page match, its pages refcounted into the hit (the JAX
+        kv-pool tier and handoff hits are queue A item 5)."""
+        pages = self.prefix_cache.lookup(req.prompt_ids)
+        if not pages:
+            return None
+        return PagedHit(length=len(pages) * self.paged.page_size,
+                        pages=pages)
+
+    def _paged_begin_prefill(self, req: Request, slot: int, plen: int,
+                             hit: PagedHit | None) -> None:
+        """Reserve the prompt's actual pages (+1 decode token, not a
+        cache_len worst case), map the hit's shared pages, then chunk or
+        prefill the suffix at once. A dry pool hands the shared refs back,
+        requeues the request at the head and stops admission for this
+        step (decode-side growth may preempt; admission never does). The
+        JAX page-by-page shrink of a hit whose suffix cannot fit has
+        nothing to do here: the port's one-shot writes exactly the
+        suffix's rows, which always fit."""
+        if hit is not None:
+            self.paged.map_shared(slot, hit.pages)
+        if not self.paged.extend(slot, plen + 1):
+            self.paged.release_slot(slot)
+            self.slot_req[slot] = None
+            self.slot_ready[slot] = False
+            self._paged_admit_blocked = True
+            with self.pending.mutex:
+                self.pending.queue.appendleft(req)
+            return
+        done = hit.length if hit is not None else 0
+        if self._should_chunk(done, plen - done):
+            self.slot_req[slot] = req
+            self.slot_ready[slot] = False
+            self.slot_prefill[slot] = {"req": req, "plen": plen,
+                                       "done": done, "last_logits": None}
+            return
+        last = self._paged_suffix(slot, req.prompt_ids[done:], done)
+        self._paged_store_prefix(req, plen, slot)
+        self._activate(slot, req, plen, last)
+
+    def _paged_suffix(self, slot: int, suffix: list[int], done: int
+                      ) -> torch.Tensor:
+        """The one-shot prefill of ``suffix`` into ``slot`` at ``done``: a
+        single-row chunk over a view of the slot's own pages only (JAX
+        ``_paged_suffix``). Returns the (1, vocab) f32 logits at the last
+        position."""
+        c = len(suffix)
+        width = self._paged_width(done + c)
+        self._paged_cow_fork(slot, done, c)
+        starts = np.zeros((self.max_slots,), np.int64)
+        valid = np.zeros((self.max_slots,), np.int64)
+        starts[slot], valid[slot] = done, c
+        sidx = self.paged.scatter_idx(starts, valid, c)[slot:slot + 1]
+        dev = self.device
+        g, view = gather_view(
+            self.paged, self._pg(self.paged.row_gather_idx(slot, width)), 1,
+            torch.tensor([done], device=dev))
+        hidden, _ = self.model(torch.tensor([suffix], device=dev),
+                               cache=view, return_hidden=True)
+        scatter_window(self.paged, g,
+                       self._pg(window_idx(np.array([done]), width, c)),
+                       self._pg(sidx))
+        self.chunk_slots_run += 1
+        self.dispatches_total += 1
+        return self.model.head(hidden[:, c - 1]).to(torch.float32)
+
+    def _paged_chunk_dispatch(self, entries, tok, starts, lens
+                              ) -> torch.Tensor:
+        """Every mid-prefill row one chunk against the page pool: gather a
+        view, run the shared :func:`~.mixed_step.batched_chunk` body,
+        scatter each prefill row's real window back (everything else goes
+        to the trash page). Returns the (slots, vocab) last logits."""
+        c = self.chunked_prefill
+        width = self._paged_width(max(st["done"] for _, st, _ in entries)
+                                  + c)
+        # non-prefill rows' dead in-view windows stay inside the view
+        starts = np.minimum(starts, width - c)
+        valid = np.zeros((self.max_slots,), np.int64)
+        for slot, st, chunk in entries:
+            starts[slot] = st["done"]
+            valid[slot] = len(chunk)
+            self._paged_cow_fork(slot, st["done"], len(chunk))
+        dev = self.device
+        starts_t = torch.from_numpy(starts).to(dev)
+        g, view = gather_view(self.paged, self._pg(self.paged.gather_idx(
+            width)), self.max_slots, starts_t)
+        last, _ = batched_chunk(self.model, view,
+                                torch.from_numpy(tok).to(dev), starts_t,
+                                torch.from_numpy(lens).to(dev))
+        scatter_window(self.paged, g, self._pg(window_idx(starts, width, c)),
+                       self._pg(self.paged.scatter_idx(starts, valid, c)))
+        return last
+
+    def _paged_cow_fork(self, slot: int, start: int, width: int) -> None:
+        """Fork any shared page the write window ``[start, start + width)``
+        would touch. With full-page-only sharing no path writes inside a
+        shared page; this is the defensive half of the COW contract, so a
+        scheduler change degrades to a page copy instead of corrupting a
+        neighbour's prefix."""
+        if width <= 0:
+            return
+        P = self.paged.page_size
+        pool = self.paged.pool
+        bt = self.paged.block_tables
+        for lp in range(start // P, min((start + width - 1) // P + 1,
+                                        self.paged.pages_per_slot)):
+            page = int(bt[slot, lp])
+            if page == 0 or pool.refcount(page) <= 1:
+                continue
+            fresh = pool.try_alloc(1)
+            while fresh is None:
+                # preemption pressure until a page frees: one victim whose
+                # pages are all still shared frees nothing
+                victim = self._paged_pick_victim(exclude=slot)
+                if victim is None:
+                    raise RuntimeError("page pool exhausted during COW fork")
+                self._paged_preempt(victim)
+                fresh = pool.try_alloc(1)
+            self.paged.copy_page(page, fresh[0])
+            bt[slot, lp] = fresh[0]
+            pool.release([page])
+
+    def _paged_pick_victim(self, exclude: int | None = None) -> int | None:
+        """Preemption policy: the youngest occupied slot (highest uid)
+        other than ``exclude``: least work lost, and its re-prefill is
+        mostly a page-index hit (vLLM preempts LIFO for the same reason)."""
+        best, best_uid = None, -1
+        for s in range(self.max_slots):
+            if s == exclude or self.slot_req[s] is None:
+                continue
+            if self.slot_req[s].uid > best_uid:
+                best, best_uid = s, self.slot_req[s].uid
+        return best
+
+    def _paged_preempt(self, slot: int) -> None:
+        """Preempt ``slot`` by recompute: index its pages (re-admission is
+        then mostly a page hit), release them, and put the request back at
+        the HEAD of the queue with the resume fields, so the client's
+        stream continues where it left off."""
+        req = self.slot_req[slot]
+        st = self.slot_prefill.pop(slot, None)
+        if st is None and self.slot_ready[slot]:
+            hist = self.slot_hist[slot]
+            req.resume_last = hist[-1]
+            req.resume_budget = int(self.slot_budget[slot])
+            req.prompt_ids = list(hist[:-1])
+            self._paged_register_pages(hist[:-1], slot)
+        elif st is not None and st["done"] > 0:
+            # mid-prefill: nothing emitted; keep the computed full pages
+            self._paged_register_pages(req.prompt_ids[:st["done"]], slot)
+        self.paged.release_slot(slot)
+        self.slot_req[slot] = None
+        self.slot_ready[slot] = False
+        self.slot_budget[slot] = 0
+        self.slot_hist[slot] = None
+        self.preemptions += 1
+        with self.pending.mutex:
+            self.pending.queue.appendleft(req)
+        _log.info("preempted slot %d (uid %d) under page-pool pressure; "
+                  "requeued for recompute (resume at %d tokens)",
+                  slot, req.uid, len(req.prompt_ids))
+
+    def _paged_reserve_active(self, active: list[int],
+                              width: int) -> list[int]:
+        """Reserve ``width`` more positions for every ready slot before a
+        decode-family step; preempted victims drop out, and a slot that
+        cannot grow even as the last occupant finishes with the
+        contiguous layout's ``cache`` reason. Returns the survivors."""
+        out = list(active)
+        for s in list(out):
+            if s not in out or self.slot_req[s] is None:
+                continue
+            while not self.paged.extend(s, int(self.slot_len[s]) + width):
+                victim = self._paged_pick_victim(exclude=s)
+                if victim is None:
+                    self._finish_slot(s, "cache")
+                    out.remove(s)
+                    break
+                self._paged_preempt(victim)
+                if victim in out:
+                    out.remove(victim)
+        return [s for s in out if self.slot_req[s] is not None
+                and self.slot_ready[s]]
+
+    def _paged_decode_dispatch(self, active: list[int], n: int) -> dict:
+        """One paged decode block (pages reserved by the caller): on the
+        card one graph replay of ``("pdecode", n, all_greedy, width)``."""
+        width = self._paged_width(
+            max(int(self.slot_len[s]) for s in active) + n)
+        idxv = self._paged_index_vec(width, n)
+        valid = np.zeros((self.max_slots,), np.int64)
+        for s in active:
+            valid[s] = n
+            self._paged_cow_fork(s, int(self.slot_len[s]), n)
+        return self.graphs.run(
+            "pdecode", n, width=width, index=idxv,
+            gidx=self.paged.gather_idx(width),
+            vidx=window_idx(idxv, width, n),
+            sidx=self.paged.scatter_idx(idxv, valid, n),
+            **self._sampling_arrays(active))
+
+    def _paged_register_pages(self, token_ids, slot: int) -> None:
+        """Index every FULL page of ``token_ids`` (whose KV fills
+        ``slot``'s first pages) for refcounted sharing."""
+        if self.prefix_cache is None:
+            return
+        P = self.paged.page_size
+        nfull = len(token_ids) // P
+        if nfull <= 0:
+            return
+        pages = self.paged.slot_pages(slot)[:nfull]
+        if len(pages) == nfull:
+            self.prefix_cache.register(token_ids[:nfull * P], pages)
+
+    def _paged_store_prefix(self, req: Request, plen: int, slot: int) -> None:
+        """The paged twin of :meth:`_store_prefix`: the prompt's KV is
+        already in the slot's pages, so storing it is indexing them."""
+        self._paged_register_pages(req.prompt_ids[:plen], slot)
 
     # --- decode --------------------------------------------------------------
 
@@ -601,16 +1106,50 @@ class InferenceEngine:
                     temperature=self._temperature, top_k=self._top_k,
                     top_p=self._top_p, greedy=self._greedy)
 
-    def _mixed_dispatch(self, active: list[int], n: int) -> None:
+    def _mixed_dispatch(self, active: list[int], n: int) -> bool:
         """Every mid-prefill slot advances one chunk and every ready slot
-        decodes an ``n``-block, in one dispatch."""
+        decodes an ``n``-block, in one dispatch. Returns False (nothing
+        dispatched) only when the paged reservation drained either half:
+        the caller then runs the step's remainder sequentially."""
+        c = self.chunked_prefill
+        if self.paged is not None:
+            # the decode half's n rows per ready slot (may preempt); the
+            # prefill half was reserved at admission, and the scan's
+            # garbage rows above each watermark scatter to the trash page
+            active = self._paged_reserve_active(active, n)
+            if not active or not self.slot_prefill:
+                return False
         entries = self._prefill_entries()
         tok, starts, lens = self._chunk_batch_rows(entries)
         advance = np.zeros((self.max_slots,), np.int64)
         advance[active] = n
-        out = self.graphs.run("mixed", n, chunk_ids=tok, starts=starts,
-                              lens=lens, advance=advance,
-                              **self._sampling_arrays(active))
+        arrays = dict(chunk_ids=tok, starts=starts, lens=lens,
+                      advance=advance, **self._sampling_arrays(active))
+        if self.paged is None:
+            out = self.graphs.run("mixed", n, **arrays)
+        else:
+            # the view holds each prefill row's chunk and the scan's n
+            # garbage rows above it, and each occupied decode row's dead
+            # chunk window (the scan's real n rows overwrite its head)
+            width = self._paged_width(max(
+                [st["done"] + c + n for _, st, _ in entries]
+                + [int(self.slot_len[s]) + c for s in range(self.max_slots)
+                   if s not in self.slot_prefill
+                   and self.slot_req[s] is not None] + [c + n]))
+            starts = np.minimum(starts, width - c)
+            valid = np.zeros((self.max_slots,), np.int64)
+            for slot, st, chunk in entries:
+                starts[slot] = st["done"]
+                valid[slot] = len(chunk)
+                self._paged_cow_fork(slot, st["done"], len(chunk))
+            for s in active:
+                valid[s] = n
+                self._paged_cow_fork(s, int(self.slot_len[s]), n)
+            arrays["starts"] = starts
+            out = self.graphs.run(
+                "pmixed", n, width=width, gidx=self.paged.gather_idx(width),
+                vidx=window_idx(starts, width, c),
+                sidx=self.paged.scatter_idx(starts, valid, c), **arrays)
         toks = out["toks"].cpu().numpy()
         self.mixed_blocks += 1
         self.chunk_batches_run += 1
@@ -622,6 +1161,7 @@ class InferenceEngine:
             st["done"] += len(chunk)
         self._finalize_prefills()
         self._commit_block(active, toks, n)
+        return True
 
     def _decode_index(self) -> np.ndarray:
         """Each row's write index for a decode block: a ready row at its
@@ -637,8 +1177,11 @@ class InferenceEngine:
         return index
 
     def _decode(self, active: list[int], n: int) -> None:
-        out = self.graphs.run("decode", n, index=self._decode_index(),
-                              **self._sampling_arrays(active))
+        if self.paged is not None:
+            out = self._paged_decode_dispatch(active, n)
+        else:
+            out = self.graphs.run("decode", n, index=self._decode_index(),
+                                  **self._sampling_arrays(active))
         toks = out["toks"].cpu().numpy()
         self.decode_steps_run += n
         self.dispatches_total += 1
@@ -669,14 +1212,14 @@ class InferenceEngine:
             if self.slot_prefill and active:
                 n = self._plan_block(active)
                 ok, why = self._mixed_feasible(n)
-                if ok:
-                    self._mixed_dispatch(active, n)
+                if ok and self._mixed_dispatch(active, n):
                     return True
-                kind = why.split(":", 1)[0]   # log each kind once
-                if kind not in self._mixed_fallbacks_logged:
-                    self._mixed_fallbacks_logged.add(kind)
-                    _log.info("fused mixed step fell back to sequential "
-                              "dispatches: %s", why)
+                if not ok:
+                    kind = why.split(":", 1)[0]   # log each kind once
+                    if kind not in self._mixed_fallbacks_logged:
+                        self._mixed_fallbacks_logged.add(kind)
+                        _log.info("fused mixed step fell back to "
+                                  "sequential dispatches: %s", why)
         progressed = self._advance_prefills(budget) or pre_progress
         active = self._ready_slots()
         if not active:
@@ -686,6 +1229,10 @@ class InferenceEngine:
         if n > 1 and any(self.slot_len[s] + n > self.cache_len
                          for s in active):
             n = 1
+        if self.paged is not None:
+            active = self._paged_reserve_active(active, n)
+            if not active:
+                return True   # the reservation preempted or finished all
         self._decode(active, n)
         return True
 
@@ -718,6 +1265,53 @@ class InferenceEngine:
         if self._stop.is_set() or self.error is not None:
             return False
         return self._thread is None or self._thread.is_alive()
+
+    # --- introspection -------------------------------------------------------
+
+    def debug_kv(self) -> dict:
+        """The ``GET /debug/kv`` payload: page-pool occupancy, sharing,
+        fragmentation and per-slot block-table sizes; a contiguous engine
+        reports its fixed reservation. Read from HTTP threads without the
+        engine lock, as in JAX."""
+        if self.paged is None:
+            return {
+                "layout": "contiguous",
+                "max_slots": self.max_slots,
+                "cache_len": self.cache_len,
+                "kv_tokens_reserved": self.max_slots * self.cache_len,
+                "kv_bytes": sum(buf.numel() * buf.element_size()
+                                for layer in self.cache
+                                for key, buf in layer.items()
+                                if key != "index"),
+            }
+        snap = self.paged.debug_snapshot()
+        live = 0
+        for s in range(self.max_slots):
+            # .get: the engine thread pops slot_prefill concurrently
+            st = self.slot_prefill.get(s)
+            if st is not None:
+                live += int(st["done"])
+            elif self.slot_req[s] is not None:
+                live += int(self.slot_len[s])
+        mapped_tokens = snap["pages_slot_mapped"] * self.paged.page_size
+        snap["live_tokens"] = live
+        # allocated-but-unfilled slack of the slot-mapped pages: the
+        # contiguous layout's (cache_len - context) per slot, shrunk to
+        # under a page
+        snap["fragmentation"] = (
+            round(1.0 - live / mapped_tokens, 4) if mapped_tokens else 0.0)
+        snap["preemptions"] = self.preemptions
+        snap["rejected_too_large"] = self.rejected_too_large
+        if self.prefix_cache is not None:
+            snap["prefix_index_entries"] = self.prefix_cache.n_entries
+        return snap
+
+    def page_capacity_detail(self, prompt_tokens: int) -> dict:
+        """Why a prompt gets 422: the page math of the API's error body."""
+        P = self.paged.page_size
+        return {"prompt_tokens": prompt_tokens, "page_size": P,
+                "pages_needed": pages_for(prompt_tokens + 1, P),
+                "pages_capacity": self.paged.pool.capacity}
 
     # --- convenience ---------------------------------------------------------
 

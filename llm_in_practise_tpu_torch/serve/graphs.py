@@ -2,13 +2,23 @@
 
 The JAX engine runs each of these as one compiled XLA program: one
 dispatch, whatever the number of kernels in it. The port's counterpart is
-a CUDA graph. :class:`StepGraphs` holds the static input buffers of both
+a CUDA graph. :class:`StepGraphs` holds the static input buffers of the
 step paths; each call copies the engine's host arrays into them and then,
-on the card, replays the graph of its variant ``(kind, n, all_greedy)``
-(``kind`` is ``"decode"`` or ``"mixed"``; ``n`` is ``decode_steps`` or a
-power of two below it, as :func:`~.mixed_step.plan_decode_block` plans),
-or on the CPU runs the same body (:func:`~.mixed_step.decode_scan`,
-:func:`~.mixed_step.make_mixed_step`) eagerly.
+on the card, replays the graph of its variant ``(kind, n, all_greedy,
+width)``, or on the CPU runs the same body eagerly:
+
+- ``"decode"``: :func:`~.mixed_step.decode_scan` over the contiguous
+  cache;
+- ``"mixed"``: the fused step of :func:`~.mixed_step.make_mixed_step`;
+- ``"pdecode"`` / ``"pmixed"``: the same bodies in the paged layout,
+  between a gather of every slot's pages into a ``width``-wide view and
+  the scatter of each row's fresh window back into the pool
+  (:mod:`.paged_kv`). ``width`` is the view's power-of-two bucket (the
+  JAX engine compiles one program per bucket); the contiguous kinds have
+  ``width`` None.
+
+``n`` is ``decode_steps`` or a power of two below it, as
+:func:`~.mixed_step.plan_decode_block` plans.
 
 - **First use of a variant** runs its body eagerly on the card (that run
   is the step's result; it also builds each kernel, whose nvcc must not
@@ -17,9 +27,11 @@ or on the CPU runs the same body (:func:`~.mixed_step.decode_scan`,
   variant's key; nothing falls back to the eager body.
 - **Stable pointers.** The kernels' TMA descriptors are encoded on the
   host at capture and replayed as they are, so every tensor a graph reads
-  keeps its address: the weights, the engine's KV cache (updated in
-  place), the static buffers here, and the activations in the graphs'
-  one shared memory pool.
+  keeps its address: the weights, the engine's KV cache or page pool
+  (updated in place), the static buffers here (the paged kinds' gather
+  and scatter indices are static buffers too, one set per width and
+  window), and the activations and the paged view in the graphs' one
+  shared memory pool.
 - **Sampling** inside a graph cannot read the device from the host or
   draw from a generator: the variant's ``all_greedy`` is decided on the
   host, and a non-greedy block reads uniform noise that
@@ -48,21 +60,32 @@ from llm_in_practise_tpu_torch.serve.mixed_step import (
     make_mixed_step,
     pin_index,
 )
+from llm_in_practise_tpu_torch.serve.paged_kv import (
+    gather_view,
+    scatter_window,
+)
+
+# index arrays of the paged kinds: gather (slots x width), and the view
+# positions and pool rows of the write-back window (slots x window)
+PAGED_INDEX = ("gidx", "vidx", "sidx")
 
 
 class StepGraphs:
     """Static buffers of the engine's decode block and fused mixed step,
-    and with ``capture`` one CUDA graph per variant over ``cache``."""
+    and with ``capture`` one CUDA graph per variant over ``cache`` (the
+    contiguous layout) or ``paged`` (a :class:`~.paged_kv.PagedKV`)."""
 
     def __init__(self, model, cache, *, max_slots: int, chunk: int | None,
-                 decode_steps: int, capture: bool):
+                 decode_steps: int, capture: bool, paged=None):
         dev = model.device
         self.model = model
         self.cache = cache
+        self.paged = paged
         self.capture = capture
         self.decode_steps = decode_steps
         self.vocab = model.config.vocab_size
         self._mixed = make_mixed_step(model)
+        self._dev = dev
 
         def buf(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -75,6 +98,7 @@ class StepGraphs:
         if chunk is not None:
             self.inputs.update(chunk_ids=buf(b, chunk), starts=buf(b),
                                lens=buf(b), advance=buf(b))
+        self._index_bufs: dict[tuple, torch.Tensor] = {}  # (name, size)
         self.noise: torch.Tensor | None = None  # made at the first draw
         self.graphs: dict[tuple, tuple] = {}    # key -> (graph, out, delta)
         self.pool = None
@@ -82,15 +106,33 @@ class StepGraphs:
         self.pool_bytes = 0     # device memory the captures reserved
         self.replays = 0
 
+    def _index_buf(self, name: str, size: int) -> torch.Tensor:
+        """The static flat int64 buffer of a paged index array: one per
+        (name, size), so every graph of that width or window reads the
+        same address."""
+        t = self._index_bufs.get((name, size))
+        if t is None:
+            with torch.inference_mode(False):
+                t = torch.zeros((size,), dtype=torch.int64, device=self._dev)
+            self._index_bufs[(name, size)] = t
+        return t
+
     def run(self, kind: str, n: int, *, all_greedy: bool, generator,
-            **arrays) -> dict:
+            width: int | None = None, **arrays) -> dict:
         """One step of ``kind`` over ``n`` decode tokens. ``arrays`` (numpy)
-        go into the static buffers of the same names. Returns the step's
-        outputs, ``toks`` (slots, n), ``index`` (slots,) and for
-        ``"mixed"`` ``chunk_last`` (slots, vocab): on the card they are
-        the graph's own tensors, valid until the next call."""
+        go into the static buffers of the same names (the paged kinds'
+        ``gidx``, ``vidx`` and ``sidx`` into their per-size buffers).
+        Returns the step's outputs, ``toks`` (slots, n), ``index``
+        (slots,) and for the fused kinds ``chunk_last`` (slots, vocab): on
+        the card they are the graph's own tensors, valid until the next
+        call."""
         for name, a in arrays.items():
-            self.inputs[name].copy_(torch.from_numpy(a))
+            flat = torch.from_numpy(a)
+            if name in PAGED_INDEX:
+                flat = flat.reshape(-1)
+                self._index_buf(name, flat.numel()).copy_(flat)
+            else:
+                self.inputs[name].copy_(flat)
         if not all_greedy:
             if self.noise is None:
                 # a normal tensor, as the other buffers, even when the
@@ -101,7 +143,8 @@ class StepGraphs:
                          self.vocab), dtype=torch.float32,
                         device=self.inputs["tokens"].device)
             self.noise[:n].uniform_(0.0, 1.0, generator=generator)
-        key = (kind, n, all_greedy)
+        window = arrays["sidx"].size if "sidx" in arrays else None
+        key = (kind, n, all_greedy, width, window)
         if not self.capture:
             return self._body(key)
         entry = self.graphs.get(key)
@@ -116,21 +159,33 @@ class StepGraphs:
         return out
 
     def _body(self, key: tuple) -> dict:
-        kind, n, all_greedy = key
+        kind, n, all_greedy, width, window = key
         x = self.inputs
         samp = dict(n=n, all_greedy=all_greedy,
                     noise=None if all_greedy else self.noise[:n])
         params = (x["temperature"], x["top_k"], x["top_p"], x["greedy"])
-        if kind == "decode":
+        rows = x["tokens"].shape[0]
+        if kind in ("pdecode", "pmixed"):
+            g, cache = gather_view(
+                self.paged, self._index_buf("gidx", rows * width), rows,
+                x["index"] if kind == "pdecode" else x["starts"])
+        else:
+            cache = self.cache
+        if kind in ("decode", "pdecode"):
             toks, cache = decode_scan(
-                self.model, pin_index(self.cache, x["index"]), x["tokens"],
+                self.model, pin_index(cache, x["index"]), x["tokens"],
                 *params, **samp)
-            return {"toks": toks, "index": cache[0]["index"]}
-        chunk_last, toks, cache = self._mixed(
-            self.cache, x["chunk_ids"], x["starts"], x["lens"],
-            x["advance"], x["tokens"], *params, **samp)
-        return {"chunk_last": chunk_last, "toks": toks,
-                "index": cache[0]["index"]}
+            out = {"toks": toks, "index": cache[0]["index"]}
+        else:
+            chunk_last, toks, cache = self._mixed(
+                cache, x["chunk_ids"], x["starts"], x["lens"],
+                x["advance"], x["tokens"], *params, **samp)
+            out = {"chunk_last": chunk_last, "toks": toks,
+                   "index": cache[0]["index"]}
+        if kind in ("pdecode", "pmixed"):
+            scatter_window(self.paged, g, self._index_buf("vidx", window),
+                           self._index_buf("sidx", window))
+        return out
 
     def _capture(self, key: tuple) -> None:
         t0 = time.monotonic()
@@ -150,7 +205,8 @@ class StepGraphs:
         except Exception as e:
             raise RuntimeError(
                 f"CUDA graph capture of step variant {key} (kind, n, "
-                f"all_greedy) failed: {type(e).__name__}: {e}") from e
+                f"all_greedy, width, window) failed: "
+                f"{type(e).__name__}: {e}") from e
         finally:
             after = launch_count.snapshot()
             launch_count.restore(before)   # a capture launches nothing

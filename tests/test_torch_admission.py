@@ -172,12 +172,15 @@ def test_cli_passes_the_scheduling_flags(tmp_path, tok):
         base + ["--enable-chunked-prefill", "16", "--decode-steps", "4"]
     )).engine
     assert (engine.chunked_prefill, engine.decode_steps) == (16, 4)
-    # the built engine serves with them: a 39-token prompt in 3 chunks,
-    # then two blocks of 4 decode steps (a block shrinks to the soonest
-    # finish only while requests queue; no EOS: random weights could stop
-    # the stream anywhere)
+    # the built engine serves with them: a 39-token prompt in 3 chunks
+    # (the CLI's default paged layout runs every chunk as the batched
+    # chunk over all slots, as the JAX paged engine does), then two
+    # blocks of 4 decode steps (a block shrinks to the soonest finish
+    # only while requests queue; no EOS: random weights could stop the
+    # stream anywhere)
     engine.eos_id = None
     out = engine.generate(list(range(1, 40)),
                           SamplingParams(greedy=True, max_tokens=6))
-    assert len(out) == 6 and engine.chunk_slots_run == 3
+    assert engine.paged is not None
+    assert len(out) == 6 and engine.chunk_batches_run == 3
     assert (engine.multi_blocks, engine.decode_steps_run) == (2, 8)

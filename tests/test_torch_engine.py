@@ -126,12 +126,41 @@ def test_slot_reuse_and_budget_bookkeeping():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(prefix_cache=True), dict(speculative_k=4), dict(kv_layout="paged"),
-    dict(mesh=object()), dict(adapter_registry=object())])
+    dict(speculative_k=4), dict(mesh=object()),
+    dict(adapter_registry=object()), dict(kv_pool=object()),
+    dict(handoff=object()), dict(session_store=object())])
 def test_unported_engine_knobs_raise(knob):
     model = tiny_port_model(64, seed=5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         InferenceEngine(model, **knob)
+
+
+@pytest.mark.parametrize("knob", [dict(prefix_cache=True),
+                                  dict(kv_layout="paged")])
+def test_prefix_cache_and_paged_knobs_construct_and_serve(knob):
+    """The knobs that raised until the paged KV slice: they construct and
+    serve the same greedy tokens as the plain contiguous engine."""
+    model = tiny_port_model(64, seed=5)
+    prompt = [(i * 3 + 1) % 64 for i in range(20)]
+    sp = SamplingParams(greedy=True, max_tokens=8)
+    eng = InferenceEngine(model, max_slots=2, cache_len=48,
+                          cache_dtype=torch.float32, **knob)
+    plain = InferenceEngine(model, max_slots=2, cache_len=48,
+                            cache_dtype=torch.float32)
+    assert eng.generate(prompt, sp) == plain.generate(prompt, sp)
+    assert eng.generate(prompt, sp) == plain.generate(prompt, sp)
+    if "prefix_cache" in knob:
+        assert eng.prefix_cache.hits == 1
+    else:
+        eng.paged.pool.check_leaks(0)
+
+
+def test_unported_submit_arguments_raise():
+    eng = InferenceEngine(tiny_port_model(64, seed=5), max_slots=1,
+                          cache_len=16, cache_dtype=torch.float32)
+    for kw in (dict(kv_entry=object()), dict(session_id="s")):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            eng.submit([1, 2, 3], **kw)
 
 
 def test_background_thread_serves_and_stops():

@@ -117,16 +117,22 @@ def test_cli_rejects_unported_flags():
 
     base = ["--quantized_dir", "d", "--tokenizer_path", "t"]
     check_not_ported(build_parser().parse_args(base))  # the ported set
-    # the scheduling and admission flags are ported: they parse and pass
+    # the KV layout defaults to paged, as the JAX CLI's does
+    assert build_parser().parse_args(base).kv_layout == "paged"
+    # the scheduling, admission and KV flags are ported: they parse and
+    # pass
     for extra in (["--enable-chunked-prefill"], ["--decode-steps", "4"],
                   ["--no-mixed-step"], ["--max-queue", "4"],
                   ["--queue-timeout", "2.5"], ["--scan-layers"],
-                  ["--model_path", "m.msgpack"]):
+                  ["--model_path", "m.msgpack"],
+                  ["--enable-prefix-caching"], ["--kv-layout", "paged"],
+                  ["--kv-layout", "contiguous"], ["--kv-page-size", "32"],
+                  ["--kv-pool-tokens", "4096"],
+                  ["--kv-cache-dtype", "fp8"]):
         check_not_ported(build_parser().parse_args(base + extra))
     # --quantized_dir is optional: without it --model_path is the input
     check_not_ported(build_parser().parse_args(["--tokenizer_path", "t"]))
-    for extra in (["--enable-prefix-caching"], ["--speculative", "4"],
-                  ["--kv-layout", "paged"],
+    for extra in (["--speculative", "4"],
                   ["--tensor-parallel-size", "2"], ["--kv-offload"],
                   ["--lora-modules", "a=b"], ["--session-store"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
