@@ -88,6 +88,25 @@ Phases, in order; any failure exits non-zero:
    view's gather and scatter, graphs and pool); and a 2-layer int8 model
    serves the shared-prefix traffic paged with the tokens of its
    contiguous run (B8 launched).
+   Then ``serve_spec`` on the same model (speculative decoding, k = 4,
+   decode blocks of 8): a Qwen3-0.6B-shaped draft with seeded weights is
+   written as ``model.msgpack`` and loaded by the CLI's draft loader;
+   8 greedy chats of 128 new tokens (half repeat a 40-token passage) over
+   HTTP on an ngram engine, then through paged engines without
+   speculation, with the prompt lookup, the 0.6B draft and the target as
+   its own draft, contiguous ones with the prompt lookup and the target
+   as its own draft, and the 0.6B draft at decode steps of 1 while a
+   700-token prompt chunk-prefills. Each spec round is one
+   graph replay (two with a draft: its roll, then the verify); every
+   round's acceptance is recomputed on the host; every spec, pspec and
+   droll graph replays its eager body byte for byte; every token is in
+   the top 5 of a teacher-forced forward, or no further below its top
+   logit than the plain leg's tokens lie; a sampled request does not
+   speculate; B1's launches per route follow
+   from the engine's forwards (40-row verifies on the thin route); an
+   explicit pool gives up the draft cache's rows. Readings: TPOT, tokens
+   per round, acceptance, device and host time per round, the roll's
+   device time, captures, and a 40-row verify beside an 8-row decode.
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
    Qwen3-8B projection shape (both also at ragged shapes,
    ``NF4_FWD_EDGE_SHAPES`` on both forward routes and
@@ -175,6 +194,7 @@ N_LAYER = 36    # full depth of Qwen3-8B
 MAX_SLOTS = 8
 CACHE_LEN = 1024
 MAX_TOKENS = 64
+SPEC_K = 4      # serve_spec's proposal length: a verify is 8 x 5 = 40 rows
 # training (bench.py: SEQ = 1024, the 8B rung; LoRA r 8 / alpha 16 on
 # q_proj, v_proj; fused CE chunk 2048, vocab_chunk 8192; AdamW 1e-4)
 TRAIN_BATCH = 8
@@ -255,13 +275,14 @@ CROSSOVER_M = (16, 64, 128, 256, 512, 1024, 8192)
 THIN_CROSSOVER_M = (1, 8) + CROSSOVER_M
 # row counts at which the NF4 and int8 forwards run on their thin-M route at
 # every projection shape, held to the plain version: decode (1, 8, 16), a
-# ragged block (17), short prefill, and the last row count below the wgmma
-# route's threshold (255)
-THIN_CHECK_M = (1, 8, 16, 17, 64, 128, 255)
+# ragged block (17), a spec round's verify (40), short prefill, and the
+# last row count below the wgmma route's threshold (255)
+THIN_CHECK_M = (1, 8, 16, 17, MAX_SLOTS * (SPEC_K + 1), 64, 128, 255)
 FWD_FORMATS = ("nf4", "int4", "int8")
 # decode row counts whose device time (torch.profiler, kernel self time)
-# the kernel table reports beside the event time
-DECODE_M = (1, MAX_SLOTS, 16)
+# the kernel table reports beside the event time; 40 is a spec round's
+# verify
+DECODE_M = (1, MAX_SLOTS, 16, MAX_SLOTS * (SPEC_K + 1))
 # flash checks (B, L, H, Hkv, D, layout): the training shape, a ragged
 # length, head_dim 64 with a GQA group of 1, and q, k, v as strided views
 # of one fused (B, L, H + 2 Hkv, D) tensor
@@ -1040,6 +1061,9 @@ def decode_device(seed: int, flush) -> dict:
                 else:
                     lib.append(lambda x=x, w=w: torch.matmul(x, w))
             row = {"route": route_of(m, *PROJ_SHAPES["q_proj"]),
+                   "bound_ms": sum(matmul_bound(
+                       m, k, n, weight_bytes(fmt, k, n))[0]
+                       for k, n in PROJ_SHAPES.values()),
                    "device_ms": device_ms(kern),
                    "library_device_ms": device_ms(lib),
                    "ms": sum(time_ms(c, 20, flush) for c in kern),
@@ -2592,6 +2616,828 @@ def paged_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
             - counts["int8_matmul"]}
 
 
+# serve_spec: speculative decoding (the JAX CLI's --speculative and
+# --draft-model-path, vLLM's ngram and draft-model speculators) on the NF4
+# model, k = SPEC_K, decode blocks of 8
+SPEC = dict(decode_steps=8, kv_layout="paged")
+SPEC_TOKENS = 128            # new tokens of each chat
+SPEC_PASSAGE = 40            # tokens of the passage half the turns repeat
+SPEC_LONG = 700              # leg 6's prompt, chunk-prefilling by 256
+SPEC_CHUNK = 256
+SPEC_PROFILE_STEPS = 3       # engine steps on the host clock; one more
+#                              under torch.profiler
+SPEC_DS1_TOKENS = 32         # new tokens of leg 6's chats
+SPEC_MIN_ACCEPTANCE = 0.5    # the target as its own draft
+# the draft: Qwen/Qwen3-0.6B's published config.json (hidden 1024, inter
+# 3072, 28 layers, 16/8 heads, head_dim 128, tied embeddings), seeded
+QWEN3_0_6B = dict(vocab_size=151936, hidden_size=1024,
+                  intermediate_size=3072, n_layer=28, n_head=16,
+                  n_kv_head=8, head_dim=128, rope_theta=1e6,
+                  max_seq_len=40960, tie_word_embeddings=True,
+                  compute_dtype="bfloat16")
+SPEC_COUNTERS = ("decode_steps_run", "prefill_batches_run",
+                 "chunk_batches_run", "chunk_slots_run", "spec_verifies_run",
+                 "draft_chunks_run", "draft_rolls_run", "dispatches_total",
+                 "spec_rounds", "spec_proposed", "spec_accepted",
+                 "spec_round_tokens")
+
+
+def teacher_ranks(model, prompts, streams) -> list[tuple[list, list]]:
+    """Per stream, each emitted token's rank among the logits of a
+    teacher-forced forward of the target over the prompt and the stream
+    before it (0 = the argmax), and how far its logit lies below the
+    largest. One cached forward per stream (dense attention); its kernel
+    launches are not counted."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import launch_count
+
+    before = launch_count.snapshot()
+    out = []
+    try:
+        with torch.inference_mode():
+            for prompt, toks in zip(prompts, streams):
+                if not toks:
+                    out.append(([], []))
+                    continue
+                ids = torch.tensor([prompt + toks[:-1]],
+                                   device=model.device)
+                cache = model.init_cache(1, ids.shape[1],
+                                         dtype=torch.bfloat16)
+                logits, _ = model(ids, cache=cache)
+                lg = logits[0, len(prompt) - 1:].float()
+                want = torch.tensor(toks, device=model.device)[:, None]
+                mine = lg.gather(1, want)
+                out.append(((lg > mine).sum(1).tolist(),
+                            (lg.max(1).values - mine[:, 0]).tolist()))
+    finally:
+        launch_count.restore(before)
+    return out
+
+
+def spec_traffic(tok) -> list[list[dict]]:
+    """The 8 chats of serve_spec: every even turn repeats a passage of
+    ``SPEC_PASSAGE`` tokens from SURVEY.md, so the prompt lookup has
+    something to match."""
+    survey = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "SURVEY.md")
+    with open(survey, encoding="utf-8") as f:
+        words = f.read().split()
+    out = []
+    for i in range(MAX_SLOTS):
+        content = f"Explain {TOPICS[i]} in a few sentences."
+        if i % 2 == 0:
+            passage = tok.decode(tok.encode(
+                " ".join(words[3000 + 61 * i:][:60]))[:SPEC_PASSAGE])
+            content += f" Quote this twice: {passage} {passage}"
+        out.append(chat(content))
+    return out
+
+
+def write_draft(path: str, seed: int) -> str:
+    """The Qwen3-0.6B-shaped draft, bf16 weights drawn on the card from a
+    seed, written as ``model.msgpack`` (with its config) by the port's
+    checkpoint writer. Returns the file's path."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ckpt.checkpoint import save_named
+    from llm_in_practise_tpu_torch.models.convert import params_to_jax
+    from llm_in_practise_tpu_torch.models.qwen3 import Qwen3Config, init_params
+
+    cfg = Qwen3Config(**QWEN3_0_6B)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 13)
+    state = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    out = save_named(path, params_to_jax(state, cfg), "model",
+                     metadata={"config": cfg.to_dict()})
+    del state
+    return out
+
+
+class SpecRecorder:
+    """Hooks on one engine for a counted run, undone by :meth:`undo`: each
+    spec round's dispatches, graph replays, new captures and draft
+    catch-up chunks; each round's ``n_acc`` against the longest matching
+    prefix recomputed on the host from ``out`` and the proposed tokens;
+    the rows of every one-shot prefill and single-slot chunk (for the
+    expected B1 launches)."""
+
+    def __init__(self, engine):
+        import numpy as np
+
+        self.engine = engine
+        g = engine.graphs
+        self.rounds, self.acc_checked, self.acc_wrong = [], 0, []
+        self.prefill_rows, self.chunk_rows = [], []
+        self._saved = (g.run, engine._try_speculative, engine._prefill_batch,
+                       engine._chunk_slot_impl)
+        run, try_spec, prefill, chunk = self._saved
+
+        def rec_run(kind, n, **kw):
+            out = run(kind, n, **kw)
+            if kind in ("spec", "pspec"):
+                k = engine.speculative_k
+                spec = out["spec"].cpu().numpy()
+                toks = kw["spec_tokens"]
+                match = spec[:, :k] == toks[:, 1:]
+                host = np.cumprod(match, axis=1).sum(axis=1)
+                self.acc_checked += 1
+                if not np.array_equal(host, spec[:, k + 1]):
+                    self.acc_wrong.append([host.tolist(),
+                                           spec[:, k + 1].tolist()])
+            return out
+
+        def rec_try(active):
+            e = engine
+            before = (e.dispatches_total, g.replays, len(g.graphs),
+                      e.draft_chunks_run, e.spec_rounds)
+            ok = try_spec(active)
+            if e.spec_rounds > before[4]:
+                self.rounds.append({
+                    "dispatches": e.dispatches_total - before[0],
+                    "replays": g.replays - before[1],
+                    "captures": len(g.graphs) - before[2],
+                    "chunks": e.draft_chunks_run - before[3]})
+            return ok
+
+        def rec_prefill(batch):
+            self.prefill_rows.append(
+                len(batch) * max(len(r.prompt_ids) for _, r, _ in batch))
+            return prefill(batch)
+
+        def rec_chunk(model, cache, slot, ids, done, width):
+            self.chunk_rows.append((model is engine.model, width))
+            return chunk(model, cache, slot, ids, done, width)
+
+        g.run = rec_run
+        engine._try_speculative = rec_try
+        engine._prefill_batch = rec_prefill
+        engine._chunk_slot_impl = rec_chunk
+
+    def undo(self):
+        for name in ("_try_speculative", "_prefill_batch",
+                     "_chunk_slot_impl"):
+            del self.engine.__dict__[name]
+        del self.engine.graphs.__dict__["run"]
+
+    def round_checks(self) -> dict:
+        """(d): an ngram round is one dispatch and one graph run (a replay,
+        or the capture of a new variant), a draft round two (the roll and
+        the verify), and only a catch-up chunk adds a dispatch, never a
+        graph run."""
+        e = self.engine
+        runs = 2 if e.draft_model is not None else 1
+        bad = [r for r in self.rounds
+               if r["replays"] + r["captures"] != runs
+               or r["dispatches"] != runs + r["chunks"]]
+        return {"rounds": len(self.rounds), "graph_runs_per_round": runs,
+                "replayed_rounds": sum(r["replays"] == runs
+                                       for r in self.rounds),
+                "rounds_with_chunks": sum(r["chunks"] > 0
+                                          for r in self.rounds),
+                "bad_rounds": bad[:4], "n_acc_checked": self.acc_checked,
+                "n_acc_wrong": self.acc_wrong[:4]}
+
+
+def spec_rows(engine, delta: dict, rec: SpecRecorder) -> list[int]:
+    """The rows of every target forward the run made, from the engine's
+    counters: one-shot prefills and single-slot chunks as recorded, decode
+    steps (a round's extension included) over every slot, batched chunks,
+    verifies of k + 1 rows per slot, and, where the target drafts itself,
+    each roll's W-row catch-up and k - 1 decode steps."""
+    k, c = engine.speculative_k, engine.chunked_prefill
+    rows = list(rec.prefill_rows)
+    rows += [w for is_target, w in rec.chunk_rows if is_target]
+    rows += [MAX_SLOTS] * delta["decode_steps_run"]
+    rows += [MAX_SLOTS * (c or 0)] * delta["chunk_batches_run"]
+    if k is not None:
+        rows += [MAX_SLOTS * (k + 1)] * delta["spec_verifies_run"]
+    if engine.draft_model is engine.model:
+        rows += ([MAX_SLOTS * engine._draft_window]
+                 + [MAX_SLOTS] * (k - 1)) * delta["draft_rolls_run"]
+    return rows
+
+
+def spec_engine(model, tok, seed: int, **kw):
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    return InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+                           eos_id=tok.token_to_id(IM_END),
+                           cache_dtype=torch.bfloat16, seed=seed,
+                           **{**SPEC, **kw})
+
+
+def spec_submit_all(engine, prompts, long_prompt=None,
+                    max_tokens: int = SPEC_TOKENS) -> tuple:
+    """The chats through ``engine`` step by step (with ``long_prompt``:
+    the first 7, then the long prompt after one step), ``max_tokens``
+    new tokens each. Returns the requests and the spec rounds run while a
+    prompt was mid-prefill."""
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    sp = SamplingParams(greedy=True, max_tokens=max_tokens)
+    if long_prompt is None:
+        reqs = [engine.submit(p, sp) for p in prompts]
+    else:
+        reqs = [engine.submit(p, sp) for p in prompts[:MAX_SLOTS - 1]]
+        engine.step()
+        reqs.append(engine.submit(long_prompt, sp))
+    mid = 0
+    while True:
+        pre, rounds = bool(engine.slot_prefill), engine.spec_rounds
+        busy = engine.step()
+        mid += pre and engine.spec_rounds > rounds
+        if not busy:
+            break
+    if engine.error is not None:
+        raise SystemExit(f"serve_spec: engine failed: {engine.error!r}")
+    return reqs, mid
+
+
+def spec_profile(engine, prompts) -> dict:
+    """Host wall per engine step (and per spec round) over
+    ``SPEC_PROFILE_STEPS`` steady steps of the 8 chats, after their
+    admission and first round, then the device time of one more step
+    under torch.profiler (device activity only; a step of a 36-layer spec
+    round is about 30000 kernels). The chats are left in flight; the
+    engine does no counted work after this."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    sp = SamplingParams(greedy=True, max_tokens=SPEC_TOKENS)
+    for p in prompts:
+        engine.submit(p, sp)
+    engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    n = SPEC_PROFILE_STEPS
+    r0, t0_tok = engine.spec_rounds, engine.spec_round_tokens
+    t0 = time.monotonic()
+    for _ in range(n):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3 / n
+    rounds_wall = engine.spec_rounds - r0
+    r1 = engine.spec_rounds
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    rounds_prof = engine.spec_rounds - r1
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    out = {"steps": n, "step_wall_ms": wall_ms,
+           "rounds_per_step": rounds_wall / n,
+           "round_tokens_in_window": engine.spec_round_tokens - t0_tok}
+    if rounds_wall:
+        out["round_wall_ms"] = wall_ms * n / rounds_wall
+    if not device_us:
+        out["step_device_ms"] = "not measured"
+        return out
+    out["step_device_ms"] = device_us / 1e3
+    out["device_busy_share"] = out["step_device_ms"] / wall_ms
+    if rounds_prof:
+        out["round_device_ms"] = device_us / 1e3 / rounds_prof
+    return out
+
+
+def spec_replay_check(engine, seed: int) -> dict:
+    """(c): every captured ``spec``, ``pspec`` and ``droll`` graph,
+    replayed once, against its eager body on copies of the same state
+    (the KV cache or page pool, and the draft's cache) and inputs: the
+    outputs and every state byte identical."""
+    import numpy as np
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import launch_count
+    from llm_in_practise_tpu_torch.serve.paged_kv import window_idx
+
+    g, b = engine.graphs, engine.max_slots
+    dev = engine.device
+    k = engine.speculative_k
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    vocab = engine.model.config.vocab_size
+    state = []
+    if engine.cache is not None:
+        state += [layer[key] for layer in engine.cache for key in ("k", "v")]
+    if engine.paged is not None:
+        state.append(engine.paged.store)
+    if engine.draft_cache is not None:
+        state += [layer[key] for layer in engine.draft_cache
+                  for key in ("k", "v")]
+    saved = [t.clone() for t in state]
+
+    def restore():
+        for t, c in zip(state, saved):
+            t.copy_(c)
+
+    def compared(t):
+        # the pool past its trash page: the trash rows take every
+        # discarded write, several to one row in one scatter, in no fixed
+        # order, and no query attends them
+        if engine.paged is not None and t is engine.paged.store:
+            return t[:, engine.paged.page_size:]
+        return t
+
+    snap = launch_count.snapshot()
+    out = {}
+    x = g.inputs
+    try:
+        with torch.inference_mode():
+            for key in sorted(g.graphs, key=str):
+                kind, n, _, width, _ = key
+                if kind not in ("spec", "pspec", "droll"):
+                    continue
+                if kind == "droll":
+                    W = width
+                    x["catchup"].copy_(torch.randint(
+                        0, vocab, (b, W), device=dev, generator=gen))
+                    x["roll_starts"].copy_(torch.clamp(
+                        torch.arange(b, device=dev) * 97 + 40,
+                        max=engine.cache_len - W))
+                    x["roll_lens"].copy_(torch.tensor(
+                        [W, W // 2, 1, 0, W, 3, 0, 7], device=dev)[:b])
+                else:
+                    wwin = k + 1 + n
+                    span = engine.cache_len if kind == "spec" else width
+                    base = np.minimum(np.arange(b) * 37 + 5, span - wwin)
+                    mask = np.arange(b) % 2 == 0
+                    x["spec_tokens"].copy_(torch.randint(
+                        0, vocab, (b, k + 1), device=dev, generator=gen))
+                    x["index"].copy_(torch.from_numpy(base))
+                    x["spec_mask"].copy_(torch.from_numpy(mask.astype(
+                        np.int64)))
+                    if kind == "pspec":
+                        pg = engine.paged
+                        for name, a in (
+                                ("gidx", pg.gather_idx(width)),
+                                ("vidx", window_idx(base, width, wwin)),
+                                ("sidx", pg.scatter_idx(
+                                    base, mask * wwin, wwin))):
+                            flat = torch.from_numpy(a.reshape(-1).astype(
+                                np.int64))
+                            g._index_buf(name, flat.numel()).copy_(flat)
+                graph, static_out, _ = g.graphs[key]
+                restore()
+                graph.replay()
+                torch.cuda.synchronize()
+                got = {n_: v.clone() for n_, v in static_out.items()}
+                got_state = [compared(t).clone() for t in state]
+                restore()
+                want = g._body(key)
+                torch.cuda.synchronize()
+                out[f"{kind} n={n} width={width}"] = {
+                    "outputs_identical": all(torch.equal(got[n_], want[n_])
+                                             for n_ in got),
+                    "state_identical": all(
+                        torch.equal(a, compared(t))
+                        for a, t in zip(got_state, state))}
+                del got, got_state
+        restore()
+    finally:
+        launch_count.restore(snap)
+        del saved
+    if not all(all(r.values()) for r in out.values()):
+        raise SystemExit(f"serve_spec: a replay differs from its eager "
+                         f"body: {out}")
+    return out
+
+
+def spec_leg(name: str, engine, model, prompts, long_prompt=None,
+             max_tokens: int = SPEC_TOKENS) -> dict:
+    """One leg: a warm-up run of the traffic (it captures every variant
+    the counted run reaches), then the counted run with the launch
+    counters zeroed before and read after and the recorder's hooks on,
+    then a profile window. Every check of the leg exits non-zero."""
+    import torch
+
+    t0 = time.monotonic()
+    spec_submit_all(engine, prompts, long_prompt, max_tokens)
+    warm_s = time.monotonic() - t0
+    g = engine.graphs
+    rec = SpecRecorder(engine)
+    zero_counters()
+    before = {k: getattr(engine, k) for k in SPEC_COUNTERS}
+    t0 = time.monotonic()
+    try:
+        reqs, mid = spec_submit_all(engine, prompts, long_prompt,
+                                    max_tokens)
+        torch.cuda.synchronize()
+    finally:
+        rec.undo()
+    wall = time.monotonic() - t0
+    routes = read_routes()["nf4_matmul"]
+    launches = read_counters()["nf4_matmul"]
+    delta = {k: getattr(engine, k) - before[k] for k in SPEC_COUNTERS}
+    want = route_launches("nf4", spec_rows(engine, delta, rec),
+                          PROJ_SHAPES.values(), N_LAYER)
+    rounds = rec.round_checks()
+    streams = [list(r.output_ids) for r in reqs]
+    res = {
+        "leg": name, "requests": len(reqs), "wall_s": wall,
+        "warmup_wall_s": warm_s,
+        "tokens": [len(t) for t in streams],
+        "finish": [r.finish_reason for r in reqs],
+        "tpot_p50_s": statistics.median(r.tpot_s for r in reqs
+                                        if r.tpot_s is not None),
+        "spec": {k: delta[k] for k in ("spec_rounds", "spec_proposed",
+                                       "spec_accepted", "spec_round_tokens")},
+        "tokens_per_round": (delta["spec_round_tokens"]
+                             / delta["spec_rounds"]
+                             if delta["spec_rounds"] else None),
+        "acceptance": (delta["spec_accepted"] / delta["spec_proposed"]
+                       if delta["spec_proposed"] else None),
+        "forwards": {k: delta[k] for k in SPEC_COUNTERS[:7]},
+        "dispatches": delta["dispatches_total"],
+        "rounds_mid_prefill": mid, "round_checks": rounds,
+        "b1_routes": routes, "b1_expected": want,
+        "captures": len(g.capture_s),
+        "capture_s": sum(g.capture_s.values()),
+        "graphs": sorted(f"{k} n={n} w={w}" for k, n, _, w, _ in g.graphs),
+        "graph_pool_mib": g.pool_bytes / 2**20}
+    log(f"serve_spec {name}:", json.dumps(res))
+    if (routes != want or launches != sum(routes.values())
+            or any(f not in ("stop", "length") for f in res["finish"])):
+        raise SystemExit(f"serve_spec {name}: B1 launches {routes} differ "
+                         f"from the engine's forwards ({want}), or a bad "
+                         f"finish")
+    # a draft model proposes every step; the prompt lookup only where a
+    # stream repeats itself (rare on random weights)
+    if engine.speculative_k is not None and (
+            (engine.draft_model is not None and not rounds["rounds"])
+            or rounds["bad_rounds"] or rounds["n_acc_wrong"]
+            or rounds["n_acc_checked"] != rounds["rounds"]):
+        raise SystemExit(f"serve_spec {name}: the round checks failed: "
+                         f"{rounds}")
+    t0 = time.monotonic()
+    res["profile"] = spec_profile(engine, prompts)
+    res["profile"]["wall_s"] = time.monotonic() - t0
+    log(f"serve_spec {name} profile:", json.dumps(res["profile"]))
+    res["streams"] = streams
+    res["prompts"] = [list(r.prompt_ids) for r in reqs]
+    res["launches"] = launches
+    return res
+
+
+def spec_http(model, tok, seed: int, draft_path: str, chats) -> tuple:
+    """Leg 7 and check (h), through the CLI's parser and loader: args with
+    ``--speculative 4 --draft-model-path`` are validated and the draft
+    loaded by ``load_draft_model``; a server on the ngram engine those
+    args give without the draft answers the 8 chats (4 streamed, each
+    ending in ``data: [DONE]``) after a warm-up round of the same; a
+    second server with the draft and an explicit pool reports the draft's
+    pool tax on ``GET /debug/kv``. Returns the loaded draft too."""
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.__main__ import (
+        build_engine,
+        build_parser,
+        load_draft_model,
+        validate_args,
+    )
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+    from llm_in_practise_tpu_torch.serve.paged_kv import kv_row_bytes
+
+    def error(msg):
+        raise SystemExit(f"serve_spec: the CLI refused its args: {msg}")
+
+    base_argv = ["--tokenizer_path", "-", "--max_slots", str(MAX_SLOTS),
+                 "--cache_len", str(CACHE_LEN), "--kv-cache-dtype",
+                 "bfloat16", "--decode-steps", str(SPEC["decode_steps"]),
+                 "--speculative", str(SPEC_K)]
+    parser = build_parser()
+    args = parser.parse_args(base_argv + ["--draft-model-path", draft_path])
+    validate_args(args, error)
+    draft = load_draft_model(args.draft_model_path, model.device)
+    ngram_args = parser.parse_args(base_argv)
+    validate_args(ngram_args, error)
+    eos = tok.token_to_id(IM_END)
+    engine = build_engine(model, ngram_args, eos_id=eos)
+    # the draft's cache in target tokens, and a pool that leaves half the
+    # slots' worth after it
+    drow = kv_row_bytes(draft, torch.bfloat16)
+    trow = kv_row_bytes(model, torch.bfloat16)
+    reserved = math.ceil(MAX_SLOTS * CACHE_LEN * drow / trow)
+    pool = reserved + MAX_SLOTS * CACHE_LEN // 2
+    taxed = build_engine(model, parser.parse_args(
+        base_argv + ["--kv-pool-tokens", str(pool)]), eos_id=eos,
+        draft_model=draft)
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(*a, **kw):
+        seen.append(submit(*a, **kw))
+        return seen[-1]
+
+    engine.submit = recording_submit
+    servers = [OpenAIServer(e, tok, model_name="qwen3-8b-nf4-spec")
+               for e in (engine, taxed)]
+    bases = [f"http://127.0.0.1:{s.serve(host='127.0.0.1', port=0, background=True)}"
+             for s in servers]
+    def body(i):
+        return {"model": "qwen3-8b-nf4-spec", "temperature": 0.0,
+                "max_tokens": SPEC_TOKENS, "stream": i % 2 == 1,
+                "messages": chats[i]}
+
+    def burst():
+        with concurrent.futures.ThreadPoolExecutor(MAX_SLOTS) as pool_:
+            futs = [pool_.submit(post_chat, bases[0], body(i))
+                    for i in range(MAX_SLOTS)]
+            return [f.result() for f in futs]
+
+    try:
+        burst()                          # warm-up: the captures
+        seen.clear()
+        rec = SpecRecorder(engine)
+        zero_counters()
+        before = {k: getattr(engine, k) for k in SPEC_COUNTERS}
+        t0 = time.monotonic()
+        try:
+            results = burst()
+        finally:
+            rec.undo()
+        wall = time.monotonic() - t0
+        routes = read_routes()["nf4_matmul"]
+        delta = {k: getattr(engine, k) - before[k] for k in SPEC_COUNTERS}
+        with urllib.request.urlopen(bases[1] + "/debug/kv", timeout=60) as r:
+            debug_kv = json.loads(r.read())
+    finally:
+        for s in servers:
+            s.shutdown()
+    if engine.error is not None:
+        raise SystemExit(f"serve_spec http: engine failed: {engine.error!r}")
+    want = route_launches("nf4", spec_rows(engine, delta, rec),
+                          PROJ_SHAPES.values(), N_LAYER)
+    rounds = rec.round_checks()
+    reqs = list(seen)
+    res = {"leg": "http_ngram_paged", "requests": len(results),
+           "wall_s": wall,
+           "streams_done": sum(r.get("done", False) for r in results),
+           "finish": [r["finish_reason"] for r in results],
+           "tpot_p50_s": statistics.median(r.tpot_s for r in reqs
+                                           if r.tpot_s is not None),
+           "spec": {k: delta[k] for k in ("spec_rounds", "spec_proposed",
+                                          "spec_accepted",
+                                          "spec_round_tokens")},
+           "round_checks": rounds, "b1_routes": routes, "b1_expected": want,
+           "pool_tax": {"pool_tokens": pool, "draft_row_bytes": drow,
+                        "target_row_bytes": trow,
+                        "expected_reserved_tokens": reserved,
+                        "debug_kv": {k: debug_kv.get(k) for k in (
+                            "pages_total", "page_size",
+                            "draft_kv_reserved_tokens",
+                            "draft_kv_account_bytes")}}}
+    log("serve_spec http:", json.dumps(res))
+    if (len(results) != MAX_SLOTS or res["streams_done"] != MAX_SLOTS // 2
+            or any(f not in ("stop", "length") for f in res["finish"])
+            or routes != want or rounds["bad_rounds"]
+            or rounds["n_acc_wrong"]):
+        raise SystemExit(f"serve_spec http: the checks failed: {res}")
+    if (debug_kv.get("draft_kv_reserved_tokens") != reserved
+            or taxed.draft_kv_reserved_tokens != reserved
+            or debug_kv.get("pages_total")
+            != -(-(pool - reserved) // debug_kv.get("page_size"))
+            or debug_kv.get("draft_kv_account_bytes")
+            != MAX_SLOTS * CACHE_LEN * drow):
+        raise SystemExit(f"serve_spec: the draft's pool tax is wrong: "
+                         f"{res['pool_tax']}")
+    res["streams"] = [list(r.output_ids) for r in reqs]
+    res["prompts"] = [list(r.prompt_ids) for r in reqs]
+    res["launches"] = sum(routes.values())
+    del engine, taxed, servers
+    return res, draft
+
+
+def verify_vs_decode(model) -> dict:
+    """The spec bet: device time (torch.profiler, every kernel's self
+    time) of one cached forward over 8 x 5 = 40 rows, a verify, beside an
+    8-row decode step, both at depth 128 of a contiguous cache. Launches
+    are not counted."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import launch_count
+    from llm_in_practise_tpu_torch.serve.mixed_step import pin_index
+
+    dev = model.device
+    cache = model.init_cache(MAX_SLOTS, CACHE_LEN, dtype=torch.bfloat16)
+    idx = torch.full((MAX_SLOTS,), 128, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    vocab = model.config.vocab_size
+    toks = {w: torch.randint(0, vocab, (MAX_SLOTS, w), device=dev,
+                             generator=gen) for w in (1, SPEC_K + 1)}
+    snap = launch_count.snapshot()
+    try:
+        with torch.inference_mode():
+            ms = {w: device_ms([lambda t=t: model(
+                t, cache=pin_index(cache, idx))], rounds=3)
+                for w, t in toks.items()}
+    finally:
+        launch_count.restore(snap)
+    del cache
+    out = {"decode_8_rows_device_ms": ms[1],
+           "verify_40_rows_device_ms": ms[SPEC_K + 1]}
+    if ms[1] and ms[SPEC_K + 1]:
+        out["verify_over_decode"] = ms[SPEC_K + 1] / ms[1]
+    return out
+
+
+def spec_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
+    """serve_spec on the NF4 model (Qwen3-8B width, full depth): the 8
+    chats over HTTP on an ngram engine built by the CLI's code (whose
+    parser and draft loader also take ``--speculative 4
+    --draft-model-path``), then through seven engines: paged plain,
+    ngram, the 0.6B draft and the target as its own draft; contiguous
+    ngram and the target as its own draft; and the 0.6B draft at
+    ``decode_steps`` 1 while a 700-token prompt chunk-prefills (the
+    prompt lookup finds no repeated token in a random-weight target's
+    streams, so the composition path takes a proposer that always
+    proposes). Checks, each exiting non-zero: (a) every emitted token in
+    the teacher-forced top 5, or no further below the top logit than the
+    plain leg's own tokens lie; (b) each round's ``n_acc`` equal to the host's longest matching
+    prefix; (c) every captured spec, pspec and droll graph replays its
+    eager body byte for byte; (d) a round is one graph run (ngram) or
+    two (a draft), plus one eager dispatch per catch-up chunk; (e) the
+    target as its own draft accepts at least ``SPEC_MIN_ACCEPTANCE``;
+    (f) B1's launches per route follow from the engine's forwards; (g) a
+    sampled request does not speculate; (h) an explicit pool gives up the
+    draft cache's rows, on ``/debug/kv`` too; (i) streams end in
+    ``data: [DONE]``."""
+    import gc
+    import shutil
+
+    import torch
+
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    chats = spec_traffic(tok)
+    prompts = [prompt_ids(tok, m) for m in chats]
+    long_prompt = prompt_ids(tok, long_messages(tok, SPEC_LONG, 0))
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "spec_phase")
+    t0 = time.monotonic()
+    draft_path = write_draft(root, seed)
+    write_s = time.monotonic() - t0
+    draft_bytes = path_bytes(root)
+    legs, launches, routes = {}, 0, {}
+
+    def done(res):
+        nonlocal launches
+        launches += res.pop("launches")
+        for r, c in res["b1_routes"].items():
+            routes[r] = routes.get(r, 0) + c
+        legs[res["leg"]] = res
+
+    try:
+        t0 = time.monotonic()
+        http, draft = spec_http(model, tok, seed, draft_path, chats)
+        http["leg_wall_s"] = time.monotonic() - t0
+        done(http)
+        gc.collect()
+        torch.cuda.empty_cache()
+        extra = {}
+        for name, kw in (("paged_plain", {}),
+                         ("paged_ngram", {"speculative_k": SPEC_K}),
+                         ("paged_draft_0.6b", {"speculative_k": SPEC_K,
+                                               "draft_model": draft}),
+                         ("paged_target_draft", {"speculative_k": SPEC_K,
+                                                 "draft_model": model}),
+                         ("contiguous_ngram", {"speculative_k": SPEC_K,
+                                               "kv_layout": "contiguous"}),
+                         ("contiguous_target_draft", {
+                             "speculative_k": SPEC_K, "draft_model": model,
+                             "kv_layout": "contiguous"}),
+                         ("paged_draft_ds1_chunked", {
+                             "speculative_k": SPEC_K, "draft_model": draft,
+                             "decode_steps": 1,
+                             "chunked_prefill": SPEC_CHUNK})):
+            t_leg = time.monotonic()
+            engine = spec_engine(model, tok, seed, **kw)
+            chunked = "chunked" in name
+            res = spec_leg(name, engine, model, prompts,
+                           long_prompt if chunked else None,
+                           SPEC_DS1_TOKENS if chunked else SPEC_TOKENS)
+            rolls = [v[0] for k, v in engine.graphs.graphs.items()
+                     if k[0] == "droll"]
+            if kw.get("draft_model") is not None:
+                # one replay of the roll's graph: W-row catch-up + k - 1
+                # decode steps of the draft
+                res["draft_roll_device_ms"] = (
+                    device_ms([rolls[0].replay], rounds=3) if rolls
+                    else "not measured")
+            if kw.get("speculative_k"):
+                t0 = time.monotonic()
+                res["replay_check"] = spec_replay_check(engine, seed)
+                res["replay_check_wall_s"] = time.monotonic() - t0
+            if name == "paged_target_draft":
+                # (g): a sampled request takes the plain path, on an
+                # engine whose greedy slots speculate every step
+                while engine.step():
+                    pass
+                rounds0 = engine.spec_rounds
+                h = engine.submit(prompts[0], SamplingParams(
+                    temperature=0.8, top_k=50, top_p=0.9, max_tokens=16))
+                while engine.step():
+                    pass
+                extra["sampled"] = {"tokens": len(h.output_ids),
+                                    "spec_rounds_added":
+                                        engine.spec_rounds - rounds0}
+                if extra["sampled"]["spec_rounds_added"] or not h.output_ids:
+                    raise SystemExit(f"serve_spec: a sampled request "
+                                     f"speculated: {extra['sampled']}")
+            res["leg_wall_s"] = time.monotonic() - t_leg
+            done(res)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        del draft
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.monotonic()
+    extra["verify_vs_decode"] = verify_vs_decode(model)
+    extra["verify_vs_decode"]["wall_s"] = time.monotonic() - t0
+    # (a): every emitted token among the target's top 5 of a teacher-forced
+    # forward, or no further below its largest logit than the plain leg's
+    # own tokens lie (the card's rounding by shape: random weights' logits
+    # are near-flat, and a plain decode's token sits up to 0.2 below the
+    # teacher-forced argmax; a token from corrupted KV lies logits away);
+    # where each stream departs from the plain one, a reading
+    t_teacher = time.monotonic()
+    plain = legs["paged_plain"]["streams"]
+    noise = None
+    for name, res in legs.items():
+        streams, prompts_ = res.pop("streams"), res.pop("prompts")
+        ranks = teacher_ranks(model, prompts_, streams)
+        if name == "paged_plain":
+            noise = max(g for _, gs in ranks for g in gs)
+        agree = [sum(r < PAGED_TOP_K for r in rs) for rs, _ in ranks]
+        res[f"top{PAGED_TOP_K}_agreeing"] = agree
+        res["teacher_forced_worst"] = [
+            {"rank": max(rs, default=0), "logit_gap": max(gs, default=0.0)}
+            for rs, gs in ranks]
+        res["outside_top5_within_plain_gap"] = sum(
+            r >= PAGED_TOP_K for rs, _ in ranks for r in rs)
+        if name not in ("paged_plain", "paged_draft_ds1_chunked",
+                        "http_ngram_paged"):
+            res["first_divergence_from_plain"] = first_divergence(
+                streams, plain)
+        bad = [(r, g) for rs, gs in ranks for r, g in zip(rs, gs)
+               if r >= PAGED_TOP_K and g > noise]
+        if bad:
+            raise SystemExit(
+                f"serve_spec {name}: tokens outside the teacher-forced "
+                f"top {PAGED_TOP_K} and further below its largest logit "
+                f"than the plain leg's {noise}: {bad[:8]}")
+    extra["teacher_forced_wall_s"] = time.monotonic() - t_teacher
+    # (c) covered every spec graph kind
+    checked = {key.split()[0] for leg in legs.values()
+               for key in leg.get("replay_check", {})}
+    if checked != {"spec", "pspec", "droll"}:
+        raise SystemExit(f"serve_spec: replay-checked graph kinds "
+                         f"{sorted(checked)}, not spec, pspec and droll")
+    # (e): the target as its own draft accepts most of what it proposes
+    for name in ("paged_target_draft", "contiguous_target_draft"):
+        acc = legs[name]["acceptance"]
+        if acc is None or acc < SPEC_MIN_ACCEPTANCE:
+            raise SystemExit(f"serve_spec {name}: the target as its own "
+                             f"draft accepted {acc} of its drafts, under "
+                             f"{SPEC_MIN_ACCEPTANCE}")
+    if not legs["paged_draft_ds1_chunked"]["rounds_mid_prefill"]:
+        raise SystemExit("serve_spec: no round composed with the chunked "
+                         "prefill at decode_steps 1")
+    for name, leg in legs.items():
+        log(f"serve_spec {name} checks:", json.dumps(
+            {k: v for k, v in leg.items()
+             if k in ("replay_check", "draft_roll_device_ms",
+                      f"top{PAGED_TOP_K}_agreeing", "teacher_forced_worst",
+                      "outside_top5_within_plain_gap", "leg_wall_s",
+                      "replay_check_wall_s",
+                      "first_divergence_from_plain")}))
+    res = {"card": card, "layers": N_LAYER, "max_slots": MAX_SLOTS,
+           "cache_len": CACHE_LEN, "k": SPEC_K, **SPEC,
+           "draft": {"config": "Qwen/Qwen3-0.6B", "msgpack_bytes":
+                     draft_bytes, "write_s": write_s},
+           "legs": legs, **extra, "plain_logit_gap_max": noise,
+           "nf4_cell_tpot_p50_s": nf4_cell["tpot_p50_s"],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "phase_wall_s": time.monotonic() - t_phase}
+    log("serve_spec:", json.dumps({k: v for k, v in res.items()
+                                   if k != "legs"}))
+    return {"spec": res, "launches": launches, "routes": routes}
+
+
 def flash_bound(b: int, length: int, h: int, d: int, products: int,
                 nbytes: int) -> tuple[float, str, int]:
     """Least time on the card for a causal flash kernel: ``products``
@@ -4006,8 +4852,13 @@ def main(argv=None) -> int:
             t0 = time.monotonic()
             paged = paged_phase(model, tok, args.seed, card,
                                 served[fmt]["serve"])
-            del model
             phase_time("serve_paged", t0)
+            free()         # serve_paged's engines
+            t0 = time.monotonic()
+            spec = spec_phase(model, tok, args.seed, card,
+                              served[fmt]["serve"])
+            del model
+            phase_time("serve_spec", t0)
         free()
     t0 = time.monotonic()
     awq_res = awq_check(tok, args.seed)
@@ -4064,6 +4915,7 @@ def main(argv=None) -> int:
             "serve_nf4": served["nf4"]["routes"],
             "serve_nf4_sched": sched["routes"],
             "serve_nf4_paged": paged["routes"],
+            "serve_nf4_spec": spec["routes"],
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
         **decode_fields(decode, "nf4"),
@@ -4071,12 +4923,14 @@ def main(argv=None) -> int:
         "thin_exactness": {k: v for k, v in thin_exact.items()
                            if " nf4" in k},
         "launches": (served["nf4"]["launches"] + sched["launches"]
-                     + paged["launches"] + launches["nf4_matmul"]
+                     + paged["launches"] + spec["launches"]
+                     + launches["nf4_matmul"]
                      + ckpt["launches"]["ckpt_serve_nf4"]
                      + ckpt_train["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
                              "serve_nf4_sched": sched["launches"],
                              "serve_nf4_paged": paged["launches"],
+                             "serve_nf4_spec": spec["launches"],
                              "train_nf4": launches["nf4_matmul"],
                              "ckpt_serve_nf4":
                                  ckpt["launches"]["ckpt_serve_nf4"],
@@ -4172,6 +5026,10 @@ def main(argv=None) -> int:
         {k: v for k, v in paged["paged"].items()
          if k in ("profile", "phase_wall_s", "max_memory_allocated_gib",
                   "nf4_cell_tpot_p50_s")}))
+    log("serve_spec summary:", json.dumps(
+        {k: v for k, v in spec["spec"].items()
+         if k in ("verify_vs_decode", "phase_wall_s",
+                  "max_memory_allocated_gib", "nf4_cell_tpot_p50_s")}))
     log("serve_sched summary:", json.dumps(
         {k: v for k, v in sched["sched"].items()
          if k in ("short", "long", "profile", "capture_s", "graph_pool_mib",

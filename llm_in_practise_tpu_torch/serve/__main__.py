@@ -6,7 +6,8 @@
         [--kv-layout paged|contiguous] [--kv-page-size 16] \\
         [--kv-pool-tokens N] [--enable-prefix-caching] [--port 8000] \\
         [--enable-chunked-prefill [256]] [--decode-steps 8] \\
-        [--no-mixed-step] [--max-queue N] [--queue-timeout SECONDS]
+        [--no-mixed-step] [--max-queue N] [--queue-timeout SECONDS] \\
+        [--speculative [4] [--draft-model-path DRAFT.msgpack]]
 
 ``DIR`` holds the ``packed.npz`` + ``manifest.json`` that either
 package's exporters write (``quant/io.py``, ``convert_hf``): NF4,
@@ -18,7 +19,11 @@ written by either package's ``merge_lora``, served in its own dtype.
 ``--scan-layers`` is accepted: the port runs the unrolled blocks; as in
 the JAX CLI it needs ``--kv-layout contiguous``. The KV layout defaults
 to ``paged``, as the JAX CLI's does; ``fp8`` stores the KV as
-``torch.float8_e4m3fn`` (a saturating cast).
+``torch.float8_e4m3fn`` (a saturating cast). ``--speculative K`` drafts
+K tokens per greedy slot by prompt lookup, or with the dense Qwen3 of
+``--draft-model-path`` (a ``model.msgpack`` with its config, written by
+either package's ``merge_lora`` or ``save_named``), and verifies them in
+one fused round per step.
 ``TOK.json`` is a BPE tokenizer saved by either package. The flags of
 the JAX package's ``examples/serve_openai.py`` that this port does not
 have yet are accepted and raise ``NotImplementedError`` naming their
@@ -42,8 +47,6 @@ _NOT_PORTED = {
     "--kv-offload": (dict(action="store_true"), 5),
     "--kv-remote": (dict(default=None), 5),
     "--role": (dict(default="both"), 5),
-    "--speculative": (dict(type=int, nargs="?", const=4, default=None), 4),
-    "--draft-model-path": (dict(default=None), 4),
     "--trace-file": (dict(default=None), 6),
     "--ttft-slo": (dict(type=float, default=None), 6),
     "--tpot-slo": (dict(type=float, default=None), 6),
@@ -121,6 +124,17 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None, metavar="SECONDS",
                    help="admission control: shed requests that waited "
                         "past this deadline (HTTP 429 queue_full)")
+    p.add_argument("--speculative", type=int, nargs="?", const=4,
+                   default=None, metavar="K",
+                   help="speculative decoding: draft K tokens per greedy "
+                        "slot (default 4) by prompt lookup, or with "
+                        "--draft-model-path, and verify them in one fused "
+                        "round; 0 turns it off")
+    p.add_argument("--draft-model-path", dest="draft_model_path",
+                   default=None,
+                   help="draft model checkpoint (model.msgpack with its "
+                        "config) proposing the K tokens; needs "
+                        "--speculative K")
     for flag, (kw, _) in _NOT_PORTED.items():
         p.add_argument(flag, dest=flag.lstrip("-").replace("-", "_"), **kw)
     return p
@@ -137,12 +151,38 @@ def check_not_ported(args) -> None:
 
 
 def validate_args(args, error) -> None:
-    """The JAX CLI's own argument check (``examples/serve_openai.py:95``):
-    the scan layout serves contiguous KV only."""
+    """The JAX CLI's own argument checks (``examples/serve_openai.py:95-125``):
+    the scan layout serves contiguous KV only; a draft model needs an
+    explicit ``--speculative K`` with K > 0 (``--speculative 0`` resolves
+    to off) and the unrolled layout."""
+    from llm_in_practise_tpu_torch.serve.disagg import default_speculative_k
+
     if args.scan_layers and args.kv_layout == "paged":
         error("--scan-layers serves with --kv-layout contiguous only "
               "(the paged pool supports the unrolled cache layout; pass "
               "--kv-layout contiguous explicitly)")
+    if args.draft_model_path and args.speculative is None:
+        error("--draft-model-path requires --speculative K")
+    args.speculative = default_speculative_k(args.role, args.speculative)
+    if args.draft_model_path and args.speculative is None:
+        error("--draft-model-path with --speculative 0 is "
+              "contradictory: drop the draft model or pass a "
+              "positive K")
+    if args.draft_model_path and args.scan_layers:
+        error("--draft-model-path with --scan-layers is not supported "
+              "yet, as in the JAX CLI (whose stacked target's cache has "
+              "its slot axis where the unstacked draft's does not)")
+
+
+def load_draft_model(path: str, device):
+    """The draft model of ``--draft-model-path``: a ``model.msgpack``
+    restored through the port's checkpoint reader into a dense Qwen3 built
+    from its ``config``, on ``device``."""
+    from llm_in_practise_tpu_torch.infer.generate import load_model
+
+    model = load_model(path, device)
+    print(f"draft model: {path}", flush=True)
+    return model
 
 
 def build_server(args):
@@ -178,12 +218,17 @@ def build_server(args):
     if args.scan_layers:
         print("--scan-layers: the port runs the unrolled blocks (the scan "
               "layout is a layout of the JAX param tree)", flush=True)
-    engine = build_engine(model, args, eos_id=tok.token_to_id(IM_END))
+    draft = (load_draft_model(args.draft_model_path, device)
+             if args.draft_model_path else None)
+    engine = build_engine(model, args, eos_id=tok.token_to_id(IM_END),
+                          draft_model=draft)
     return OpenAIServer(engine, tok, model_name=args.model_name)
 
 
-def build_engine(model, args, *, eos_id: int | None):
-    """The engine the CLI's ``args`` describe, over a loaded model."""
+def build_engine(model, args, *, eos_id: int | None, draft_model=None):
+    """The engine the CLI's ``args`` describe, over a loaded model (and
+    the loaded draft of ``--draft-model-path``)."""
+    from llm_in_practise_tpu_torch.serve.disagg import default_speculative_k
     from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
 
     return InferenceEngine(
@@ -193,7 +238,9 @@ def build_engine(model, args, *, eos_id: int | None):
         mixed_step=args.mixed_step, kv_layout=args.kv_layout,
         kv_page_size=args.kv_page_size, kv_pool_tokens=args.kv_pool_tokens,
         prefix_cache=args.prefix_caching, max_queue=args.max_queue,
-        queue_timeout_s=args.queue_timeout)
+        queue_timeout_s=args.queue_timeout,
+        speculative_k=default_speculative_k(args.role, args.speculative),
+        draft_model=draft_model)
 
 
 def main(argv=None) -> None:

@@ -31,6 +31,11 @@ Port of ``llm_in_practise_tpu/serve/engine.py``:
 - **Prefix caching**: the paged layout shares physical pages through
   :class:`~.prefix_cache.PagedPrefixIndex` (copy-on-write); the
   contiguous layout copies rows through :class:`~.prefix_cache.PrefixCache`.
+- **Speculative decoding** (JAX ``engine.py`` ``_try_speculative`` and
+  the draft-model paths): ``k`` tokens per slot drafted by prompt lookup
+  (ngram) or by a draft model with its own contiguous cache, verified
+  with the block's remaining greedy steps in one fused round
+  (:func:`~.mixed_step.spec_verify_block`), in either KV layout.
 
 Threading: HTTP handler threads call :meth:`InferenceEngine.submit`,
 which touches no tensor; one background thread runs :meth:`step` and
@@ -55,11 +60,13 @@ from llm_in_practise_tpu_torch.serve.graphs import StepGraphs
 from llm_in_practise_tpu_torch.serve.mixed_step import (
     batched_chunk,
     plan_decode_block,
+    plan_spec_extension,
 )
 from llm_in_practise_tpu_torch.serve.paged_kv import (
     PagedHit,
     PagedKV,
     gather_view,
+    kv_row_bytes,
     pages_for,
     scatter_window,
     window_idx,
@@ -197,24 +204,32 @@ class InferenceEngine:
       pool finishes at submit with ``finish_reason="too_large"``.
     - ``prefix_cache``: ``True`` or a :class:`~.prefix_cache.PrefixCache`
       (its budget knobs carry over to the paged index).
+    - ``speculative_k``: draft this many tokens per greedy slot, by
+      prompt lookup over the trailing ``speculative_ngram``-gram, or with
+      ``draft_model`` (a model as ``model``, with its own contiguous
+      cache of ``max_slots x cache_len``; an explicit ``kv_pool_tokens``
+      gives up the draft cache's bytes in target tokens), and verify them
+      with the planned block's remaining steps in one fused round.
+      Sampled slots and slots near the cache's end take the plain path.
+      While a prompt is mid-prefill, ``decode_steps`` 1 keeps
+      speculating; a longer block runs the fused mixed step instead.
 
-    On the card each decode block and each fused mixed step is one CUDA
-    graph replay (:mod:`.graphs`).
+    On the card each decode block, each fused mixed step, each spec round
+    and each draft roll is one CUDA graph replay (:mod:`.graphs`).
     """
 
     def __init__(self, model, *, max_slots: int = 8, cache_len: int = 512,
                  eos_id: int | None = None, cache_dtype=torch.bfloat16,
                  seed: int = 0, prefix_cache=None,
                  chunked_prefill: int | None = None, mesh=None,
-                 speculative_k: int | None = None, draft_model=None,
+                 speculative_k: int | None = None,
+                 speculative_ngram: int = 3, draft_model=None,
                  decode_steps: int = 1, prefill_budget: int = 1,
                  mixed_step: bool = True, kv_layout: str = "contiguous",
                  kv_page_size: int = 16, kv_pool_tokens: int | None = None,
                  adapter_registry=None, kv_pool=None, handoff=None,
                  session_store=None, max_queue: int | None = None,
                  queue_timeout_s: float | None = None):
-        if speculative_k is not None or draft_model is not None:
-            raise _not_ported("speculative_k", 4, "speculative decoding")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
                              f"got {kv_layout!r}")
@@ -259,12 +274,31 @@ class InferenceEngine:
         # cache exists then: every paged step gathers a transient view)
         self.paged: PagedKV | None = None
         self.cache = None
+        self.draft_kv_reserved_tokens = 0
         if kv_layout == "paged":
+            pool_request = (kv_pool_tokens if kv_pool_tokens is not None
+                            else max_slots * self.cache_len)
+            if draft_model is not None and kv_pool_tokens is not None:
+                # an explicit pool is the operator's KV byte budget: the
+                # draft's contiguous cache beside the pool comes out of
+                # it, in tokens at the target's bytes per row (the
+                # default pool reserves the worst case and cannot
+                # over-admit, so nothing is deducted there)
+                drow = kv_row_bytes(draft_model, cache_dtype)
+                trow = kv_row_bytes(model, cache_dtype)
+                self.draft_kv_reserved_tokens = -(
+                    -max_slots * self.cache_len * drow // trow)
+                pool_request -= self.draft_kv_reserved_tokens
+                if pool_request < 2 * kv_page_size:
+                    raise ValueError(
+                        f"kv_pool_tokens={kv_pool_tokens} leaves only "
+                        f"{pool_request} tokens after the draft cache's "
+                        f"{self.draft_kv_reserved_tokens}-token "
+                        "equivalent reservation — raise the pool budget "
+                        "or drop the draft model")
             self.paged = PagedKV(
                 model, max_slots=max_slots, cache_len=self.cache_len,
-                page_size=kv_page_size,
-                pool_tokens=(kv_pool_tokens if kv_pool_tokens is not None
-                             else max_slots * self.cache_len),
+                page_size=kv_page_size, pool_tokens=pool_request,
                 dtype=cache_dtype)
         else:
             self.cache = model.init_cache(max_slots, self.cache_len,
@@ -289,11 +323,49 @@ class InferenceEngine:
             self.prefix_cache = PrefixCache()
         else:
             self.prefix_cache = prefix_cache or None
+        # speculative decoding (JAX engine.py:619-703): the counters count
+        # real drafted positions only (padding and undrafted slots in
+        # neither); rounds are spec dispatches and round tokens what they
+        # committed
+        if speculative_k is not None and speculative_k < 1:
+            raise ValueError(
+                f"speculative_k must be >= 1, got {speculative_k}")
+        self.speculative_k = speculative_k
+        self.speculative_ngram = speculative_ngram
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rounds = 0
+        self.spec_round_tokens = 0
+        self._spec_suspended_logged = False
+        # the draft model keeps its own contiguous cache; _draft_sync is
+        # how much of each slot's history it holds, re-synced lazily (a
+        # catch-up of at most _draft_window tokens inside the roll,
+        # chunks of that width before it for a wider gap)
+        self.draft_model = draft_model
+        self.draft_cache = None
+        self._draft_window = None
+        if draft_model is not None:
+            if speculative_k is None:
+                raise ValueError(
+                    "draft_model needs speculative_k (the proposal len)")
+            # every use pins its own index (the roll, the catch-up view)
+            self.draft_cache = draft_model.init_cache(
+                max_slots, self.cache_len, dtype=cache_dtype)
+            self._draft_sync = np.zeros((max_slots,), np.int64)
+            self._draft_uid = np.full((max_slots,), -1, np.int64)
+            # the largest normal re-sync: a fully accepted round (k + 1
+            # verify tokens and the decode_steps - 1 extension) or a
+            # plain block
+            self._draft_window = max(
+                16, 1 << (speculative_k + decode_steps - 1).bit_length())
         self.graphs = StepGraphs(model, self.cache, max_slots=max_slots,
                                  chunk=chunked_prefill,
                                  decode_steps=decode_steps,
                                  capture=self.device.type == "cuda",
-                                 paged=self.paged)
+                                 paged=self.paged, spec_k=speculative_k,
+                                 draft=draft_model,
+                                 draft_cache=self.draft_cache,
+                                 draft_window=self._draft_window)
 
         # host-side slot table: slot_len mirrors each slot's cache depth,
         # so no finish check ever waits on the device
@@ -326,14 +398,19 @@ class InferenceEngine:
         self.error: BaseException | None = None
         self._mixed_fallbacks_logged: set[str] = set()
         # counters: forward passes by kind (decode tokens stepped over
-        # every slot; one-shot prefill batches; batched chunks over every
-        # slot, the fused step's included; single-slot chunks and
-        # suffixes), blocks, sheds, and step-path dispatches (the JAX
-        # DispatchMeter's count)
+        # every slot, a spec round's extension included; one-shot prefill
+        # batches; batched chunks over every slot, the fused step's
+        # included; single-slot chunks and suffixes; spec verifies over
+        # every slot, k + 1 rows each; the draft's single-slot catch-up
+        # chunks and its rolls), blocks, sheds, and step-path dispatches
+        # (the JAX DispatchMeter's count)
         self.decode_steps_run = 0
         self.prefill_batches_run = 0
         self.chunk_batches_run = 0
         self.chunk_slots_run = 0
+        self.spec_verifies_run = 0
+        self.draft_chunks_run = 0
+        self.draft_rolls_run = 0
         self.mixed_blocks = 0
         self.multi_blocks = 0
         self.multi_steps_total = 0
@@ -684,18 +761,27 @@ class InferenceEngine:
         ``chunked_prefill``), against a one-slot view of the cache (its
         writes land in the slot's own rows). Returns the (1, vocab) f32
         logits at the chunk's last real position."""
+        hidden = self._chunk_slot_impl(self.model, self.cache, slot, chunk,
+                                       done, width or self.chunked_prefill)
+        self.chunk_slots_run += 1
+        self.dispatches_total += 1
+        return self.model.head(hidden[:, len(chunk) - 1]).to(torch.float32)
+
+    def _chunk_slot_impl(self, model, cache, slot: int, chunk: list[int],
+                         done: int, width: int) -> torch.Tensor:
+        """The single-slot chunk of ``model`` over ``cache`` (the engine's,
+        or the draft model's): returns the chunk's (1, width, D) final
+        hidden states."""
         dev = self.device
-        ids = np.zeros((1, width or self.chunked_prefill), np.int64)
+        ids = np.zeros((1, width), np.int64)
         ids[0, :len(chunk)] = chunk
         view = [{"k": layer["k"][slot:slot + 1],
                  "v": layer["v"][slot:slot + 1],
                  "index": torch.tensor([done], device=dev)}
-                for layer in self.cache]
-        hidden, _ = self.model(torch.from_numpy(ids).to(dev), cache=view,
-                               return_hidden=True)
-        self.chunk_slots_run += 1
-        self.dispatches_total += 1
-        return self.model.head(hidden[:, len(chunk) - 1]).to(torch.float32)
+                for layer in cache]
+        hidden, _ = model(torch.from_numpy(ids).to(dev), cache=view,
+                          return_hidden=True)
+        return hidden
 
     def _finalize_prefills(self) -> None:
         """Activate every chunked prefill whose prompt is fully fed, and
@@ -994,6 +1080,10 @@ class InferenceEngine:
         self.slot_ready[slot] = False
         self.slot_budget[slot] = 0
         self.slot_hist[slot] = None
+        if self.draft_model is not None:
+            # the target KV is recomputed on re-admission: so is the
+            # draft's
+            self._draft_uid[slot] = -1
         self.preemptions += 1
         with self.pending.mutex:
             self.pending.queue.appendleft(req)
@@ -1057,6 +1147,197 @@ class InferenceEngine:
         """The paged twin of :meth:`_store_prefix`: the prompt's KV is
         already in the slot's pages, so storing it is indexing them."""
         self._paged_register_pages(req.prompt_ids[:plen], slot)
+
+    # --- speculative decoding (JAX engine.py:1242-1358, 3360-3580) ---------
+
+    def _draft(self, hist: list[int], k: int) -> list[int] | None:
+        """Prompt-lookup draft: the ``k`` tokens that followed the most
+        recent earlier occurrence of the trailing n-gram (n from
+        ``speculative_ngram`` down to 1) in the last 2048 tokens, or None.
+        Vectorized: it runs on the host before every round."""
+        window = np.asarray(hist[-2048:], np.int64)
+        for n in range(self.speculative_ngram, 0, -1):
+            if window.size <= n:
+                continue
+            pat = window[-n:]
+            # start positions before the trailing n-gram itself where all
+            # n tokens match
+            limit = window.size - n
+            hitmask = window[:limit] == pat[0]
+            for j in range(1, n):
+                hitmask &= window[j:limit + j] == pat[j]
+            hits = np.nonzero(hitmask)[0]
+            if hits.size:
+                i = int(hits[-1])
+                cont = window[i + n: i + n + k].tolist()
+                if cont:
+                    return cont          # 1..k tokens; the round zero-fills
+        return None
+
+    def _spec_applicable(self, active: list[int]) -> bool:
+        """Whether a spec round can run this step (shared with the mixed
+        step's composition test, so the two never disagree): every active
+        slot greedy, and the round's k + 1 rows inside the cache for every
+        ready row and every mid-prefill row (the verify writes dead rows
+        at a mid-prefill row's watermark; a clamp there would shift them
+        back over its prompt)."""
+        k = self.speculative_k
+        if k is None:
+            return False
+        if not all(self._greedy[s] for s in active):
+            return False                  # lossless under greedy only
+        return (all(self.slot_len[s] + k + 1 <= self.cache_len
+                    for s in active)
+                and all(st["done"] + k + 1 <= self.cache_len
+                        for st in self.slot_prefill.values()))
+
+    def _spec_headroom(self, active: list[int]) -> int:
+        """Cache rows left for the extension above the k + 1 verify rows:
+        min over decoding and mid-prefill rows."""
+        lens = [int(self.slot_len[s]) for s in active]
+        lens += [st["done"] for st in self.slot_prefill.values()]
+        return (self.cache_len - (self.speculative_k + 1)
+                - (max(lens) if lens else 0))
+
+    def _draft_model_propose(self, active: list[int], k: int) -> dict:
+        """The draft model's proposal: re-sync each slot's draft cache to
+        its history (eager single-slot chunks of ``W`` while the gap is
+        wider than ``W``), then one roll over every slot. Returns
+        ``{slot: k tokens}``."""
+        W = self._draft_window
+        rows = []
+        for s in active:
+            hist = self.slot_hist[s]
+            req = self.slot_req[s]
+            if hist is None or req is None:
+                continue
+            if self._draft_uid[s] != req.uid:        # a new request
+                self._draft_uid[s] = req.uid
+                self._draft_sync[s] = 0
+            # the roll writes up to len(hist) + k rows and the W-wide
+            # catch-up must fit too; a clamped write near the end would
+            # shift back over synced KV. Such a slot is skipped, and as
+            # an idle row below its dead write may land on its synced
+            # rows: drop its watermark, so it re-syncs in full
+            if (len(hist) + k > self.cache_len
+                    or len(hist) - 1 + W > self.cache_len):
+                self._draft_uid[s] = -1
+                continue
+            while len(hist) - int(self._draft_sync[s]) > W:
+                done = int(self._draft_sync[s])
+                chunk = hist[done: done + W]
+                self._chunk_slot_impl(self.draft_model, self.draft_cache, s,
+                                      chunk, done, W)
+                self.draft_chunks_run += 1
+                self.dispatches_total += 1
+                self._draft_sync[s] = done + len(chunk)
+            rows.append(s)
+        if not rows:
+            return {}
+        catchup = np.zeros((self.max_slots, W), np.int64)
+        starts = np.zeros((self.max_slots,), np.int64)
+        lens = np.zeros((self.max_slots,), np.int64)
+        for s in range(self.max_slots):
+            if s in rows:
+                gap = self.slot_hist[s][int(self._draft_sync[s]):]
+                catchup[s, :len(gap)] = gap
+                starts[s] = self._draft_sync[s]
+                lens[s] = len(gap)
+            else:                            # idle rows: a dead write
+                starts[s] = min(int(self._draft_sync[s]),
+                                self.cache_len - W)
+        out = self.graphs.run("droll", k, all_greedy=True, generator=None,
+                              width=W, catchup=catchup, roll_starts=starts,
+                              roll_lens=lens)
+        drafts = out["drafts"].cpu().numpy()
+        self.draft_rolls_run += 1
+        self.dispatches_total += 1
+        proposed = {}
+        for s in rows:
+            self._draft_sync[s] = len(self.slot_hist[s])
+            proposed[s] = [int(t) for t in drafts[s]]
+        return proposed
+
+    def _try_speculative(self, active: list[int]) -> bool:
+        """One fused spec round: draft ``k`` tokens per slot (ngram or the
+        draft model), then verify them and decode the planned block's
+        remaining ``m`` steps in one dispatch (on the card one replay of
+        ``("spec" | "pspec", m, True, width, window)``), and commit each
+        slot's accepted tokens, bonus token and extension. Returns False
+        (nothing dispatched but a draft) when the round does not apply or
+        nothing was drafted: the caller runs the plain block."""
+        k = self.speculative_k
+        if not self._spec_applicable(active):
+            return False
+        m = plan_spec_extension(block=self._plan_block(active), k=k,
+                                headroom=self._spec_headroom(active))
+        # draft before touching the page pool (drafting needs no page),
+        # so a step that drafts nothing preempts nobody for a
+        # reservation it never uses
+        if self.draft_model is not None:
+            drafts = self._draft_model_propose(active, k)
+        else:
+            drafts = {}
+            for s in active:
+                d = self._draft(self.slot_hist[s], k)
+                if d is not None:
+                    drafts[s] = d
+        if not drafts:
+            return False
+        w = k + 1 + m                         # rows the round writes
+        if self.paged is not None:
+            # reserve the round's rows (may preempt; a preempted slot's
+            # draft watermark is dropped in _paged_preempt)
+            active = self._paged_reserve_active(active, w)
+            if not active:
+                return True
+            drafts = {s: d for s, d in drafts.items() if s in active}
+        tokens = np.zeros((self.max_slots, k + 1), np.int64)
+        tokens[:, 0] = self.slot_last_token
+        for s, d in drafts.items():
+            tokens[s, 1:1 + len(d)] = d
+        mask = np.zeros((self.max_slots,), np.int64)
+        mask[active] = 1
+        if self.paged is not None:
+            width = self._paged_width(
+                max(int(self.slot_len[s]) for s in active) + w)
+            base = self._paged_index_vec(width, w)
+            valid = np.zeros((self.max_slots,), np.int64)
+            for s in active:
+                valid[s] = w
+                self._paged_cow_fork(s, int(self.slot_len[s]), w)
+            out = self.graphs.run(
+                "pspec", m, all_greedy=True, generator=None, width=width,
+                spec_tokens=tokens, index=base, spec_mask=mask,
+                gidx=self.paged.gather_idx(width),
+                vidx=window_idx(base, width, w),
+                sidx=self.paged.scatter_idx(base, valid, w))
+        else:
+            # the whole cache is the view: free rows' dead window is
+            # clamped inside it, live rows fit (_spec_applicable and the
+            # headroom cap on m)
+            base = self._paged_index_vec(self.cache_len, w)
+            out = self.graphs.run("spec", m, all_greedy=True,
+                                  generator=None, spec_tokens=tokens,
+                                  index=base, spec_mask=mask)
+        spec = out["spec"].cpu().numpy()    # out | n_acc | extra, one copy
+        self.spec_rounds += 1
+        self.spec_verifies_run += 1
+        self.decode_steps_run += m
+        self.dispatches_total += 1
+        for s in active:
+            n_acc = int(spec[s, k + 1])
+            n_drafted = len(drafts.get(s, ()))
+            self.spec_proposed += n_drafted
+            self.spec_accepted += min(n_acc, n_drafted)
+            burst = [int(t) for t in spec[s, :n_acc + 1]]
+            burst += [int(t) for t in spec[s, k + 2:]]
+            for tok in burst:
+                if self.slot_req[s] is None:
+                    break                     # finished mid-burst
+                self._commit_token(s, tok)
+                self.spec_round_tokens += 1
+        return True
 
     # --- decode --------------------------------------------------------------
 
@@ -1200,8 +1481,18 @@ class InferenceEngine:
         admitted = self._admit()
         budget = self.prefill_budget
         active = self._ready_slots()
+        # at decode_steps 1 a spec engine keeps speculating while prompts
+        # prefill: a round yields 1 + accepted tokens per dispatch, the
+        # fused step one. It composes only where the round can run after
+        # this step's chunks have advanced each prefill row
+        spec_composes = (
+            self.decode_steps == 1 and self._spec_applicable(active)
+            and all(st["done"] + budget * self.chunked_prefill
+                    + self.speculative_k + 1 <= self.cache_len
+                    for st in self.slot_prefill.values()))
         pre_progress = False
-        if self.mixed_step and self.slot_prefill and active:
+        if (self.mixed_step and self.slot_prefill and active
+                and not spec_composes):
             if budget > 1:
                 # the fused step carries one chunk; spend the rest of the
                 # prefill budget first, and let a prompt that finishes
@@ -1212,6 +1503,15 @@ class InferenceEngine:
             if self.slot_prefill and active:
                 n = self._plan_block(active)
                 ok, why = self._mixed_feasible(n)
+                if (ok and self.speculative_k is not None
+                        and not self._spec_suspended_logged):
+                    self._spec_suspended_logged = True
+                    _log.info("speculative decoding suspended while a "
+                              "prompt is mid-prefill: the fused mixed "
+                              "step runs plain decode blocks (greedy "
+                              "outputs are unchanged: spec is lossless); "
+                              "speculation resumes when no prefill is in "
+                              "flight")
                 if ok and self._mixed_dispatch(active, n):
                     return True
                 if not ok:
@@ -1224,6 +1524,8 @@ class InferenceEngine:
         active = self._ready_slots()
         if not active:
             return admitted or progressed or bool(self.slot_prefill)
+        if self._try_speculative(active):
+            return True
         n = self._plan_block(active)
         # every row the block writes must land inside the cache
         if n > 1 and any(self.slot_len[s] + n > self.cache_len
@@ -1302,9 +1604,22 @@ class InferenceEngine:
             round(1.0 - live / mapped_tokens, 4) if mapped_tokens else 0.0)
         snap["preemptions"] = self.preemptions
         snap["rejected_too_large"] = self.rejected_too_large
+        # the draft cache's tax on an explicit pool, in target tokens and
+        # in the bytes of its tensors
+        snap["draft_kv_reserved_tokens"] = self.draft_kv_reserved_tokens
+        snap["draft_kv_account_bytes"] = self.draft_kv_bytes()
         if self.prefix_cache is not None:
             snap["prefix_index_entries"] = self.prefix_cache.n_entries
         return snap
+
+    def draft_kv_bytes(self) -> int:
+        """Device bytes of the draft model's K and V cache (0 without a
+        draft)."""
+        if self.draft_cache is None:
+            return 0
+        return sum(buf.numel() * buf.element_size()
+                   for layer in self.draft_cache
+                   for key, buf in layer.items() if key != "index")
 
     def page_capacity_detail(self, prompt_tokens: int) -> dict:
         """Why a prompt gets 422: the page math of the API's error body."""

@@ -1,4 +1,5 @@
-"""The decode block and the fused mixed step as one CUDA graph replay each.
+"""The decode block, the fused mixed step and the speculative round as one
+CUDA graph replay each.
 
 The JAX engine runs each of these as one compiled XLA program: one
 dispatch, whatever the number of kernels in it. The port's counterpart is
@@ -15,10 +16,19 @@ width)``, or on the CPU runs the same body eagerly:
   the scatter of each row's fresh window back into the pool
   (:mod:`.paged_kv`). ``width`` is the view's power-of-two bucket (the
   JAX engine compiles one program per bucket); the contiguous kinds have
-  ``width`` None.
+  ``width`` None;
+- ``"spec"`` / ``"pspec"``: the fused speculative round
+  (:func:`~.mixed_step.spec_verify_block`, greedy only) over the
+  contiguous cache, or between a gather and a scatter of a
+  ``k + 1 + m``-row window per slot in the paged layout. ``n`` is the
+  extension's ``m``; the round's ``out``, ``n_acc`` and ``extra`` come
+  back as one ``(slots, k + 2 + m)`` tensor, read in one copy;
+- ``"droll"``: the draft model's catch-up and roll
+  (:func:`~.mixed_step.draft_roll`) over the draft's own contiguous
+  cache; ``n`` is ``k`` and ``width`` the catch-up window ``W``.
 
-``n`` is ``decode_steps`` or a power of two below it, as
-:func:`~.mixed_step.plan_decode_block` plans.
+For the decode kinds ``n`` is ``decode_steps`` or a power of two below
+it, as :func:`~.mixed_step.plan_decode_block` plans.
 
 - **First use of a variant** runs its body eagerly on the card (that run
   is the step's result; it also builds each kernel, whose nvcc must not
@@ -43,9 +53,9 @@ width)``, or on the CPU runs the same body eagerly:
   replay.
 
 The chunked-prefill paths outside the fused step (the batched chunk and
-the single-slot chunk) and the one-shot prefill stay eager: prefill-sized
-forwards, as the JAX package compiles its prefill programs apart from the
-decode programs.
+the single-slot chunk), the one-shot prefill and the draft's catch-up
+chunks past its window stay eager: prefill-sized forwards, as the JAX
+package compiles its prefill programs apart from the decode programs.
 """
 
 from __future__ import annotations
@@ -57,8 +67,10 @@ import torch
 from llm_in_practise_tpu_torch.ops import launch_count
 from llm_in_practise_tpu_torch.serve.mixed_step import (
     decode_scan,
+    draft_roll,
     make_mixed_step,
     pin_index,
+    spec_verify_block,
 )
 from llm_in_practise_tpu_torch.serve.paged_kv import (
     gather_view,
@@ -68,19 +80,26 @@ from llm_in_practise_tpu_torch.serve.paged_kv import (
 # index arrays of the paged kinds: gather (slots x width), and the view
 # positions and pool rows of the write-back window (slots x window)
 PAGED_INDEX = ("gidx", "vidx", "sidx")
+PAGED_KINDS = ("pdecode", "pmixed", "pspec")
 
 
 class StepGraphs:
-    """Static buffers of the engine's decode block and fused mixed step,
-    and with ``capture`` one CUDA graph per variant over ``cache`` (the
-    contiguous layout) or ``paged`` (a :class:`~.paged_kv.PagedKV`)."""
+    """Static buffers of the engine's step paths, and with ``capture`` one
+    CUDA graph per variant over ``cache`` (the contiguous layout) or
+    ``paged`` (a :class:`~.paged_kv.PagedKV`). With ``spec_k`` the spec
+    kinds have their buffers; with ``draft`` (a model) and its
+    ``draft_cache`` the roll has its own, ``draft_window`` wide."""
 
     def __init__(self, model, cache, *, max_slots: int, chunk: int | None,
-                 decode_steps: int, capture: bool, paged=None):
+                 decode_steps: int, capture: bool, paged=None,
+                 spec_k: int | None = None, draft=None, draft_cache=None,
+                 draft_window: int | None = None):
         dev = model.device
         self.model = model
         self.cache = cache
         self.paged = paged
+        self.draft = draft
+        self.draft_cache = draft_cache
         self.capture = capture
         self.decode_steps = decode_steps
         self.vocab = model.config.vocab_size
@@ -98,6 +117,12 @@ class StepGraphs:
         if chunk is not None:
             self.inputs.update(chunk_ids=buf(b, chunk), starts=buf(b),
                                lens=buf(b), advance=buf(b))
+        if spec_k is not None:
+            self.inputs.update(spec_tokens=buf(b, spec_k + 1),
+                               spec_mask=buf(b))
+        if draft is not None:
+            self.inputs.update(catchup=buf(b, draft_window),
+                               roll_starts=buf(b), roll_lens=buf(b))
         self._index_bufs: dict[tuple, torch.Tensor] = {}  # (name, size)
         self.noise: torch.Tensor | None = None  # made at the first draw
         self.graphs: dict[tuple, tuple] = {}    # key -> (graph, out, delta)
@@ -122,10 +147,11 @@ class StepGraphs:
         """One step of ``kind`` over ``n`` decode tokens. ``arrays`` (numpy)
         go into the static buffers of the same names (the paged kinds'
         ``gidx``, ``vidx`` and ``sidx`` into their per-size buffers).
-        Returns the step's outputs, ``toks`` (slots, n), ``index``
-        (slots,) and for the fused kinds ``chunk_last`` (slots, vocab): on
-        the card they are the graph's own tensors, valid until the next
-        call."""
+        Returns the step's outputs: ``toks`` (slots, n), ``index``
+        (slots,) and for the fused kinds ``chunk_last`` (slots, vocab);
+        ``spec`` (slots, k + 2 + m) for the spec kinds; ``drafts``
+        (slots, k) for the roll. On the card they are the graph's own
+        tensors, valid until the next call."""
         for name, a in arrays.items():
             flat = torch.from_numpy(a)
             if name in PAGED_INDEX:
@@ -165,13 +191,24 @@ class StepGraphs:
                     noise=None if all_greedy else self.noise[:n])
         params = (x["temperature"], x["top_k"], x["top_p"], x["greedy"])
         rows = x["tokens"].shape[0]
-        if kind in ("pdecode", "pmixed"):
+        if kind == "droll":
+            drafts, cache = draft_roll(self.draft, self.draft_cache,
+                                       x["catchup"], x["roll_starts"],
+                                       x["roll_lens"], k=n)
+            return {"drafts": drafts, "index": cache[0]["index"]}
+        if kind in PAGED_KINDS:
             g, cache = gather_view(
                 self.paged, self._index_buf("gidx", rows * width), rows,
-                x["index"] if kind == "pdecode" else x["starts"])
+                x["starts"] if kind == "pmixed" else x["index"])
         else:
             cache = self.cache
-        if kind in ("decode", "pdecode"):
+        if kind in ("spec", "pspec"):
+            out, n_acc, extra, cache = spec_verify_block(
+                self.model, cache, x["spec_tokens"], x["index"],
+                x["spec_mask"], m=n)
+            out = {"spec": torch.cat([out, n_acc[:, None], extra], dim=1),
+                   "index": cache[0]["index"]}
+        elif kind in ("decode", "pdecode"):
             toks, cache = decode_scan(
                 self.model, pin_index(cache, x["index"]), x["tokens"],
                 *params, **samp)
@@ -182,7 +219,7 @@ class StepGraphs:
                 x["advance"], x["tokens"], *params, **samp)
             out = {"chunk_last": chunk_last, "toks": toks,
                    "index": cache[0]["index"]}
-        if kind in ("pdecode", "pmixed"):
+        if kind in PAGED_KINDS:
             scatter_window(self.paged, g, self._index_buf("vidx", window),
                            self._index_buf("sidx", window))
         return out

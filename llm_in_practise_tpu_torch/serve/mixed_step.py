@@ -14,14 +14,20 @@ engine calls them directly. No body reads the device from the host:
   the cache;
 - :func:`make_mixed_step`: the chunk, then the ``n``-step block, then the
   final pin ``starts + lens + advance``;
-- :func:`plan_decode_block`: the host-side policy for ``n``.
+- :func:`spec_verify_block`: the fused speculative round, the verify of
+  ``k`` drafted tokens and the block's remaining ``m`` greedy steps;
+- :func:`draft_roll`: the draft model's catch-up and its ``k`` greedy
+  draft tokens;
+- :func:`plan_decode_block` and :func:`plan_spec_extension`: the
+  host-side policies for ``n`` and ``m``.
 
 The bounds that keep every write of these bodies off attended KV (the
 cache update clamps a window that runs past the end, as
 ``dynamic_update_slice`` does, which would shift it backward) are the
 engine's to keep, as in the JAX package: ``n <= chunk``;
 ``done + chunk + n <= cache_len`` for a mid-prefill row;
-``slot_len + chunk <= cache_len`` for an occupied row under a chunk.
+``slot_len + chunk <= cache_len`` for an occupied row under a chunk;
+``index + k + 1 + m <= cache_len`` for every live row of a spec round.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ def decode_scan(model, cache, tokens, temperature, top_k, top_p, greedy, *,
             greedy=greedy, all_greedy=all_greedy,
             noise=None if noise is None else noise[j])
         toks.append(tok)
+    if not toks:
+        return tokens.new_zeros((tokens.shape[0], 0)), cache
     return torch.stack(toks, dim=1), cache
 
 
@@ -71,6 +79,61 @@ def batched_chunk(model, cache, chunk_ids, starts, lens):
     last = hidden[rows, torch.clamp(lens - 1, min=0)]
     logits = model.head(last).to(torch.float32)
     return logits, pin_index(cache, starts + lens)
+
+
+def spec_verify_block(model, cache, tokens, base, mask, *, m):
+    """The fused speculative round: verify the ``k`` drafted tokens and
+    decode the planned block's remaining ``m`` greedy steps, with no
+    value going to the host in between.
+
+    1. One cached forward over the ``(B, k+1)`` tokens ``[last_token,
+       draft_1..k]`` (zeros where nothing was drafted), the index pinned
+       to ``base``.
+    2. ``n_acc``: the longest prefix of the drafts that equals the
+       forward's own f32 argmax (the sum of the cumprod of the matches).
+    3. The index pinned to ``base + (n_acc + 1) * mask``: rows with mask
+       0 (free, mid-prefill) return to ``base``.
+    4. ``m`` greedy steps from each row's bonus token ``out[s, n_acc]``
+       (:func:`decode_scan`); each overwrites the next rejected draft's
+       row before any query attends it. The final pin is
+       ``base + (n_acc + 1 + m) * mask``.
+
+    Every emitted token (accepted, bonus or extension) is an argmax of
+    this body's own forwards, so under greedy the stream is the plain
+    one. Returns ``(out (B, k+1), n_acc (B,), extra (B, m), cache)``.
+    """
+    logits, cache = model(tokens, cache=pin_index(cache, base))
+    out = torch.argmax(logits.to(torch.float32), dim=-1)
+    # position j is accepted iff every draft up to and including j
+    # matched the model's own output
+    match = (out[:, :-1] == tokens[:, 1:]).to(torch.int64)
+    n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+    cache = pin_index(cache, base + (n_acc + 1) * mask)
+    if m == 0:
+        return out, n_acc, out.new_zeros((out.shape[0], 0)), cache
+    bonus = torch.gather(out, 1, n_acc[:, None])[:, 0]
+    extra, cache = decode_scan(model, cache, bonus, None, None, None, None,
+                               n=m, all_greedy=True)
+    return out, n_acc, extra, pin_index(cache, base + (n_acc + 1 + m) * mask)
+
+
+def draft_roll(model, cache, catchup, starts, lens, *, k):
+    """The draft model's proposal: feed each row's unsynced tokens
+    (``catchup`` (B, W), right-padded, the index pinned to ``starts``),
+    then roll ``k`` greedy draft tokens. Returns ``(drafts (B, k),
+    cache)`` with the index at ``starts + lens``; the rolled tokens' KV
+    above it is overwritten by the next round's catch-up.
+
+    The catch-up advances every row's index by the padded width ``W``;
+    the re-pin to ``starts + lens`` before the roll puts draft tokens
+    2..k at their true RoPE positions (without it they decode shifted
+    and write their KV above the watermark)."""
+    first_logits, cache = batched_chunk(model, cache, catchup, starts, lens)
+    first = torch.argmax(first_logits, dim=-1)
+    rest, cache = decode_scan(model, cache, first, None, None, None, None,
+                              n=k - 1, all_greedy=True)
+    drafts = torch.cat([first[:, None], rest], dim=1)
+    return drafts, pin_index(cache, starts + lens)
 
 
 def make_mixed_step(model):
@@ -133,3 +196,23 @@ def plan_decode_block(*, decode_steps: int, queue_depth: int,
     if capped and n > 1:
         n = 1 << (n.bit_length() - 1)
     return n
+
+
+def plan_spec_extension(*, block: int, k: int, headroom: int) -> int:
+    """Extra greedy steps ``m`` after the ``k``-token verify, so that one
+    spec round spans the same ``n``-step plan as a plain block (``block``
+    from :func:`plan_decode_block`): ``m = block - 1``, shrunk to
+    ``headroom`` (min over live rows of ``cache_len - (k + 1) -
+    position``: every write of the round lands inside the cache) and,
+    when shrunk by headroom, quantized down to a power of two. Each
+    ``m`` is one captured graph; ``m`` takes values in ``{decode_steps -
+    1}``, ``{2^j - 1}`` (a capped block is a power of two), ``{2^j}``
+    (headroom) and ``{0}``: about 2 log2(decode_steps) of them."""
+    m = block - 1
+    if m <= 0 or headroom <= 0:
+        return 0
+    if headroom < m:
+        m = headroom
+        if m > 1:
+            m = 1 << (m.bit_length() - 1)
+    return m

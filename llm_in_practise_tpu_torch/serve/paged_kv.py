@@ -57,6 +57,21 @@ def pages_for(n_tokens: int, page_size: int) -> int:
     return -(-int(n_tokens) // int(page_size))
 
 
+def kv_row_bytes(model, dtype) -> int:
+    """Device bytes one KV-cache row (one token position, every layer)
+    costs ``model`` in ``dtype``: the exchange rate at which the engine
+    expresses a draft model's contiguous cache in page-pool tokens, so a
+    paged engine with a draft cannot over-admit against bytes the draft
+    already holds."""
+    probe = 16
+    total = 0
+    for layer in model.init_cache(1, probe, dtype=dtype):
+        for key, buf in layer.items():
+            if key != "index":
+                total += (buf.numel() // probe) * buf.element_size()
+    return total
+
+
 def byte_view(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself, or for a float8 tensor its ``uint8`` view: gathers
     and scatters move the bytes, bit for bit, where an op has no float8

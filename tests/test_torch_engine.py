@@ -126,7 +126,7 @@ def test_slot_reuse_and_budget_bookkeeping():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(speculative_k=4), dict(mesh=object()),
+    dict(mesh=object()),
     dict(adapter_registry=object()), dict(kv_pool=object()),
     dict(handoff=object()), dict(session_store=object())])
 def test_unported_engine_knobs_raise(knob):
@@ -136,10 +136,12 @@ def test_unported_engine_knobs_raise(knob):
 
 
 @pytest.mark.parametrize("knob", [dict(prefix_cache=True),
-                                  dict(kv_layout="paged")])
+                                  dict(kv_layout="paged"),
+                                  dict(speculative_k=4)])
 def test_prefix_cache_and_paged_knobs_construct_and_serve(knob):
-    """The knobs that raised until the paged KV slice: they construct and
-    serve the same greedy tokens as the plain contiguous engine."""
+    """The knobs that raised until the paged KV and speculative decoding
+    slices: they construct and serve the same greedy tokens as the plain
+    contiguous engine."""
     model = tiny_port_model(64, seed=5)
     prompt = [(i * 3 + 1) % 64 for i in range(20)]
     sp = SamplingParams(greedy=True, max_tokens=8)
@@ -151,6 +153,8 @@ def test_prefix_cache_and_paged_knobs_construct_and_serve(knob):
     assert eng.generate(prompt, sp) == plain.generate(prompt, sp)
     if "prefix_cache" in knob:
         assert eng.prefix_cache.hits == 1
+    elif "speculative_k" in knob:
+        assert eng.spec_rounds > 0
     else:
         eng.paged.pool.check_leaks(0)
 
