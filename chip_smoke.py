@@ -107,6 +107,27 @@ Phases, in order; any failure exits non-zero:
    explicit pool gives up the draft cache's rows. Readings: TPOT, tokens
    per round, acceptance, device and host time per round, the roll's
    device time, captures, and a 40-row verify beside an 8-row decode.
+   No engine of the phase captures a masked graph kind.
+   Then ``serve_struct`` on the same model (structured output and
+   ``/v1/embeddings``; paged, chunked prefill 256, decode blocks of 8,
+   the fused mixed step): the JAX structured bench's traffic, 16
+   requests from ``serve/arrivals.py``'s seeded bursty schedule, half
+   under the bench's JSON schema, replayed open loop (then a 700-token
+   plain document) through paged engines with speculation off, the
+   prompt lookup and the target as its own draft (k = 4), and
+   contiguous engines with it off and with the prompt lookup; then over
+   HTTP ``json_schema``
+   (streamed and not), ``json_object``, a forced tool call, ``tools``
+   with ``auto``, two 422s and ``/v1/embeddings``. Every constrained
+   completion that stops parses and validates, with no violation; every
+   masked graph replays its eager body byte for byte; while a slot is
+   constrained each dispatch is one masked graph run at n 1 (m 0); masked
+   spec rounds' acceptance is recounted on the host and bounded by the
+   grammar; B1's launches per route follow from the forwards, the
+   embeddings' too (and their vectors agree with the plain version's).
+   Readings: TPOT and TTFT of constrained and plain requests, the first
+   request's TPOT, mask staging and copy times, grammar compile time per
+   state, ``vocab_strings`` time, masked captures.
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
    Qwen3-8B projection shape (both also at ragged shapes,
    ``NF4_FWD_EDGE_SHAPES`` on both forward routes and
@@ -3060,8 +3081,15 @@ def spec_leg(name: str, engine, model, prompts, long_prompt=None,
         "captures": len(g.capture_s),
         "capture_s": sum(g.capture_s.values()),
         "graphs": sorted(f"{k} n={n} w={w}" for k, n, _, w, _ in g.graphs),
-        "graph_pool_mib": g.pool_bytes / 2**20}
+        "graph_pool_mib": g.pool_bytes / 2**20,
+        # an engine that never sees a constraint captures no masked kind
+        # and allocates no mask buffer
+        "masked_graphs": [k for k in g.graphs if k[0] in MASKED_KINDS],
+        "mask_buffers": sorted(g.masks)}
     log(f"serve_spec {name}:", json.dumps(res))
+    if res["masked_graphs"] or res["mask_buffers"]:
+        raise SystemExit(f"serve_spec {name}: an unconstrained engine "
+                         f"captured a masked kind or made a mask buffer")
     if (routes != want or launches != sum(routes.values())
             or any(f not in ("stop", "length") for f in res["finish"])):
         raise SystemExit(f"serve_spec {name}: B1 launches {routes} differ "
@@ -3436,6 +3464,772 @@ def spec_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
     log("serve_spec:", json.dumps({k: v for k, v in res.items()
                                    if k != "legs"}))
     return {"spec": res, "launches": launches, "routes": routes}
+
+
+# ---------------------------------------------------------------------------
+# serve_struct: structured output (the OpenAI API's response_format and
+# tools / tool_choice, grammar-masked in every decode path) and
+# /v1/embeddings, on the traffic of the JAX structured bench
+# (tools/structured_bench.py:50-60, 233-235)
+
+STRUCT = dict(decode_steps=8, chunked_prefill=256, mixed_step=True)
+STRUCT_ARRIVALS = dict(seed=42, n_requests=16, mean_iat_s=0.02, cv=2.0,
+                       prompt_tokens=(8, 48), max_tokens=(72, 128))
+STRUCT_LONG = 700            # a plain document after the schedule: the
+#                              fused mixed step runs its masked twin
+STRUCT_LONG_TOKENS = 16
+# tools/structured_bench.py's SCHEMA
+STRUCT_SCHEMA = {
+    "type": "object",
+    "properties": {
+        "name": {"type": "string", "minLength": 1, "maxLength": 10},
+        "age": {"type": "integer"},
+        "tags": {"type": "array", "items": {"enum": ["a", "b", "c"]},
+                 "minItems": 1, "maxItems": 3},
+    },
+    "required": ["name", "age", "tags"],
+}
+STRUCT_TOOL = {"type": "function", "function": {
+    "name": "lookup", "description": "search the notes",
+    "parameters": {"type": "object",
+                   "properties": {"q": {"type": "string", "maxLength": 6}},
+                   "required": ["q"]}}}
+STRUCT_HTTP_TOKENS = 128
+MASKED_KINDS = ("mdecode", "pmdecode", "mmixed", "pmmixed", "mspec",
+                "pmspec")
+# /v1/embeddings, kernels vs plain versions on the unit vectors:
+# max|kernel - plain| <= MODEL_TOL * max|plain| (36 bf16 layers, as the
+# whole-model logits check)
+EMBED_INPUTS = ("Structured output masks the logits on the host.",
+                "The port serves Qwen3 on Hopper.")
+
+
+def struct_rf() -> dict:
+    return {"type": "json_schema",
+            "json_schema": {"name": "person", "schema": STRUCT_SCHEMA}}
+
+
+def struct_prompts(tok, schedule) -> tuple[list, list]:
+    """Each arrival's prompt: ``prompt_tokens`` ids of SURVEY.md from its
+    own offset; and the long document after the schedule."""
+    survey = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "SURVEY.md")
+    with open(survey, encoding="utf-8") as f:
+        ids = tok.encode(f.read())
+    prompts = [ids[97 * i: 97 * i + a.prompt_tokens]
+               for i, a in enumerate(schedule)]
+    return prompts, ids[-STRUCT_LONG:]
+
+
+def struct_engine(model, tok, seed: int, **kw):
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    return InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+                           eos_id=tok.token_to_id(IM_END),
+                           cache_dtype=torch.bfloat16, seed=seed,
+                           **{"kv_layout": "paged", **STRUCT, **kw})
+
+
+class StructRecorder(SpecRecorder):
+    """:class:`SpecRecorder`'s hooks, and two more. On every graph run: its
+    kind and ``n``, whether a ready slot was constrained, whether it
+    replayed or captured; in a masked spec round, ``n_acc`` recounted on
+    the host from the masked argmax, each constrained row's acceptance
+    bounded by its first grammar-forbidden draft, and its bonus token
+    allowed by the mask staged for it. On every mask copy to the card:
+    its buffer, bytes and CUDA-event time."""
+
+    def __init__(self, engine):
+        import torch
+
+        super().__init__(engine)
+        g = engine.graphs
+        inner = g.run
+        stage = g._stage_mask
+        self.runs, self.grammar_wrong = [], []
+        self.copies = []        # (name, bytes, start event, end event)
+
+        def stage_mask(name, a):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            stage(name, a)
+            ev[1].record()
+            self.copies.append((name, a.nbytes, *ev))
+
+        g._stage_mask = stage_mask
+
+        def run(kind, n, **kw):
+            constrained = engine._constrained_active(engine._ready_slots())
+            replays, graphs = g.replays, len(g.graphs)
+            out = inner(kind, n, **kw)
+            self.runs.append({
+                "kind": kind, "n": n, "constrained": constrained,
+                "masked": "gmask" in kw or "gmasks" in kw,
+                "runs": g.replays - replays + len(g.graphs) - graphs})
+            if kind in ("mspec", "pmspec"):
+                self._masked_round(out, kw)
+            return out
+
+        g.run = run
+
+    def undo(self):
+        super().undo()
+        del self.engine.graphs.__dict__["_stage_mask"]
+
+    def copy_ms(self) -> dict:
+        """Device ms of every mask copy, by buffer name (synchronizes)."""
+        import torch
+
+        torch.cuda.synchronize()
+        out: dict[str, list[float]] = {}
+        for name, _, a, b in self.copies:
+            out.setdefault(name, []).append(a.elapsed_time(b))
+        return out
+
+    def _masked_round(self, out, kw) -> None:
+        import numpy as np
+
+        e = self.engine
+        k = e.speculative_k
+        spec = out["spec"].cpu().numpy()
+        toks, gm = kw["spec_tokens"], kw["gmasks"]
+        host = np.cumprod(spec[:, :k] == toks[:, 1:], axis=1).sum(axis=1)
+        self.acc_checked += 1
+        if not np.array_equal(host, spec[:, k + 1]):
+            self.acc_wrong.append([host.tolist(), spec[:, k + 1].tolist()])
+        for s, cs in enumerate(e.slot_constraint):
+            if cs is None:
+                continue
+            n_acc, limit, cur = int(spec[s, k + 1]), k, cs.cur
+            for j in range(k):
+                cur = cs.auto.step(cur, int(toks[s, j + 1]))
+                if cur is None:
+                    limit = j
+                    break
+            bonus = int(spec[s, n_acc])
+            if n_acc > limit or gm[s, n_acc, bonus] != 0:
+                self.grammar_wrong.append(
+                    {"slot": s, "n_acc": n_acc, "forbidden_at": limit,
+                     "bonus": bonus})
+
+    def dispatch_checks(self) -> dict:
+        """(c): while a ready slot is constrained every dispatch is a
+        masked kind at n 1 (a spec round at m 0) and one graph run; no
+        masked kind runs otherwise."""
+        bad = [r for r in self.runs if r["kind"] != "droll" and (
+            r["masked"] != r["constrained"]
+            or (r["kind"] in MASKED_KINDS) != r["constrained"]
+            or (r["constrained"] and (
+                r["n"] != (0 if r["kind"].endswith("spec") else 1)
+                or r["runs"] != 1)))]
+        kinds = {}
+        for r in self.runs:
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+        return {"graph_runs": len(self.runs), "by_kind": kinds,
+                "constrained_runs": sum(r["constrained"] for r in self.runs),
+                "bad": bad[:4], "grammar_wrong": self.grammar_wrong[:4]}
+
+
+def struct_run(engine, schedule, prompts, auto, long_prompt) -> tuple:
+    """The schedule replayed open loop into the running engine (even
+    arrivals carry the grammar), then the long plain document; waits for
+    every request. Returns the requests in schedule order (the document
+    last) and the arrivals' lateness."""
+    from types import SimpleNamespace
+
+    from llm_in_practise_tpu_torch.serve import arrivals
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    def submit(a):
+        sp = SamplingParams(greedy=True, max_tokens=a.max_tokens,
+                            constraint=auto if a.i % 2 == 0 else None)
+        return engine.submit(prompts[a.i], sp)
+
+    items = [SimpleNamespace(at_s=a.at_s, max_tokens=a.max_tokens, i=i)
+             for i, a in enumerate(schedule)]
+    late = []
+    reqs = arrivals.replay(items, submit, workers=len(items), lateness=late)
+    reqs.append(engine.submit(long_prompt, SamplingParams(
+        greedy=True, max_tokens=STRUCT_LONG_TOKENS)))
+    for r in reqs:
+        r.result()
+    if engine.error is not None:
+        raise SystemExit(f"serve_struct: engine failed: {engine.error!r}")
+    return reqs, arrivals.lateness_stats(late)
+
+
+def struct_outputs(reqs, auto, tok, label: str) -> dict:
+    """(a) and (e) over the constrained requests (even arrivals): a
+    completion that ended in ``stop`` parses and validates, no cursor
+    counts a violation (streams cut by ``length`` counted apart), and the
+    first token is allowed by the grammar's start state."""
+    from llm_in_practise_tpu_torch.serve import constrain
+
+    con = [r for i, r in enumerate(reqs[:-1]) if i % 2 == 0]
+    start = auto.mask(auto.start)
+    out = {"constrained": len(con), "stop": 0, "length": 0, "valid": 0,
+           "violations": 0, "first_token_allowed": 0, "values": []}
+    for r in con:
+        cs = r.constraint_state
+        out["violations"] += cs.violations if cs is not None else 1
+        out[r.finish_reason] = out.get(r.finish_reason, 0) + 1
+        ids = list(r.output_ids)
+        out["first_token_allowed"] += bool(ids and start[ids[0]] == 0)
+        if r.finish_reason == "stop":
+            text = tok.decode(ids)
+            try:
+                ok = constrain.validate_instance(json.loads(text),
+                                                 STRUCT_SCHEMA)
+            except ValueError:
+                ok = False
+            out["valid"] += ok
+            if len(out["values"]) < 2:
+                out["values"].append(text)
+    if (out["valid"] != out["stop"] or out["violations"]
+            or out["first_token_allowed"] != len(con)
+            or out["stop"] + out["length"] != len(con)):
+        raise SystemExit(f"serve_struct {label}: a constrained output "
+                         f"failed (a) or (e): {out}")
+    return out
+
+
+def struct_replay_check(engine, seed: int) -> dict:
+    """(b): every captured masked graph, replayed once, against its eager
+    body on copies of the same state and inputs (random masks, a tenth of
+    each row allowed): the outputs and every state byte identical."""
+    import numpy as np
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import launch_count
+    from llm_in_practise_tpu_torch.serve.constrain import NEG_INF
+    from llm_in_practise_tpu_torch.serve.paged_kv import window_idx
+
+    g, b = engine.graphs, engine.max_slots
+    dev, k, c = engine.device, engine.speculative_k, engine.chunked_prefill
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    vocab = engine.model.config.vocab_size
+    state = []
+    if engine.cache is not None:
+        state += [layer[key] for layer in engine.cache for key in ("k", "v")]
+    if engine.paged is not None:
+        state.append(engine.paged.store)
+    saved = [t.clone() for t in state]
+
+    def restore():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+
+    def compared(t):
+        # the pool past its trash page (discarded writes, no fixed order)
+        if engine.paged is not None and t is engine.paged.store:
+            return t[:, engine.paged.page_size:]
+        return t
+
+    def rand_mask(name):
+        m = g.masks[name]
+        m.copy_(torch.where(torch.rand(m.shape, device=dev, generator=gen)
+                            < 0.9, NEG_INF, 0.0))
+
+    def index_bufs(width, starts, valid, wwin):
+        pg = engine.paged
+        for name, a in (("gidx", pg.gather_idx(width)),
+                        ("vidx", window_idx(starts, width, wwin)),
+                        ("sidx", pg.scatter_idx(starts, valid, wwin))):
+            flat = torch.from_numpy(a.reshape(-1).astype(np.int64))
+            g._index_buf(name, flat.numel()).copy_(flat)
+
+    snap = launch_count.snapshot()
+    out = {}
+    x = g.inputs
+    rows = np.arange(b)
+    try:
+        with torch.inference_mode():
+            for key in sorted(g.graphs, key=str):
+                kind, n, _, width, _ = key
+                if kind not in MASKED_KINDS:
+                    continue
+                span = width or engine.cache_len
+                x["tokens"].copy_(torch.randint(0, vocab, (b,), device=dev,
+                                                generator=gen))
+                mask = (rows % 2 == 0).astype(np.int64)
+                if kind in ("mspec", "pmspec"):
+                    wwin = k + 1 + n
+                    base = np.minimum(rows * 37 + 5, span - wwin)
+                    x["spec_tokens"].copy_(torch.randint(
+                        0, vocab, (b, k + 1), device=dev, generator=gen))
+                    x["index"].copy_(torch.from_numpy(base))
+                    x["spec_mask"].copy_(torch.from_numpy(mask))
+                    rand_mask("gmasks")
+                    if kind == "pmspec":
+                        index_bufs(width, base, mask * wwin, wwin)
+                elif kind in ("mdecode", "pmdecode"):
+                    idx = np.minimum(rows * 37 + 5, span - n)
+                    x["index"].copy_(torch.from_numpy(idx))
+                    rand_mask("gmask")
+                    if kind == "pmdecode":
+                        index_bufs(width, idx, mask * n, n)
+                else:
+                    starts = np.minimum(rows * 37 + 5, span - c - n)
+                    lens = np.where(mask == 1, rows * 29 % c + 1, 0)
+                    advance = np.where(mask == 1, 0, n)
+                    x["chunk_ids"].copy_(torch.randint(
+                        0, vocab, (b, c), device=dev, generator=gen))
+                    for name, a in (("starts", starts), ("lens", lens),
+                                    ("advance", advance)):
+                        x[name].copy_(torch.from_numpy(a))
+                    rand_mask("gmask")
+                    if kind == "pmmixed":
+                        index_bufs(width, starts, lens + advance, c)
+                graph, static_out, _ = g.graphs[key]
+                restore()
+                graph.replay()
+                torch.cuda.synchronize()
+                got = {n_: v.clone() for n_, v in static_out.items()}
+                got_state = [compared(t).clone() for t in state]
+                restore()
+                want = g._body(key)
+                torch.cuda.synchronize()
+                out[f"{kind} n={n} width={width}"] = {
+                    "outputs_identical": all(torch.equal(got[n_], want[n_])
+                                             for n_ in got),
+                    "state_identical": all(
+                        torch.equal(a, compared(t))
+                        for a, t in zip(got_state, state))}
+                del got, got_state
+        restore()
+    finally:
+        launch_count.restore(snap)
+        del saved
+    if not all(all(r.values()) for r in out.values()):
+        raise SystemExit(f"serve_struct: a masked replay differs from its "
+                         f"eager body: {out}")
+    return out
+
+
+def struct_tpot(reqs) -> dict:
+    def med(vals):
+        vals = [v for v in vals if v is not None]
+        return statistics.median(vals) if vals else None
+
+    body = reqs[:-1]
+    con = [r for i, r in enumerate(body) if i % 2 == 0]
+    plain = [r for i, r in enumerate(body) if i % 2 == 1]
+    return {"tpot_p50_s": {"constrained": med(r.tpot_s for r in con),
+                           "plain": med(r.tpot_s for r in plain)},
+            "ttft_p50_s": {"constrained": med(r.ttft_s for r in con),
+                           "plain": med(r.ttft_s for r in plain)}}
+
+
+def struct_leg(name: str, engine, model, auto, schedule, prompts,
+               long_prompt, tok, seed: int) -> dict:
+    """One leg: a warm-up replay of the traffic (it captures the variants
+    and compiles the grammar states the counted run reaches), then the
+    counted replay with the launch counters zeroed before and read after,
+    the recorders on and the mask copies timed, then the replay check of
+    the masked graphs. Every check of the leg exits non-zero."""
+    import torch
+
+    g = engine.graphs
+    t_leg = time.monotonic()
+    states0, comp0 = auto.states_compiled, auto.compile_seconds
+    capture, pool_mib = g._capture, {}
+
+    def rec_capture(key):
+        before = g.pool_bytes
+        capture(key)
+        pool_mib[key] = (g.pool_bytes - before) / 2**20
+
+    g._capture = rec_capture
+    engine.start()
+    try:
+        t0 = time.monotonic()
+        warm, _ = struct_run(engine, schedule, prompts, auto, long_prompt)
+        warm_s = time.monotonic() - t0
+        first = warm[0]         # the schedule's first constrained request
+        warm_states = auto.states_compiled - states0
+        warm_compile = auto.compile_seconds - comp0
+        rec = StructRecorder(engine)
+        zero_counters()
+        before = {k: getattr(engine, k) for k in SPEC_COUNTERS}
+        before.update(mask_s=engine.grammar_mask_seconds_total,
+                      rejects=engine.spec_grammar_rejects,
+                      states=auto.states_compiled,
+                      compile_s=auto.compile_seconds,
+                      mixed=engine.mixed_blocks)
+        t0 = time.monotonic()
+        try:
+            reqs, lateness = struct_run(engine, schedule, prompts, auto,
+                                        long_prompt)
+            torch.cuda.synchronize()
+        finally:
+            rec.undo()
+        wall = time.monotonic() - t0
+    finally:
+        engine.stop()
+        del g.__dict__["_capture"]
+    routes = read_routes()["nf4_matmul"]
+    launches = read_counters()["nf4_matmul"]
+    delta = {k: getattr(engine, k) - before[k] for k in SPEC_COUNTERS}
+    want = route_launches("nf4", spec_rows(engine, delta, rec),
+                          PROJ_SHAPES.values(), N_LAYER)
+    copy_ms = rec.copy_ms()
+    masked_steps = len(rec.copies)
+    mask_s = engine.grammar_mask_seconds_total - before["mask_s"]
+    compile_s = auto.compile_seconds - before["compile_s"]
+    dispatch = rec.dispatch_checks()
+    rounds = rec.round_checks()
+    outputs = struct_outputs(reqs, auto, tok, name)
+    mib = {"gmask": MAX_SLOTS * model.config.vocab_size * 4 / 2**20}
+    if engine.speculative_k is not None:
+        mib["gmasks"] = mib["gmask"] * (engine.speculative_k + 1)
+    res = {
+        "leg": name, "requests": len(reqs), "wall_s": wall,
+        "warmup_wall_s": warm_s, **struct_tpot(reqs),
+        "first_request": {"tpot_s": first.tpot_s, "ttft_s": first.ttft_s,
+                          "states_compiled_in_warmup": warm_states,
+                          "compile_s_in_warmup": warm_compile},
+        "finish": [r.finish_reason for r in reqs],
+        "lateness": lateness,
+        "outputs": outputs,
+        "masked_steps": masked_steps,
+        "mask_host_ms_per_step": (mask_s - compile_s) * 1e3 / masked_steps
+        if masked_steps else None,
+        "grammar_mask_s": mask_s, "grammar_compile_s": compile_s,
+        "states_compiled": auto.states_compiled - before["states"],
+        "mask_copy": {name_: {"mib": mib[name_], "copies": len(v),
+                              "ms_p50": statistics.median(v),
+                              "ms_max": max(v)}
+                      for name_, v in copy_ms.items()},
+        "mask_copy_bytes": sum(c[1] for c in rec.copies),
+        "spec": {k: delta[k] for k in ("spec_rounds", "spec_proposed",
+                                       "spec_accepted", "spec_round_tokens")},
+        "spec_grammar_rejects": engine.spec_grammar_rejects
+        - before["rejects"],
+        "mixed_blocks": engine.mixed_blocks - before["mixed"],
+        "dispatch_checks": dispatch, "round_checks": rounds,
+        "forwards": {k: delta[k] for k in SPEC_COUNTERS[:7]},
+        "b1_routes": routes, "b1_expected": want,
+        "captures": len(g.capture_s),
+        "masked_captures": {f"{k[0]} n={k[1]} w={k[3]}": {
+            "capture_s": g.capture_s[k],
+            "pool_mib": pool_mib.get(k)}
+            for k in g.capture_s if k[0] in MASKED_KINDS},
+        "graph_pool_mib": g.pool_bytes / 2**20}
+    log(f"serve_struct {name}:", json.dumps(res))
+    if (routes != want or launches != sum(routes.values())
+            or any(f not in ("stop", "length") for f in res["finish"])):
+        raise SystemExit(f"serve_struct {name}: B1 launches {routes} differ "
+                         f"from the engine's forwards ({want}), or a bad "
+                         f"finish")
+    if (dispatch["bad"] or dispatch["grammar_wrong"]
+            or not dispatch["constrained_runs"] or rounds["bad_rounds"]
+            or rounds["n_acc_wrong"]
+            or rounds["n_acc_checked"] != rounds["rounds"]):
+        raise SystemExit(f"serve_struct {name}: the dispatch or round "
+                         f"checks failed: {dispatch} {rounds}")
+    t0 = time.monotonic()
+    res["replay_check"] = struct_replay_check(engine, seed)
+    res["replay_check_wall_s"] = time.monotonic() - t0
+    log(f"serve_struct {name} replay check:",
+        json.dumps(res["replay_check"]))
+    res["leg_wall_s"] = time.monotonic() - t_leg
+    res["launches"] = launches
+    return res
+
+
+def struct_embeddings(srv, base: str) -> dict:
+    """(f) for ``/v1/embeddings``: two strings and a token list over HTTP,
+    the counters zeroed before and read after (B1 at each input's rows,
+    the flash forward once per layer and input), each unit vector against
+    the plain version's."""
+    import numpy as np
+
+    ids = srv.tokenizer.encode(EMBED_INPUTS[0])[:5] + [7, 11, 13]
+    inputs = list(EMBED_INPUTS) + [ids]
+    rows = [len(srv.tokenizer.encode(t)) for t in EMBED_INPUTS] + [len(ids)]
+    zero_counters()
+    req = urllib.request.Request(
+        base + "/v1/embeddings", data=json.dumps(
+            {"model": "qwen3-8b-nf4-struct", "input": inputs}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        body = json.loads(r.read())
+    wall = time.monotonic() - t0
+    routes = read_routes()["nf4_matmul"]
+    counts = read_counters()
+    want = route_launches("nf4", rows, PROJ_SHAPES.values(), N_LAYER)
+    got = [np.asarray(d["embedding"]) for d in body["data"]]
+    undo = plain_kernels()
+    try:
+        plain = []
+        for x in [srv.tokenizer.encode(t) for t in EMBED_INPUTS] + [ids]:
+            v = srv.embed_ids(x)
+            plain.append(v / np.linalg.norm(v))
+    finally:
+        undo()
+    errs = [float(np.abs(a - p).max()) for a, p in zip(got, plain)]
+    scale = max(float(np.abs(p).max()) for p in plain)
+    res = {"inputs": len(inputs), "rows": rows, "wall_s": wall,
+           "usage": body["usage"], "dim": len(got[0]),
+           "norms": [float(np.linalg.norm(v)) for v in got],
+           "max_abs_err": max(errs), "max_rel_err": max(errs) / scale,
+           "cosine_min": min(float(a @ p) for a, p in zip(got, plain)),
+           "tol": f"{MODEL_TOL} * max|plain|, as the model check",
+           "b1_routes": routes, "b1_expected": want,
+           "flash_forward": counts["flash_forward"],
+           "flash_expected": N_LAYER * len(inputs)}
+    if (routes != want or counts["flash_forward"] != N_LAYER * len(inputs)
+            or body["usage"]["prompt_tokens"] != sum(rows)
+            or any(abs(n - 1.0) > 1e-6 for n in res["norms"])
+            or res["max_abs_err"] > MODEL_TOL * scale):
+        raise SystemExit(f"serve_struct embeddings: the checks failed: "
+                         f"{res}")
+    return res
+
+
+def struct_http(model, tok, seed: int) -> dict:
+    """The HTTP leg, on a server built by the CLI's code (paged, chunked
+    prefill 256, decode blocks of 8): ``json_schema`` not streamed and
+    streamed, ``json_object``, a tool call forced by name, ``tools`` with
+    ``auto`` (served unconstrained), a 422 ``invalid_constraint`` and a
+    malformed-shape 422, then ``/v1/embeddings``. Checks (a), (e) and
+    (g) on what it returns."""
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve import constrain
+    from llm_in_practise_tpu_torch.serve.__main__ import (
+        build_engine,
+        build_parser,
+    )
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+
+    argv = ["--tokenizer_path", "-", "--max_slots", str(MAX_SLOTS),
+            "--cache_len", str(CACHE_LEN), "--kv-cache-dtype", "bfloat16",
+            "--enable-chunked-prefill", str(STRUCT["chunked_prefill"]),
+            "--decode-steps", str(STRUCT["decode_steps"])]
+    engine = build_engine(model, build_parser().parse_args(argv),
+                          eos_id=tok.token_to_id(IM_END))
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(*a, **kw):
+        seen.append(submit(*a, **kw))
+        return seen[-1]
+
+    engine.submit = recording_submit
+    srv = OpenAIServer(engine, tok, model_name="qwen3-8b-nf4-struct")
+    base = f"http://127.0.0.1:{srv.serve(host='127.0.0.1', port=0, background=True)}"
+
+    def body(**kw):
+        return {"model": "qwen3-8b-nf4-struct", "temperature": 0.0,
+                "max_tokens": STRUCT_HTTP_TOKENS,
+                "messages": chat("Reply with a JSON record of a person."),
+                **kw}
+
+    def post(b):
+        req = urllib.request.Request(
+            base + "/v1/chat/completions", data=json.dumps(b).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    res = {}
+    try:
+        t0 = time.monotonic()
+        res["json_schema"] = post_chat(base, body(
+            response_format=struct_rf()))
+        res["json_schema_stream"] = post_chat(base, body(
+            response_format=struct_rf(), stream=True))
+        res["json_object"] = post_chat(base, body(
+            response_format={"type": "json_object"}))
+        tool = post(body(tools=[STRUCT_TOOL], tool_choice={
+            "type": "function", "function": {"name": "lookup"}}))
+        auto_ = post_chat(base, body(tools=[STRUCT_TOOL], tool_choice="auto",
+                                     max_tokens=16))
+        bad = post_429(base, body(response_format={
+            "type": "json_schema", "json_schema": {"schema": {
+                "type": "integer", "minimum": 2}}}))
+        shape = post_429(base, body(response_format={"type": "yaml"}))
+        res["chat_wall_s"] = time.monotonic() - t0
+        res["embeddings"] = struct_embeddings(srv, base)
+    finally:
+        srv.shutdown()
+    if engine.error is not None:
+        raise SystemExit(f"serve_struct http: engine failed: "
+                         f"{engine.error!r}")
+    reqs = list(seen)
+    choice = tool["choices"][0]
+    calls = choice["message"].get("tool_calls") or [{}]
+    fn = calls[0].get("function", {})
+    try:
+        args = json.loads(fn.get("arguments", "null"))
+    except ValueError:
+        args = None
+    res["tool_call"] = {"finish_reason": choice["finish_reason"],
+                        "content": choice["message"]["content"],
+                        "calls": len(calls), "name": fn.get("name"),
+                        "arguments": fn.get("arguments"),
+                        "id": calls[0].get("id"), "type": calls[0].get("type")}
+    res["tools_auto"] = {"finish_reason": auto_["finish_reason"],
+                         "constrained": reqs[4].params.constraint is not None}
+    res["errors"] = {"invalid_constraint": [bad[0], bad[1]["error"].get(
+        "code")], "malformed": [shape[0], shape[1]["error"].get("code")]}
+    res["structured_counts"] = dict(srv.structured_counts)
+    res["vocab_strings_s"] = srv.vocab_seconds
+    res["server_states_compiled"] = sum(
+        a.states_compiled for a in srv.constraints._cache.values())
+    res["server_compile_s"] = sum(
+        a.compile_seconds for a in srv.constraints._cache.values())
+    res["requests"] = [{"finish": r.finish_reason, "tokens": len(r.output_ids),
+                        "tpot_s": r.tpot_s, "ttft_s": r.ttft_s,
+                        "violations": None if r.constraint_state is None
+                        else r.constraint_state.violations}
+                       for r in reqs]
+    log("serve_struct http:", json.dumps(res))
+    schema_ok = []
+    for key in ("json_schema", "json_schema_stream"):
+        r = res[key]
+        ok = r["finish_reason"] == "length"
+        if r["finish_reason"] == "stop":
+            try:
+                ok = constrain.validate_instance(json.loads(r["content"]),
+                                                 STRUCT_SCHEMA)
+            except ValueError:
+                ok = False
+        schema_ok.append(ok)
+    obj = res["json_object"]
+    obj_ok = obj["finish_reason"] == "length"
+    if obj["finish_reason"] == "stop":
+        try:
+            obj_ok = isinstance(json.loads(obj["content"]), dict)
+        except ValueError:
+            obj_ok = False
+    tc = res["tool_call"]
+    tool_ok = (tc["finish_reason"] == "tool_calls" and tc["content"] is None
+               and tc["calls"] == 1 and tc["name"] == "lookup"
+               and tc["type"] == "function"
+               and str(tc["id"]).startswith("call_")
+               and constrain.validate_instance(
+                   args, STRUCT_TOOL["function"]["parameters"]))
+    if not (all(schema_ok) and obj_ok and tool_ok
+            and res["json_schema_stream"].get("done")
+            and not res["tools_auto"]["constrained"]
+            and res["tools_auto"]["finish_reason"] in ("stop", "length")
+            and res["errors"] == {"invalid_constraint":
+                                  [422, "invalid_constraint"],
+                                  "malformed": [422, None]}
+            and res["structured_counts"] == {"json_object": 1,
+                                             "json_schema": 2,
+                                             "tool_call": 1}
+            and all(not r["violations"] for r in res["requests"])):
+        raise SystemExit(f"serve_struct http: the checks failed: {res}")
+    res["launches"] = sum(res["embeddings"]["b1_routes"].values())
+    return res
+
+
+def struct_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
+    """serve_struct on the NF4 model (Qwen3-8B width, full depth): the JAX
+    structured bench's traffic, ``arrivals.synthesize(seed=42, 16
+    requests, mean gap 20 ms, cv 2, prompts of 8-48 tokens, 72-128 new
+    tokens)``, half carrying the bench's schema and half plain, replayed
+    open loop (then a 700-token plain document, so the fused mixed step
+    runs its masked twin), through paged engines with speculation off,
+    the prompt lookup (k = 4) and the target as its own draft (k = 4), and
+    contiguous engines with it off and with the prompt lookup; then the
+    HTTP leg. Checks, each
+    exiting non-zero: (a) every constrained completion that ended in
+    ``stop`` parses and validates, and no cursor counts a violation; (b)
+    every masked graph replays its eager body byte for byte; (c) while a
+    ready slot is constrained every dispatch is a masked kind at n 1 (m 0)
+    and one graph run, no masked kind runs otherwise, the plain requests
+    finish; (d) in the masked spec rounds ``n_acc`` equals the host's
+    recount, is bounded by the first grammar-forbidden draft, and the
+    target-draft leg counts grammar rejects; (e) every constrained first
+    token is allowed by the start state; (f) B1's launches per route
+    follow from the engine's forwards, and ``/v1/embeddings`` runs B1 at
+    each input's rows with vectors within ``MODEL_TOL`` of the plain
+    version's; (g) the forced tool call comes back as ``tool_calls``."""
+    import gc
+
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve import arrivals, constrain
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    vocab_n = model.config.vocab_size
+    t0 = time.monotonic()
+    vocab = constrain.vocab_strings(tok, vocab_n)
+    vocab_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    auto = constrain.ConstraintCompiler().get(
+        response_format=struct_rf(), vocab=vocab, vocab_key=0,
+        eos_id=tok.token_to_id(IM_END))
+    grammar_s = time.monotonic() - t0
+    schedule = arrivals.synthesize(**STRUCT_ARRIVALS)
+    prompts, long_prompt = struct_prompts(tok, schedule)
+    legs, launches, routes = {}, 0, {}
+    for name, kw in (("paged_off", {}),
+                     ("paged_ngram", {"speculative_k": SPEC_K}),
+                     ("paged_target_draft", {"speculative_k": SPEC_K,
+                                             "draft_model": model}),
+                     ("contiguous_off", {"kv_layout": "contiguous"}),
+                     ("contiguous_ngram", {"kv_layout": "contiguous",
+                                           "speculative_k": SPEC_K})):
+        engine = struct_engine(model, tok, seed, **kw)
+        res = struct_leg(name, engine, model, auto, schedule, prompts,
+                         long_prompt, tok, seed)
+        launches += res.pop("launches")
+        for r, c in res["b1_routes"].items():
+            routes[r] = routes.get(r, 0) + c
+        legs[name] = res
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    http = struct_http(model, tok, seed)
+    http["leg_wall_s"] = time.monotonic() - t0
+    launches += http.pop("launches")
+    for r, c in http["embeddings"]["b1_routes"].items():
+        routes[r] = routes.get(r, 0) + c
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) covered the masked kinds the legs ran; (c) the mixed twin ran;
+    # (d) the target's unmasked drafts break the grammar and are counted
+    checked = {key.split()[0] for leg in legs.values()
+               for key in leg["replay_check"]}
+    if not {"pmdecode", "mdecode", "pmspec", "mspec"} <= checked or not (
+            checked & {"pmmixed", "mmixed"}):
+        raise SystemExit(f"serve_struct: replay-checked masked kinds "
+                         f"{sorted(checked)}")
+    if not legs["paged_target_draft"]["spec_grammar_rejects"]:
+        raise SystemExit("serve_struct: the target-draft leg counted no "
+                         "grammar reject")
+    res = {"card": card, "layers": N_LAYER, "max_slots": MAX_SLOTS,
+           "cache_len": CACHE_LEN, "k": SPEC_K, **STRUCT,
+           "arrivals": {**STRUCT_ARRIVALS,
+                        **arrivals.describe(schedule)},
+           "vocab_strings_s": vocab_s, "grammar_build_s": grammar_s,
+           "states_compiled": auto.states_compiled,
+           "compile_s": auto.compile_seconds,
+           "compile_s_per_state": auto.compile_seconds
+           / max(auto.states_compiled, 1),
+           "masked_kinds_checked": sorted(checked),
+           "legs": legs, "http": http,
+           "nf4_cell_tpot_p50_s": nf4_cell["tpot_p50_s"],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "phase_wall_s": time.monotonic() - t_phase}
+    log("serve_struct:", json.dumps({k: v for k, v in res.items()
+                                     if k not in ("legs", "http")}))
+    return {"struct": res, "launches": launches, "routes": routes,
+            "flash_launches": http["embeddings"]["flash_forward"]}
 
 
 def flash_bound(b: int, length: int, h: int, d: int, products: int,
@@ -4857,8 +5651,13 @@ def main(argv=None) -> int:
             t0 = time.monotonic()
             spec = spec_phase(model, tok, args.seed, card,
                               served[fmt]["serve"])
-            del model
             phase_time("serve_spec", t0)
+            free()         # serve_spec's engines and draft
+            t0 = time.monotonic()
+            struct = struct_phase(model, tok, args.seed, card,
+                                  served[fmt]["serve"])
+            del model
+            phase_time("serve_struct", t0)
         free()
     t0 = time.monotonic()
     awq_res = awq_check(tok, args.seed)
@@ -4916,6 +5715,7 @@ def main(argv=None) -> int:
             "serve_nf4_sched": sched["routes"],
             "serve_nf4_paged": paged["routes"],
             "serve_nf4_spec": spec["routes"],
+            "serve_nf4_struct": struct["routes"],
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
         **decode_fields(decode, "nf4"),
@@ -4924,13 +5724,14 @@ def main(argv=None) -> int:
                            if " nf4" in k},
         "launches": (served["nf4"]["launches"] + sched["launches"]
                      + paged["launches"] + spec["launches"]
-                     + launches["nf4_matmul"]
+                     + struct["launches"] + launches["nf4_matmul"]
                      + ckpt["launches"]["ckpt_serve_nf4"]
                      + ckpt_train["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
                              "serve_nf4_sched": sched["launches"],
                              "serve_nf4_paged": paged["launches"],
                              "serve_nf4_spec": spec["launches"],
+                             "serve_nf4_struct": struct["launches"],
                              "train_nf4": launches["nf4_matmul"],
                              "ckpt_serve_nf4":
                                  ckpt["launches"]["ckpt_serve_nf4"],
@@ -4960,15 +5761,18 @@ def main(argv=None) -> int:
         row = dict(flash_rows[name])
         row.pop("checks")
         row["ptxas"] = ptxas(name)
+        by_path = {"train_nf4": launches[name],
+                   "ckpt_train": ckpt_train[name]}
+        if name == "flash_forward":
+            # /v1/embeddings: one uncached forward per input
+            by_path["serve_struct_embeddings"] = struct["flash_launches"]
         table.append({"name": name,
                       "source": csrc + "flash_attention.cu",
                       "replaces": f"llm_in_practise_tpu/ops/"
                                   f"flash_attention.py:{line}",
                       "tpu_function": fn, **row,
-                      "launches": launches[name] + ckpt_train[name],
-                      "launches_by_path": {"train_nf4": launches[name],
-                                           "ckpt_train": ckpt_train[name]},
-                      "route": "cuda"})
+                      "launches": sum(by_path.values()),
+                      "launches_by_path": by_path, "route": "cuda"})
     # B6-B9: launches on the PTQ serving runs and the PTQ step checks
     for name, fmt, src, line, fn, at_decode in (
             ("int4_matmul", "int4", "int4_matmul.cu", "int4_matmul.py:61",
@@ -5029,6 +5833,11 @@ def main(argv=None) -> int:
     log("serve_spec summary:", json.dumps(
         {k: v for k, v in spec["spec"].items()
          if k in ("verify_vs_decode", "phase_wall_s",
+                  "max_memory_allocated_gib", "nf4_cell_tpot_p50_s")}))
+    log("serve_struct summary:", json.dumps(
+        {k: v for k, v in struct["struct"].items()
+         if k in ("vocab_strings_s", "states_compiled", "compile_s_per_state",
+                  "masked_kinds_checked", "phase_wall_s",
                   "max_memory_allocated_gib", "nf4_cell_tpot_p50_s")}))
     log("serve_sched summary:", json.dumps(
         {k: v for k, v in sched["sched"].items()

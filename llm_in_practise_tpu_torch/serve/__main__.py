@@ -23,7 +23,10 @@ to ``paged``, as the JAX CLI's does; ``fp8`` stores the KV as
 K tokens per greedy slot by prompt lookup, or with the dense Qwen3 of
 ``--draft-model-path`` (a ``model.msgpack`` with its config, written by
 either package's ``merge_lora`` or ``save_named``), and verifies them in
-one fused round per step.
+one fused round per step. Chat requests may carry ``response_format``
+(``json_object``, ``json_schema``) and ``tools`` with a forcing
+``tool_choice``: the engine masks each constrained step by the
+request's grammar; ``POST /v1/embeddings`` answers pooled hidden states.
 ``TOK.json`` is a BPE tokenizer saved by either package. The flags of
 the JAX package's ``examples/serve_openai.py`` that this port does not
 have yet are accepted and raise ``NotImplementedError`` naming their
@@ -251,8 +254,8 @@ def main(argv=None) -> None:
     server = build_server(args)
     print(f"serving {args.quantized_dir or args.model_path} on "
           f"{args.host}:{args.port} "
-          f"({server.engine.device}; /v1/chat/completions, /v1/models, "
-          "/health)", flush=True)
+          f"({server.engine.device}; /v1/chat/completions, "
+          "/v1/embeddings, /v1/models, /health)", flush=True)
     server.serve(host=args.host, port=args.port)
 
 

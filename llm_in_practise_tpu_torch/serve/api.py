@@ -10,23 +10,41 @@ Port of the chat part of ``llm_in_practise_tpu/serve/api.py``:
   admission control shed, at submit or after its queue timeout;
 - 422 ``prompt_too_large`` with the page math for a prompt that can never
   fit a paged engine's pool (JAX ``api.py:484-497``);
-- ``GET /debug/kv``: the engine's KV layout report (JAX ``api.py:1123``).
+- ``GET /debug/kv``: the engine's KV layout report (JAX ``api.py:1123``);
+- structured output (JAX ``api.py:114-170, 372-386, 636-653``):
+  ``response_format`` ``json_object`` / ``json_schema`` and forced tool
+  calls (``tool_choice`` ``"required"`` or a function) compile through a
+  per-server :class:`~.constrain.ConstraintCompiler` against the
+  engine's decoded vocabulary, and the engine enforces the grammar in
+  its masked step paths; an unsupported schema is a 422
+  ``invalid_constraint`` before any engine work; a forced call that
+  ends in ``stop`` comes back as ``tool_calls``; ``tools`` with
+  ``tool_choice`` ``auto`` / ``none`` is served unconstrained;
+- ``POST /v1/embeddings`` (JAX ``api.py:182-252``): the final hidden
+  states mean-pooled over each input and unit-normalized, one eager
+  forward per input at that input's length.
 
-Built on the stdlib ``ThreadingHTTPServer``. Handler threads only submit
-requests and read token queues; the engine's own thread does every device
-operation. ``/metrics``, ``/v1/embeddings``, the other debug routes and
-the disaggregation handoff are not ported yet (ROADMAP.md queue A items
+Built on the stdlib ``ThreadingHTTPServer``. Handler threads submit
+requests and read token queues; the engine's own thread does every step.
+An embedding forward runs on its handler thread under the engine's lock,
+between two steps. ``/metrics``, the other debug routes and the
+disaggregation handoff are not ported yet (ROADMAP.md queue A items
 5-6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import threading
+import time
 from http.server import ThreadingHTTPServer
 
+import numpy as np
+import torch
+
 from llm_in_practise_tpu_torch.data.sft import IM_START, render_chatml
-from llm_in_practise_tpu_torch.serve import schemas
+from llm_in_practise_tpu_torch.serve import constrain, schemas
 from llm_in_practise_tpu_torch.serve.engine import (
     _FINISH,
     EngineDeadError,
@@ -52,14 +70,110 @@ class OpenAIServer:
         self.tokenizer = tokenizer
         self.model_name = model_name
         self._httpd: ThreadingHTTPServer | None = None
+        # structured output: the grammar compile cache (handler threads
+        # compile; a repeated schema hits it) and the decoded vocabulary
+        # it compiles against
+        self.constraints = constrain.ConstraintCompiler()
+        self._vocab_lock = threading.Lock()
+        self._vocab: list[str] | None = None   # guarded-by: _vocab_lock
+        self.vocab_seconds = 0.0
+        self._structured_lock = threading.Lock()
+        # structured requests by kind (llm_structured_requests_total)
+        self.structured_counts = {"json_object": 0, "json_schema": 0,
+                                  "tool_call": 0}
+
+    # --- structured output ---------------------------------------------------
+
+    def _constraint_vocab(self) -> list[str]:
+        """The engine's per-id decoded pieces (made once; the first call
+        times it in ``vocab_seconds``)."""
+        with self._vocab_lock:
+            if self._vocab is None:
+                vs = getattr(getattr(self.engine.model, "config", None),
+                             "vocab_size", None)
+                if vs is None:
+                    raise constrain.ConstraintError(
+                        "this model exposes no vocab_size; structured "
+                        "output is unavailable")
+                t0 = time.monotonic()
+                self._vocab = constrain.vocab_strings(self.tokenizer,
+                                                      int(vs))
+                self.vocab_seconds = time.monotonic() - t0
+            return self._vocab
+
+    def compile_constraint(self, req: "schemas.ChatCompletionRequest"):
+        """The request's shared compiled automaton, or None when it is
+        unconstrained. Raises :class:`~.constrain.ConstraintError` on an
+        invalid or unsupported spec (HTTP 422)."""
+        rf_type = (req.response_format or {}).get("type")
+        if (rf_type in (None, "text")
+                and req.tool_choice in (None, "auto", "none")):
+            # never touch the vocabulary for a plain chat
+            return None
+        return self.constraints.get(
+            response_format=req.response_format, tools=req.tools,
+            tool_choice=req.tool_choice, vocab=self._constraint_vocab(),
+            vocab_key=id(self.engine), eos_id=self.engine.eos_id)
+
+    # --- request handling ----------------------------------------------------
+
+    def handle_embeddings(self, body: dict, send_json):
+        """``POST /v1/embeddings``: the OpenAI embeddings schema over the
+        final hidden states, mean-pooled over each input's tokens and
+        unit-normalized. 422 on a malformed ``input``, 404 on an unknown
+        model."""
+        inputs = body.get("input")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+
+        def ok(x):
+            if isinstance(x, str):
+                return True
+            return (isinstance(x, list)
+                    and all(isinstance(t, int) for t in x))
+
+        if not isinstance(inputs, list) or not inputs or not all(
+                ok(x) for x in inputs):
+            return send_json(422, {"error": {
+                "message": "input must be a string, list of strings, or "
+                           "list of integer token lists",
+                "type": "invalid_request_error"}})
+        if body.get("model") not in (None, "", self.model_name):
+            return send_json(404, {"error": {
+                "message": f"model {body.get('model')!r} not found",
+                "type": "invalid_request_error"}})
+        engine = self.engine
+        data, total = [], 0
+        for i, item in enumerate(inputs):
+            ids = (list(item) if isinstance(item, list)
+                   else self.tokenizer.encode(item))
+            ids = ids[: engine.cache_len] or [0]
+            total += len(ids)
+            vec = self.embed_ids(ids)
+            norm = float(np.linalg.norm(vec)) or 1.0
+            data.append({"object": "embedding", "index": i,
+                         "embedding": (vec / norm).tolist()})
+        return send_json(200, {
+            "object": "list",
+            "data": data,
+            "model": body.get("model") or self.model_name,
+            "usage": {"prompt_tokens": total, "total_tokens": total},
+        })
+
+    def embed_ids(self, ids: list[int]) -> np.ndarray:
+        """The mean of the final hidden states over ``ids`` (f64, not
+        normalized): one uncached forward at ``len(ids)`` rows, under the
+        engine's lock so it runs between two steps."""
+        engine = self.engine
+        x = torch.tensor([ids], dtype=torch.int64, device=engine.device)
+        with engine._lock, torch.inference_mode():
+            hidden = engine.model(x, return_hidden=True)
+            pooled = hidden[0].to(torch.float32).mean(dim=0)
+            return pooled.cpu().numpy().astype(np.float64)
 
     def handle_chat(self, body: dict, send_json, send_stream):
         try:
             req = schemas.ChatCompletionRequest.from_dict(body)
-        except schemas.UnsupportedFieldError as e:
-            return send_json(400, {"error": {
-                "message": str(e), "type": "invalid_request_error",
-                "code": "unsupported_field"}})
         except schemas.ValidationError as e:
             return send_json(422, {"error": {
                 "message": str(e), "type": "invalid_request_error"}})
@@ -72,6 +186,21 @@ class OpenAIServer:
         params = SamplingParams(
             temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
             greedy=req.temperature == 0.0, max_tokens=req.max_tokens)
+        # structured output: compile the grammar the engine enforces; an
+        # invalid or unsupported spec is a client error, before any
+        # engine work
+        try:
+            automaton = self.compile_constraint(req)
+        except constrain.ConstraintError as e:
+            return send_json(422, {"error": {
+                "message": str(e), "type": "invalid_request_error",
+                "code": "invalid_constraint"}})
+        kind = None
+        if automaton is not None:
+            kind = automaton.kind
+            with self._structured_lock:
+                self.structured_counts[kind] += 1
+            params = dataclasses.replace(params, constraint=automaton)
         handle = self.engine.submit(prompt_ids, params)
         req_id = schemas.completion_id()
 
@@ -144,10 +273,23 @@ class OpenAIServer:
         if handle.finish_reason == "queue_full":  # queue_timeout shed
             return queue_full_429("request timed out waiting for a slot")
         text = self.tokenizer.decode(out_ids)
+        tool_calls = None
+        if kind == "tool_call" and handle.finish_reason == "stop":
+            # the grammar guarantees {"name": ..., "arguments": {...}}:
+            # re-shape it into the OpenAI tool_calls wire format (a call
+            # cut by "length" stays raw content)
+            try:
+                call = json.loads(text)
+                tool_calls = [schemas.tool_call_entry(
+                    call["name"],
+                    json.dumps(call["arguments"], separators=(",", ":")))]
+            except (ValueError, KeyError, TypeError):
+                tool_calls = None
         return send_json(200, schemas.chat_completion_response(
             req_id=req_id, model=req.model, text=text,
             finish_reason=handle.finish_reason or "stop",
-            usage=schemas.Usage(len(prompt_ids), len(out_ids))))
+            usage=schemas.Usage(len(prompt_ids), len(out_ids)),
+            tool_calls=tool_calls))
 
     # --- HTTP plumbing -------------------------------------------------------
 
@@ -192,12 +334,15 @@ class OpenAIServer:
                 return self._json(404, {"error": {"message": "not found"}})
 
             def do_POST(self):
-                if self.path != "/v1/chat/completions":
+                if self.path not in ("/v1/chat/completions",
+                                     "/v1/embeddings"):
                     return self._json(404, {"error": {"message": "not found"}})
                 body, err = self._read_json()
                 if err:
                     return self._json(400, err)
                 try:
+                    if self.path == "/v1/embeddings":
+                        return server.handle_embeddings(body, self._json)
                     return server.handle_chat(body, self._json, self._sse)
                 except Exception as e:  # noqa: BLE001 — a handler fault must
                     # still answer the client unless a response already went

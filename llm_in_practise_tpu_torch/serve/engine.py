@@ -36,6 +36,14 @@ Port of ``llm_in_practise_tpu/serve/engine.py``:
   (ngram) or by a draft model with its own contiguous cache, verified
   with the block's remaining greedy steps in one fused round
   (:func:`~.mixed_step.spec_verify_block`), in either KV layout.
+- **Structured output** (JAX ``engine.py`` "grammar" sections): a request
+  whose ``SamplingParams.constraint`` holds a compiled
+  :class:`~.constrain.TokenAutomaton` gets a grammar cursor at
+  activation; every step stages each constrained slot's mask row on the
+  host and runs the masked twin of its path (decode block, fused mixed
+  step or spec round), so a constrained step is still one dispatch.
+  While a ready slot is constrained a block is one token long, and a
+  spec round has no extension.
 
 Threading: HTTP handler threads call :meth:`InferenceEngine.submit`,
 which touches no tensor; one background thread runs :meth:`step` and
@@ -90,7 +98,10 @@ class SamplingParams:
     top_p: float = 1.0      # >= 1.0 = disabled
     greedy: bool = False
     max_tokens: int = 128
-    constraint: Any = None  # structured output: not ported, must stay None
+    # structured output: a compiled constrain.TokenAutomaton (shared
+    # across requests with the same schema); None = unconstrained, and
+    # the unmasked step paths run untouched
+    constraint: Any = None
 
 
 _FINISH = object()  # sentinel closing a request's token queue
@@ -128,6 +139,12 @@ class Request:
         default=None, repr=False, compare=False)
     resume_budget: int = dataclasses.field(
         default=0, repr=False, compare=False)
+    # the live grammar cursor (constrain.ConstraintState), minted from
+    # params.constraint at first activation; it rides the request through
+    # a preemption's requeue, so the resumed stream continues from its
+    # grammar position
+    constraint_state: Any = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def next_item(self, poll_s: float = 1.0):
         """Next queue item: a token id or the finish sentinel. The wait is
@@ -385,6 +402,15 @@ class InferenceEngine:
         # paged layout registers its pages from it and preemption
         # requeues it as the resumed prompt
         self.slot_hist: list[list[int] | None] = [None] * max_slots
+        # each slot's grammar cursor (None = unconstrained): installed at
+        # activation, cleared at finish and preemption
+        self.slot_constraint: list = [None] * max_slots
+        # grammar telemetry: host seconds staging masks (lazy state
+        # compiles included), drafted tokens the grammar rejected
+        self.grammar_mask_seconds_total = 0.0
+        self.spec_grammar_rejects = 0
+        # the rows of each mask stage that the last fill wrote
+        self._stage_rows: dict[str, set] = {}
 
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self._uid = itertools.count()
@@ -426,9 +452,6 @@ class InferenceEngine:
         ``max_queue`` waiting requests it is shed at once; a paged prompt
         that can never fit the pool finishes at once as ``too_large``."""
         params = params or SamplingParams()
-        if params.constraint is not None:
-            raise _not_ported("SamplingParams.constraint", 5,
-                              "structured output")
         if kv_entry is not None:
             raise _not_ported("kv_entry", 5, "the disaggregated handoff")
         if session_id is not None:
@@ -644,8 +667,16 @@ class InferenceEngine:
             for eng, layer in zip(self.cache, pre):
                 eng["k"][idx, :width] = layer["k"]
                 eng["v"][idx, :width] = layer["v"]
+        masked = logits
+        if any(r.params.constraint is not None for _, r, _ in batch):
+            # constrained members' first tokens obey their grammars' start
+            # states; zero rows leave the rest of the batch as it was. The
+            # prefix cache keeps the unmasked logits: a later hit samples
+            # under its own request's grammar, or none.
+            masked = logits + torch.from_numpy(self._grammar_mask_rows(
+                [self._ensure_constraint(r) for _, r, _ in batch])).to(dev)
         first = sample_token_batched(
-            self.generator, logits,
+            self.generator, masked,
             temperature=torch.tensor(
                 [r.params.temperature for _, r, _ in batch], device=dev),
             top_k=torch.tensor([r.params.top_k for _, r, _ in batch],
@@ -807,6 +838,12 @@ class InferenceEngine:
         if req.resume_last is not None:
             return self._activate_with_token(slot, req, plen, 0)
         dev, p = self.device, req.params
+        cs = self._ensure_constraint(req)
+        if cs is not None:
+            # the first token samples from the prompt's logits: it obeys
+            # the grammar's start state too
+            last_logits = last_logits + torch.from_numpy(
+                self._grammar_mask_rows([cs])).to(dev)
         first = sample_token_batched(
             self.generator, last_logits,
             temperature=torch.tensor([p.temperature], device=dev),
@@ -837,8 +874,12 @@ class InferenceEngine:
         self._top_p[slot] = req.params.top_p
         self._greedy[slot] = req.params.greedy
         self.slot_hist[slot] = list(req.prompt_ids) + [first_id]
+        # the grammar cursor: a resumed stream's is already past every
+        # token the client saw, the resume token included
+        cs = self.slot_constraint[slot] = self._ensure_constraint(req)
         if not resumed:
             self._emit(slot, first_id)
+            self._constraint_commit(slot, cs, first_id)
 
     # --- emission and finish -------------------------------------------------
 
@@ -874,13 +915,18 @@ class InferenceEngine:
         self.slot_ready[slot] = False
         self.slot_budget[slot] = 0
         self.slot_hist[slot] = None
+        self.slot_constraint[slot] = None
 
     def _commit_token(self, slot: int, tok: int) -> None:
         self.slot_budget[slot] -= 1
         self.slot_len[slot] += 1
         self.slot_last_token[slot] = tok
         self.slot_hist[slot].append(tok)
+        # taken before _emit: a finish clears the slot's reference, but
+        # the cursor, which lives on the request, still advances
+        cs = self.slot_constraint[slot]
         self._emit(slot, tok)
+        self._constraint_commit(slot, cs, tok)
 
     def _commit_block(self, active: list[int], toks, n: int) -> None:
         """Book an ``n``-step block's tokens ((slots, n) host array) into
@@ -1080,6 +1126,9 @@ class InferenceEngine:
         self.slot_ready[slot] = False
         self.slot_budget[slot] = 0
         self.slot_hist[slot] = None
+        # the cursor stays on req.constraint_state: re-admission resumes
+        # from its grammar position
+        self.slot_constraint[slot] = None
         if self.draft_model is not None:
             # the target KV is recomputed on re-admission: so is the
             # draft's
@@ -1113,9 +1162,11 @@ class InferenceEngine:
         return [s for s in out if self.slot_req[s] is not None
                 and self.slot_ready[s]]
 
-    def _paged_decode_dispatch(self, active: list[int], n: int) -> dict:
+    def _paged_decode_dispatch(self, active: list[int], n: int,
+                               gmask=None) -> dict:
         """One paged decode block (pages reserved by the caller): on the
-        card one graph replay of ``("pdecode", n, all_greedy, width)``."""
+        card one graph replay of ``("pdecode", n, all_greedy, width)``,
+        or with ``gmask`` of its masked twin ``"pmdecode"`` at n 1."""
         width = self._paged_width(
             max(int(self.slot_len[s]) for s in active) + n)
         idxv = self._paged_index_vec(width, n)
@@ -1124,11 +1175,11 @@ class InferenceEngine:
             valid[s] = n
             self._paged_cow_fork(s, int(self.slot_len[s]), n)
         return self.graphs.run(
-            "pdecode", n, width=width, index=idxv,
-            gidx=self.paged.gather_idx(width),
+            "pdecode" if gmask is None else "pmdecode", n, width=width,
+            index=idxv, gidx=self.paged.gather_idx(width),
             vidx=window_idx(idxv, width, n),
             sidx=self.paged.scatter_idx(idxv, valid, n),
-            **self._sampling_arrays(active))
+            **self._sampling_arrays(active, gmask))
 
     def _paged_register_pages(self, token_ids, slot: int) -> None:
         """Index every FULL page of ``token_ids`` (whose KV fills
@@ -1298,6 +1349,11 @@ class InferenceEngine:
             tokens[s, 1:1 + len(d)] = d
         mask = np.zeros((self.max_slots,), np.int64)
         mask[active] = 1
+        # constrained slots: k + 1 masks staged along each slot's drafts,
+        # so a grammar-forbidden draft stops the acceptance (m is 0 then:
+        # _plan_block caps a constrained block at 1)
+        gmasks = self._grammar_spec_masks(active, tokens, k, drafts)
+        gm = {} if gmasks is None else {"gmasks": gmasks}
         if self.paged is not None:
             width = self._paged_width(
                 max(int(self.slot_len[s]) for s in active) + w)
@@ -1307,19 +1363,20 @@ class InferenceEngine:
                 valid[s] = w
                 self._paged_cow_fork(s, int(self.slot_len[s]), w)
             out = self.graphs.run(
-                "pspec", m, all_greedy=True, generator=None, width=width,
-                spec_tokens=tokens, index=base, spec_mask=mask,
-                gidx=self.paged.gather_idx(width),
+                "pspec" if gmasks is None else "pmspec", m, all_greedy=True,
+                generator=None, width=width, spec_tokens=tokens, index=base,
+                spec_mask=mask, gidx=self.paged.gather_idx(width),
                 vidx=window_idx(base, width, w),
-                sidx=self.paged.scatter_idx(base, valid, w))
+                sidx=self.paged.scatter_idx(base, valid, w), **gm)
         else:
             # the whole cache is the view: free rows' dead window is
             # clamped inside it, live rows fit (_spec_applicable and the
             # headroom cap on m)
             base = self._paged_index_vec(self.cache_len, w)
-            out = self.graphs.run("spec", m, all_greedy=True,
-                                  generator=None, spec_tokens=tokens,
-                                  index=base, spec_mask=mask)
+            out = self.graphs.run("spec" if gmasks is None else "mspec", m,
+                                  all_greedy=True, generator=None,
+                                  spec_tokens=tokens, index=base,
+                                  spec_mask=mask, **gm)
         spec = out["spec"].cpu().numpy()    # out | n_acc | extra, one copy
         self.spec_rounds += 1
         self.spec_verifies_run += 1
@@ -1339,11 +1396,113 @@ class InferenceEngine:
                 self.spec_round_tokens += 1
         return True
 
+    # --- grammar (structured output, JAX engine.py:3609-3713) --------------
+
+    def _ensure_constraint(self, req: Request):
+        """``req``'s grammar cursor, minted from its compiled automaton at
+        first touch (activation), or None."""
+        if req.constraint_state is None and req.params.constraint is not None:
+            req.constraint_state = req.params.constraint.cursor()
+        return req.constraint_state
+
+    def _constrained_active(self, active: list[int]) -> bool:
+        return any(self.slot_constraint[s] is not None for s in active)
+
+    def _grammar_mask_rows(self, cursors) -> np.ndarray:
+        """(len(cursors), vocab) f32 additive mask rows, zero rows for
+        None entries (at least one is not None). The host time, lazy
+        state compiles included, goes into
+        ``grammar_mask_seconds_total``."""
+        t0 = time.monotonic()
+        out = np.zeros(
+            (len(cursors),
+             next(c.vocab_size for c in cursors if c is not None)),
+            np.float32)
+        for j, cs in enumerate(cursors):
+            if cs is not None:
+                out[j] = cs.mask_row()
+        self.grammar_mask_seconds_total += time.monotonic() - t0
+        return out
+
+    def _fill_stage(self, name: str, rows: dict) -> np.ndarray:
+        """Write ``rows`` ({index: mask row}) into the graphs' host stage
+        of ``name`` in place, and zero the rows the last fill wrote that
+        this one does not: the stage is all zeros elsewhere."""
+        stage = self.graphs.mask_stage(name)
+        for i, row in rows.items():
+            stage[i] = row
+        for i in self._stage_rows.get(name, set()) - rows.keys():
+            stage[i] = 0.0
+        self._stage_rows[name] = set(rows)
+        return stage
+
+    def _grammar_masks(self, active: list[int]):
+        """The (max_slots, vocab) f32 mask of this step's decode (each
+        constrained slot's state row, zeros elsewhere), or None when no
+        active slot is constrained: the unmasked paths then run."""
+        if not self._constrained_active(active):
+            return None
+        t0 = time.monotonic()
+        stage = self._fill_stage("gmask", {
+            s: cs.mask_row() for s, cs in enumerate(self.slot_constraint)
+            if cs is not None})
+        self.grammar_mask_seconds_total += time.monotonic() - t0
+        return stage
+
+    def _grammar_spec_masks(self, active: list[int], tokens, k: int,
+                            drafts: dict):
+        """The (max_slots, k + 1, vocab) masks of a spec round, or None
+        when no active slot is constrained. Each constrained slot's
+        grammar advances tentatively over its round's input tokens:
+        position ``j`` gets the state after the first ``j`` drafts. A
+        forbidden token ends the staging (the acceptance stops there;
+        the zero rows past it are inert), and counts in
+        ``spec_grammar_rejects`` when it was a real draft, not padding."""
+        rows = [(s, self.slot_constraint[s]) for s in active
+                if self.slot_constraint[s] is not None]
+        if not rows:
+            return None
+        t0 = time.monotonic()
+        staged = {}
+        for s, cs in rows:
+            auto, cur = cs.auto, cs.cur
+            n_drafted = len(drafts.get(s, ()))
+            for j in range(k + 1):
+                staged[s, j] = auto.mask(cur)
+                if j >= k:
+                    break
+                nxt = auto.step(cur, int(tokens[s, j + 1]))
+                if nxt is None:
+                    if j < n_drafted:
+                        self.spec_grammar_rejects += 1
+                    break
+                cur = nxt
+        gmasks = self._fill_stage("gmasks", staged)
+        self.grammar_mask_seconds_total += time.monotonic() - t0
+        return gmasks
+
+    def _constraint_commit(self, slot: int, cs, tok: int) -> None:
+        """Advance ``slot``'s grammar cursor over an emitted token; a
+        completed value finishes the stream with ``"stop"``. An EOS
+        emission is the grammar's own allowed stop (accepting states
+        admit it) and is not consumed."""
+        if cs is None:
+            return
+        if self.eos_id is not None and tok == self.eos_id:
+            return
+        if cs.advance(tok) and self.slot_req[slot] is not None:
+            self._finish_slot(slot, "stop")
+
     # --- decode --------------------------------------------------------------
 
     def _plan_block(self, active: list[int]) -> int:
         """This step's decode block length (policy in
-        :func:`~.mixed_step.plan_decode_block`)."""
+        :func:`~.mixed_step.plan_decode_block`). While a ready slot is
+        constrained the block is 1 (its mask holds one automaton state;
+        the spec round is the constrained multi-token path, which this
+        drives to ``m = 0``)."""
+        if self._constrained_active(active):
+            return 1
         soonest = None
         if active and self.pending.qsize() > 0:
             soonest = int(min(
@@ -1381,11 +1540,14 @@ class InferenceEngine:
                     f"cache_len {self.cache_len}")
         return True, ""
 
-    def _sampling_arrays(self, active: list[int]) -> dict:
-        return dict(all_greedy=bool(self._greedy[active].all()),
-                    generator=self.generator, tokens=self.slot_last_token,
-                    temperature=self._temperature, top_k=self._top_k,
-                    top_p=self._top_p, greedy=self._greedy)
+    def _sampling_arrays(self, active: list[int], gmask=None) -> dict:
+        out = dict(all_greedy=bool(self._greedy[active].all()),
+                   generator=self.generator, tokens=self.slot_last_token,
+                   temperature=self._temperature, top_k=self._top_k,
+                   top_p=self._top_p, greedy=self._greedy)
+        if gmask is not None:
+            out["gmask"] = gmask
+        return out
 
     def _mixed_dispatch(self, active: list[int], n: int) -> bool:
         """Every mid-prefill slot advances one chunk and every ready slot
@@ -1404,10 +1566,14 @@ class InferenceEngine:
         tok, starts, lens = self._chunk_batch_rows(entries)
         advance = np.zeros((self.max_slots,), np.int64)
         advance[active] = n
+        # the decode half masks each constrained slot (n is 1 then);
+        # mid-prefill rows are masked at their first token, in _activate
+        gmask = self._grammar_masks(active)
+        masked = "" if gmask is None else "m"
         arrays = dict(chunk_ids=tok, starts=starts, lens=lens,
-                      advance=advance, **self._sampling_arrays(active))
+                      advance=advance, **self._sampling_arrays(active, gmask))
         if self.paged is None:
-            out = self.graphs.run("mixed", n, **arrays)
+            out = self.graphs.run(masked + "mixed", n, **arrays)
         else:
             # the view holds each prefill row's chunk and the scan's n
             # garbage rows above it, and each occupied decode row's dead
@@ -1428,7 +1594,8 @@ class InferenceEngine:
                 self._paged_cow_fork(s, int(self.slot_len[s]), n)
             arrays["starts"] = starts
             out = self.graphs.run(
-                "pmixed", n, width=width, gidx=self.paged.gather_idx(width),
+                "p" + masked + "mixed", n, width=width,
+                gidx=self.paged.gather_idx(width),
                 vidx=window_idx(starts, width, c),
                 sidx=self.paged.scatter_idx(starts, valid, c), **arrays)
         toks = out["toks"].cpu().numpy()
@@ -1458,11 +1625,16 @@ class InferenceEngine:
         return index
 
     def _decode(self, active: list[int], n: int) -> None:
+        # each constrained slot's mask row, applied in the same dispatch
+        # (_plan_block made n 1; decode_scan raises otherwise)
+        gmask = self._grammar_masks(active)
         if self.paged is not None:
-            out = self._paged_decode_dispatch(active, n)
+            out = self._paged_decode_dispatch(active, n, gmask)
         else:
-            out = self.graphs.run("decode", n, index=self._decode_index(),
-                                  **self._sampling_arrays(active))
+            out = self.graphs.run(
+                "decode" if gmask is None else "mdecode", n,
+                index=self._decode_index(),
+                **self._sampling_arrays(active, gmask))
         toks = out["toks"].cpu().numpy()
         self.decode_steps_run += n
         self.dispatches_total += 1

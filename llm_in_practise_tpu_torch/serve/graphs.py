@@ -25,7 +25,17 @@ width)``, or on the CPU runs the same body eagerly:
   back as one ``(slots, k + 2 + m)`` tensor, read in one copy;
 - ``"droll"``: the draft model's catch-up and roll
   (:func:`~.mixed_step.draft_roll`) over the draft's own contiguous
-  cache; ``n`` is ``k`` and ``width`` the catch-up window ``W``.
+  cache; ``n`` is ``k`` and ``width`` the catch-up window ``W``;
+- the grammar-masked twins (structured output, :mod:`.constrain`):
+  ``"mdecode"`` / ``"pmdecode"`` and ``"mmixed"`` / ``"pmmixed"`` at
+  ``n`` 1 read a static f32 ``gmask`` (slots, vocab) buffer, and
+  ``"mspec"`` / ``"pmspec"`` at ``m`` 0 a ``gmasks`` (slots, k + 1,
+  vocab) buffer. They are kinds of their own, as the JAX engine compiles
+  separate masked programs: an engine that never sees a constraint
+  captures none of them and allocates no mask buffer. The engine writes
+  each mask's rows in place in a pinned host stage
+  (:meth:`StepGraphs.mask_stage`), copied to the buffer before the
+  step.
 
 For the decode kinds ``n`` is ``decode_steps`` or a power of two below
 it, as :func:`~.mixed_step.plan_decode_block` plans.
@@ -62,6 +72,7 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from llm_in_practise_tpu_torch.ops import launch_count
@@ -80,7 +91,10 @@ from llm_in_practise_tpu_torch.serve.paged_kv import (
 # index arrays of the paged kinds: gather (slots x width), and the view
 # positions and pool rows of the write-back window (slots x window)
 PAGED_INDEX = ("gidx", "vidx", "sidx")
-PAGED_KINDS = ("pdecode", "pmixed", "pspec")
+PAGED_KINDS = ("pdecode", "pmixed", "pspec", "pmdecode", "pmmixed",
+               "pmspec")
+# the grammar masks' static buffers
+MASKS = ("gmask", "gmasks")
 
 
 class StepGraphs:
@@ -105,6 +119,7 @@ class StepGraphs:
         self.vocab = model.config.vocab_size
         self._mixed = make_mixed_step(model)
         self._dev = dev
+        self.spec_k = spec_k
 
         def buf(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -130,6 +145,49 @@ class StepGraphs:
         self.capture_s: dict[tuple, float] = {}
         self.pool_bytes = 0     # device memory the captures reserved
         self.replays = 0
+        # grammar masks: device buffers and the host stages the engine
+        # writes their rows in, made at the first masked step
+        self.masks: dict[str, torch.Tensor] = {}
+        self._mask_host: dict[str, torch.Tensor] = {}
+        self._mask_stage: dict[str, np.ndarray] = {}
+
+    def _mask_buf(self, name: str) -> torch.Tensor:
+        """The static device buffer of ``gmask`` (slots, vocab) or
+        ``gmasks`` (slots, k + 1, vocab), made at first use."""
+        t = self.masks.get(name)
+        if t is None:
+            b = self.inputs["tokens"].shape[0]
+            shape = ((b, self.vocab) if name == "gmask"
+                     else (b, self.spec_k + 1, self.vocab))
+            with torch.inference_mode(False):
+                t = torch.zeros(shape, dtype=torch.float32, device=self._dev)
+                host = t
+                if self._dev.type == "cuda":
+                    host = torch.zeros(shape, dtype=torch.float32,
+                                       pin_memory=True)
+                    self._mask_host[name] = host
+            self._mask_stage[name] = host.numpy()
+            self.masks[name] = t
+        return t
+
+    def mask_stage(self, name: str) -> np.ndarray:
+        """The host array the engine writes ``name``'s rows in, in place:
+        on the card the pinned stage of its static buffer, on the CPU the
+        buffer itself. It keeps its rows from one step to the next."""
+        self._mask_buf(name)
+        return self._mask_stage[name]
+
+    def _stage_mask(self, name: str, a) -> None:
+        """Bring ``name``'s static buffer up to the host mask ``a`` (its
+        stage, or an array copied into the stage first). On the card the
+        copy is asynchronous: the step's own read of its outputs orders
+        the engine's next write of the stage after it."""
+        stage = self.mask_stage(name)
+        if a is not stage:
+            stage[...] = a
+        host = self._mask_host.get(name)
+        if host is not None:
+            self.masks[name].copy_(host, non_blocking=True)
 
     def _index_buf(self, name: str, size: int) -> torch.Tensor:
         """The static flat int64 buffer of a paged index array: one per
@@ -147,12 +205,16 @@ class StepGraphs:
         """One step of ``kind`` over ``n`` decode tokens. ``arrays`` (numpy)
         go into the static buffers of the same names (the paged kinds'
         ``gidx``, ``vidx`` and ``sidx`` into their per-size buffers).
-        Returns the step's outputs: ``toks`` (slots, n), ``index``
+        ``gmask`` and ``gmasks`` (f32) go into the masks' static
+        buffers. Returns the step's outputs: ``toks`` (slots, n), ``index``
         (slots,) and for the fused kinds ``chunk_last`` (slots, vocab);
         ``spec`` (slots, k + 2 + m) for the spec kinds; ``drafts``
         (slots, k) for the roll. On the card they are the graph's own
         tensors, valid until the next call."""
         for name, a in arrays.items():
+            if name in MASKS:
+                self._stage_mask(name, a)
+                continue
             flat = torch.from_numpy(a)
             if name in PAGED_INDEX:
                 flat = flat.reshape(-1)
@@ -199,24 +261,30 @@ class StepGraphs:
         if kind in PAGED_KINDS:
             g, cache = gather_view(
                 self.paged, self._index_buf("gidx", rows * width), rows,
-                x["starts"] if kind == "pmixed" else x["index"])
+                x["starts"] if kind in ("pmixed", "pmmixed") else x["index"])
         else:
             cache = self.cache
-        if kind in ("spec", "pspec"):
+        if kind in ("spec", "pspec", "mspec", "pmspec"):
+            gm = ({} if kind in ("spec", "pspec")
+                  else {"gmasks": self.masks["gmasks"]})
             out, n_acc, extra, cache = spec_verify_block(
                 self.model, cache, x["spec_tokens"], x["index"],
-                x["spec_mask"], m=n)
+                x["spec_mask"], m=n, **gm)
             out = {"spec": torch.cat([out, n_acc[:, None], extra], dim=1),
                    "index": cache[0]["index"]}
-        elif kind in ("decode", "pdecode"):
+        elif kind in ("decode", "pdecode", "mdecode", "pmdecode"):
+            gm = ({} if kind in ("decode", "pdecode")
+                  else {"gmask": self.masks["gmask"]})
             toks, cache = decode_scan(
                 self.model, pin_index(cache, x["index"]), x["tokens"],
-                *params, **samp)
+                *params, **samp, **gm)
             out = {"toks": toks, "index": cache[0]["index"]}
         else:
+            gm = ({} if kind in ("mixed", "pmixed")
+                  else {"gmask": self.masks["gmask"]})
             chunk_last, toks, cache = self._mixed(
                 cache, x["chunk_ids"], x["starts"], x["lens"],
-                x["advance"], x["tokens"], *params, **samp)
+                x["advance"], x["tokens"], *params, **samp, **gm)
             out = {"chunk_last": chunk_last, "toks": toks,
                    "index": cache[0]["index"]}
         if kind in PAGED_KINDS:

@@ -21,6 +21,12 @@ engine calls them directly. No body reads the device from the host:
 - :func:`plan_decode_block` and :func:`plan_spec_extension`: the
   host-side policies for ``n`` and ``m``.
 
+Grammar masks (structured output, :mod:`.constrain`): given ``gmask``
+or ``gmasks``, the bodies add a host-staged additive f32 mask (0 allowed, ``NEG_INF``
+forbidden, zero rows for unconstrained slots) to the f32 logits before
+sampling or the argmax. With the mask left out each body runs exactly
+the unmasked code.
+
 The bounds that keep every write of these bodies off attended KV (the
 cache update clamps a window that runs past the end, as
 ``dynamic_update_slice`` does, which would shift it backward) are the
@@ -44,18 +50,29 @@ def pin_index(cache, index_vec):
 
 
 def decode_scan(model, cache, tokens, temperature, top_k, top_p, greedy, *,
-                n, generator=None, all_greedy=None, noise=None):
+                n, generator=None, all_greedy=None, noise=None, gmask=None):
     """``n`` single-token decodes, each sampling the next token of every
     row. ``noise`` (optional, (>= n, B, vocab)) holds step ``j``'s
     uniform draws at ``noise[j]``; without it each step draws from
     ``generator``. Returns ``((B, n) tokens, cache)``; the cache index
-    has advanced by ``n`` on every row."""
+    has advanced by ``n`` on every row.
+
+    ``gmask`` (optional, (B, vocab) f32 additive): the grammar mask of
+    one automaton state per row, so only ``n == 1`` is allowed (the
+    engine's planner caps a constrained block at 1)."""
+    if gmask is not None and n != 1:
+        raise ValueError(
+            f"grammar-masked decode blocks must be n=1, got n={n} "
+            "(the per-slot mask is staged for one automaton state)")
     toks = []
     tok = tokens
     for j in range(n):
         logits, cache = model(tok[:, None], cache=cache)
+        logits = logits[:, -1, :].to(torch.float32)
+        if gmask is not None:
+            logits = logits + gmask
         tok = sample_token_batched(
-            generator, logits[:, -1, :].to(torch.float32),
+            generator, logits,
             temperature=temperature, top_k=top_k, top_p=top_p,
             greedy=greedy, all_greedy=all_greedy,
             noise=None if noise is None else noise[j])
@@ -81,7 +98,7 @@ def batched_chunk(model, cache, chunk_ids, starts, lens):
     return logits, pin_index(cache, starts + lens)
 
 
-def spec_verify_block(model, cache, tokens, base, mask, *, m):
+def spec_verify_block(model, cache, tokens, base, mask, *, m, gmasks=None):
     """The fused speculative round: verify the ``k`` drafted tokens and
     decode the planned block's remaining ``m`` greedy steps, with no
     value going to the host in between.
@@ -101,9 +118,20 @@ def spec_verify_block(model, cache, tokens, base, mask, *, m):
     Every emitted token (accepted, bonus or extension) is an argmax of
     this body's own forwards, so under greedy the stream is the plain
     one. Returns ``(out (B, k+1), n_acc (B,), extra (B, m), cache)``.
+
+    ``gmasks`` (optional, (B, k+1, vocab) f32 additive): position ``j``'s
+    row is the grammar mask of the automaton state after the first ``j``
+    drafts (staged on the host), added before the argmax: a
+    grammar-forbidden draft cannot be the masked argmax at its position,
+    so the acceptance cumprod stops there as at a mismatch, and the
+    bonus token is masked by its own state. Constrained rounds run at
+    ``m == 0`` (the extension's steps have no host-staged mask).
     """
     logits, cache = model(tokens, cache=pin_index(cache, base))
-    out = torch.argmax(logits.to(torch.float32), dim=-1)
+    logits = logits.to(torch.float32)
+    if gmasks is not None:
+        logits = logits + gmasks
+    out = torch.argmax(logits, dim=-1)
     # position j is accepted iff every draft up to and including j
     # matched the model's own output
     match = (out[:, :-1] == tokens[:, 1:]).to(torch.int64)
@@ -142,22 +170,27 @@ def make_mixed_step(model):
         chunk_last, toks, cache = fn(
             cache, chunk_ids, starts, lens, advance, tokens, temperature,
             top_k, top_p, greedy, n=n, generator=None, all_greedy=None,
-            noise=None)
+            noise=None, gmask=None)
 
     ``chunk_ids`` (B, chunk), ``starts`` and ``lens`` as in
     :func:`batched_chunk`; ``advance`` (B,): how far the block really
     moves each row (``n`` for ready rows, 0 elsewhere), so the final pin
     ``starts + lens + advance`` undoes the block's advance on mid-prefill
-    and free rows. ``toks`` (B, n) is meaningful for ready rows only."""
+    and free rows. ``toks`` (B, n) is meaningful for ready rows only.
+    ``gmask`` (B, vocab) masks the decode half only (mid-prefill rows
+    need none: their first token samples at finalization, under the
+    start state's mask); the planner caps a constrained block at
+    ``n == 1``."""
 
     def mixed_step(cache, chunk_ids, starts, lens, advance, tokens,
                    temperature, top_k, top_p, greedy, *, n, generator=None,
-                   all_greedy=None, noise=None):
+                   all_greedy=None, noise=None, gmask=None):
         chunk_last, cache = batched_chunk(model, cache, chunk_ids, starts,
                                           lens)
         toks, cache = decode_scan(
             model, cache, tokens, temperature, top_k, top_p, greedy, n=n,
-            generator=generator, all_greedy=all_greedy, noise=noise)
+            generator=generator, all_greedy=all_greedy, noise=noise,
+            gmask=gmask)
         return chunk_last, toks, pin_index(cache, starts + lens + advance)
 
     return mixed_step

@@ -2,9 +2,8 @@
 
 Port of ``llm_in_practise_tpu/serve/schemas.py``. Validation errors map
 to HTTP 422 as in the JAX package. The structured-output fields
-(``response_format`` other than ``{"type": "text"}``, ``tools``, a forcing
-``tool_choice``) are not ported yet: they raise
-:class:`UnsupportedFieldError`, which the server answers with HTTP 400.
+(``response_format``, ``tools``, ``tool_choice``) are shape-checked here;
+what a schema may say is :mod:`.constrain`'s to judge.
 """
 
 from __future__ import annotations
@@ -17,10 +16,6 @@ from typing import Any
 
 class ValidationError(ValueError):
     """Bad request payload: HTTP 422."""
-
-
-class UnsupportedFieldError(ValueError):
-    """A request field this port does not serve yet: HTTP 400."""
 
 
 @dataclasses.dataclass
@@ -43,26 +38,68 @@ class ChatMessage:
         return cls(role, content)
 
 
-def _reject_unported(d: dict) -> None:
-    rf = d.get("response_format")
-    if rf is not None and not (isinstance(rf, dict)
-                               and rf.get("type") == "text"):
-        raise UnsupportedFieldError(
-            "'response_format' (structured output) is not supported by this "
-            "server yet (ROADMAP.md queue A item 5)")
-    if d.get("tools") is not None:
-        raise UnsupportedFieldError(
-            "'tools' (tool calling) is not supported by this server yet "
-            "(ROADMAP.md queue A item 5)")
-    if d.get("tool_choice") not in (None, "auto", "none"):
-        raise UnsupportedFieldError(
-            "'tool_choice' other than 'auto'/'none' is not supported by this "
-            "server yet (ROADMAP.md queue A item 5)")
+def _validate_response_format(rf: Any):
+    """Shape-check OpenAI ``response_format`` (which schemas are
+    supported is :mod:`.constrain`'s to judge)."""
+    if rf is None:
+        return None
+    if not isinstance(rf, dict):
+        raise ValidationError("'response_format' must be an object")
+    rf_type = rf.get("type")
+    if rf_type not in ("text", "json_object", "json_schema"):
+        raise ValidationError(
+            "response_format.type must be 'text', 'json_object', or "
+            f"'json_schema', got {rf_type!r}")
+    if rf_type == "json_schema":
+        wrapper = rf.get("json_schema")
+        if not isinstance(wrapper, dict) or not isinstance(
+                wrapper.get("schema"), dict):
+            raise ValidationError(
+                "response_format.json_schema.schema must be an object")
+    return rf
+
+
+def _validate_tools(tools: Any, tool_choice: Any):
+    """Shape-check OpenAI ``tools`` / ``tool_choice``."""
+    if tools is not None:
+        if not isinstance(tools, list):
+            raise ValidationError("'tools' must be an array")
+        for t in tools:
+            if (not isinstance(t, dict) or t.get("type") != "function"
+                    or not isinstance(t.get("function"), dict)
+                    or not isinstance(t["function"].get("name"), str)):
+                raise ValidationError(
+                    "each tool must be {'type': 'function', 'function': "
+                    "{'name': …, 'parameters': …}}")
+    if tool_choice is None:
+        return tools, None
+    if isinstance(tool_choice, str):
+        if tool_choice not in ("auto", "none", "required"):
+            raise ValidationError(
+                "tool_choice must be 'auto', 'none', 'required', or a "
+                "function reference")
+    elif isinstance(tool_choice, dict):
+        if (tool_choice.get("type") != "function"
+                or not isinstance(tool_choice.get("function"), dict)
+                or not isinstance(
+                    tool_choice["function"].get("name"), str)):
+            raise ValidationError(
+                "tool_choice object must be {'type': 'function', "
+                "'function': {'name': …}}")
+    else:
+        raise ValidationError("tool_choice must be a string or object")
+    if tool_choice not in ("auto", "none") and not tools:
+        raise ValidationError(
+            f"tool_choice {tool_choice!r} requires a non-empty 'tools'")
+    return tools, tool_choice
 
 
 @dataclasses.dataclass
 class ChatCompletionRequest:
-    """Request body of POST /v1/chat/completions."""
+    """Request body of POST /v1/chat/completions, with the
+    structured-output surface: ``response_format`` and ``tools`` /
+    ``tool_choice``, enforced by grammar-compiled logit masks
+    (:mod:`.constrain`)."""
 
     model: str
     messages: list[ChatMessage]
@@ -71,12 +108,14 @@ class ChatCompletionRequest:
     top_p: float = 1.0
     top_k: int = 0
     stream: bool = False
+    response_format: dict | None = None
+    tools: list | None = None
+    tool_choice: Any = None
 
     @classmethod
     def from_dict(cls, d: Any) -> "ChatCompletionRequest":
         if not isinstance(d, dict):
             raise ValidationError("request body must be a JSON object")
-        _reject_unported(d)
         if not isinstance(d.get("model"), str) or not d["model"]:
             raise ValidationError("'model' is required")
         raw_msgs = d.get("messages")
@@ -93,6 +132,8 @@ class ChatCompletionRequest:
                 raise ValidationError(f"'{key}' must be in [{lo}, {hi}]")
             return v
 
+        tools, tool_choice = _validate_tools(
+            d.get("tools"), d.get("tool_choice"))
         return cls(
             model=d["model"],
             messages=msgs,
@@ -101,6 +142,10 @@ class ChatCompletionRequest:
             top_p=num("top_p", 1.0, 0.0, 1.0),
             top_k=num("top_k", 0, 0, 1 << 20, int),
             stream=bool(d.get("stream", False)),
+            response_format=_validate_response_format(
+                d.get("response_format")),
+            tools=tools,
+            tool_choice=tool_choice,
         )
 
 
@@ -122,7 +167,16 @@ def completion_id() -> str:
 
 
 def chat_completion_response(*, req_id: str, model: str, text: str,
-                             finish_reason: str, usage: Usage) -> dict:
+                             finish_reason: str, usage: Usage,
+                             tool_calls: list | None = None) -> dict:
+    """``tool_calls`` (forced tool-choice requests): the parsed calls
+    replace ``content`` and the finish reason becomes ``tool_calls``, as
+    in the OpenAI wire shape."""
+    message: dict = {"role": "assistant", "content": text}
+    if tool_calls is not None:
+        message = {"role": "assistant", "content": None,
+                   "tool_calls": tool_calls}
+        finish_reason = "tool_calls"
     return {
         "id": req_id,
         "object": "chat.completion",
@@ -130,10 +184,20 @@ def chat_completion_response(*, req_id: str, model: str, text: str,
         "model": model,
         "choices": [{
             "index": 0,
-            "message": {"role": "assistant", "content": text},
+            "message": message,
             "finish_reason": finish_reason,
         }],
         "usage": usage.to_dict(),
+    }
+
+
+def tool_call_entry(name: str, arguments: str) -> dict:
+    """One ``message.tool_calls[]`` entry (``arguments`` is the JSON
+    text, per the OpenAI wire format)."""
+    return {
+        "id": "call_" + uuid.uuid4().hex[:24],
+        "type": "function",
+        "function": {"name": name, "arguments": arguments},
     }
 
 

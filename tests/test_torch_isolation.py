@@ -22,6 +22,8 @@ import importlib, pkgutil, sys
 import llm_in_practise_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 assert "llm_in_practise_tpu_torch.serve.disagg" in names, names
+for name in ("constrain", "arrivals"):
+    assert "llm_in_practise_tpu_torch.serve." + name in names, names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
