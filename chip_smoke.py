@@ -127,7 +127,28 @@ Phases, in order; any failure exits non-zero:
    embeddings' too (and their vectors agree with the plain version's).
    Readings: TPOT and TTFT of constrained and plain requests, the first
    request's TPOT, mask staging and copy times, grammar compile time per
-   state, ``vocab_strings`` time, masked captures.
+   state, ``vocab_strings`` time, masked captures. ``serve_spec`` and
+   ``serve_struct`` run on an NF4 model built as the full one but
+   ``CUT_LAYERS`` (12) deep, every check kept, so that the script stays
+   inside half its time limit.
+   Then ``serve_lora`` on the full-depth NF4 model (batched multi-LoRA;
+   paged, chunked prefill 256, decode blocks of 8, the mixed step): four
+   seeded adapters (``sft-a`` and ``sft-b`` r 16 on the SFT default's
+   attention targets, ``sft-a`` written by ``save_named`` and loaded by
+   path; ``qv-8`` r 8 on q and v; ``ladder-6`` r 6 on q and the MLP), the
+   JAX multi-LoRA bench's 16 arrivals pinned to [base, sft-a, sft-b,
+   qv-8, ladder-6] in turn (two under the schema) and a 700-token document
+   under ``sft-a``: paged with speculation off and with the prompt
+   lookup, contiguous, all-adapter traffic, base-only traffic on a
+   registry engine and on one without, hot loads that grow a bank, a
+   byte-budget registry, prefix isolation and HTTP with adapter names.
+   Every adapter twin replays its eager body byte for byte and its base
+   rows equal the base kind's; each mixed-batch row against a batch-1
+   forward under its adapter; one dispatch per decode block across
+   adapters; recaptures after a bank grows; B1 per route as derived.
+   Readings: TPOT / TTFT per traffic, the delta's device ms and kernels
+   per decode step, MiB gathered per step, bank MiB, swap seconds, twin
+   captures and recaptures.
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
    Qwen3-8B projection shape (both also at ragged shapes,
    ``NF4_FWD_EDGE_SHAPES`` on both forward routes and
@@ -156,7 +177,7 @@ Phases, in order; any failure exits non-zero:
    the model (every NF4 forward on the wgmma route), and one more step is
    profiled.
 9. Checkpoints (``ckpt``), at Qwen3-8B width with tied embeddings and
-   seeded bf16 weights, ``CKPT_LAYERS`` (18) layers deep (the card's
+   seeded bf16 weights, ``CKPT_LAYERS`` (8) layers deep (the card's
    machine takes 45 GiB of disk writes per run), every file deleted after
    its check: the state written as an HF directory in the published layout
    (five safetensors shards, an index, ``config.json``); ``convert_hf``
@@ -212,6 +233,10 @@ PROJ_SHAPES = {  # Qwen3-8B block projections: name -> (K, N)
     "up_proj": (4096, 12288), "down_proj": (12288, 4096)}
 CHECK_M = (1, 8, 512)
 N_LAYER = 36    # full depth of Qwen3-8B
+N_LAYER_FULL = N_LAYER
+# serve_spec and serve_struct run at this depth, every check kept, so the
+# script stays inside half its time limit as later slices add phases
+CUT_LAYERS = 12
 MAX_SLOTS = 8
 CACHE_LEN = 1024
 MAX_TOKENS = 64
@@ -343,6 +368,13 @@ PTXAS_LABELS = {"nf4_matmul": ("Nf4Fwd",) + thin_labels("nf4"),
                 "flash_forward": FLASH_FWD_LABELS,
                 "flash_backward_dkv": FLASH_DKV_LABELS,
                 "flash_backward_dq": FLASH_DQ_LABELS}
+
+
+def set_depth(n_layer: int) -> None:
+    """The depth the next phase's model has: every derivation of its
+    launches reads ``N_LAYER``."""
+    global N_LAYER
+    N_LAYER = n_layer
 
 
 def log(*args):
@@ -4232,6 +4264,881 @@ def struct_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
             "flash_launches": http["embeddings"]["flash_forward"]}
 
 
+LORA = dict(decode_steps=8, chunked_prefill=256, mixed_step=True)
+# tools/multi_lora_bench.py:259-261's schedule
+LORA_ARRIVALS = dict(seed=42, n_requests=16, mean_iat_s=0.02, cv=2.0,
+                     prompt_tokens=(8, 48), max_tokens=(16, 48))
+LORA_PINS = (None, "sft-a", "sft-b", "qv-8", "ladder-6")  # arrival i % 5
+LORA_SCHEMA_ARRIVALS = (1, 8)   # an sft-a and a qv-8 arrival under SCHEMA
+LORA_LONG = 700                 # a document under sft-a, chunk-prefilling
+LORA_LONG_TOKENS = 16
+# examples/qwen3_lora_sft.py:72-73, 113-114 (the SFT default; the model's
+# attention output projection is out_proj, so o_proj matches nothing),
+# bench.py:641-642, tools/multi_lora_bench.py:54, 88-89
+SFT_TARGETS = (r"attn/(q_proj|k_proj|v_proj|o_proj)",)
+LORA_ADAPTERS = {"sft-a": (16, 32.0, SFT_TARGETS),
+                 "sft-b": (16, 32.0, SFT_TARGETS),
+                 "qv-8": (8, 16.0, ("q_proj", "v_proj")),
+                 "ladder-6": (6, 12.0, ("attn/q_proj", "mlp"))}
+LORA_B_STD = 0.05     # B ~ N(0, 0.05), A ~ N(0, 1/K): a delta about a
+#                       third of the base projection, so streams differ
+LORA_HOT = ("hot-1", "hot-2")   # r 16 loads that grow bucket 16 from 4 to 8
+# (b): every emitted token of a mixed batch is in the top LORA_TOP_K of
+# an eager batch-1 forward of its row alone under its adapter, and lies
+# at most LORA_GAP_TOL below that forward's top logit (set from the
+# 4-layer probe before the full run; see PERF.md)
+LORA_TOP_K = 5
+LORA_GAP_TOL = 1.0
+LORA_PROFILE_STEPS = 3
+
+
+def lora_tree(name: str, seed: int, n_layer: int) -> dict:
+    """A seeded LoRA tree of ``LORA_ADAPTERS[name]`` for the Qwen3-8B
+    projections of ``n_layer`` layers, on the card."""
+    import torch
+
+    from llm_in_practise_tpu_torch.peft.lora import LoRAConfig, target_paths
+
+    r, alpha, targets = LORA_ADAPTERS.get(name, LORA_ADAPTERS["sft-a"])
+    shapes = {}
+    for i in range(n_layer):
+        for proj, (k, n) in PROJ_SHAPES.items():
+            sub = "mlp" if proj in ("gate_proj", "up_proj", "down_proj") \
+                else "attn"
+            shapes[f"blocks.{i}.{sub}.{proj}.kernel"] = torch.empty(
+                k, n, device="meta")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tree = {}
+    for path in target_paths(shapes, LoRAConfig(r=r, alpha=alpha,
+                                                target_patterns=targets)):
+        k, n = shapes[path].shape
+        tree[path] = {
+            "a": torch.randn(k, r, device="cuda", generator=gen) / math.sqrt(k),
+            "b": torch.randn(r, n, device="cuda", generator=gen) * LORA_B_STD}
+    return tree
+
+
+def lora_config(name: str):
+    from llm_in_practise_tpu_torch.peft.lora import LoRAConfig
+
+    r, alpha, targets = LORA_ADAPTERS.get(name, LORA_ADAPTERS["sft-a"])
+    return LoRAConfig(r=r, alpha=alpha, target_patterns=targets)
+
+
+def lora_registry(model, sft_a_path: str, seed: int, **kw):
+    """The phase's registry: ``sft-a`` through ``register(path)`` (the
+    checkpoint the port's ``save_named`` wrote), the others as trees."""
+    from llm_in_practise_tpu_torch.serve.multi_lora import AdapterRegistry
+
+    reg = AdapterRegistry(model, **kw)
+    reg.register("sft-a", sft_a_path)
+    for i, name in enumerate(("sft-b", "qv-8", "ladder-6")):
+        reg.register_tree(name, lora_tree(name, seed + 2 + i, N_LAYER),
+                          lora_config(name))
+    return reg
+
+
+def lora_engine(model, tok, seed: int, registry=None, **kw):
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    return InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+                           eos_id=tok.token_to_id(IM_END),
+                           cache_dtype=torch.bfloat16, seed=seed,
+                           adapter_registry=registry,
+                           **{"kv_layout": "paged", **LORA, **kw})
+
+
+def lora_run(engine, schedule, prompts, long_prompt, pins, auto) -> tuple:
+    """The schedule replayed open loop into the running engine, arrival
+    ``i`` under ``pins[i % len(pins)]`` (the ``LORA_SCHEMA_ARRIVALS``
+    under the schema), then the long document under ``sft-a`` (base when
+    every pin is None); waits for every request."""
+    from types import SimpleNamespace
+
+    from llm_in_practise_tpu_torch.serve import arrivals
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    def submit(a):
+        sp = SamplingParams(
+            greedy=True, max_tokens=a.max_tokens,
+            constraint=auto if a.i in LORA_SCHEMA_ARRIVALS else None)
+        return engine.submit(prompts[a.i], sp, adapter=pins[a.i % len(pins)])
+
+    items = [SimpleNamespace(at_s=a.at_s, max_tokens=a.max_tokens, i=i)
+             for i, a in enumerate(schedule)]
+    late = []
+    reqs = arrivals.replay(items, submit, workers=len(items), lateness=late)
+    doc = "sft-a" if any(pins) else None
+    reqs.append(engine.submit(long_prompt, SamplingParams(
+        greedy=True, max_tokens=LORA_LONG_TOKENS), adapter=doc))
+    for r in reqs:
+        r.result()
+    if engine.error is not None:
+        raise SystemExit(f"serve_lora: engine failed: {engine.error!r}")
+    return reqs, arrivals.lateness_stats(late)
+
+
+def lora_sync(engine, prompts, pins, max_tokens: int = 24) -> list:
+    """The prompts submitted at once (prompt ``i`` under ``pins[i]``) and
+    stepped on this thread until idle: one deterministic order of batch
+    shapes, so two engines' streams compare byte for byte."""
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    sp = SamplingParams(greedy=True, max_tokens=max_tokens)
+    reqs = [engine.submit(p, sp, adapter=a) for p, a in zip(prompts, pins)]
+    while engine.step():
+        pass
+    return [list(r.output_ids) for r in reqs]
+
+
+class LoraRecorder(SpecRecorder):
+    """:class:`SpecRecorder`'s hooks, and on every graph run its kind,
+    whether it carried adapter rows, the distinct adapters of the ready
+    slots and its graph runs; on every decode block and fused step the
+    dispatches it made."""
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        g = engine.graphs
+        inner = g.run
+        self.runs, self.blocks = [], []
+
+        def run(kind, n, **kw):
+            ready = engine._ready_slots()
+            replays, graphs = g.replays, len(g.graphs)
+            out = inner(kind, n, **kw)
+            self.runs.append({
+                "kind": kind, "lora": kw.get("lora") is not None,
+                "adapters": len({engine.slot_adapter[s] for s in ready}),
+                "runs": g.replays - replays + len(g.graphs) - graphs})
+            return out
+
+        g.run = run
+        self._blocks_saved = (engine._decode, engine._mixed_dispatch)
+        decode, mixed = self._blocks_saved
+
+        def rec(fn, name):
+            def wrapped(active, n):
+                d0 = engine.dispatches_total
+                out = fn(active, n)
+                self.blocks.append({
+                    "path": name, "dispatches": engine.dispatches_total - d0,
+                    "adapters": len({engine.slot_adapter[s]
+                                     for s in active})})
+                return out
+            return wrapped
+
+        engine._decode = rec(decode, "decode")
+        engine._mixed_dispatch = rec(mixed, "mixed")
+
+    def undo(self):
+        super().undo()
+        for name in ("_decode", "_mixed_dispatch"):
+            del self.engine.__dict__[name]
+
+    def dispatch_checks(self) -> dict:
+        """(d): every decode block and fused step is one dispatch; every
+        graph run is one replay or capture; the twins ran exactly while a
+        ready slot carried an adapter; some runs mixed adapters."""
+        e = self.engine
+        bad_blocks = [b for b in self.blocks if b["dispatches"] > 1]
+        bad_runs = [r for r in self.runs
+                    if r["runs"] != 1 or (r["kind"] == "droll"
+                                          and r["lora"])]
+        kinds = {}
+        for r in self.runs:
+            key = ("l" if r["lora"] else "") + r["kind"]
+            kinds[key] = kinds.get(key, 0) + 1
+        return {"graph_runs": len(self.runs), "by_kind": kinds,
+                "adapter_runs": sum(r["lora"] for r in self.runs),
+                "mixed_adapter_runs": sum(r["lora"] and r["adapters"] > 1
+                                          for r in self.runs),
+                "blocks": len(self.blocks),
+                "mixed_adapter_blocks": sum(b["adapters"] > 1
+                                            for b in self.blocks),
+                "bad_blocks": bad_blocks[:4], "bad_runs": bad_runs[:4],
+                "registry": e.adapter_registry is not None}
+
+
+LORA_REPLAY_PINS = (None, "sft-a", "sft-b", "qv-8", "ladder-6", None,
+                    "sft-a", "qv-8")
+
+
+def lora_replay_check(engine, seed: int) -> dict:
+    """(a) and (c): every captured adapter twin, replayed once with rows
+    under ``LORA_REPLAY_PINS``, against its eager body on copies of the
+    same state and inputs (outputs and every state byte identical); then
+    the base kind's eager body on the same state and inputs, whose rows
+    0 and 5 (base in the twin) must equal the twin's byte for byte."""
+    import numpy as np
+    import torch
+
+    from llm_in_practise_tpu_torch.ops import launch_count
+    from llm_in_practise_tpu_torch.serve.constrain import NEG_INF
+    from llm_in_practise_tpu_torch.serve.paged_kv import window_idx
+
+    g, b = engine.graphs, engine.max_slots
+    dev, k, c = engine.device, engine.speculative_k, engine.chunked_prefill
+    reg = engine.adapter_registry
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    vocab = engine.model.config.vocab_size
+    state = []
+    if engine.cache is not None:
+        state += [layer[key] for layer in engine.cache for key in ("k", "v")]
+    if engine.paged is not None:
+        state.append(engine.paged.store)
+    saved = [t.clone() for t in state]
+    base_rows = [i for i, a in enumerate(LORA_REPLAY_PINS) if a is None]
+
+    def restore():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+
+    def compared(t):
+        if engine.paged is not None and t is engine.paged.store:
+            return t[:, engine.paged.page_size:]
+        return t
+
+    def index_bufs(width, starts, valid, wwin):
+        pg = engine.paged
+        for name, a in (("gidx", pg.gather_idx(width)),
+                        ("vidx", window_idx(starts, width, wwin)),
+                        ("sidx", pg.scatter_idx(starts, valid, wwin))):
+            flat = torch.from_numpy(a.reshape(-1).astype(np.int64))
+            g._index_buf(name, flat.numel()).copy_(flat)
+
+    args = reg.dispatch_args(list(LORA_REPLAY_PINS))
+    snap = launch_count.snapshot()
+    out = {}
+    x = g.inputs
+    rows = np.arange(b)
+    try:
+        with torch.inference_mode():
+            for key in sorted(g.graphs, key=str):
+                lkind, n, _, width, _ = key
+                if not lkind.startswith("l"):
+                    continue
+                kind = lkind[1:]
+                g._stage_lora(args)     # same generation: fills idx only
+                span = width or engine.cache_len
+                x["tokens"].copy_(torch.randint(0, vocab, (b,), device=dev,
+                                                generator=gen))
+                mask = (rows % 2 == 0).astype(np.int64)
+                for name in ("gmask", "gmasks"):
+                    if name in g.masks:
+                        m = g.masks[name]
+                        m.copy_(torch.where(
+                            torch.rand(m.shape, device=dev, generator=gen)
+                            < 0.9, NEG_INF, 0.0))
+                if kind.endswith("spec"):
+                    wwin = k + 1 + n
+                    base = np.minimum(rows * 37 + 5, span - wwin)
+                    x["spec_tokens"].copy_(torch.randint(
+                        0, vocab, (b, k + 1), device=dev, generator=gen))
+                    x["index"].copy_(torch.from_numpy(base))
+                    x["spec_mask"].copy_(torch.from_numpy(mask))
+                    if kind.startswith("p"):
+                        index_bufs(width, base, mask * wwin, wwin)
+                elif kind.endswith("decode"):
+                    idx = np.minimum(rows * 37 + 5, span - n)
+                    x["index"].copy_(torch.from_numpy(idx))
+                    if kind.startswith("p"):
+                        index_bufs(width, idx, mask * n, n)
+                else:
+                    starts = np.minimum(rows * 37 + 5, span - c - n)
+                    lens = np.where(mask == 1, rows * 29 % c + 1, 0)
+                    advance = np.where(mask == 1, 0, n)
+                    x["chunk_ids"].copy_(torch.randint(
+                        0, vocab, (b, c), device=dev, generator=gen))
+                    for name, a in (("starts", starts), ("lens", lens),
+                                    ("advance", advance)):
+                        x[name].copy_(torch.from_numpy(a))
+                    if kind.startswith("p"):
+                        index_bufs(width, starts, lens + advance, c)
+                graph, static_out, _ = g.graphs[key]
+                restore()
+                graph.replay()
+                torch.cuda.synchronize()
+                got = {n_: v.clone() for n_, v in static_out.items()}
+                got_state = [compared(t).clone() for t in state]
+                restore()
+                want = g._body(key)
+                torch.cuda.synchronize()
+                res = {"outputs_identical": all(
+                           torch.equal(got[n_], want[n_]) for n_ in got),
+                       "state_identical": all(
+                           torch.equal(a, compared(t))
+                           for a, t in zip(got_state, state))}
+                restore()
+                plain = g._body((kind,) + key[1:])
+                torch.cuda.synchronize()
+                res["base_rows_equal_base_kind"] = all(
+                    torch.equal(got[n_][base_rows], plain[n_][base_rows])
+                    for n_ in got if n_ != "index")
+                res["adapter_rows_differ"] = any(
+                    not torch.equal(got[n_][1], plain[n_][1])
+                    for n_ in got if n_ != "index")
+                out[f"{lkind} n={n} width={width}"] = res
+                del got, got_state, want, plain
+        restore()
+    finally:
+        launch_count.restore(snap)
+        del saved
+    if not all(r["outputs_identical"] and r["state_identical"]
+               and r["base_rows_equal_base_kind"] for r in out.values()):
+        raise SystemExit(f"serve_lora: an adapter twin differs from its "
+                         f"eager body, or a base row from its base kind: "
+                         f"{out}")
+    return out
+
+
+def lora_tpot(reqs) -> dict:
+    def med(vals):
+        vals = [v for v in vals if v is not None]
+        return statistics.median(vals) if vals else None
+
+    return {"tpot_p50_s": med(r.tpot_s for r in reqs[:-1]),
+            "ttft_p50_s": med(r.ttft_s for r in reqs[:-1]),
+            "document_ttft_s": reqs[-1].ttft_s}
+
+
+def lora_leg(name: str, engine, schedule, prompts, long_prompt, pins, auto,
+             seed: int, checks: bool = True) -> dict:
+    """One open-loop leg: a warm-up replay (it captures the variants the
+    counted run reaches), then the counted replay with the launch
+    counters zeroed before and read after and the recorder on. With
+    ``checks``: B1's launches per route as derived (g), the dispatch
+    checks (d), every finish a stop or a length, then the replay check
+    of the twins (a, c)."""
+    import torch
+
+    g = engine.graphs
+    t_leg = time.monotonic()
+    capture, pool_mib = g._capture, {}
+
+    def rec_capture(key):
+        before = g.pool_bytes
+        capture(key)
+        pool_mib[key] = (g.pool_bytes - before) / 2**20
+
+    g._capture = rec_capture
+    engine._stop.clear()        # a leg may reuse an engine an earlier leg
+    engine.start()              # stopped
+    try:
+        t0 = time.monotonic()
+        lora_run(engine, schedule, prompts, long_prompt, pins, auto)
+        warm_s = time.monotonic() - t0
+        rec = LoraRecorder(engine)
+        zero_counters()
+        before = {k: getattr(engine, k) for k in SPEC_COUNTERS}
+        t0 = time.monotonic()
+        try:
+            reqs, lateness = lora_run(engine, schedule, prompts, long_prompt,
+                                      pins, auto)
+            torch.cuda.synchronize()
+        finally:
+            rec.undo()
+        wall = time.monotonic() - t0
+    finally:
+        engine.stop()
+        del g.__dict__["_capture"]
+    if engine.paged is not None:
+        engine.paged.pool.check_leaks(0)      # (f): every page returned
+    routes = read_routes()["nf4_matmul"]
+    launches = read_counters()["nf4_matmul"]
+    delta = {k: getattr(engine, k) - before[k] for k in SPEC_COUNTERS}
+    want = route_launches("nf4", spec_rows(engine, delta, rec),
+                          PROJ_SHAPES.values(), N_LAYER)
+    dispatch = rec.dispatch_checks()
+    twins = {f"{k[0]} n={k[1]} w={k[3]}": {"capture_s": g.capture_s[k],
+                                           "pool_mib": pool_mib.get(k)}
+             for k in g.capture_s if k[0].startswith("l")}
+    res = {"leg": name, "requests": len(reqs), "wall_s": wall,
+           "warmup_wall_s": warm_s, **lora_tpot(reqs),
+           "finish": [r.finish_reason for r in reqs],
+           "adapters": [r.adapter for r in reqs], "lateness": lateness,
+           "dispatch_checks": dispatch, "round_checks": rec.round_checks(),
+           "forwards": {k: delta[k] for k in SPEC_COUNTERS[:7]},
+           "b1_routes": routes, "b1_expected": want,
+           "captures": len(g.capture_s), "twin_captures": twins,
+           "twin_capture_s": sum(v["capture_s"] for v in twins.values()),
+           "twin_pool_mib": sum(v["pool_mib"] or 0 for v in twins.values()),
+           "graph_pool_mib": g.pool_bytes / 2**20,
+           "lora_recaptures": g.lora_recaptures,
+           "lora_idx_buffers": len(g.lora_idx)}
+    log(f"serve_lora {name}:", json.dumps(res))
+    if (routes != want or launches != sum(routes.values())
+            or any(f not in ("stop", "length") for f in res["finish"])):
+        raise SystemExit(f"serve_lora {name}: B1 launches {routes} differ "
+                         f"from the engine's forwards ({want}), or a bad "
+                         f"finish")
+    if (dispatch["bad_blocks"] or dispatch["bad_runs"]
+            or res["round_checks"]["bad_rounds"]
+            or res["round_checks"]["n_acc_wrong"]):
+        raise SystemExit(f"serve_lora {name}: the dispatch checks failed: "
+                         f"{dispatch} {res['round_checks']}")
+    if checks:
+        if not dispatch["mixed_adapter_runs"]:
+            raise SystemExit(f"serve_lora {name}: no graph run mixed "
+                             f"adapters: {dispatch}")
+        t0 = time.monotonic()
+        res["replay_check"] = lora_replay_check(engine, seed)
+        res["replay_check_wall_s"] = time.monotonic() - t0
+        log(f"serve_lora {name} replay check:",
+            json.dumps(res["replay_check"]))
+    res["leg_wall_s"] = time.monotonic() - t_leg
+    res["launches"] = launches
+    return res, reqs
+
+
+def lora_teacher(model, registry, prompts, reqs) -> dict:
+    """(b): each request of a mixed batch against an eager batch-1
+    forward of its row alone under its adapter (teacher-forced over the
+    prompt and its stream): every token in the top ``LORA_TOP_K``, at
+    most ``LORA_GAP_TOL`` below the top logit."""
+    from llm_in_practise_tpu_torch.serve.multi_lora import lora_scope
+
+    ranks, gaps = {}, {}
+    for i, (prompt, r) in enumerate(zip(prompts, reqs)):
+        if r.params.constraint is not None:
+            continue            # its tokens obey the grammar's masks
+        args = (registry.dispatch_args([r.adapter])
+                if r.adapter is not None else None)
+        with lora_scope(args, model.device):
+            (rk, gp), = teacher_ranks(model, [prompt], [list(r.output_ids)])
+        ranks.setdefault(str(r.adapter), []).extend(rk)
+        gaps.setdefault(str(r.adapter), []).extend(gp)
+    res = {a: {"tokens": len(ranks[a]), "max_rank": max(ranks[a]),
+               "top1_share": sum(x == 0 for x in ranks[a]) / len(ranks[a]),
+               "max_gap": max(gaps[a])} for a in ranks if ranks[a]}
+    res["tol"] = (f"rank < {LORA_TOP_K} and top logit - token logit <= "
+                  f"{LORA_GAP_TOL}")
+    if any(v["max_rank"] >= LORA_TOP_K or v["max_gap"] > LORA_GAP_TOL
+           for k, v in res.items() if k != "tol"):
+        raise SystemExit(f"serve_lora: a mixed-batch token is off its "
+                         f"batch-1 forward: {res}")
+    return res
+
+
+def lora_profile(engine, prompts, pins) -> dict:
+    """Device time and kernel count of one decode block of 8 slots under
+    ``pins``, under torch.profiler, after ``LORA_PROFILE_STEPS`` steps
+    (the host wall of those steps includes the captures of each new view
+    width, so it is not read); the requests then run to their end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    sp = SamplingParams(greedy=True, max_tokens=200)
+    reqs = [engine.submit(p, sp, adapter=a) for p, a in zip(prompts, pins)]
+    engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    for _ in range(LORA_PROFILE_STEPS):
+        engine.step()
+    torch.cuda.synchronize()
+    s1 = engine.decode_steps_run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    per = engine.decode_steps_run - s1
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    count = sum(e.count for e in kernels)
+    while engine.step():
+        pass
+    out = {"pins": list(pins), "profiled_decode_steps": per,
+           "kernels_per_decode_step": count / max(per, 1)}
+    out["device_ms_per_decode_step"] = (device_us / 1e3 / max(per, 1)
+                                        if device_us else "not measured")
+    return out
+
+
+def lora_gather_mib(registry, slots: int) -> dict:
+    """MiB the delta gathers per decode step (every bucket's factors of
+    every target for each of ``slots`` rows, A and B, f32), per bucket."""
+    out = {}
+    with registry._lock:
+        for rb, bucket in registry._buckets.items():
+            per_row = 0
+            for table in (bucket.stacked, bucket.flat):
+                for fac in table.values():
+                    per_row += (fac["a"][0].numel()
+                                + fac["b"][0].numel()) * 4
+            out[rb] = slots * per_row / 2**20
+    return out
+
+
+def lora_hot(engine, registry, prompts, seed: int) -> dict:
+    """(e): r 16 loads after the legs grow bucket 16, whose banks are new
+    tensors: the twins are dropped and recaptured (counted); the new
+    adapter's stream is not base's, and equals the same engine's stream
+    with graphs off (eager bodies over the new banks), byte for byte."""
+    gen0 = registry.generation
+    cap0 = registry.stats()["buckets"][16]["cap"]
+    g = engine.graphs
+    rec0, inv0 = g.lora_recaptures, g.lora_invalidations
+    for i, name in enumerate(LORA_HOT):
+        registry.register_tree(name, lora_tree(name, seed + 10 + i, N_LAYER),
+                               lora_config(name))
+    cap1 = registry.stats()["buckets"][16]["cap"]
+    pins = (LORA_HOT[-1], None, "sft-a", LORA_HOT[-1])
+    ps = prompts[:len(pins)]
+    t0 = time.monotonic()
+    graphs = lora_sync(engine, ps, pins)
+    graph_s = time.monotonic() - t0
+    g.capture = False
+    try:
+        eager = lora_sync(engine, ps, pins)
+    finally:
+        g.capture = True
+    base = lora_sync(engine, ps[:1], (None,))
+    res = {"bucket16_cap": [cap0, cap1],
+           "generation": [gen0, registry.generation],
+           "recaptures": g.lora_recaptures - rec0,
+           "invalidations": g.lora_invalidations - inv0,
+           "graph_equals_eager": graphs == eager,
+           "hot_differs_from_base": graphs[0] != base[0],
+           "wall_s": graph_s,
+           "swap_seconds": list(registry.swap_seconds[-len(LORA_HOT):])}
+    log("serve_lora hot-load:", json.dumps(res))
+    if not (cap1 > cap0 and res["recaptures"] > 0 and res["invalidations"]
+            and res["graph_equals_eager"] and res["hot_differs_from_base"]):
+        raise SystemExit(f"serve_lora hot-load: the checks failed: {res}")
+    return res
+
+
+def lora_budget(model, seed: int) -> dict:
+    """(f): a registry whose byte budget holds two r 16 adapters: loading
+    a third evicts the least recently used idle one (never a busy one),
+    and an exhausted budget with every row busy raises."""
+    from llm_in_practise_tpu_torch.serve.multi_lora import AdapterRegistry
+
+    probe = AdapterRegistry(model)
+    probe.register_tree("x", lora_tree("x", seed + 20, N_LAYER),
+                        lora_config("x"))
+    one = probe.bytes_loaded
+    del probe
+    reg = AdapterRegistry(model, max_bytes=2 * one)
+    for i, name in enumerate(("b0", "b1")):
+        reg.register_tree(name, lora_tree(name, seed + 21 + i, N_LAYER),
+                          lora_config(name))
+    reg.acquire("b0")        # b0 used after b1: b1 is the LRU idle row
+    reg.release("b0")
+    reg.register_tree("b2", lora_tree("b2", seed + 23, N_LAYER),
+                      lora_config("b2"))
+    order = reg.names()
+    reg.acquire("b0")        # every row busy: the next load must raise
+    reg.acquire("b2")
+    try:
+        reg.register_tree("b3", lora_tree("b3", seed + 24, N_LAYER),
+                          lora_config("b3"))
+        exhausted = None
+    except RuntimeError as e:
+        exhausted = str(e)
+    res = {"bytes_per_adapter": one, "max_bytes": 2 * one,
+           "names_after_third": order, "stats": reg.stats(),
+           "exhausted_error": exhausted}
+    reg.release("b0")
+    reg.release("b2")
+    for name in reg.names():
+        reg.evict(name)
+    res["after_evict"] = {"bytes": reg.bytes_loaded,
+                          "rows_in_use": sum(
+                              b["cap"] - 1 - b["free"]
+                              for b in reg.stats()["buckets"].values())}
+    log("serve_lora byte budget:", json.dumps(res, default=str))
+    if (order != ["b0", "b2"] or exhausted is None
+            or "budget exhausted" not in exhausted
+            or res["after_evict"] != {"bytes": 0, "rows_in_use": 0}):
+        raise SystemExit(f"serve_lora byte budget: the checks failed: {res}")
+    return res
+
+
+def lora_prefix(model, tok, registry, seed: int) -> dict:
+    """(f): the same prompt under base and two adapters never hits another
+    namespace's pages; the same adapter does hit its own."""
+    engine = lora_engine(model, tok, seed, registry, prefix_cache=True)
+    prompt = tok.encode("Adapters keep their own prefix pages. " * 12)[:96]
+    hits = []
+    outs = {}
+    for a in ("sft-a", None, "sft-b", "sft-a"):
+        h0 = engine.prefix_cache.hits
+        outs.setdefault(str(a), []).append(
+            lora_sync(engine, [prompt], (a,), max_tokens=8)[0])
+        hits.append(engine.prefix_cache.hits - h0)
+    engine.prefix_cache.clear()
+    engine.paged.pool.check_leaks(0)
+    res = {"hits": hits, "streams": {a: len(v) for a, v in outs.items()},
+           "sft_a_repeat_equal": outs["sft-a"][0] == outs["sft-a"][1]}
+    log("serve_lora prefix isolation:", json.dumps(res))
+    if hits != [0, 0, 0, 1]:
+        raise SystemExit(f"serve_lora prefix isolation failed: {res}")
+    del engine
+    return res
+
+
+def lora_http(model, tok, registry, seed: int) -> dict:
+    """(h): a server built by the CLI's code (paged, chunked prefill 256,
+    decode blocks of 8) over the registry, with ``AdapterHandle`` names:
+    an adapter streamed and not, base, a 404 that lists the names,
+    ``/v1/models``, and ``/v1/embeddings`` under an adapter name equal to
+    the base vectors."""
+    import numpy as np
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.__main__ import (
+        build_engine,
+        build_parser,
+    )
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+    from llm_in_practise_tpu_torch.serve.multi_lora import AdapterHandle
+
+    argv = ["--tokenizer_path", "-", "--max_slots", str(MAX_SLOTS),
+            "--cache_len", str(CACHE_LEN), "--kv-cache-dtype", "bfloat16",
+            "--enable-chunked-prefill", str(LORA["chunked_prefill"]),
+            "--decode-steps", str(LORA["decode_steps"])]
+    engine = build_engine(model, build_parser().parse_args(argv),
+                          eos_id=tok.token_to_id(IM_END),
+                          adapter_registry=registry)
+    name = "qwen3-8b-nf4-lora"
+    srv = OpenAIServer(engine, tok, model_name=name,
+                       adapters={a: AdapterHandle(engine, a)
+                                 for a in registry.names()})
+    base = f"http://127.0.0.1:{srv.serve(host='127.0.0.1', port=0, background=True)}"
+
+    def body(model_, **kw):
+        return {"model": model_, "temperature": 0.0, "max_tokens": 32,
+                "messages": chat("Summarize what an adapter changes."), **kw}
+
+    def embed(model_):
+        req = urllib.request.Request(
+            base + "/v1/embeddings", data=json.dumps(
+                {"model": model_, "input": list(EMBED_INPUTS)}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return [np.asarray(d["embedding"])
+                    for d in json.loads(r.read())["data"]]
+
+    res = {}
+    try:
+        res["sft-a"] = post_chat(base, body("sft-a"))
+        res["sft-a_stream"] = post_chat(base, body("sft-a", stream=True))
+        res["base"] = post_chat(base, body(name))
+        status, err = post_429(base, body("nope"))
+        res["unknown"] = [status, err["error"]["message"]]
+        with urllib.request.urlopen(base + "/v1/models", timeout=60) as r:
+            res["models"] = [m["id"] for m in json.loads(r.read())["data"]]
+        got, want = embed("sft-a"), embed(name)
+    finally:
+        srv.shutdown()
+    if engine.error is not None:
+        raise SystemExit(f"serve_lora http: engine failed: {engine.error!r}")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    scale = max(float(np.abs(b).max()) for b in want)
+    res["embeddings"] = {"max_abs_err": err, "max_rel_err": err / scale,
+                         "tol": f"{MODEL_TOL} * max|base|, as serve_struct"}
+    log("serve_lora http:", json.dumps(res))
+    if not (res["sft-a"]["content"] == res["sft-a_stream"]["content"]
+            and res["sft-a"]["content"] != res["base"]["content"]
+            and res["unknown"][0] == 404
+            and all(n in res["unknown"][1] for n in registry.names())
+            and res["models"] == [name, *registry.names()]
+            and err <= MODEL_TOL * scale):
+        raise SystemExit(f"serve_lora http: the checks failed: {res}")
+    return res
+
+
+def lora_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
+    """serve_lora on the NF4 model (Qwen3-8B width, full depth): batched
+    multi-LoRA over the NF4 base. Four seeded adapters: ``sft-a`` and
+    ``sft-b`` (r 16, alpha 32, the repo's SFT targets; ``sft-a`` written
+    by ``save_named`` and loaded by ``register(path)``), ``qv-8`` (r 8,
+    q and v) and ``ladder-6`` (r 6, q and the MLP, padded to bucket 8,
+    whose targets it widens). The JAX multi-LoRA bench's schedule
+    (``arrivals.synthesize(seed=42, 16 requests, mean gap 20 ms, cv 2,
+    prompts of 8-48 tokens, 16-48 new tokens)``), arrival ``i`` under
+    ``[None, sft-a, sft-b, qv-8, ladder-6][i % 5]``, all greedy, two under
+    the structured bench's schema, then a 700-token document under
+    ``sft-a`` that chunk-prefills beside the decodes: paged with
+    speculation off and with the prompt lookup (k = 4), contiguous with
+    it off; every row base on the registry engine and on an engine
+    without a registry; all-adapter traffic; hot loads that grow a bank;
+    a byte-budget registry; prefix isolation; HTTP. Checks, each exiting
+    non-zero: (a) every adapter twin replays its eager body byte for
+    byte; (b) each row of a mixed batch against an eager batch-1 forward
+    of it alone under its adapter (top 5, logit gap); (c) base rows of a
+    twin equal the base kind's output; (d) every decode block and fused
+    step is one dispatch (one graph run) while slots carry different
+    adapters, and neither a base-only registry engine nor an engine
+    without a registry captures a twin; (e) a grown bank recaptures the
+    twins, and the new adapter's graph stream equals its eager stream
+    and differs from base; (f) prefix isolation, LRU eviction under the
+    byte budget, no leaked rows, bytes or pages; (g) B1's launches per
+    route follow from the engine's forwards (the delta launches none);
+    (h) HTTP adapter names, 404, ``/v1/models`` and base embeddings under
+    an adapter name."""
+    import gc
+
+    import torch
+
+    from llm_in_practise_tpu_torch.ckpt.checkpoint import save_named
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.models.convert import lora_to_jax
+    from llm_in_practise_tpu_torch.serve import arrivals, constrain
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    auto = constrain.ConstraintCompiler().get(
+        response_format=struct_rf(),
+        vocab=constrain.vocab_strings(tok, model.config.vocab_size),
+        vocab_key=0, eos_id=tok.token_to_id(IM_END))
+    schedule = arrivals.synthesize(**LORA_ARRIVALS)
+    prompts, long_prompt = struct_prompts(tok, schedule)
+    long_prompt = long_prompt[-LORA_LONG:]
+    here = os.path.dirname(os.path.abspath(__file__))
+    sft_dir = os.path.join(here, "build", "lora_phase", "sft-a")
+    save_named(sft_dir, lora_to_jax(lora_tree("sft-a", seed + 1, N_LAYER)),
+               "adapter", metadata={"lora_config":
+                                    lora_config("sft-a").to_dict()})
+    registry = lora_registry(model, sft_dir, seed)
+    reg_swap = list(registry.swap_seconds)
+    legs, launches, routes, reqs_by_leg = {}, 0, {}, {}
+
+    def add(res):
+        nonlocal launches
+        launches += res.pop("launches")
+        for r, c in res["b1_routes"].items():
+            routes[r] = routes.get(r, 0) + c
+
+    # the mixed traffic through the three registry engines
+    for name, kw in (("paged_off", {}),
+                     ("paged_ngram", {"speculative_k": SPEC_K}),
+                     ("contiguous_off", {"kv_layout": "contiguous"})):
+        engine = lora_engine(model, tok, seed, registry, **kw)
+        res, reqs = lora_leg(name, engine, schedule, prompts, long_prompt,
+                             LORA_PINS, auto, seed)
+        add(res)
+        legs[name] = res
+        reqs_by_leg[name] = reqs
+        if name == "paged_off":
+            keep = engine       # serves the profile and the hot loads
+        else:
+            del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (b) on the paged leg's streams
+    teacher = lora_teacher(keep.model, registry,
+                           prompts + [long_prompt], reqs_by_leg["paged_off"])
+    # all-adapter and base-only traffic on the paged leg's engine (its
+    # graphs warm), then base-only on an engine without a registry
+    for name, pins in (("paged_all_adapters", LORA_PINS[1:]),
+                       ("paged_base_registry", (None,))):
+        res, _ = lora_leg(name, keep, schedule, prompts, long_prompt, pins,
+                          auto, seed, checks=False)
+        add(res)
+        legs[name] = res
+    engine = lora_engine(model, tok, seed)
+    res, _ = lora_leg("paged_base_no_registry", engine, schedule, prompts,
+                      long_prompt, (None,), auto, seed, checks=False)
+    add(res)
+    legs["paged_base_no_registry"] = res
+    # (d) and base parity: a registry engine that serves base rows only
+    # captures no twin, and its streams equal the engine without one's,
+    # byte for byte (one deterministic order of batch shapes)
+    base_streams = {"no_registry": lora_sync(engine, prompts[:MAX_SLOTS],
+                                             (None,) * MAX_SLOTS)}
+    del engine
+    engine = lora_engine(model, tok, seed, registry)
+    base_streams["registry"] = lora_sync(engine, prompts[:MAX_SLOTS],
+                                         (None,) * MAX_SLOTS)
+    twin_kinds = sorted({k[0] for k in engine.graphs.graphs
+                         if k[0].startswith("l")})
+    base_only = {"twin_kinds": twin_kinds,
+                 "idx_buffers": len(engine.graphs.lora_idx),
+                 "graph_kinds": sorted({k[0] for k in engine.graphs.graphs}),
+                 "streams_equal": base_streams["registry"]
+                 == base_streams["no_registry"]}
+    log("serve_lora base-only registry engine:", json.dumps(base_only))
+    if (twin_kinds or base_only["idx_buffers"]
+            or not base_only["streams_equal"]
+            or legs["paged_base_no_registry"]["dispatch_checks"][
+                "adapter_runs"]):
+        raise SystemExit(f"serve_lora: base rows ran an adapter twin, or a "
+                         f"registry engine's base streams differ from an "
+                         f"engine without a registry: {base_only}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the delta's cost per decode step: mixed adapters against base rows
+    profile = {"mixed": lora_profile(keep, prompts[:MAX_SLOTS],
+                                     LORA_REPLAY_PINS),
+               "base": lora_profile(keep, prompts[:MAX_SLOTS],
+                                    (None,) * MAX_SLOTS)}
+    for key in ("device_ms_per_decode_step", "kernels_per_decode_step"):
+        m, b = profile["mixed"][key], profile["base"][key]
+        if isinstance(m, float) and isinstance(b, float):
+            profile[f"delta_{key}"] = m - b
+    profile["gathered_mib_per_decode_step"] = lora_gather_mib(registry,
+                                                             MAX_SLOTS)
+    log("serve_lora profile:", json.dumps(profile))
+    hot = lora_hot(keep, registry, prompts, seed)
+    bank_mib = {rb: v / 2**20 for rb, v in registry.bank_bytes().items()}
+    del keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    budget = lora_budget(model, seed)
+    prefix = lora_prefix(model, tok, registry, seed)
+    t0 = time.monotonic()
+    http = lora_http(model, tok, registry, seed)
+    http["wall_s"] = time.monotonic() - t0
+    # (f): no row, reference or page left
+    stats = registry.stats()
+    if any(stats["refcounts"].values()):
+        raise SystemExit(f"serve_lora: leaked adapter refcounts: {stats}")
+    # (a) covered a decode and a fused-step twin in each layout (plain or
+    # masked), and a spec twin wherever the prompt lookup proposed
+    checked = {key.split()[0] for leg in legs.values()
+               for key in leg.get("replay_check", {})}
+    want = [{"lpdecode", "lpmdecode"}, {"lpmixed", "lpmmixed"},
+            {"ldecode", "lmdecode"}, {"lmixed", "lmmixed"}]
+    if legs["paged_ngram"]["forwards"]["spec_verifies_run"]:
+        want.append({"lpspec", "lpmspec"})
+    if not all(checked & w for w in want):
+        raise SystemExit(f"serve_lora: replay-checked twins "
+                         f"{sorted(checked)}")
+    res = {"card": card, "layers": N_LAYER, "max_slots": MAX_SLOTS,
+           "cache_len": CACHE_LEN, "k": SPEC_K, **LORA,
+           "arrivals": {**LORA_ARRIVALS, **arrivals.describe(schedule)},
+           "adapters": {n: {"r": v[0], "alpha": v[1], "targets": v[2],
+                            "bucket": registry._adapters[n].rb,
+                            "n_bytes": registry._adapters[n].n_bytes}
+                        for n, v in LORA_ADAPTERS.items()},
+           "swap_seconds": reg_swap, "bank_mib": bank_mib,
+           "twins_checked": sorted(checked), "teacher": teacher,
+           "base_only_registry_engine": base_only,
+           "profile": profile, "hot": hot, "budget": budget,
+           "prefix": prefix, "http": http, "registry": stats,
+           "tpot_p50_s": {n: legs[n]["tpot_p50_s"] for n in legs},
+           "ttft_p50_s": {n: legs[n]["ttft_p50_s"] for n in legs},
+           "nf4_cell_tpot_p50_s": nf4_cell["tpot_p50_s"],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "phase_wall_s": time.monotonic() - t_phase}
+    log("serve_lora:", json.dumps({k: v for k, v in res.items()
+                                   if k not in ("http", "budget")},
+                                  default=str))
+    return {"lora": res, "legs": legs, "launches": launches,
+            "routes": routes}
+
+
 def flash_bound(b: int, length: int, h: int, d: int, products: int,
                 nbytes: int) -> tuple[float, str, int]:
     """Least time on the card for a causal flash kernel: ``products``
@@ -5036,7 +5943,7 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
 # files included (a 36-layer run was stopped at 56.4 GiB), and the phase
 # writes 1.71 GiB per layer (bf16 HF dir and model.msgpack, NF4 and int8
 # exports, f32 HF export) plus 6.96 GiB for the embedding: 37.7 GiB at 18.
-CKPT_LAYERS = 18
+CKPT_LAYERS = 8
 CKPT_SHARDS = 5
 CKPT_TRAIN_STEPS = 2
 CKPT_HF_CONFIG = {
@@ -5648,16 +6555,27 @@ def main(argv=None) -> int:
                                 served[fmt]["serve"])
             phase_time("serve_paged", t0)
             free()         # serve_paged's engines
+            # serve_spec and serve_struct run at CUT_LAYERS deep (every
+            # check kept), on a model built as the full one is
             t0 = time.monotonic()
-            spec = spec_phase(model, tok, args.seed, card,
+            set_depth(CUT_LAYERS)
+            _, shallow = build_model("nf4", CUT_LAYERS, args.seed)
+            spec = spec_phase(shallow, tok, args.seed, card,
                               served[fmt]["serve"])
             phase_time("serve_spec", t0)
             free()         # serve_spec's engines and draft
             t0 = time.monotonic()
-            struct = struct_phase(model, tok, args.seed, card,
+            struct = struct_phase(shallow, tok, args.seed, card,
                                   served[fmt]["serve"])
-            del model
+            del shallow
             phase_time("serve_struct", t0)
+            set_depth(N_LAYER_FULL)
+            free()         # serve_struct's engines
+            t0 = time.monotonic()
+            lora = lora_phase(model, tok, args.seed, card,
+                              served[fmt]["serve"])
+            del model
+            phase_time("serve_lora", t0)
         free()
     t0 = time.monotonic()
     awq_res = awq_check(tok, args.seed)
@@ -5716,6 +6634,7 @@ def main(argv=None) -> int:
             "serve_nf4_paged": paged["routes"],
             "serve_nf4_spec": spec["routes"],
             "serve_nf4_struct": struct["routes"],
+            "serve_nf4_lora": lora["routes"],
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
         **decode_fields(decode, "nf4"),
@@ -5724,7 +6643,8 @@ def main(argv=None) -> int:
                            if " nf4" in k},
         "launches": (served["nf4"]["launches"] + sched["launches"]
                      + paged["launches"] + spec["launches"]
-                     + struct["launches"] + launches["nf4_matmul"]
+                     + struct["launches"] + lora["launches"]
+                     + launches["nf4_matmul"]
                      + ckpt["launches"]["ckpt_serve_nf4"]
                      + ckpt_train["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
@@ -5732,6 +6652,7 @@ def main(argv=None) -> int:
                              "serve_nf4_paged": paged["launches"],
                              "serve_nf4_spec": spec["launches"],
                              "serve_nf4_struct": struct["launches"],
+                             "serve_nf4_lora": lora["launches"],
                              "train_nf4": launches["nf4_matmul"],
                              "ckpt_serve_nf4":
                                  ckpt["launches"]["ckpt_serve_nf4"],
@@ -5839,6 +6760,12 @@ def main(argv=None) -> int:
          if k in ("vocab_strings_s", "states_compiled", "compile_s_per_state",
                   "masked_kinds_checked", "phase_wall_s",
                   "max_memory_allocated_gib", "nf4_cell_tpot_p50_s")}))
+    log("serve_lora summary:", json.dumps(
+        {k: v for k, v in lora["lora"].items()
+         if k in ("tpot_p50_s", "ttft_p50_s", "profile", "bank_mib",
+                  "swap_seconds", "twins_checked", "phase_wall_s",
+                  "max_memory_allocated_gib", "nf4_cell_tpot_p50_s")},
+        default=str))
     log("serve_sched summary:", json.dumps(
         {k: v for k, v in sched["sched"].items()
          if k in ("short", "long", "profile", "capture_s", "graph_pool_mib",

@@ -85,6 +85,34 @@ def init_lora(state: dict, cfg: LoRAConfig,
     return tree
 
 
+def stack_lora_tree(lora: dict, n_layer: int) -> dict:
+    """Unrolled LoRA tree -> one entry per target across the layers (JAX
+    ``peft/lora.py::stack_lora_tree``): every ``blocks.{i}.<rest>`` entry
+    stacks into one ``blocks.block.<rest>`` entry whose ``a`` and ``b``
+    gain a leading ``n_layer`` axis; other entries pass through. A target
+    must be present in every layer."""
+    out: dict = {}
+    grouped: dict[str, dict[int, dict]] = {}
+    for name, ab in lora.items():
+        m = re.match(r"blocks\.(\d+)\.(.*)", name)
+        if not m:
+            out[name] = ab
+            continue
+        grouped.setdefault(m.group(2), {})[int(m.group(1))] = ab
+    for rest, by_layer in grouped.items():
+        if sorted(by_layer) != list(range(n_layer)):
+            raise ValueError(
+                f"LoRA target {rest!r} present in layers "
+                f"{sorted(by_layer)} but stacking needs all "
+                f"{n_layer} — scan layers share one program, so every "
+                "layer must carry the adapter")
+        out[f"blocks.block.{rest}"] = {
+            part: torch.stack([torch.as_tensor(by_layer[i][part])
+                               for i in range(n_layer)])
+            for part in ("a", "b")}
+    return out
+
+
 def apply_lora(state: dict, lora: dict, cfg: LoRAConfig) -> dict:
     """Effective state: target kernels become ``W + scaling * A @ B``;
     differentiable in the factors."""

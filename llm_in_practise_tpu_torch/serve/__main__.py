@@ -7,7 +7,8 @@
         [--kv-pool-tokens N] [--enable-prefix-caching] [--port 8000] \\
         [--enable-chunked-prefill [256]] [--decode-steps 8] \\
         [--no-mixed-step] [--max-queue N] [--queue-timeout SECONDS] \\
-        [--speculative [4] [--draft-model-path DRAFT.msgpack]]
+        [--speculative [4] [--draft-model-path DRAFT.msgpack]] \\
+        [--lora-modules NAME=ADAPTER_DIR ...]
 
 ``DIR`` holds the ``packed.npz`` + ``manifest.json`` that either
 package's exporters write (``quant/io.py``, ``convert_hf``): NF4,
@@ -27,10 +28,17 @@ one fused round per step. Chat requests may carry ``response_format``
 (``json_object``, ``json_schema``) and ``tools`` with a forcing
 ``tool_choice``: the engine masks each constrained step by the
 request's grammar; ``POST /v1/embeddings`` answers pooled hidden states.
-``TOK.json`` is a BPE tokenizer saved by either package. The flags of
-the JAX package's ``examples/serve_openai.py`` that this port does not
-have yet are accepted and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+``--lora-modules name=path`` serves each adapter (an ``adapter.msgpack``
+with its sidecar, or its directory, written by either package's
+``save_named``) as an extra model name: one engine with an
+``AdapterRegistry``, every adapter batched into the base model's
+dispatches (``--quantized_dir``, ``--scan-layers``, a name equal to
+``--model_name``, a missing checkpoint and a malformed spec are errors,
+as in the JAX CLI). ``TOK.json`` is a BPE tokenizer saved by either
+package. The flags of the JAX package's ``examples/serve_openai.py``
+that this port does not have yet (``--kv-offload``, ``--kv-remote``,
+``--role``, sessions, tensor parallelism, the tracing and SLO flags) are
+accepted and raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -43,7 +51,6 @@ import torch
 
 # JAX CLI flag -> (argparse kwargs, ROADMAP.md queue A item)
 _NOT_PORTED = {
-    "--lora-modules": (dict(nargs="*", default=None), 5),
     "--session-store": (dict(action="store_true"), 5),
     "--session-ttl": (dict(type=float, default=None), 5),
     "--tensor-parallel-size": (dict(type=int, default=1), 14),
@@ -138,6 +145,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="draft model checkpoint (model.msgpack with its "
                         "config) proposing the K tokens; needs "
                         "--speculative K")
+    p.add_argument("--lora-modules", dest="lora_modules", nargs="*",
+                   default=None, metavar="NAME=PATH",
+                   help="serve LoRA adapters as extra model names "
+                        "(vLLM's --enable-lora --lora-modules): each PATH "
+                        "is an adapter.msgpack with its sidecar, or its "
+                        "directory; every adapter rides the base model's "
+                        "dispatches through one AdapterRegistry")
     for flag, (kw, _) in _NOT_PORTED.items():
         p.add_argument(flag, dest=flag.lstrip("-").replace("-", "_"), **kw)
     return p
@@ -154,12 +168,39 @@ def check_not_ported(args) -> None:
 
 
 def validate_args(args, error) -> None:
-    """The JAX CLI's own argument checks (``examples/serve_openai.py:95-125``):
-    the scan layout serves contiguous KV only; a draft model needs an
-    explicit ``--speculative K`` with K > 0 (``--speculative 0`` resolves
-    to off) and the unrolled layout."""
+    """The JAX CLI's own argument checks (``examples/serve_openai.py:30-125``):
+    adapters neither with a packed export nor with the scan layout, each
+    ``name=path`` well formed, named apart from ``--model_name``, its
+    checkpoint present (before the slow base load); the scan layout
+    serves contiguous KV only; a draft model needs an explicit
+    ``--speculative K`` with K > 0 (``--speculative 0`` resolves to off)
+    and the unrolled layout."""
+    from llm_in_practise_tpu_torch.serve.adapters import parse_lora_modules
     from llm_in_practise_tpu_torch.serve.disagg import default_speculative_k
 
+    if args.quantized_dir and args.lora_modules:
+        error("--lora-modules with --quantized_dir is not supported "
+              "(adapters cannot merge into packed 4-bit kernels)")
+    if args.scan_layers and args.lora_modules:
+        error("--lora-modules with --scan-layers is not supported: "
+              "adapters merge by unrolled block_i/... kernel paths, "
+              "which do not exist in the stacked tree (they would "
+              "silently serve base weights)")
+    if args.lora_modules:
+        try:
+            modules = parse_lora_modules(args.lora_modules)
+        except ValueError as e:
+            error(f"--lora-modules: {e}")
+        for name, path in modules.items():
+            if name == args.model_name:
+                error(f"--lora-modules: adapter name {name!r} collides "
+                      "with --model_name (the base model's served name)")
+            ckpt_file = (os.path.join(path, "adapter.msgpack")
+                         if os.path.isdir(path) else path)
+            if not os.path.exists(ckpt_file):
+                error(f"--lora-modules {name}: no adapter checkpoint at "
+                      f"{path} (want adapter.msgpack + sidecar from "
+                      "save_named)")
     if args.scan_layers and args.kv_layout == "paged":
         error("--scan-layers serves with --kv-layout contiguous only "
               "(the paged pool supports the unrolled cache layout; pass "
@@ -223,14 +264,34 @@ def build_server(args):
               "layout is a layout of the JAX param tree)", flush=True)
     draft = (load_draft_model(args.draft_model_path, device)
              if args.draft_model_path else None)
+    registry = None
+    if args.lora_modules:
+        from llm_in_practise_tpu_torch.serve.multi_lora import AdapterRegistry
+
+        registry = AdapterRegistry(model)
     engine = build_engine(model, args, eos_id=tok.token_to_id(IM_END),
-                          draft_model=draft)
-    return OpenAIServer(engine, tok, model_name=args.model_name)
+                          draft_model=draft, adapter_registry=registry)
+    adapters = {}
+    if registry is not None:
+        from llm_in_practise_tpu_torch.serve.adapters import (
+            parse_lora_modules,
+        )
+        from llm_in_practise_tpu_torch.serve.multi_lora import AdapterHandle
+
+        for name, path in parse_lora_modules(args.lora_modules).items():
+            registry.register(name, path)
+            adapters[name] = AdapterHandle(engine, name)
+        print(f"adapters (batched multi-LoRA, one shared engine): "
+              f"{sorted(adapters)}", flush=True)
+    return OpenAIServer(engine, tok, model_name=args.model_name,
+                        adapters=adapters)
 
 
-def build_engine(model, args, *, eos_id: int | None, draft_model=None):
+def build_engine(model, args, *, eos_id: int | None, draft_model=None,
+                 adapter_registry=None):
     """The engine the CLI's ``args`` describe, over a loaded model (and
-    the loaded draft of ``--draft-model-path``)."""
+    the loaded draft of ``--draft-model-path``, and the registry of
+    ``--lora-modules``)."""
     from llm_in_practise_tpu_torch.serve.disagg import default_speculative_k
     from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
 
@@ -243,7 +304,7 @@ def build_engine(model, args, *, eos_id: int | None, draft_model=None):
         prefix_cache=args.prefix_caching, max_queue=args.max_queue,
         queue_timeout_s=args.queue_timeout,
         speculative_k=default_speculative_k(args.role, args.speculative),
-        draft_model=draft_model)
+        draft_model=draft_model, adapter_registry=adapter_registry)
 
 
 def main(argv=None) -> None:

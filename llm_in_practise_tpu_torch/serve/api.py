@@ -22,7 +22,15 @@ Port of the chat part of ``llm_in_practise_tpu/serve/api.py``:
   ``tool_choice`` ``auto`` / ``none`` is served unconstrained;
 - ``POST /v1/embeddings`` (JAX ``api.py:182-252``): the final hidden
   states mean-pooled over each input and unit-normalized, one eager
-  forward per input at that input's length.
+  forward per input at that input's length;
+- LoRA adapters as extra model names (vLLM's ``--lora-modules``, JAX
+  ``api.py:77-103, 175-178``): ``adapters`` maps each name to an engine
+  or an :class:`~.multi_lora.AdapterHandle`, which the request's
+  ``model`` field picks (:meth:`OpenAIServer.engine_for`); an unknown
+  ``model`` is a 404 that lists every name, and ``GET /v1/models`` lists
+  the base and the adapters. ``/v1/embeddings`` under an adapter's name
+  pools its engine's model with no adapter context, so a handle on the
+  shared engine answers the base model's vectors, as in JAX.
 
 Built on the stdlib ``ThreadingHTTPServer``. Handler threads submit
 requests and read token queues; the engine's own thread does every step.
@@ -65,10 +73,13 @@ class OpenAIServer:
     """Wires engine + tokenizer + HTTP. ``tokenizer`` needs ``encode``/``decode``."""
 
     def __init__(self, engine: InferenceEngine, tokenizer, *,
-                 model_name: str = "llm-in-practise-tpu-torch"):
+                 model_name: str = "llm-in-practise-tpu-torch",
+                 adapters: dict | None = None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
+        # extra model names served by adapters (serve/adapters.py)
+        self.adapters = dict(adapters or {})
         self._httpd: ThreadingHTTPServer | None = None
         # structured output: the grammar compile cache (handler threads
         # compile; a repeated schema hits it) and the decoded vocabulary
@@ -115,6 +126,12 @@ class OpenAIServer:
             tool_choice=req.tool_choice, vocab=self._constraint_vocab(),
             vocab_key=id(self.engine), eos_id=self.engine.eos_id)
 
+    def engine_for(self, model: str | None):
+        """The engine (or adapter handle) serving ``model``, or None."""
+        if model in (None, "", self.model_name):
+            return self.engine
+        return self.adapters.get(model)
+
     # --- request handling ----------------------------------------------------
 
     def handle_embeddings(self, body: dict, send_json):
@@ -138,18 +155,18 @@ class OpenAIServer:
                 "message": "input must be a string, list of strings, or "
                            "list of integer token lists",
                 "type": "invalid_request_error"}})
-        if body.get("model") not in (None, "", self.model_name):
+        engine = self.engine_for(body.get("model"))
+        if engine is None:
             return send_json(404, {"error": {
                 "message": f"model {body.get('model')!r} not found",
                 "type": "invalid_request_error"}})
-        engine = self.engine
         data, total = [], 0
         for i, item in enumerate(inputs):
             ids = (list(item) if isinstance(item, list)
                    else self.tokenizer.encode(item))
             ids = ids[: engine.cache_len] or [0]
             total += len(ids)
-            vec = self.embed_ids(ids)
+            vec = self.embed_ids(ids, engine)
             norm = float(np.linalg.norm(vec)) or 1.0
             data.append({"object": "embedding", "index": i,
                          "embedding": (vec / norm).tolist()})
@@ -160,11 +177,12 @@ class OpenAIServer:
             "usage": {"prompt_tokens": total, "total_tokens": total},
         })
 
-    def embed_ids(self, ids: list[int]) -> np.ndarray:
+    def embed_ids(self, ids: list[int], engine=None) -> np.ndarray:
         """The mean of the final hidden states over ``ids`` (f64, not
-        normalized): one uncached forward at ``len(ids)`` rows, under the
-        engine's lock so it runs between two steps."""
-        engine = self.engine
+        normalized): one uncached forward of ``engine``'s model (default
+        the base engine's) at ``len(ids)`` rows, with no adapter context,
+        under the engine's lock so it runs between two steps."""
+        engine = engine if engine is not None else self.engine
         x = torch.tensor([ids], dtype=torch.int64, device=engine.device)
         with engine._lock, torch.inference_mode():
             hidden = engine.model(x, return_hidden=True)
@@ -177,10 +195,11 @@ class OpenAIServer:
         except schemas.ValidationError as e:
             return send_json(422, {"error": {
                 "message": str(e), "type": "invalid_request_error"}})
-        if req.model not in ("", self.model_name):
+        engine = self.engine_for(req.model)
+        if engine is None:
             return send_json(404, {"error": {
                 "message": f"model {req.model!r} not found; have "
-                           f"{[self.model_name]}",
+                           f"{[self.model_name, *self.adapters]}",
                 "type": "invalid_request_error"}})
         prompt_ids = self.tokenizer.encode(build_prompt(req.messages))
         params = SamplingParams(
@@ -201,7 +220,7 @@ class OpenAIServer:
             with self._structured_lock:
                 self.structured_counts[kind] += 1
             params = dataclasses.replace(params, constraint=automaton)
-        handle = self.engine.submit(prompt_ids, params)
+        handle = engine.submit(prompt_ids, params)
         req_id = schemas.completion_id()
 
         def queue_full_429(message):
@@ -215,7 +234,7 @@ class OpenAIServer:
         # a paged prompt that can never fit the pool is a client error,
         # not load: 422 with the page math, at submit, before any stream
         if handle.finish_reason == "too_large":
-            detail = self.engine.page_capacity_detail(len(prompt_ids))
+            detail = engine.page_capacity_detail(len(prompt_ids))
             return send_json(422, {"error": {
                 "message": (
                     "prompt can never fit this replica's KV page pool: "
@@ -328,8 +347,10 @@ class OpenAIServer:
                 if self.path == "/v1/models":
                     return self._json(200, {
                         "object": "list",
-                        "data": [{"id": server.model_name, "object": "model",
-                                  "owned_by": "llm-in-practise-tpu-torch"}],
+                        "data": [{"id": name, "object": "model",
+                                  "owned_by": "llm-in-practise-tpu-torch"}
+                                 for name in (server.model_name,
+                                              *server.adapters)],
                     })
                 return self._json(404, {"error": {"message": "not found"}})
 
@@ -358,8 +379,9 @@ class OpenAIServer:
               background: bool = False) -> int:
         """Start the engine loop and the HTTP server; returns the bound
         port (``port=0`` picks a free one)."""
-        if self.engine._thread is None:
-            self.engine.start()
+        for eng in (self.engine, *self.adapters.values()):
+            if eng._thread is None:
+                eng.start()
 
         class _Server(ThreadingHTTPServer):
             request_queue_size = 1024
@@ -379,3 +401,5 @@ class OpenAIServer:
             self._httpd.shutdown()
             self._httpd.server_close()
         self.engine.stop()
+        for eng in self.adapters.values():
+            eng.stop()

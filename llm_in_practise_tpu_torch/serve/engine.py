@@ -44,6 +44,17 @@ Port of ``llm_in_practise_tpu/serve/engine.py``:
   step or spec round), so a constrained step is still one dispatch.
   While a ready slot is constrained a block is one token long, and a
   spec round has no extension.
+- **Batched multi-LoRA** (JAX ``engine.py`` "multi-LoRA" sections): with
+  an :class:`~.multi_lora.AdapterRegistry` the model is wrapped in
+  :class:`~.multi_lora.LoRAServingModel`; a request may name an adapter
+  at ``submit``, which holds a refcount on it until the request finishes
+  (a preemption's requeue keeps it). Every dispatch whose rows include an
+  adapter runs its path's adapter twin: the one-shot prefill batch takes
+  one bank row per request, the single-slot chunk and the paged suffix
+  their slot's row (a one-row index), and the batched chunk, the mixed
+  step, the decode block and the spec verify the slot plane. The draft
+  model's catch-up and roll run base. Prefix-cache keys are shifted by
+  the adapter's namespace (``token + (ns << 32)``) in both layouts.
 
 Threading: HTTP handler threads call :meth:`InferenceEngine.submit`,
 which touches no tensor; one background thread runs :meth:`step` and
@@ -69,6 +80,10 @@ from llm_in_practise_tpu_torch.serve.mixed_step import (
     batched_chunk,
     plan_decode_block,
     plan_spec_extension,
+)
+from llm_in_practise_tpu_torch.serve.multi_lora import (
+    LoRAServingModel,
+    lora_scope,
 )
 from llm_in_practise_tpu_torch.serve.paged_kv import (
     PagedHit,
@@ -145,6 +160,14 @@ class Request:
     # grammar position
     constraint_state: Any = dataclasses.field(
         default=None, repr=False, compare=False)
+    # the adapter this request decodes under (None = the base model); the
+    # registry holds a refcount on it from submit until the request
+    # finishes, through a preemption's requeue
+    adapter: str | None = None
+    # True while this request holds that refcount (set by submit, cleared
+    # by _record_finished)
+    adapter_ref: bool = dataclasses.field(
+        default=False, repr=False, compare=False)
 
     def next_item(self, poll_s: float = 1.0):
         """Next queue item: a token id or the finish sentinel. The wait is
@@ -231,8 +254,13 @@ class InferenceEngine:
       While a prompt is mid-prefill, ``decode_steps`` 1 keeps
       speculating; a longer block runs the fused mixed step instead.
 
+    - ``adapter_registry``: an :class:`~.multi_lora.AdapterRegistry`
+      whose adapters requests name at :meth:`submit`; slots under
+      different adapters, and base slots, share each dispatch.
+
     On the card each decode block, each fused mixed step, each spec round
-    and each draft roll is one CUDA graph replay (:mod:`.graphs`).
+    and each draft roll is one CUDA graph replay (:mod:`.graphs`), and
+    each of them but the roll has an adapter twin.
     """
 
     def __init__(self, model, *, max_slots: int = 8, cache_len: int = 512,
@@ -252,8 +280,6 @@ class InferenceEngine:
                              f"got {kv_layout!r}")
         if mesh is not None:
             raise _not_ported("mesh", 14, "sharded serving")
-        if adapter_registry is not None:
-            raise _not_ported("adapter_registry", 5, "LoRA serving")
         if kv_pool is not None or handoff is not None:
             raise _not_ported("kv_pool / handoff", 5,
                               "KV tiers and the disaggregated handoff")
@@ -272,6 +298,12 @@ class InferenceEngine:
         if queue_timeout_s is not None and queue_timeout_s <= 0:
             raise ValueError(
                 f"queue_timeout_s must be > 0, got {queue_timeout_s}")
+        # batched multi-LoRA: wrap the model before anything below takes
+        # it (the graphs' bodies, the page pool); with no adapter context
+        # set the wrapped projections run exactly the base ops
+        self.adapter_registry = adapter_registry
+        if adapter_registry is not None:
+            model = LoRAServingModel(model)
         self.model = model
         self.device = model.device
         self.max_slots = max_slots
@@ -415,6 +447,10 @@ class InferenceEngine:
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self._uid = itertools.count()
         self._lock = threading.Lock()
+        if adapter_registry is not None:
+            # bank writes wait for the step in flight (no capture or
+            # replay runs while a bank row changes)
+            adapter_registry.attach(self._lock)
         # serializes the max_queue check-then-put (two HTTP threads must
         # not both see depth N-1) and the shed and too-large counts
         self._submit_lock = threading.Lock()
@@ -447,10 +483,14 @@ class InferenceEngine:
     # --- submission ----------------------------------------------------------
 
     def submit(self, prompt_ids, params: SamplingParams | None = None, *,
-               kv_entry=None, session_id: str | None = None) -> Request:
+               kv_entry=None, session_id: str | None = None,
+               adapter: str | None = None) -> Request:
         """Queue a request; safe from any thread (touches no tensor). Past
         ``max_queue`` waiting requests it is shed at once; a paged prompt
-        that can never fit the pool finishes at once as ``too_large``."""
+        that can never fit the pool finishes at once as ``too_large``.
+        ``adapter`` names a registered LoRA adapter to decode under: an
+        unknown name, or any name on an engine without a registry, raises
+        ``ValueError`` here, before anything is queued."""
         params = params or SamplingParams()
         if kv_entry is not None:
             raise _not_ported("kv_entry", 5, "the disaggregated handoff")
@@ -462,7 +502,8 @@ class InferenceEngine:
         max_prompt = self.cache_len - 2
         if len(prompt_ids) > max_prompt:  # sliding-window crop
             prompt_ids = prompt_ids[-max_prompt:]
-        req = Request(next(self._uid), prompt_ids, params, engine=self)
+        req = Request(next(self._uid), prompt_ids, params, engine=self,
+                      adapter=adapter)
         if (self.paged is not None
                 and not self.paged.fits_ever(len(prompt_ids) + 1)):
             # its pages and the first decode's exceed the pool even when
@@ -474,6 +515,18 @@ class InferenceEngine:
             req.finish_reason = "too_large"
             req.tokens.put(_FINISH)
             return req
+        if adapter is not None:
+            # pin the adapter for the request's whole life: a refcounted
+            # row is never evicted or hot-swapped under a decoding slot
+            if self.adapter_registry is None:
+                raise ValueError(
+                    f"adapter {adapter!r} requested but the engine has no "
+                    "adapter_registry")
+            try:
+                self.adapter_registry.acquire(adapter)
+            except KeyError:
+                raise ValueError(f"unknown adapter {adapter!r}") from None
+            req.adapter_ref = True
         with self._submit_lock:
             shed = (self.max_queue is not None
                     and self.pending.qsize() >= self.max_queue)
@@ -489,10 +542,59 @@ class InferenceEngine:
         tokens; the API layer answers 429."""
         req.finish_time = time.monotonic()
         req.finish_reason = "queue_full"
+        self._record_finished(req)
         req.tokens.put(_FINISH)
         with self._submit_lock:
             self.requests_shed += 1
         return req
+
+    def _record_finished(self, req: Request) -> None:
+        """The one finish funnel of a request that held an adapter (sheds
+        and finishes, not a preemption's requeue): drop its refcount and
+        book its generated tokens to the tenant."""
+        if req.adapter_ref:
+            req.adapter_ref = False
+            reg = self.adapter_registry
+            reg.release(req.adapter)
+            reg.note_tokens(req.adapter, req.n_generated)
+
+    # --- multi-LoRA (JAX engine.py:1983-2025) --------------------------------
+
+    @property
+    def slot_adapter(self) -> list[str | None]:
+        """Each slot's adapter (None = base or free): the adapter of the
+        request the slot holds, from admission (a reserved slot included)
+        until its finish or preemption frees it."""
+        return [r.adapter if r is not None else None for r in self.slot_req]
+
+    def _ns_ids(self, adapter: str | None, token_ids) -> list[int]:
+        """Prefix-cache key tokens: shifted by the adapter's namespace
+        (``t + (ns << 32)``), which keeps the length and is injective
+        (Python ints do not narrow), so both layouts' tuple keys keep
+        tenants apart, and a re-registered name misses its stale entries.
+        Base requests (ns 0) keep their tokens."""
+        ns = (self.adapter_registry.ns_of(adapter)
+              if self.adapter_registry is not None and adapter is not None
+              else 0)
+        if ns == 0:
+            return list(token_ids)
+        shift = ns << 32
+        return [int(t) + shift for t in token_ids]
+
+    def _lora_args(self):
+        """The adapter arguments of a slot-plane dispatch (the batched
+        chunk, the mixed step, the decode block, the spec verify), or None
+        when every slot is base: the base path runs."""
+        return self._lora_args_for(self.slot_adapter)
+
+    def _lora_args_for(self, adapters: list[str | None]):
+        """The adapter arguments of a dispatch whose rows are
+        ``adapters`` (a prefill batch's requests, or one slot), or
+        None."""
+        reg = self.adapter_registry
+        if reg is None or all(a is None for a in adapters):
+            return None
+        return reg.dispatch_args(list(adapters))
 
     # --- admission and prefill -----------------------------------------------
 
@@ -541,7 +643,7 @@ class InferenceEngine:
             if hit is None and not self._should_chunk(0, plen):
                 self.slot_req[slot] = req   # reserved; activated after prefill
                 self.slot_ready[slot] = False
-                key = tuple(req.prompt_ids)
+                key = (req.adapter, tuple(req.prompt_ids))
                 if (self.prefix_cache is not None
                         and plen >= self.prefix_cache.min_prefix):
                     if key in seen:
@@ -591,7 +693,8 @@ class InferenceEngine:
             return None
         if self.paged is not None:
             return self._paged_lookup(req)
-        return self.prefix_cache.lookup(req.prompt_ids)
+        return self.prefix_cache.lookup(
+            self._ns_ids(req.adapter, req.prompt_ids))
 
     def _begin_prefill(self, req: Request, slot: int, plen: int,
                        hit=_UNSET) -> None:
@@ -618,7 +721,8 @@ class InferenceEngine:
             self._prefill_batch([(slot, req, plen)])
             return
         suffix = req.prompt_ids[done:]
-        last = self._chunk_slot(slot, suffix, done, width=len(suffix))
+        last = self._chunk_slot(slot, suffix, done, width=len(suffix),
+                                adapter=req.adapter)
         self._store_prefix(req, plen, self._slot_rows(slot, plen), last)
         self._activate(slot, req, plen, last)
 
@@ -653,11 +757,14 @@ class InferenceEngine:
         for j, (_, req, plen) in enumerate(batch):
             ids[j, :plen] = req.prompt_ids
         pre = self.model.init_cache(n, width, dtype=self.cache_dtype)
-        hidden, pre = self.model(torch.from_numpy(ids).to(dev), cache=pre,
-                                 return_hidden=True)
-        last_pos = torch.tensor(lens, device=dev) - 1
-        last = hidden[torch.arange(n, device=dev), last_pos]     # (n, D)
-        logits = self.model.head(last).to(torch.float32)         # (n, V)
+        # one bank row per request (its adapter, or row 0)
+        lora = self._lora_args_for([r.adapter for _, r, _ in batch])
+        with lora_scope(lora, dev):
+            hidden, pre = self.model(torch.from_numpy(ids).to(dev),
+                                     cache=pre, return_hidden=True)
+            last_pos = torch.tensor(lens, device=dev) - 1
+            last = hidden[torch.arange(n, device=dev), last_pos]   # (n, D)
+            logits = self.model.head(last).to(torch.float32)       # (n, V)
         slots = [s for s, _, _ in batch]
         if self.paged is not None:
             self.paged.write_rows(
@@ -715,7 +822,8 @@ class InferenceEngine:
         contiguous layout's prefix cache."""
         if self.prefix_cache is None:
             return
-        self.prefix_cache.put(req.prompt_ids, PrefixEntry(
+        self.prefix_cache.put(self._ns_ids(req.adapter, req.prompt_ids),
+                              PrefixEntry(
             length=plen, bucket=rows[0]["k"].shape[1], rows=rows,
             last_logits=last_logits))
 
@@ -761,16 +869,19 @@ class InferenceEngine:
                 and self.slot_req[s] is not None))   # free rows are dead
             if batchable:
                 tok, starts, lens = self._chunk_batch_rows(entries)
-                if self.paged is not None:
-                    last = self._paged_chunk_dispatch(entries, tok, starts,
-                                                      lens)
-                else:
-                    dev = self.device
-                    last, _ = batched_chunk(
-                        self.model, self.cache,
-                        torch.from_numpy(tok).to(dev),
-                        torch.from_numpy(starts).to(dev),
-                        torch.from_numpy(lens).to(dev))
+                dev = self.device
+                # the slot plane's adapters (its mid-prefill rows' among
+                # them)
+                with lora_scope(self._lora_args(), dev):
+                    if self.paged is not None:
+                        last = self._paged_chunk_dispatch(entries, tok,
+                                                          starts, lens)
+                    else:
+                        last, _ = batched_chunk(
+                            self.model, self.cache,
+                            torch.from_numpy(tok).to(dev),
+                            torch.from_numpy(starts).to(dev),
+                            torch.from_numpy(lens).to(dev))
                 self.chunk_batches_run += 1
                 self.dispatches_total += 1
                 for slot, st, chunk in entries:
@@ -778,8 +889,8 @@ class InferenceEngine:
                     st["done"] += len(chunk)
             else:
                 for slot, st, chunk in entries:
-                    st["last_logits"] = self._chunk_slot(slot, chunk,
-                                                         st["done"])
+                    st["last_logits"] = self._chunk_slot(
+                        slot, chunk, st["done"], adapter=st["req"].adapter)
                     st["done"] += len(chunk)
             budget -= 1
             progressed = True
@@ -787,16 +898,21 @@ class InferenceEngine:
         return progressed
 
     def _chunk_slot(self, slot: int, chunk: list[int], done: int,
-                    width: int | None = None) -> torch.Tensor:
+                    width: int | None = None,
+                    adapter: str | None = None) -> torch.Tensor:
         """One chunk of ``slot`` at ``done``, padded to ``width`` (default
         ``chunked_prefill``), against a one-slot view of the cache (its
-        writes land in the slot's own rows). Returns the (1, vocab) f32
-        logits at the chunk's last real position."""
-        hidden = self._chunk_slot_impl(self.model, self.cache, slot, chunk,
-                                       done, width or self.chunked_prefill)
+        writes land in the slot's own rows), under the slot's ``adapter``
+        (a one-row index). Returns the (1, vocab) f32 logits at the
+        chunk's last real position."""
+        with lora_scope(self._lora_args_for([adapter]), self.device):
+            hidden = self._chunk_slot_impl(
+                self.model, self.cache, slot, chunk, done,
+                width or self.chunked_prefill)
+            last = self.model.head(hidden[:, len(chunk) - 1])
         self.chunk_slots_run += 1
         self.dispatches_total += 1
-        return self.model.head(hidden[:, len(chunk) - 1]).to(torch.float32)
+        return last.to(torch.float32)
 
     def _chunk_slot_impl(self, model, cache, slot: int, chunk: list[int],
                          done: int, width: int) -> torch.Tensor:
@@ -908,8 +1024,9 @@ class InferenceEngine:
         if self.paged is not None:
             hist = self.slot_hist[slot]
             if hist:
-                self._paged_register_pages(hist[:-1], slot)
+                self._paged_register_pages(hist[:-1], slot, req.adapter)
             self.paged.release_slot(slot)
+        self._record_finished(req)
         req.tokens.put(_FINISH)
         self.slot_req[slot] = None
         self.slot_ready[slot] = False
@@ -974,7 +1091,8 @@ class InferenceEngine:
         """Paged admission's prefix hit: the page index's longest
         full-page match, its pages refcounted into the hit (the JAX
         kv-pool tier and handoff hits are queue A item 5)."""
-        pages = self.prefix_cache.lookup(req.prompt_ids)
+        pages = self.prefix_cache.lookup(
+            self._ns_ids(req.adapter, req.prompt_ids))
         if not pages:
             return None
         return PagedHit(length=len(pages) * self.paged.page_size,
@@ -1007,16 +1125,19 @@ class InferenceEngine:
             self.slot_prefill[slot] = {"req": req, "plen": plen,
                                        "done": done, "last_logits": None}
             return
-        last = self._paged_suffix(slot, req.prompt_ids[done:], done)
+        last = self._paged_suffix(slot, req.prompt_ids[done:], done,
+                                  req.adapter)
         self._paged_store_prefix(req, plen, slot)
         self._activate(slot, req, plen, last)
 
-    def _paged_suffix(self, slot: int, suffix: list[int], done: int
-                      ) -> torch.Tensor:
+    def _paged_suffix(self, slot: int, suffix: list[int], done: int,
+                      adapter: str | None = None) -> torch.Tensor:
         """The one-shot prefill of ``suffix`` into ``slot`` at ``done``: a
         single-row chunk over a view of the slot's own pages only (JAX
-        ``_paged_suffix``). Returns the (1, vocab) f32 logits at the last
-        position."""
+        ``_paged_suffix``), under the slot's ``adapter`` through a one-row
+        index (where JAX sends an adapter's suffix through its all-slots
+        chunk, whose compiled program indexes the slot plane: the same
+        math). Returns the (1, vocab) f32 logits at the last position."""
         c = len(suffix)
         width = self._paged_width(done + c)
         self._paged_cow_fork(slot, done, c)
@@ -1028,14 +1149,16 @@ class InferenceEngine:
         g, view = gather_view(
             self.paged, self._pg(self.paged.row_gather_idx(slot, width)), 1,
             torch.tensor([done], device=dev))
-        hidden, _ = self.model(torch.tensor([suffix], device=dev),
-                               cache=view, return_hidden=True)
+        with lora_scope(self._lora_args_for([adapter]), dev):
+            hidden, _ = self.model(torch.tensor([suffix], device=dev),
+                                   cache=view, return_hidden=True)
+            last = self.model.head(hidden[:, c - 1])
         scatter_window(self.paged, g,
                        self._pg(window_idx(np.array([done]), width, c)),
                        self._pg(sidx))
         self.chunk_slots_run += 1
         self.dispatches_total += 1
-        return self.model.head(hidden[:, c - 1]).to(torch.float32)
+        return last.to(torch.float32)
 
     def _paged_chunk_dispatch(self, entries, tok, starts, lens
                               ) -> torch.Tensor:
@@ -1117,17 +1240,19 @@ class InferenceEngine:
             req.resume_last = hist[-1]
             req.resume_budget = int(self.slot_budget[slot])
             req.prompt_ids = list(hist[:-1])
-            self._paged_register_pages(hist[:-1], slot)
+            self._paged_register_pages(hist[:-1], slot, req.adapter)
         elif st is not None and st["done"] > 0:
             # mid-prefill: nothing emitted; keep the computed full pages
-            self._paged_register_pages(req.prompt_ids[:st["done"]], slot)
+            self._paged_register_pages(req.prompt_ids[:st["done"]], slot,
+                                       req.adapter)
         self.paged.release_slot(slot)
         self.slot_req[slot] = None
         self.slot_ready[slot] = False
         self.slot_budget[slot] = 0
         self.slot_hist[slot] = None
         # the cursor stays on req.constraint_state: re-admission resumes
-        # from its grammar position
+        # from its grammar position; the adapter's refcount stays on the
+        # request, whose slot re-stamps it at re-admission
         self.slot_constraint[slot] = None
         if self.draft_model is not None:
             # the target KV is recomputed on re-admission: so is the
@@ -1163,10 +1288,11 @@ class InferenceEngine:
                 and self.slot_ready[s]]
 
     def _paged_decode_dispatch(self, active: list[int], n: int,
-                               gmask=None) -> dict:
+                               gmask=None, lora=None) -> dict:
         """One paged decode block (pages reserved by the caller): on the
         card one graph replay of ``("pdecode", n, all_greedy, width)``,
-        or with ``gmask`` of its masked twin ``"pmdecode"`` at n 1."""
+        or with ``gmask`` of its masked twin ``"pmdecode"`` at n 1; with
+        ``lora`` of the adapter twin of either."""
         width = self._paged_width(
             max(int(self.slot_len[s]) for s in active) + n)
         idxv = self._paged_index_vec(width, n)
@@ -1178,12 +1304,14 @@ class InferenceEngine:
             "pdecode" if gmask is None else "pmdecode", n, width=width,
             index=idxv, gidx=self.paged.gather_idx(width),
             vidx=window_idx(idxv, width, n),
-            sidx=self.paged.scatter_idx(idxv, valid, n),
+            sidx=self.paged.scatter_idx(idxv, valid, n), lora=lora,
             **self._sampling_arrays(active, gmask))
 
-    def _paged_register_pages(self, token_ids, slot: int) -> None:
+    def _paged_register_pages(self, token_ids, slot: int,
+                              adapter: str | None = None) -> None:
         """Index every FULL page of ``token_ids`` (whose KV fills
-        ``slot``'s first pages) for refcounted sharing."""
+        ``slot``'s first pages, computed under ``adapter``) for refcounted
+        sharing, keyed in the adapter's namespace."""
         if self.prefix_cache is None:
             return
         P = self.paged.page_size
@@ -1192,12 +1320,14 @@ class InferenceEngine:
             return
         pages = self.paged.slot_pages(slot)[:nfull]
         if len(pages) == nfull:
-            self.prefix_cache.register(token_ids[:nfull * P], pages)
+            self.prefix_cache.register(
+                self._ns_ids(adapter, token_ids[:nfull * P]), pages)
 
     def _paged_store_prefix(self, req: Request, plen: int, slot: int) -> None:
         """The paged twin of :meth:`_store_prefix`: the prompt's KV is
         already in the slot's pages, so storing it is indexing them."""
-        self._paged_register_pages(req.prompt_ids[:plen], slot)
+        self._paged_register_pages(req.prompt_ids[:plen], slot,
+                                   req.adapter)
 
     # --- speculative decoding (JAX engine.py:1242-1358, 3360-3580) ---------
 
@@ -1354,6 +1484,9 @@ class InferenceEngine:
         # _plan_block caps a constrained block at 1)
         gmasks = self._grammar_spec_masks(active, tokens, k, drafts)
         gm = {} if gmasks is None else {"gmasks": gmasks}
+        # the verify is the target's forward: it runs under the slots'
+        # adapters (the drafts above were base)
+        gm["lora"] = self._lora_args()
         if self.paged is not None:
             width = self._paged_width(
                 max(int(self.slot_len[s]) for s in active) + w)
@@ -1570,8 +1703,10 @@ class InferenceEngine:
         # mid-prefill rows are masked at their first token, in _activate
         gmask = self._grammar_masks(active)
         masked = "" if gmask is None else "m"
+        # the slot plane's adapters cover both halves
         arrays = dict(chunk_ids=tok, starts=starts, lens=lens,
-                      advance=advance, **self._sampling_arrays(active, gmask))
+                      advance=advance, lora=self._lora_args(),
+                      **self._sampling_arrays(active, gmask))
         if self.paged is None:
             out = self.graphs.run(masked + "mixed", n, **arrays)
         else:
@@ -1628,12 +1763,13 @@ class InferenceEngine:
         # each constrained slot's mask row, applied in the same dispatch
         # (_plan_block made n 1; decode_scan raises otherwise)
         gmask = self._grammar_masks(active)
+        lora = self._lora_args()
         if self.paged is not None:
-            out = self._paged_decode_dispatch(active, n, gmask)
+            out = self._paged_decode_dispatch(active, n, gmask, lora)
         else:
             out = self.graphs.run(
                 "decode" if gmask is None else "mdecode", n,
-                index=self._decode_index(),
+                index=self._decode_index(), lora=lora,
                 **self._sampling_arrays(active, gmask))
         toks = out["toks"].cpu().numpy()
         self.decode_steps_run += n
@@ -1802,10 +1938,10 @@ class InferenceEngine:
 
     # --- convenience ---------------------------------------------------------
 
-    def generate(self, prompt_ids, params: SamplingParams | None = None
-                 ) -> list[int]:
+    def generate(self, prompt_ids, params: SamplingParams | None = None,
+                 *, adapter: str | None = None) -> list[int]:
         """Blocking single-request helper (drives steps if no thread runs)."""
-        req = self.submit(prompt_ids, params)
+        req = self.submit(prompt_ids, params, adapter=adapter)
         if self._thread is None:
             while self.step():
                 pass

@@ -35,7 +35,18 @@ width)``, or on the CPU runs the same body eagerly:
   captures none of them and allocates no mask buffer. The engine writes
   each mask's rows in place in a pinned host stage
   (:meth:`StepGraphs.mask_stage`), copied to the buffer before the
-  step.
+  step;
+- the adapter twins (batched multi-LoRA, :mod:`.multi_lora`): every kind
+  but ``"droll"`` (the draft runs base) has one, its kind prefixed with
+  ``"l"`` (``"ldecode"``, ``"lpmspec"``, ...), whose body runs under a
+  LoRA context over the registry's banks and static ``(slots,)`` int64
+  index buffers, one per rank bucket, filled in :meth:`StepGraphs.run`
+  like the other inputs. An engine without a registry, or whose rows are
+  all base, captures none of them and allocates no index buffer. A
+  captured twin reads each bank at its address: when the registry's
+  ``generation`` moves (a bucket made, grown or given a target, which
+  replaces its tensors) every twin is dropped and recaptured at its next
+  use (``lora_recaptures``).
 
 For the decode kinds ``n`` is ``decode_steps`` or a power of two below
 it, as :func:`~.mixed_step.plan_decode_block` plans.
@@ -83,6 +94,7 @@ from llm_in_practise_tpu_torch.serve.mixed_step import (
     pin_index,
     spec_verify_block,
 )
+from llm_in_practise_tpu_torch.serve.multi_lora import lora_context
 from llm_in_practise_tpu_torch.serve.paged_kv import (
     gather_view,
     scatter_window,
@@ -95,6 +107,8 @@ PAGED_KINDS = ("pdecode", "pmixed", "pspec", "pmdecode", "pmmixed",
                "pmspec")
 # the grammar masks' static buffers
 MASKS = ("gmask", "gmasks")
+# the prefix of the adapter twin kinds
+LORA = "l"
 
 
 class StepGraphs:
@@ -150,6 +164,15 @@ class StepGraphs:
         self.masks: dict[str, torch.Tensor] = {}
         self._mask_host: dict[str, torch.Tensor] = {}
         self._mask_stage: dict[str, np.ndarray] = {}
+        # adapter twins: the banks of the registry generation the twins
+        # were captured against, and each rank bucket's static index
+        # buffer, made at the first adapter step
+        self._lora_gen: int | None = None
+        self._lora_banks: dict = {}
+        self.lora_idx: dict[int, torch.Tensor] = {}
+        self._lora_captured: set[tuple] = set()
+        self.lora_recaptures = 0
+        self.lora_invalidations = 0
 
     def _mask_buf(self, name: str) -> torch.Tensor:
         """The static device buffer of ``gmask`` (slots, vocab) or
@@ -189,6 +212,26 @@ class StepGraphs:
         if host is not None:
             self.masks[name].copy_(host, non_blocking=True)
 
+    def _stage_lora(self, lora: dict) -> None:
+        """Fill the index buffers from ``lora`` (the registry's dispatch
+        arguments); on a new bank generation first drop every captured
+        twin, which read the old banks."""
+        if lora["generation"] != self._lora_gen:
+            stale = [k for k in self.graphs if k[0].startswith(LORA)]
+            for key in stale:
+                del self.graphs[key]
+            self.lora_invalidations += bool(stale)
+            self._lora_gen = lora["generation"]
+            self._lora_banks = lora["banks"]
+            for rb in lora["idx"]:
+                if rb not in self.lora_idx:
+                    with torch.inference_mode(False):
+                        self.lora_idx[rb] = torch.zeros(
+                            self.inputs["tokens"].shape, dtype=torch.int64,
+                            device=self._dev)
+        for rb, rows in lora["idx"].items():
+            self.lora_idx[rb].copy_(torch.from_numpy(rows))
+
     def _index_buf(self, name: str, size: int) -> torch.Tensor:
         """The static flat int64 buffer of a paged index array: one per
         (name, size), so every graph of that width or window reads the
@@ -201,7 +244,7 @@ class StepGraphs:
         return t
 
     def run(self, kind: str, n: int, *, all_greedy: bool, generator,
-            width: int | None = None, **arrays) -> dict:
+            width: int | None = None, lora=None, **arrays) -> dict:
         """One step of ``kind`` over ``n`` decode tokens. ``arrays`` (numpy)
         go into the static buffers of the same names (the paged kinds'
         ``gidx``, ``vidx`` and ``sidx`` into their per-size buffers).
@@ -210,7 +253,11 @@ class StepGraphs:
         (slots,) and for the fused kinds ``chunk_last`` (slots, vocab);
         ``spec`` (slots, k + 2 + m) for the spec kinds; ``drafts``
         (slots, k) for the roll. On the card they are the graph's own
-        tensors, valid until the next call."""
+        tensors, valid until the next call. With ``lora`` (the registry's
+        dispatch arguments) the adapter twin of ``kind`` runs."""
+        if lora is not None:
+            kind = LORA + kind
+            self._stage_lora(lora)
         for name, a in arrays.items():
             if name in MASKS:
                 self._stage_mask(name, a)
@@ -247,6 +294,11 @@ class StepGraphs:
         return out
 
     def _body(self, key: tuple) -> dict:
+        if key[0].startswith(LORA):
+            ctx = {"idx": {rb: self.lora_idx[rb] for rb in self._lora_banks},
+                   "banks": self._lora_banks}
+            with lora_context(ctx):
+                return self._body((key[0][len(LORA):],) + key[1:])
         kind, n, all_greedy, width, window = key
         x = self.inputs
         samp = dict(n=n, all_greedy=all_greedy,
@@ -318,3 +370,6 @@ class StepGraphs:
         self.graphs[key] = (graph, out, launch_count.delta(before, after))
         self.pool_bytes += torch.cuda.memory_reserved() - reserved
         self.capture_s[key] = time.monotonic() - t0
+        if key[0].startswith(LORA):
+            self.lora_recaptures += key in self._lora_captured
+            self._lora_captured.add(key)

@@ -22,7 +22,7 @@ import importlib, pkgutil, sys
 import llm_in_practise_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 assert "llm_in_practise_tpu_torch.serve.disagg" in names, names
-for name in ("constrain", "arrivals"):
+for name in ("constrain", "arrivals", "multi_lora", "adapters"):
     assert "llm_in_practise_tpu_torch.serve." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -133,12 +133,13 @@ def test_cli_rejects_unported_flags():
                   ["--kv-pool-tokens", "4096"],
                   ["--kv-cache-dtype", "fp8"], ["--speculative", "4"],
                   ["--speculative"],
-                  ["--speculative", "4", "--draft-model-path", "d"]):
+                  ["--speculative", "4", "--draft-model-path", "d"],
+                  ["--lora-modules", "a=b"]):
         check_not_ported(build_parser().parse_args(base + extra))
     # --quantized_dir is optional: without it --model_path is the input
     check_not_ported(build_parser().parse_args(["--tokenizer_path", "t"]))
     for extra in (["--tensor-parallel-size", "2"], ["--kv-offload"],
-                  ["--lora-modules", "a=b"], ["--session-store"]):
+                  ["--session-store"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             check_not_ported(build_parser().parse_args(base + extra))
 
