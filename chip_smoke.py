@@ -131,6 +131,28 @@ Phases, in order; any failure exits non-zero:
    ``serve_struct`` run on an NF4 model built as the full one but
    ``CUT_LAYERS`` (12) deep, every check kept, so that the script stays
    inside half its time limit.
+   Then ``serve_disagg`` (the KV tiers and the disaggregated prefill/
+   decode handoff): a pool server started as ``python -m
+   llm_in_practise_tpu_torch.serve.kv_pool --port 0``, a prefill replica
+   and a decode replica (ngram k = 4, the decode default) with
+   ``RemoteHandoff`` stores and a ``role="both"`` engine for the golden
+   streams (paged, pages of 16, chunked prefill 256, decode blocks of
+   8); the NF4 cell's 8 chats and two ~700-token documents. Leg 1 on the
+   full-depth model: each prompt alone (streams equal to the ``both``
+   engine's byte for byte), then all at once (every token in the top 5
+   of a teacher-forced forward); a lost handoff (an id claimed twice
+   re-prefills, counted); HTTP (``/internal/handoff/prefill``, then
+   chats with ``kv_transfer_params``, streamed and not; 501 from the
+   decode server). On the ``CUT_LAYERS`` model: paged -> contiguous and
+   contiguous -> paged, a ``--kv-offload`` engine whose small L1's
+   evictions re-hit from L2, and two engines sharing the pool server by
+   write-through (the second's first request an L3 hit); fp8 -> fp8 on
+   a 2-layer int8 model. The decode replica never prefills in a
+   handed-off leg, the pool's pending handoffs return to 0, and B1 runs
+   wgmma launches only on the prefill replica. Readings: bytes per
+   entry, publish and claim seconds by piece, TTFT after a claim and
+   TPOT beside ``both``, the write-through's cost, L3 ``get`` ms per MiB
+   of the largest entry ``cache_len`` admits at full depth.
    Then ``serve_lora`` on the full-depth NF4 model (batched multi-LoRA;
    paged, chunked prefill 256, decode blocks of 8, the mixed step): four
    seeded adapters (``sft-a`` and ``sft-b`` r 16 on the SFT default's
@@ -5139,6 +5161,684 @@ def lora_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
             "routes": routes}
 
 
+# serve_disagg: the KV tiers and the disaggregated prefill/decode handoff
+# (the JAX CLI's --role, --kv-remote and --kv-offload; llm-d's
+# prefill/decode split and LMCache's tiers) on the NF4 model
+DISAGG = dict(decode_steps=8, chunked_prefill=256, kv_layout="paged",
+              kv_page_size=16)
+DISAGG_DOCS = 700            # prompt tokens of the two documents
+DISAGG_L1_TOKENS = 96        # the --kv-offload leg's L1 budget: two chats
+
+
+def disagg_traffic(tok) -> tuple[list, list]:
+    """The NF4 cell's 8 chats and two ~700-token documents, as chat
+    messages and as the prompt ids the HTTP server gives them."""
+    msgs = [chat(f"Explain {topic} in a few sentences.") for topic in TOPICS]
+    msgs += [long_messages(tok, DISAGG_DOCS, 613 * i) for i in (1, 2)]
+    return msgs, [prompt_ids(tok, m) for m in msgs]
+
+
+class DisaggTimer:
+    """Host seconds of the handoff's pieces, recorded by wrappers around
+    the port's functions for the phase (publisher threads record too):
+    publish = the copy to the host, ``encode`` and the ``hput`` round
+    trip; claim = the ``hclaim`` round trip, ``decode``, the copy to the
+    card and the scatter into pages (each synchronised)."""
+
+    def __init__(self, sync):
+        from llm_in_practise_tpu_torch.serve import kv_pool
+        from llm_in_practise_tpu_torch.serve.paged_kv import PagedKV
+
+        self.sync = sync
+        self.lock = threading.Lock()
+        self.rows = {k: [] for k in ("to_host", "encode", "hput", "hclaim",
+                                     "decode", "to_card", "scatter",
+                                     "offload")}
+        self.entry_bytes = []
+        self.local = threading.local()
+        self.undo = []
+        self.n_claim = 0
+
+        def patch(owner, name, make):
+            orig = getattr(owner, name)
+            setattr(owner, name, make(orig))
+            self.undo.append((owner, name, orig))
+
+        def timed(key, pre_sync=False):
+            def make(orig):
+                def fn(*a, **kw):
+                    if pre_sync:
+                        sync()
+                    t0 = time.perf_counter()
+                    out = orig(*a, **kw)
+                    if pre_sync:
+                        sync()
+                    dt = time.perf_counter() - t0
+                    self.note(key, dt)
+                    setattr(self.local, key, dt)
+                    return out
+                return fn
+            return make
+
+        def encode(orig):
+            def fn(host):
+                t0 = time.perf_counter()
+                blob = orig(host)
+                dt = time.perf_counter() - t0
+                self.note("encode", dt)
+                self.local.encode = dt
+                with self.lock:
+                    self.entry_bytes.append(len(blob))
+                return blob
+            return fn
+
+        def net(total_key, inner_key):
+            def make(orig):
+                def fn(*a, **kw):
+                    setattr(self.local, inner_key, 0.0)
+                    t0 = time.perf_counter()
+                    out = orig(*a, **kw)
+                    self.note(total_key, time.perf_counter() - t0
+                              - getattr(self.local, inner_key))
+                    return out
+                return fn
+            return make
+
+        patch(kv_pool, "entry_to_host", timed("to_host"))
+        patch(kv_pool, "encode_entry", encode)
+        patch(kv_pool, "decode_entry", timed("decode"))
+        patch(kv_pool, "rows_to_device", timed("to_card", pre_sync=True))
+        patch(kv_pool.RemoteKVClient, "handoff_put", net("hput", "encode"))
+        patch(kv_pool.RemoteKVClient, "handoff_claim",
+              net("hclaim", "decode"))
+        patch(kv_pool.TieredKV, "offload", timed("offload", pre_sync=True))
+        patch(PagedKV, "scatter_rows", timed("scatter", pre_sync=True))
+
+    def note(self, key, dt):
+        with self.lock:
+            self.rows[key].append(dt)
+
+    def mark(self) -> dict:
+        with self.lock:
+            return {k: len(v) for k, v in self.rows.items()}
+
+    def since(self, mark: dict) -> dict:
+        """Sums and counts of every piece since ``mark``."""
+        with self.lock:
+            return {k: {"n": len(v) - mark[k],
+                        "sum_s": sum(v[mark[k]:]),
+                        "mean_s": (sum(v[mark[k]:]) / (len(v) - mark[k])
+                                   if len(v) > mark[k] else None)}
+                    for k, v in self.rows.items()}
+
+    def close(self):
+        for owner, name, orig in reversed(self.undo):
+            setattr(owner, name, orig)
+
+
+def disagg_counts(engine) -> dict:
+    return {k: getattr(engine, k) for k in (
+        "prefill_batches_run", "chunk_batches_run", "chunk_slots_run",
+        "mixed_blocks", "local_prefills", "kv_admitted", "kv_rejected",
+        "spec_rounds", "decode_steps_run")}
+
+
+def counts_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def disagg_engine(model, tok, seed: int, **kw):
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    kw = {**DISAGG, "cache_dtype": torch.bfloat16, **kw}
+    return InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+                           eos_id=tok.token_to_id(IM_END), seed=seed, **kw)
+
+
+def drain(engine) -> None:
+    while engine.step():
+        pass
+    if engine.error is not None:
+        raise SystemExit(f"serve_disagg: engine failed: {engine.error!r}")
+
+
+def prefill_handoff(pre, prompts) -> list[str]:
+    """Every prompt through the prefill replica at once; each id, once its
+    publish has landed (the request finishes only then)."""
+    from llm_in_practise_tpu_torch.serve.disagg import new_handoff_id
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    hids = [new_handoff_id() for _ in prompts]
+    reqs = [pre.submit(p, SamplingParams(greedy=True, max_tokens=1),
+                       handoff_id=h) for p, h in zip(prompts, hids)]
+    drain(pre)
+    for r in reqs:
+        if r.result() != [] or r.finish_reason != "handoff":
+            raise SystemExit(f"serve_disagg: a prefill replica request "
+                             f"finished {r.finish_reason!r}")
+    return hids
+
+
+def decode_claimed(dec, store, prompts, hids) -> tuple[list, list]:
+    """Claim each id and serve its prompt from the entry on the decode
+    replica, all at once; the requests and the entries' widths."""
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    sp = SamplingParams(greedy=True, max_tokens=MAX_TOKENS)
+    hosts = [store.claim(h) for h in hids]
+    if any(h is None for h in hosts):
+        raise SystemExit("serve_disagg: a published handoff entry was lost")
+    widths = [h.bucket for h in hosts]
+    reqs = [dec.submit(p, sp, kv_entry=h) for p, h in zip(prompts, hosts)]
+    del hosts
+    drain(dec)
+    return reqs, widths
+
+
+def disagg_leg(name, pre, dec, store, both, prompts, *, sequential: bool,
+               routes_by_role=None) -> dict:
+    """One handoff leg. ``sequential``: each prompt alone through the
+    prefill replica, the claim and the decode replica, beside ``both``
+    serving it alone (the shapes match, so the streams must be equal);
+    else every prompt at once (the streams are checked against a
+    teacher-forced forward by the caller). ``routes_by_role``: B1's
+    launches per route are booked to the replica that ran them."""
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    def routes():
+        return dict(read_routes()["nf4_matmul"])
+
+    def book(role, before):
+        if routes_by_role is not None:
+            now = routes()
+            for r, n in now.items():
+                routes_by_role[role][r] += n - before[r]
+
+    c0 = disagg_counts(dec)
+    t0 = time.monotonic()
+    groups = [[p] for p in prompts] if sequential else [prompts]
+    streams, ttft, tpot, widths, golden, gttft, gtpot = ([] for _ in range(7))
+    for group in groups:
+        r0 = routes()
+        hids = prefill_handoff(pre, group)
+        book("prefill", r0)
+        r0 = routes()
+        reqs, w = decode_claimed(dec, store, group, hids)
+        book("decode", r0)
+        widths += w
+        streams += [list(r.output_ids) for r in reqs]
+        ttft += [r.ttft_s for r in reqs]
+        tpot += [r.tpot_s for r in reqs]
+        if both is not None:
+            r0 = routes()
+            sp = SamplingParams(greedy=True, max_tokens=MAX_TOKENS)
+            g = [both.submit(p, sp) for p in group]
+            drain(both)
+            book("both", r0)
+            golden += [list(r.output_ids) for r in g]
+            gttft += [r.ttft_s for r in g]
+            gtpot += [r.tpot_s for r in g]
+    delta = counts_delta(disagg_counts(dec), c0)
+    out = {"requests": len(prompts), "sequential": sequential,
+           "entry_widths": widths, "decode_counts": delta,
+           "streams": streams, "tokens": [len(s) for s in streams],
+           "ttft_s": ttft, "tpot_s": tpot,
+           "wall_s": time.monotonic() - t0}
+    if both is not None:
+        out.update(golden=golden, both_ttft_s=gttft, both_tpot_s=gtpot,
+                   equal_to_both=[a == b for a, b in zip(streams, golden)])
+    # a handed-off leg's decode replica never prefills
+    out["interference_free"] = (
+        delta["prefill_batches_run"] == delta["chunk_batches_run"]
+        == delta["chunk_slots_run"] == delta["mixed_blocks"]
+        == delta["local_prefills"] == 0
+        and delta["kv_admitted"] == len(prompts))
+    log(f"serve_disagg {name}:", json.dumps(
+        {k: v for k, v in out.items() if k not in ("streams", "golden")}))
+    return out
+
+
+def pool_stats(address) -> dict:
+    from llm_in_practise_tpu_torch.serve.kv_pool import RemoteKVClient
+
+    return RemoteKVClient(address, timeout=30.0).stats()
+
+
+def start_pool_server() -> tuple:
+    """``python -m llm_in_practise_tpu_torch.serve.kv_pool --port 0``: the
+    process and the address it printed."""
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "llm_in_practise_tpu_torch.serve.kv_pool",
+         "--port", "0"], stdout=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    line = proc.stdout.readline()
+    if " on " not in line:
+        proc.kill()
+        raise SystemExit(f"serve_disagg: the pool server printed {line!r}")
+    host, port = line.split(" on ")[1].split(" ")[0].rsplit(":", 1)
+    return proc, (host, int(port))
+
+
+def l3_get_reading(address, model) -> dict:
+    """A remote ``get`` of the largest entry ``cache_len`` admits at the
+    model's width and Qwen3-8B's full depth (``cache_len - 2`` rows of
+    every layer's K and V in bf16, and the f32 last logits), through the
+    pool server: host seconds, and ms per MiB; then the same through
+    ``TieredKV.lookup`` with its default deadline."""
+    import torch
+
+    from llm_in_practise_tpu_torch.serve.kv_pool import (
+        HostEntry,
+        HostKVPool,
+        RemoteKVClient,
+        TieredKV,
+        encode_entry,
+    )
+
+    cfg = model.config
+    n = CACHE_LEN - 2
+    row = torch.zeros((1, n, cfg.n_kv_head, cfg.head_dim),
+                      dtype=torch.bfloat16)
+    host = HostEntry(length=n, bucket=n,
+                     rows=[{"k": row, "v": row} for _ in range(N_LAYER_FULL)],
+                     last_logits=torch.zeros((1, cfg.vocab_size)))
+    prompt = list(range(n))
+    client = RemoteKVClient(address, namespace="disagg-l3-reading",
+                            timeout=120.0)
+    t0 = time.perf_counter()
+    blob = encode_entry(host)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    client.put(prompt, host)
+    put_s = time.perf_counter() - t0
+    del host, row
+    gets = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = client.get(prompt, timeout=120.0)
+        gets.append(time.perf_counter() - t0)
+        if got is None or got.length != n:
+            raise SystemExit("serve_disagg: the L3 reading's entry is gone")
+        del got
+    tiers = TieredKV(HostKVPool(), client)
+    t0 = time.perf_counter()
+    hit = tiers.lookup(prompt)
+    lookup_s = time.perf_counter() - t0
+    mib = len(blob) / 2**20
+    return {"rows": n, "layers": N_LAYER_FULL, "mib": mib,
+            "encode_s": encode_s, "put_s": put_s, "get_s": gets,
+            "get_ms_per_mib": 1e3 * min(gets) / mib,
+            "lookup_s": lookup_s, "lookup_hit": hit is not None,
+            "lookup_timeout_s": tiers.lookup_timeout_s,
+            "slow_trips": tiers.slow_trips}
+
+
+def post_json(url: str, body: dict) -> tuple[int, dict]:
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def disagg_http(pre, dec, store, tok, golden, msgs) -> dict:
+    """Two OpenAIServers over the leg-1 replicas: ``POST
+    /internal/handoff/prefill`` to the prefill server, then a chat with
+    ``kv_transfer_params`` to the decode server, not streamed and
+    streamed (one at a time: the text must be the golden stream's), and
+    the decode server's 501."""
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+
+    srv = {"prefill": OpenAIServer(pre, tok, model_name="qwen3-8b-nf4",
+                                   role="prefill"),
+           "decode": OpenAIServer(dec, tok, model_name="qwen3-8b-nf4",
+                                  role="decode", handoff=store)}
+    base = {k: f"http://127.0.0.1:{s.serve(host='127.0.0.1', port=0, background=True)}"
+            for k, s in srv.items()}
+    out = {"texts_equal": [], "prompt_tokens": []}
+    try:
+        c0 = disagg_counts(dec)
+        for i, stream in ((0, False), (1, True)):
+            body = {"model": "qwen3-8b-nf4", "temperature": 0.0,
+                    "max_tokens": MAX_TOKENS, "messages": msgs[i]}
+            status, got = post_json(base["prefill"]
+                                    + "/internal/handoff/prefill", body)
+            if status != 200:
+                raise SystemExit(f"serve_disagg: prefill answered {status}: "
+                                 f"{got}")
+            out["prompt_tokens"].append(got["prompt_tokens"])
+            res = post_chat(base["decode"], dict(
+                body, stream=stream,
+                kv_transfer_params={"handoff_id": got["handoff_id"]}))
+            out["texts_equal"].append(
+                res["content"] == tok.decode(golden[i]))
+        out["decode_counts"] = counts_delta(disagg_counts(dec), c0)
+        status, _ = post_json(base["decode"] + "/internal/handoff/prefill",
+                              {"model": "qwen3-8b-nf4", "messages": msgs[0]})
+        out["decode_prefill_status"] = status
+        out["claimed"] = srv["decode"].handoff_meter.claimed
+    finally:
+        for s in srv.values():
+            s.shutdown()
+    return out
+
+
+def disagg_phase(model, shallow, tok, seed: int, card: str,
+                 nf4_cell: dict) -> dict:
+    """serve_disagg: the KV tiers and the disaggregated handoff. A pool
+    server started as ``python -m llm_in_practise_tpu_torch.serve.kv_pool
+    --port 0``; a ``role="prefill"`` and a ``role="decode"`` engine (ngram
+    k = 4, the decode default) with ``RemoteHandoff`` stores, and a
+    ``role="both"`` engine of the decode replica's knobs for the golden
+    streams; paged (pages of 16), 8 slots, cache_len 1024, chunked
+    prefill 256, decode blocks of 8. Traffic: the NF4 cell's 8 chats and
+    two ~700-token documents. Legs: (1) paged -> paged on the full-depth
+    model, each prompt alone, then all at once; (2) paged -> contiguous
+    and contiguous -> paged, (6) the tiers: a contiguous engine with
+    ``--kv-offload`` and an L1 of ``DISAGG_L1_TOKENS`` whose evictions
+    re-hit from L2, and two paged engines sharing the pool server by
+    write-through, the second's first request an L3 hit, on the
+    ``CUT_LAYERS`` model; (3) fp8 -> fp8 on a 2-layer int8 model; (4) a
+    lost handoff; (5) HTTP. Checks, each exiting non-zero: where one
+    request runs alone on engines of the same shapes the streams equal
+    the ``both`` engine's byte for byte, elsewhere every token is in the
+    top 5 of a teacher-forced forward; in every handed-off leg the decode
+    replica runs no prefill batch, chunk or mixed block, counts no local
+    prefill and admits every request from its entry; the lost leg counts
+    one local prefill; the pool's ``handoff_pending`` returns to 0; B1
+    launches on the wgmma route only on the prefill replica and only
+    thin on the decode replica."""
+    import gc
+
+    import torch
+
+    from llm_in_practise_tpu_torch.serve.disagg import RemoteHandoff
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+    from llm_in_practise_tpu_torch.serve.kv_pool import (
+        HostKVPool,
+        RemoteKVClient,
+        TieredKV,
+    )
+    from llm_in_practise_tpu_torch.serve.prefix_cache import PrefixCache
+
+    t_phase = time.monotonic()
+    dev = model.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    msgs, prompts = disagg_traffic(tok)
+    proc, address = start_pool_server()
+    timer = DisaggTimer(sync)
+    checks, res = {}, {"card": card, "layers": N_LAYER_FULL,
+                       "cut_layers": CUT_LAYERS, "max_slots": MAX_SLOTS,
+                       "cache_len": CACHE_LEN, **DISAGG,
+                       "prompt_tokens": [len(p) for p in prompts]}
+    routes_by_role = {r: dict.fromkeys(("thin", "wgmma"), 0)
+                      for r in ("prefill", "decode", "both")}
+    try:
+        store = RemoteHandoff(address, namespace="qwen3-8b-nf4",
+                              timeout=60.0)
+
+        def trio(m, layout_pre="paged", layout_dec="paged", **kw):
+            pre = disagg_engine(m, tok, seed, role="prefill", handoff=store,
+                                kv_layout=layout_pre, **kw)
+            dec = disagg_engine(m, tok, seed, role="decode",
+                                kv_layout=layout_dec, speculative_k=4, **kw)
+            both = disagg_engine(m, tok, seed, kv_layout=layout_dec,
+                                 speculative_k=4, **kw)
+            return pre, dec, both
+
+        # leg 1: paged -> paged, full depth. A warm-up of chat 0 through
+        # all three (the counted run starts after its graph captures)
+        pre, dec, both = trio(model)
+        disagg_leg("warm-up", pre, dec, store, both, prompts[:1],
+                   sequential=True)
+        sync()
+        zero_counters()
+        mark = timer.mark()
+        eb0 = len(timer.entry_bytes)
+        seq = disagg_leg("leg1 sequential", pre, dec, store, both, prompts,
+                         sequential=True, routes_by_role=routes_by_role)
+        pieces = timer.since(mark)
+        conc = disagg_leg("leg1 concurrent", pre, dec, store, None, prompts,
+                          sequential=False, routes_by_role=routes_by_role)
+        conc["top5_agreeing"] = teacher_forced(model, prompts,
+                                               conc["streams"])
+        checks["leg1_sequential_equal_both"] = all(seq["equal_to_both"])
+        checks["leg1_interference_free"] = (seq["interference_free"]
+                                            and conc["interference_free"])
+        checks["leg1_concurrent_top5"] = (conc["top5_agreeing"]
+                                          == conc["tokens"])
+        res["leg1"] = {"sequential": {k: v for k, v in seq.items()
+                                      if k not in ("streams", "golden")},
+                       "concurrent": {k: v for k, v in conc.items()
+                                      if k != "streams"},
+                       "pieces": pieces}
+        # leg 4: a lost handoff: an id claimed twice
+        hid = prefill_handoff(pre, prompts[:1])[0]
+        first = store.claim(hid)
+        second = store.claim(hid)
+        c0 = disagg_counts(dec)
+        sp = SamplingParams(greedy=True, max_tokens=MAX_TOKENS)
+        lost = dec.submit(prompts[0], sp, kv_entry=second)
+        drain(dec)
+        lost_delta = counts_delta(disagg_counts(dec), c0)
+        checks["leg4_lost_counted"] = (
+            first is not None and second is None
+            and lost_delta["local_prefills"] == 1
+            and lost_delta["kv_admitted"] == 0
+            and len(lost.output_ids) > 0)
+        res["leg4_lost"] = {"decode_counts": lost_delta,
+                            "tokens": len(lost.output_ids),
+                            "equal_to_both": list(lost.output_ids)
+                            == seq["golden"][0]}
+        del first
+        # leg 5: HTTP over the leg-1 replicas
+        http = disagg_http(pre, dec, store, tok, seq["golden"], msgs)
+        checks["leg5_http"] = (all(http["texts_equal"])
+                               and http["decode_prefill_status"] == 501
+                               and http["decode_counts"]["kv_admitted"] == 2
+                               and http["decode_counts"]["local_prefills"]
+                               == 0 and http["claimed"] == 2)
+        res["leg5_http"] = http
+        log("serve_disagg leg5 http:", json.dumps(http))
+        del pre, dec, both
+        free()
+        launches_full = read_counters()["nf4_matmul"]
+
+        # leg 2: across layouts, CUT_LAYERS deep
+        leg2 = {}
+        for src, dst in (("paged", "contiguous"), ("contiguous", "paged")):
+            pre, dec, both = trio(shallow, src, dst)
+            r = disagg_leg(f"leg2 {src}->{dst}", pre, dec, store, both,
+                           prompts[:MAX_SLOTS], sequential=True)
+            docs = disagg_leg(f"leg2 {src}->{dst} documents", pre, dec,
+                              store, None, prompts[MAX_SLOTS:],
+                              sequential=False)
+            docs["top5_agreeing"] = teacher_forced(
+                shallow, prompts[MAX_SLOTS:], docs["streams"])
+            leg2[f"{src}->{dst}"] = {
+                "equal_to_both": r["equal_to_both"],
+                "interference_free": r["interference_free"]
+                and docs["interference_free"],
+                "docs_top5": docs["top5_agreeing"] == docs["tokens"],
+                "entry_widths": r["entry_widths"] + docs["entry_widths"],
+                "ttft_s": r["ttft_s"], "both_ttft_s": r["both_ttft_s"]}
+            del pre, dec, both
+            free()
+        checks["leg2"] = all(all(v["equal_to_both"]) and v["interference_free"]
+                             and v["docs_top5"] for v in leg2.values())
+        res["leg2"] = leg2
+
+        # leg 6: the tiers, CUT_LAYERS deep. (a) --kv-offload with a small
+        # L1: the second pass of the chats re-hits from L2
+        from llm_in_practise_tpu_torch.serve.__main__ import (
+            build_parser,
+            engine_kw_for,
+        )
+
+        args = build_parser().parse_args(["--tokenizer_path", "-",
+                                          "--kv-offload"])
+        kw = engine_kw_for(args, "qwen3-8b-nf4")
+        offl = disagg_engine(shallow, tok, seed, kv_layout="contiguous",
+                             prefix_cache=PrefixCache(
+                                 max_tokens=DISAGG_L1_TOKENS, min_prefix=16),
+                             **kw)
+        passes = []
+        mark = timer.mark()
+        for _ in range(2):
+            out = []
+            for p in prompts[:MAX_SLOTS]:
+                r = offl.submit(p, sp)
+                drain(offl)
+                out.append(list(r.output_ids))
+            passes.append(out)
+        tiers = offl.kv_pool
+        offload = timer.since(mark)["offload"]
+        tiers_a = {"l1_budget_tokens": DISAGG_L1_TOKENS,
+                   "l2_hits": tiers.host_pool.hits,
+                   "l2_entries": tiers.host_pool.n_entries,
+                   "l1_hits": offl.prefix_cache.hits,
+                   "second_pass_equal": passes[0] == passes[1],
+                   "offload_per_prefill_s": offload["mean_s"],
+                   "offloads": offload["n"]}
+        # the write-through's cost to the chats' TPOT: the documents
+        # arrive while the chats decode, on the tiered engine and on one
+        # without tiers; each engine runs the schedule twice, cold caches
+        # each time, and the second run (its graphs captured) is read
+        tpot = {}
+        for name, eng in (("write_through", offl),
+                          ("no_tiers", disagg_engine(
+                              shallow, tok, seed, kv_layout="contiguous"))):
+            for _ in range(2):
+                if eng.prefix_cache is not None:
+                    eng.prefix_cache.clear()
+                tiers.host_pool.clear()
+                mark = timer.mark()
+                reqs = [eng.submit(p, sp) for p in prompts[:MAX_SLOTS]]
+                eng.step()
+                eng.step()
+                reqs += [eng.submit(p, sp) for p in prompts[MAX_SLOTS:]]
+                drain(eng)
+            tpot[name] = {
+                "chat_tpot_p50_s": statistics.median(
+                    r.tpot_s for r in reqs[:MAX_SLOTS]
+                    if r.tpot_s is not None),
+                "offload_s": timer.since(mark)["offload"]["sum_s"]}
+        tiers_a["tpot_with_documents"] = tpot
+        del offl, tiers, eng
+        free()
+        checks["leg6_l2_rehit"] = (tiers_a["l2_hits"] >= 1
+                                   and tiers_a["second_pass_equal"])
+        # (b) two paged engines sharing the pool server by write-through
+        l3 = {}
+        for name in ("first", "second"):
+            kv = TieredKV(HostKVPool(), RemoteKVClient(
+                address, namespace="qwen3-8b-nf4-cut"))
+            eng = disagg_engine(shallow, tok, seed, kv_pool=kv)
+            s0 = pool_stats(address)
+            r = eng.submit(prompts[MAX_SLOTS], sp)
+            drain(eng)
+            kv.flush()
+            s1 = pool_stats(address)
+            l3[name] = {"ttft_s": r.ttft_s, "tokens": list(r.output_ids),
+                        "server_hits": s1["hits"] - s0["hits"],
+                        "l2_misses": kv.host_pool.misses,
+                        "prefill_forwards": eng.chunk_batches_run
+                        + eng.prefill_batches_run + eng.chunk_slots_run}
+            del eng, kv
+            free()
+        checks["leg6_l3_hit"] = (
+            l3["second"]["server_hits"] == 1
+            and l3["second"]["prefill_forwards"] == 0
+            and l3["second"]["tokens"] == l3["first"]["tokens"])
+        res["leg6_tiers"] = {
+            "offload_l1": tiers_a,
+            "l3": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                   for k, v in l3.items()},
+            "l3_get": l3_get_reading(address, model)}
+        log("serve_disagg leg6 tiers:", json.dumps(res["leg6_tiers"]))
+        launches_cut = read_counters()["nf4_matmul"] - launches_full
+
+        # leg 3: fp8 -> fp8 on a 2-layer int8 model
+        _, int8_model = build_model("int8", PAGED_INT8_LAYERS, seed)
+        i8 = read_counters()["int8_matmul"]
+        pre, dec, both = trio(int8_model, cache_dtype=torch.float8_e4m3fn)
+        fp8 = disagg_leg("leg3 fp8", pre, dec, store, both,
+                         prompts[:MAX_SLOTS], sequential=True)
+        int8_launches = read_counters()["int8_matmul"] - i8
+        checks["leg3_fp8"] = (all(fp8["equal_to_both"])
+                              and fp8["interference_free"]
+                              and int8_launches > 0)
+        res["leg3_fp8"] = {"equal_to_both": fp8["equal_to_both"],
+                           "int8_launches": int8_launches,
+                           "entry_widths": fp8["entry_widths"]}
+        del pre, dec, both, int8_model
+        free()
+        stats = pool_stats(address)
+        checks["pool_handoff_pending_0"] = stats["handoff_pending"] == 0
+        res["pool_stats"] = stats
+    finally:
+        timer.close()
+        proc.terminate()
+        proc.wait(timeout=30)
+    counts = read_counters()
+    # B1: prefill-sized (wgmma) launches only on the prefill replica,
+    # thin launches only on the decode replica
+    checks["b1_routes_by_role"] = (
+        routes_by_role["prefill"]["wgmma"] > 0
+        and routes_by_role["decode"]["wgmma"] == 0
+        and routes_by_role["decode"]["thin"] > 0)
+    res["b1_routes_by_role"] = routes_by_role
+    # the readings the issue asks for, each with its origin in this run
+    seq_pieces = res["leg1"]["pieces"]
+    n_req = len(prompts)
+    res["readings"] = {
+        "entry_bytes": timer.entry_bytes[eb0:eb0 + n_req],
+        "publish_s_per_entry": {k: seq_pieces[k]["mean_s"]
+                                for k in ("to_host", "encode", "hput")},
+        "claim_s_per_entry": {k: seq_pieces[k]["mean_s"]
+                              for k in ("hclaim", "decode", "to_card",
+                                        "scatter")},
+        "decode_ttft_after_claim_s": seq["ttft_s"],
+        "both_ttft_s": seq["both_ttft_s"],
+        "decode_tpot_s": seq["tpot_s"], "both_tpot_s": seq["both_tpot_s"],
+        "write_through_s_per_prefill":
+            res["leg6_tiers"]["offload_l1"]["offload_per_prefill_s"],
+        "l3_get_ms_per_mib": res["leg6_tiers"]["l3_get"]["get_ms_per_mib"]}
+    res.update(checks=checks, launches_full_depth=launches_full,
+               launches_cut_depth=launches_cut,
+               nf4_cell_tpot_p50_s=nf4_cell["tpot_p50_s"],
+               max_memory_allocated_gib=(
+                   torch.cuda.max_memory_allocated() / 2**30),
+               phase_wall_s=time.monotonic() - t_phase)
+    log("serve_disagg readings:", json.dumps(res["readings"]))
+    log("serve_disagg:", json.dumps({k: v for k, v in res.items()
+                                     if k in ("checks", "b1_routes_by_role",
+                                              "phase_wall_s",
+                                              "max_memory_allocated_gib")}))
+    if not all(checks.values()):
+        raise SystemExit(f"serve_disagg: checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"disagg": res, "launches": counts["nf4_matmul"],
+            "routes": read_routes()["nf4_matmul"],
+            "int8_launches": int8_launches}
+
+
 def flash_bound(b: int, length: int, h: int, d: int, products: int,
                 nbytes: int) -> tuple[float, str, int]:
     """Least time on the card for a causal flash kernel: ``products``
@@ -6567,10 +7267,17 @@ def main(argv=None) -> int:
             t0 = time.monotonic()
             struct = struct_phase(shallow, tok, args.seed, card,
                                   served[fmt]["serve"])
-            del shallow
             phase_time("serve_struct", t0)
             set_depth(N_LAYER_FULL)
             free()         # serve_struct's engines
+            # serve_disagg: leg 1 on the full-depth model, the cross-layout
+            # and tier legs on the CUT_LAYERS one
+            t0 = time.monotonic()
+            disagg = disagg_phase(model, shallow, tok, args.seed, card,
+                                  served[fmt]["serve"])
+            del shallow
+            phase_time("serve_disagg", t0)
+            free()         # serve_disagg's engines
             t0 = time.monotonic()
             lora = lora_phase(model, tok, args.seed, card,
                               served[fmt]["serve"])
@@ -6635,6 +7342,7 @@ def main(argv=None) -> int:
             "serve_nf4_spec": spec["routes"],
             "serve_nf4_struct": struct["routes"],
             "serve_nf4_lora": lora["routes"],
+            "serve_nf4_disagg": disagg["routes"],
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
         **decode_fields(decode, "nf4"),
@@ -6644,7 +7352,7 @@ def main(argv=None) -> int:
         "launches": (served["nf4"]["launches"] + sched["launches"]
                      + paged["launches"] + spec["launches"]
                      + struct["launches"] + lora["launches"]
-                     + launches["nf4_matmul"]
+                     + disagg["launches"] + launches["nf4_matmul"]
                      + ckpt["launches"]["ckpt_serve_nf4"]
                      + ckpt_train["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
@@ -6653,6 +7361,7 @@ def main(argv=None) -> int:
                              "serve_nf4_spec": spec["launches"],
                              "serve_nf4_struct": struct["launches"],
                              "serve_nf4_lora": lora["launches"],
+                             "serve_disagg": disagg["launches"],
                              "train_nf4": launches["nf4_matmul"],
                              "ckpt_serve_nf4":
                                  ckpt["launches"]["ckpt_serve_nf4"],
@@ -6714,6 +7423,7 @@ def main(argv=None) -> int:
         if name == "int8_matmul":
             by_path["ckpt_serve_int8"] = ckpt["launches"]["ckpt_serve_int8"]
             by_path["serve_paged_int8"] = paged["int8_launches"]
+            by_path["serve_disagg"] = disagg["int8_launches"]
         row = ptq_summary(ptq_rows, name, case,
                           MAX_SLOTS if at_decode else TRAIN_M)
         row["ptxas"] = ptxas(name)
@@ -6766,6 +7476,10 @@ def main(argv=None) -> int:
                   "swap_seconds", "twins_checked", "phase_wall_s",
                   "max_memory_allocated_gib", "nf4_cell_tpot_p50_s")},
         default=str))
+    log("serve_disagg summary:", json.dumps(
+        {k: v for k, v in disagg["disagg"].items()
+         if k in ("readings", "checks", "b1_routes_by_role", "phase_wall_s",
+                  "max_memory_allocated_gib", "nf4_cell_tpot_p50_s")}))
     log("serve_sched summary:", json.dumps(
         {k: v for k, v in sched["sched"].items()
          if k in ("short", "long", "profile", "capture_s", "graph_pool_mib",

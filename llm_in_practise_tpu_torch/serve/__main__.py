@@ -8,7 +8,8 @@
         [--enable-chunked-prefill [256]] [--decode-steps 8] \\
         [--no-mixed-step] [--max-queue N] [--queue-timeout SECONDS] \\
         [--speculative [4] [--draft-model-path DRAFT.msgpack]] \\
-        [--lora-modules NAME=ADAPTER_DIR ...]
+        [--lora-modules NAME=ADAPTER_DIR ...] [--kv-offload] \\
+        [--kv-remote HOST:PORT] [--role prefill|decode|both]
 
 ``DIR`` holds the ``packed.npz`` + ``manifest.json`` that either
 package's exporters write (``quant/io.py``, ``convert_hf``): NF4,
@@ -34,11 +35,19 @@ with its sidecar, or its directory, written by either package's
 ``AdapterRegistry``, every adapter batched into the base model's
 dispatches (``--quantized_dir``, ``--scan-layers``, a name equal to
 ``--model_name``, a missing checkpoint and a malformed spec are errors,
-as in the JAX CLI). ``TOK.json`` is a BPE tokenizer saved by either
-package. The flags of the JAX package's ``examples/serve_openai.py``
-that this port does not have yet (``--kv-offload``, ``--kv-remote``,
-``--role``, sessions, tensor parallelism, the tracing and SLO flags) are
-accepted and raise ``NotImplementedError`` naming their ROADMAP.md item.
+as in the JAX CLI). ``--kv-offload`` puts a host-RAM tier behind the
+prefix cache and ``--kv-remote HOST:PORT`` a shared pool server
+(``python -m llm_in_practise_tpu_torch.serve.kv_pool``; either package's
+server), each per served model name. ``--role prefill`` or ``decode``
+splits prefill from decode across replicas (it needs ``--kv-remote``:
+the KV handoff travels through the pool server); a decode replica turns
+ngram speculation on unless ``--speculative 0``. With ``--lora-modules``
+and a tier, each adapter gets an engine of its own (its own tiers and
+handoff namespace), as in the JAX CLI. ``TOK.json`` is a BPE tokenizer
+saved by either package. The flags of the JAX package's
+``examples/serve_openai.py`` that this port does not have yet (sessions,
+tensor parallelism, the tracing and SLO flags) are accepted and raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -54,9 +63,6 @@ _NOT_PORTED = {
     "--session-store": (dict(action="store_true"), 5),
     "--session-ttl": (dict(type=float, default=None), 5),
     "--tensor-parallel-size": (dict(type=int, default=1), 14),
-    "--kv-offload": (dict(action="store_true"), 5),
-    "--kv-remote": (dict(default=None), 5),
-    "--role": (dict(default="both"), 5),
     "--trace-file": (dict(default=None), 6),
     "--ttft-slo": (dict(type=float, default=None), 6),
     "--tpot-slo": (dict(type=float, default=None), 6),
@@ -152,6 +158,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "is an adapter.msgpack with its sidecar, or its "
                         "directory; every adapter rides the base model's "
                         "dispatches through one AdapterRegistry")
+    # the KV tiers and the disaggregated split, with the JAX CLI's meanings
+    p.add_argument("--kv-offload", dest="kv_offload", action="store_true",
+                   help="tiered KV: offload prefix entries to a host-RAM "
+                        "pool (LMCache's CPU tier); turns the prefix cache "
+                        "on")
+    p.add_argument("--kv-remote", dest="kv_remote", default=None,
+                   metavar="HOST:PORT",
+                   help="tiered KV: share prefix entries through a kv_pool "
+                        "server, namespaced per model (LMCache's lm:// "
+                        "tier); also the handoff store of --role")
+    p.add_argument("--role", default="both",
+                   choices=["both", "prefill", "decode"],
+                   help="disaggregated serving: 'prefill' prefills and "
+                        "publishes KV (POST /internal/handoff/prefill), "
+                        "'decode' decodes from claimed KV "
+                        "(kv_transfer_params.handoff_id); needs "
+                        "--kv-remote")
     for flag, (kw, _) in _NOT_PORTED.items():
         p.add_argument(flag, dest=flag.lstrip("-").replace("-", "_"), **kw)
     return p
@@ -201,13 +224,30 @@ def validate_args(args, error) -> None:
                 error(f"--lora-modules {name}: no adapter checkpoint at "
                       f"{path} (want adapter.msgpack + sidecar from "
                       "save_named)")
+    if args.role != "both" and not args.kv_remote:
+        error(f"--role {args.role} requires --kv-remote: the KV handoff "
+              "between the prefill and decode pools travels through the "
+              "shared kv_pool server")
+    if args.kv_remote is not None:
+        _host, sep, port = args.kv_remote.rpartition(":")
+        if not sep or not _host or not port.isdigit():
+            error(f"--kv-remote expects HOST:PORT, got {args.kv_remote!r}")
     if args.scan_layers and args.kv_layout == "paged":
         error("--scan-layers serves with --kv-layout contiguous only "
               "(the paged pool supports the unrolled cache layout; pass "
               "--kv-layout contiguous explicitly)")
     if args.draft_model_path and args.speculative is None:
         error("--draft-model-path requires --speculative K")
+    # a decode replica defaults speculation on (checked after the draft's
+    # explicit-K requirement, which the default must not bypass)
+    if args.role == "decode" and args.speculative is None:
+        print(f"decode replica: ngram speculation on by default "
+              f"(k={default_speculative_k(args.role, None)}; "
+              "--speculative 0 turns it off)", flush=True)
     args.speculative = default_speculative_k(args.role, args.speculative)
+    # resolved once: a decode replica's explicit 0 is None from here on,
+    # which build_engine must not default again
+    args.speculative_resolved = True
     if args.draft_model_path and args.speculative is None:
         error("--draft-model-path with --speculative 0 is "
               "contradictory: drop the draft model or pass a "
@@ -264,46 +304,105 @@ def build_server(args):
               "layout is a layout of the JAX param tree)", flush=True)
     draft = (load_draft_model(args.draft_model_path, device)
              if args.draft_model_path else None)
+    tiered = bool(args.kv_offload or args.kv_remote)
+    if tiered:
+        tiers = "HBM->host" + ("->remote" if args.kv_remote else "")
+        print(f"tiered KV pool: {tiers} (namespaced per model)", flush=True)
+    if args.role != "both":
+        print(f"disaggregated role: {args.role} (handoff via "
+              f"{args.kv_remote})", flush=True)
     registry = None
-    if args.lora_modules:
+    if args.lora_modules and not tiered:
         from llm_in_practise_tpu_torch.serve.multi_lora import AdapterRegistry
 
         registry = AdapterRegistry(model)
-    engine = build_engine(model, args, eos_id=tok.token_to_id(IM_END),
-                          draft_model=draft, adapter_registry=registry)
+    eos_id = tok.token_to_id(IM_END)
+    engine = build_engine(model, args, eos_id=eos_id, draft_model=draft,
+                          adapter_registry=registry,
+                          **engine_kw_for(args, args.model_name))
     adapters = {}
-    if registry is not None:
+    if args.lora_modules:
         from llm_in_practise_tpu_torch.serve.adapters import (
+            build_adapter_engines,
             parse_lora_modules,
         )
         from llm_in_practise_tpu_torch.serve.multi_lora import AdapterHandle
 
-        for name, path in parse_lora_modules(args.lora_modules).items():
-            registry.register(name, path)
-            adapters[name] = AdapterHandle(engine, name)
-        print(f"adapters (batched multi-LoRA, one shared engine): "
-              f"{sorted(adapters)}", flush=True)
+        modules = parse_lora_modules(args.lora_modules)
+        if registry is not None:
+            for name, path in modules.items():
+                registry.register(name, path)
+                adapters[name] = AdapterHandle(engine, name)
+            print(f"adapters (batched multi-LoRA, one shared engine): "
+                  f"{sorted(adapters)}", flush=True)
+        else:
+            # KV tiers and handoff stores are per served model (rows are
+            # valid under one weight set): an engine per adapter, each
+            # with its own namespace, as in the JAX CLI. The draft stays
+            # with the base engine
+            kw = engine_kwargs(args, eos_id=eos_id)
+            adapters = build_adapter_engines(
+                model, {n: p.detach() for n, p in model.named_parameters()},
+                modules, engine_kw_for=lambda name: engine_kw_for(args, name),
+                **kw)
     return OpenAIServer(engine, tok, model_name=args.model_name,
-                        adapters=adapters)
+                        adapters=adapters, role=args.role)
 
 
-def build_engine(model, args, *, eos_id: int | None, draft_model=None,
-                 adapter_registry=None):
-    """The engine the CLI's ``args`` describe, over a loaded model (and
-    the loaded draft of ``--draft-model-path``, and the registry of
-    ``--lora-modules``)."""
+def engine_kw_for(args, model_name: str) -> dict:
+    """The per-model engine knobs of the KV tiers and the disaggregated
+    split (JAX ``examples/serve_openai.py`` ``make_kv_pool`` and
+    ``make_handoff``): a :class:`~.kv_pool.TieredKV` of its own (host
+    pool, and the pool server's ``model_name`` namespace under
+    ``--kv-remote``), the role, and a handoff store in that model's
+    handoff namespace."""
+    from llm_in_practise_tpu_torch.serve.disagg import RemoteHandoff
+    from llm_in_practise_tpu_torch.serve.kv_pool import (
+        HostKVPool,
+        RemoteKVClient,
+        TieredKV,
+    )
+
+    kw = {"role": args.role, "kv_pool": None, "handoff": None}
+    address = None
+    if args.kv_remote:
+        host, _, port = args.kv_remote.rpartition(":")
+        address = (host, int(port))
+        kw["handoff"] = RemoteHandoff(address, namespace=model_name)
+    if args.kv_offload or address is not None:
+        remote = (RemoteKVClient(address, namespace=model_name)
+                  if address is not None else None)
+        kw["kv_pool"] = TieredKV(HostKVPool(), remote)
+    return kw
+
+
+def engine_kwargs(args, *, eos_id: int | None) -> dict:
+    """The engine knobs every served model of the CLI shares."""
     from llm_in_practise_tpu_torch.serve.disagg import default_speculative_k
-    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
 
-    return InferenceEngine(
-        model, max_slots=args.max_slots, cache_len=args.cache_len,
+    return dict(
+        max_slots=args.max_slots, cache_len=args.cache_len,
         eos_id=eos_id, cache_dtype=_KV_DTYPES[args.kv_cache_dtype],
         chunked_prefill=args.chunked_prefill, decode_steps=args.decode_steps,
         mixed_step=args.mixed_step, kv_layout=args.kv_layout,
         kv_page_size=args.kv_page_size, kv_pool_tokens=args.kv_pool_tokens,
         prefix_cache=args.prefix_caching, max_queue=args.max_queue,
         queue_timeout_s=args.queue_timeout,
-        speculative_k=default_speculative_k(args.role, args.speculative),
+        speculative_k=(args.speculative
+                       if getattr(args, "speculative_resolved", False)
+                       else default_speculative_k(args.role,
+                                                  args.speculative)))
+
+
+def build_engine(model, args, *, eos_id: int | None, draft_model=None,
+                 adapter_registry=None, **kw):
+    """The engine the CLI's ``args`` describe, over a loaded model (and
+    the loaded draft of ``--draft-model-path``, and the registry of
+    ``--lora-modules``); ``kw``: :func:`engine_kw_for`'s knobs."""
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    return InferenceEngine(
+        model, **engine_kwargs(args, eos_id=eos_id), **kw,
         draft_model=draft_model, adapter_registry=adapter_registry)
 
 

@@ -32,18 +32,28 @@ Port of the chat part of ``llm_in_practise_tpu/serve/api.py``:
   pools its engine's model with no adapter context, so a handle on the
   shared engine answers the base model's vectors, as in JAX.
 
+- disaggregated prefill/decode (JAX ``api.py:254-345, 391-473``,
+  :mod:`.disagg`): ``POST /internal/handoff/prefill`` prefills a chat
+  request on a prefill-capable replica, publishes its KV and answers the
+  handoff id (501 on a decode replica or a model without a handoff
+  store, 422 / 429 / 503 as a chat would, 503 ``handoff_failed`` when the
+  publish failed); a chat request carrying ``kv_transfer_params``
+  ``{"handoff_id": ...}`` claims that entry from the store and decodes
+  from it (a lost claim re-prefills locally), and a shed request re-pins
+  its claimed entry so the retry elsewhere can still claim it.
+
 Built on the stdlib ``ThreadingHTTPServer``. Handler threads submit
 requests and read token queues; the engine's own thread does every step.
 An embedding forward runs on its handler thread under the engine's lock,
-between two steps. ``/metrics``, the other debug routes and the
-disaggregation handoff are not ported yet (ROADMAP.md queue A items
-5-6).
+between two steps. ``/metrics``, the other debug routes and the session
+pull are not ported yet (ROADMAP.md queue A items 5-6).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import threading
 import time
 from http.server import ThreadingHTTPServer
@@ -53,6 +63,10 @@ import torch
 
 from llm_in_practise_tpu_torch.data.sft import IM_START, render_chatml
 from llm_in_practise_tpu_torch.serve import constrain, schemas
+from llm_in_practise_tpu_torch.serve.disagg import (
+    new_handoff_id,
+    validate_roles,
+)
 from llm_in_practise_tpu_torch.serve.engine import (
     _FINISH,
     EngineDeadError,
@@ -60,6 +74,8 @@ from llm_in_practise_tpu_torch.serve.engine import (
     SamplingParams,
 )
 from llm_in_practise_tpu_torch.serve.http_util import JsonHandler
+
+_log = logging.getLogger(__name__)
 
 
 def build_prompt(messages) -> str:
@@ -69,15 +85,53 @@ def build_prompt(messages) -> str:
     return rendered + f"\n{IM_START}assistant\n"
 
 
+class HandoffMeter:
+    """Claim-side accounting of the disaggregated handoff, in a decode
+    replica's API layer, where handoff ids arrive and resolve to a pinned
+    entry or turn out lost (JAX ``obs/meter.py::HandoffMeter``; its
+    ``/metrics`` rendering is ROADMAP.md queue A item 6). Handler threads
+    increment concurrently, so the increments hold a lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.claimed = 0        # guarded-by: _lock — ids that resolved
+        self.lost = 0           # guarded-by: _lock — nothing: re-prefill
+        self.repinned = 0       # guarded-by: _lock — re-published sheds
+        self.repin_failed = 0   # guarded-by: _lock — re-pins that failed
+
+    def claim_outcome(self, entry_found: bool) -> None:
+        with self._lock:
+            if entry_found:
+                self.claimed += 1
+            else:
+                self.lost += 1
+
+    def note_repin(self, ok: bool) -> None:
+        with self._lock:
+            if ok:
+                self.repinned += 1
+            else:
+                self.repin_failed += 1
+
+
 class OpenAIServer:
-    """Wires engine + tokenizer + HTTP. ``tokenizer`` needs ``encode``/``decode``."""
+    """Wires engine + tokenizer + HTTP. ``tokenizer`` needs ``encode``/``decode``.
+
+    ``role`` gates the handoff endpoint (a ``"decode"`` server answers it
+    501); ``handoff`` is the store a decode server claims from, by default
+    the engine's own."""
 
     def __init__(self, engine: InferenceEngine, tokenizer, *,
                  model_name: str = "llm-in-practise-tpu-torch",
-                 adapters: dict | None = None):
+                 adapters: dict | None = None, role: str = "both",
+                 handoff=None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
+        self.role = validate_roles(role)
+        self.handoff = (handoff if handoff is not None
+                        else getattr(engine, "handoff", None))
+        self.handoff_meter = HandoffMeter()
         # extra model names served by adapters (serve/adapters.py)
         self.adapters = dict(adapters or {})
         self._httpd: ThreadingHTTPServer | None = None
@@ -189,6 +243,66 @@ class OpenAIServer:
             pooled = hidden[0].to(torch.float32).mean(dim=0)
             return pooled.cpu().numpy().astype(np.float64)
 
+    def handle_prefill(self, body: dict, send_json):
+        """``POST /internal/handoff/prefill``: the prefill half of a
+        disaggregated request. Prefill only, publish the prompt's KV into
+        the model's handoff store, and answer the handoff id that a
+        router passes to a decode replica in ``kv_transfer_params``."""
+        if self.role == "decode":
+            return send_json(501, {"error": {
+                "message": "decode replicas do not prefill for handoff",
+                "type": "unsupported_error"}})
+        try:
+            req = schemas.ChatCompletionRequest.from_dict(
+                dict(body, model=body.get("model") or self.model_name))
+        except schemas.ValidationError as e:
+            return send_json(422, {"error": {
+                "message": str(e), "type": "invalid_request_error"}})
+        engine = self.engine_for(req.model)
+        if engine is None:
+            return send_json(404, {"error": {
+                "message": f"model {req.model!r} not found",
+                "type": "invalid_request_error"}})
+        if getattr(engine, "handoff", None) is None:
+            # per model: an engine without a store of its own must not
+            # burn a prefill whose publish cannot land
+            return send_json(501, {"error": {
+                "message": f"model {req.model!r} has no handoff store on "
+                           "this replica",
+                "type": "unsupported_error"}})
+        prompt_ids = self.tokenizer.encode(build_prompt(req.messages))
+        hid = new_handoff_id()
+        handle = engine.submit(prompt_ids, SamplingParams(max_tokens=1),
+                               handoff_id=hid)
+        try:
+            handle.result()   # a prefill emits no token
+        except EngineDeadError:
+            return send_json(503, {"error": {
+                "message": "engine is not running", "type": "internal_error",
+                "code": "engine_dead"}})
+        if handle.finish_reason == "too_large":
+            detail = engine.page_capacity_detail(len(prompt_ids))
+            return send_json(422, {"error": {
+                "message": (
+                    "prompt can never fit this replica's KV page pool "
+                    f"({detail['pages_needed']} pages needed vs "
+                    f"{detail['pages_capacity']} capacity)"),
+                "type": "invalid_request_error", "code": "prompt_too_large",
+                "detail": detail}})
+        if handle.finish_reason == "queue_full":
+            return send_json(429, {"error": {
+                "message": "prefill queue full — retry another replica",
+                "type": "rate_limit_error", "code": "queue_full"}})
+        if handle.finish_reason != "handoff":
+            return send_json(503, {"error": {
+                "message": "KV publish failed (pool unreachable or handoff "
+                           "budget exhausted) — serve this request "
+                           "undisaggregated",
+                "type": "internal_error", "code": "handoff_failed"}})
+        return send_json(200, {"handoff_id": hid,
+                               "prompt_tokens": len(handle.prompt_ids),
+                               "model": req.model})
+
     def handle_chat(self, body: dict, send_json, send_stream):
         try:
             req = schemas.ChatCompletionRequest.from_dict(body)
@@ -220,12 +334,39 @@ class OpenAIServer:
             with self._structured_lock:
                 self.structured_counts[kind] += 1
             params = dataclasses.replace(params, constraint=automaton)
-        handle = engine.submit(prompt_ids, params)
+        # disaggregated serving: a router that prefilled this prompt on a
+        # prefill replica points at the pinned entry; a lost claim
+        # degrades to a local prefill, counted by the engine
+        kv_entry = store = None
+        xfer = body.get("kv_transfer_params")
+        hid = xfer.get("handoff_id") if isinstance(xfer, dict) else None
+        if hid:
+            # the model's own store (handoff namespaces are per model),
+            # else the server's
+            store = getattr(engine, "handoff", None) or self.handoff
+            if store is not None:
+                kv_entry = store.claim(str(hid))
+            self.handoff_meter.claim_outcome(kv_entry is not None)
+        handle = engine.submit(prompt_ids, params, kv_entry=kv_entry)
         req_id = schemas.completion_id()
 
         def queue_full_429(message):
             # one shape for both shed paths (max_queue at submit, and a
-            # later queue_timeout shed): a gateway's retry keys on it
+            # later queue_timeout shed): a gateway's retry keys on it. A
+            # shed request never used its claimed entry (claims are
+            # consumed once): re-pin it, so the retry claims it instead of
+            # paying the prefill again
+            if kv_entry is not None:
+                try:
+                    store.publish(str(hid), kv_entry)
+                except Exception as e:  # noqa: BLE001 — the retry
+                    # degrades to a local prefill; say where the entry went
+                    self.handoff_meter.note_repin(False)
+                    _log.warning("could not re-pin shed handoff entry %s "
+                                 "(%s: %s); the retry will re-prefill",
+                                 hid, type(e).__name__, e)
+                else:
+                    self.handoff_meter.note_repin(True)
             return send_json(429, {"error": {
                 "message": message + " — retry later or against another "
                                      "replica",
@@ -356,7 +497,8 @@ class OpenAIServer:
 
             def do_POST(self):
                 if self.path not in ("/v1/chat/completions",
-                                     "/v1/embeddings"):
+                                     "/v1/embeddings",
+                                     "/internal/handoff/prefill"):
                     return self._json(404, {"error": {"message": "not found"}})
                 body, err = self._read_json()
                 if err:
@@ -364,6 +506,8 @@ class OpenAIServer:
                 try:
                     if self.path == "/v1/embeddings":
                         return server.handle_embeddings(body, self._json)
+                    if self.path == "/internal/handoff/prefill":
+                        return server.handle_prefill(body, self._json)
                     return server.handle_chat(body, self._json, self._sse)
                 except Exception as e:  # noqa: BLE001 — a handler fault must
                     # still answer the client unless a response already went

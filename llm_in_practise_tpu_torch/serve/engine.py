@@ -55,6 +55,17 @@ Port of ``llm_in_practise_tpu/serve/engine.py``:
   step, the decode block and the spec verify the slot plane. The draft
   model's catch-up and roll run base. Prefix-cache keys are shifted by
   the adapter's namespace (``token + (ns << 32)``) in both layouts.
+- **KV tiers** (JAX ``engine.py`` ``kv_pool`` sections): with a
+  :class:`~.kv_pool.TieredKV` every finished prefill's entry is written
+  through to the host pool (and the pool server), a contiguous L1's
+  evictions offload there, and admission cascades to the tiers on an L1
+  miss, promoting the hit.
+- **Disaggregated prefill/decode** (JAX ``engine.py`` ``role`` /
+  ``handoff`` sections, :mod:`.disagg`): a ``role="prefill"`` engine
+  finishes a request carrying a ``handoff_id`` at the end of its prefill,
+  and publisher threads copy its KV to the host and publish it; a
+  ``role="decode"`` engine admits a claimed entry (``submit(kv_entry=)``)
+  as a full prefix hit.
 
 Threading: HTTP handler threads call :meth:`InferenceEngine.submit`,
 which touches no tensor; one background thread runs :meth:`step` and
@@ -75,6 +86,13 @@ import numpy as np
 import torch
 
 from llm_in_practise_tpu_torch.infer.sampling import sample_token_batched
+from llm_in_practise_tpu_torch.models.layers import to_kv_dtype
+from llm_in_practise_tpu_torch.serve import kv_pool as kvp
+from llm_in_practise_tpu_torch.serve.disagg import (
+    rows_mismatch,
+    usable_for_engine,
+    validate_roles,
+)
 from llm_in_practise_tpu_torch.serve.graphs import StepGraphs
 from llm_in_practise_tpu_torch.serve.mixed_step import (
     batched_chunk,
@@ -168,6 +186,13 @@ class Request:
     # by _record_finished)
     adapter_ref: bool = dataclasses.field(
         default=False, repr=False, compare=False)
+    # disaggregated serving: a claimed, validated handoff entry (a
+    # kv_pool.HostEntry) that admission inserts as a full prefix hit;
+    # ``handoff_id`` marks a prefill-role request, which publishes its
+    # prompt KV under that id and finishes ("handoff") instead of decoding
+    kv_entry: Any = dataclasses.field(default=None, repr=False,
+                                      compare=False)
+    handoff_id: str | None = None
 
     def next_item(self, poll_s: float = 1.0):
         """Next queue item: a token id or the finish sentinel. The wait is
@@ -257,6 +282,14 @@ class InferenceEngine:
     - ``adapter_registry``: an :class:`~.multi_lora.AdapterRegistry`
       whose adapters requests name at :meth:`submit`; slots under
       different adapters, and base slots, share each dispatch.
+    - ``kv_pool``: a :class:`~.kv_pool.TieredKV` (or any object with its
+      ``lookup`` / ``offload`` / ``offload_on_put``) behind the prefix
+      cache, which it turns on.
+    - ``role`` (``"prefill"``, ``"decode"`` or ``"both"``) and ``handoff``
+      (a :class:`~.disagg.LocalHandoff` or :class:`~.disagg.RemoteHandoff`,
+      which a prefill engine needs): the disaggregated split. A decode
+      replica that has to prefill anyway (a lost or mismatched entry)
+      counts it in ``local_prefills`` and logs it once.
 
     On the card each decode block, each fused mixed step, each spec round
     and each draft roll is one CUDA graph replay (:mod:`.graphs`), and
@@ -272,17 +305,20 @@ class InferenceEngine:
                  decode_steps: int = 1, prefill_budget: int = 1,
                  mixed_step: bool = True, kv_layout: str = "contiguous",
                  kv_page_size: int = 16, kv_pool_tokens: int | None = None,
-                 adapter_registry=None, kv_pool=None, handoff=None,
-                 session_store=None, max_queue: int | None = None,
+                 adapter_registry=None, kv_pool=None, role: str = "both",
+                 handoff=None, session_store=None,
+                 max_queue: int | None = None,
                  queue_timeout_s: float | None = None):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
                              f"got {kv_layout!r}")
         if mesh is not None:
             raise _not_ported("mesh", 14, "sharded serving")
-        if kv_pool is not None or handoff is not None:
-            raise _not_ported("kv_pool / handoff", 5,
-                              "KV tiers and the disaggregated handoff")
+        validate_roles(role)
+        if role == "prefill" and handoff is None:
+            raise ValueError(
+                "role='prefill' needs a handoff store to publish KV into "
+                "(serve.disagg.LocalHandoff or RemoteHandoff)")
         if session_store is not None:
             raise _not_ported("session_store", 5, "session-native serving")
         if chunked_prefill is not None and chunked_prefill < 1:
@@ -357,10 +393,11 @@ class InferenceEngine:
         self._paged_admit_blocked = False
         # prefix caching (vLLM APC): the paged layout shares physical
         # pages through the page index, whose LRU the pool reclaims from
-        # before admission fails; the contiguous layout copies rows
+        # before admission fails; the contiguous layout copies rows. KV
+        # tiers sit behind an L1, so a kv_pool turns it on
         if self.paged is not None:
             idx = None
-            if prefix_cache:
+            if prefix_cache or kv_pool is not None:
                 kw = {}
                 if isinstance(prefix_cache, PrefixCache):
                     kw = dict(max_tokens=prefix_cache.max_tokens,
@@ -368,10 +405,45 @@ class InferenceEngine:
                 idx = PagedPrefixIndex(self.paged.pool, **kw)
                 self.paged.pool.reclaim = idx.evict_pages
             self.prefix_cache = idx
-        elif prefix_cache is True:
+        elif prefix_cache is True or (not prefix_cache
+                                      and kv_pool is not None):
             self.prefix_cache = PrefixCache()
         else:
             self.prefix_cache = prefix_cache or None
+        # tiered offload (LMCache): a contiguous L1's evictions flow into
+        # the tiers, after the caller's own hook; with write-through on
+        # the entry went down at prefill already. Paged engines feed the
+        # tiers by write-through only (an evicted shared page has no
+        # token key of its own)
+        self.kv_pool = kv_pool
+        if (kv_pool is not None and self.prefix_cache is not None
+                and self.paged is None):
+            prior = self.prefix_cache.on_evict
+
+            def _evict(key, entry, _prior=prior):
+                if _prior is not None:
+                    _prior(key, entry)
+                if not kv_pool.offload_on_put:
+                    kv_pool.offload(list(key), entry)
+
+            self.prefix_cache.on_evict = _evict
+        # disaggregated serving (serve/disagg.py): a prefill replica's
+        # publishes run on a pool of publisher threads (the copy to the
+        # host and the store's put stall only the waiting handoff
+        # request, never the step loop); a decode replica's local
+        # prefills are counted
+        self.role = role
+        self.handoff = handoff
+        self.handoff_published = 0      # guarded-by: _publish_lock
+        self.handoff_publish_failed = 0  # guarded-by: _publish_lock
+        self._publish_lock = threading.Lock()
+        self._publish_queue: "queue.Queue" = queue.Queue()
+        self._publishers: list[threading.Thread] = []
+        self._n_publishers = min(4, max_slots)
+        self.kv_admitted = 0            # requests seeded by a claimed entry
+        self.kv_rejected = 0            # claimed entries that failed checks
+        self.local_prefills = 0         # prefills a decode replica ran
+        self._decode_prefill_logged = False
         # speculative decoding (JAX engine.py:619-703): the counters count
         # real drafted positions only (padding and undrafted slots in
         # neither); rounds are spec dispatches and round tokens what they
@@ -483,17 +555,23 @@ class InferenceEngine:
     # --- submission ----------------------------------------------------------
 
     def submit(self, prompt_ids, params: SamplingParams | None = None, *,
-               kv_entry=None, session_id: str | None = None,
+               kv_entry=None, handoff_id: str | None = None,
+               session_id: str | None = None,
                adapter: str | None = None) -> Request:
         """Queue a request; safe from any thread (touches no tensor). Past
         ``max_queue`` waiting requests it is shed at once; a paged prompt
         that can never fit the pool finishes at once as ``too_large``.
         ``adapter`` names a registered LoRA adapter to decode under: an
         unknown name, or any name on an engine without a registry, raises
-        ``ValueError`` here, before anything is queued."""
+        ``ValueError`` here, before anything is queued.
+
+        ``kv_entry``: a :class:`~.kv_pool.HostEntry` claimed from a
+        handoff store, validated here (a mismatch is counted in
+        ``kv_rejected`` and the request prefills); admission inserts it
+        as a full prefix hit. ``handoff_id``: a prefill-only request,
+        whose prompt KV is published under that id; it finishes with
+        ``"handoff"`` (or ``"handoff_failed"``) and emits no token."""
         params = params or SamplingParams()
-        if kv_entry is not None:
-            raise _not_ported("kv_entry", 5, "the disaggregated handoff")
         if session_id is not None:
             raise _not_ported("session_id", 5, "session-native serving")
         prompt_ids = list(map(int, prompt_ids))
@@ -503,7 +581,7 @@ class InferenceEngine:
         if len(prompt_ids) > max_prompt:  # sliding-window crop
             prompt_ids = prompt_ids[-max_prompt:]
         req = Request(next(self._uid), prompt_ids, params, engine=self,
-                      adapter=adapter)
+                      adapter=adapter, handoff_id=handoff_id)
         if (self.paged is not None
                 and not self.paged.fits_ever(len(prompt_ids) + 1)):
             # its pages and the first decode's exceed the pool even when
@@ -527,6 +605,10 @@ class InferenceEngine:
             except KeyError:
                 raise ValueError(f"unknown adapter {adapter!r}") from None
             req.adapter_ref = True
+        if kv_entry is not None:
+            # validated before the request is queued: the engine thread
+            # may admit it the moment it is
+            req.kv_entry = self._accept_external_kv(kv_entry, prompt_ids)
         with self._submit_lock:
             shed = (self.max_queue is not None
                     and self.pending.qsize() >= self.max_queue)
@@ -640,6 +722,18 @@ class InferenceEngine:
                 break
             plen = len(req.prompt_ids)
             hit = self._lookup_prefix(req, plen)
+            if self.role == "decode" and (hit is None or hit.length < plen):
+                # the degradation is served but counted, where the prefill
+                # is about to run: prefill work on a decode replica is the
+                # interference disaggregation exists to remove
+                self.local_prefills += 1
+                if not self._decode_prefill_logged:
+                    self._decode_prefill_logged = True
+                    _log.warning(
+                        "decode-role engine is prefilling locally (handoff "
+                        "entry lost or request arrived without one); "
+                        "serving continues, but this replica is no longer "
+                        "free of prefill interference (local_prefills)")
             if hit is None and not self._should_chunk(0, plen):
                 self.slot_req[slot] = req   # reserved; activated after prefill
                 self.slot_ready[slot] = False
@@ -684,17 +778,60 @@ class InferenceEngine:
             rem > self.chunked_prefill or not self._oneshot_fits(done, rem))
 
     def _lookup_prefix(self, req: Request, plen: int):
-        """This request's prefix hit: a :class:`~.paged_kv.PagedHit` in
-        the paged layout, a :class:`~.prefix_cache.PrefixEntry` in the
-        contiguous one (L1 only: the JAX kv-pool tiers are queue A item
-        5), or None. Every hit's suffix fits: the port's one-shot writes
+        """This request's prefix hit, best first: a claimed handoff entry
+        (validated at submit; a full-length direct insert), the L1 (the
+        page index in the paged layout, the row cache in the contiguous
+        one), then the kv-pool tiers, whose hit is promoted into L1. A
+        :class:`~.paged_kv.PagedHit` in the paged layout, a
+        :class:`~.prefix_cache.PrefixEntry` on the card in the contiguous
+        one, or None. Every hit's suffix fits: the port's one-shot writes
         exactly the suffix's rows."""
+        if self.paged is not None:
+            return self._paged_lookup(req, plen)
+        ext = req.kv_entry
+        if ext is not None:
+            req.kv_entry = None
+            self.kv_admitted += 1
+            return kvp.entry_to_device(ext, self.device, self.cache_dtype)
         if self.prefix_cache is None:
             return None
-        if self.paged is not None:
-            return self._paged_lookup(req)
-        return self.prefix_cache.lookup(
-            self._ns_ids(req.adapter, req.prompt_ids))
+        key_ids = self._ns_ids(req.adapter, req.prompt_ids)
+        hit = self.prefix_cache.lookup(key_ids)
+        if hit is not None or self.kv_pool is None:
+            return hit
+        host = self.kv_pool.lookup(key_ids, usable=self._tier_usable(plen))
+        if host is None:
+            return None
+        hit = kvp.entry_to_device(host, self.device, self.cache_dtype)
+        self.prefix_cache.put(key_ids[:hit.length], hit)
+        return hit
+
+    def _tier_usable(self, plen: int):
+        """The tiers' candidate filter (it reads an entry's metadata and
+        row shapes only, before any copy): the port's cache layout, rows
+        that fit this engine's cache, and last logits on a full hit. The
+        JAX filter's width and suffix-fit rules have nothing to reject
+        here: the port copies ``length`` rows and its one-shot suffix
+        writes exactly its rows (ROADMAP.md §C)."""
+        def usable(entry) -> bool:
+            if getattr(entry, "slot_axis", 0) != 0:
+                return False
+            if entry.length >= plen and entry.last_logits is None:
+                return False
+            return rows_mismatch(entry, self) is None
+        return usable
+
+    def _accept_external_kv(self, host, prompt_ids):
+        """A claimed handoff entry validated for this engine (kept on the
+        host until admission copies it to the card), or None, counted in
+        ``kv_rejected``: a mismatched entry degrades to a local prefill."""
+        why = usable_for_engine(host, prompt_ids, self)
+        if why is not None:
+            with self._submit_lock:
+                self.kv_rejected += 1
+            _log.warning("rejecting handed-off KV entry: %s", why)
+            return None
+        return host
 
     def _begin_prefill(self, req: Request, slot: int, plen: int,
                        hit=_UNSET) -> None:
@@ -706,7 +843,7 @@ class InferenceEngine:
         if self.paged is not None:
             return self._paged_begin_prefill(req, slot, plen, hit)
         if hit is not None:
-            self._insert_rows(slot, hit.rows)
+            self._insert_rows(slot, hit.rows, hit.length)
             if hit.length == plen:
                 self._activate(slot, req, plen, hit.last_logits)
                 return
@@ -723,8 +860,11 @@ class InferenceEngine:
         suffix = req.prompt_ids[done:]
         last = self._chunk_slot(slot, suffix, done, width=len(suffix),
                                 adapter=req.adapter)
-        self._store_prefix(req, plen, self._slot_rows(slot, plen), last)
-        self._activate(slot, req, plen, last)
+        rows = (self._slot_rows(slot, plen)
+                if self.prefix_cache is not None or req.handoff_id is not None
+                else None)
+        self._store_prefix(req, plen, rows, last)
+        self._activate(slot, req, plen, last, rows)
 
     def _prefill_batch(self, batch: list[tuple[int, Request, int]]) -> None:
         """One-shot prefill of several prompts in one forward, right-padded
@@ -796,19 +936,26 @@ class InferenceEngine:
         self.prefill_batches_run += 1
         self.dispatches_total += 1
         for j, (slot, req, plen) in enumerate(batch):
+            rows = None
             if self.paged is not None:
-                self._paged_store_prefix(req, plen, slot)
-            elif self.prefix_cache is not None:
-                self._store_prefix(req, plen, slice_cache_rows(
+                self._paged_store_prefix(req, plen, slot, logits[j:j + 1])
+            elif (self.prefix_cache is not None
+                  or req.handoff_id is not None):
+                rows = slice_cache_rows(
                     [{k: layer[k][j:j + 1] for k in ("k", "v")}
-                     for layer in pre], plen), logits[j:j + 1])
-            self._activate_with_token(slot, req, plen, int(first[j]))
+                     for layer in pre], plen)
+                self._store_prefix(req, plen, rows, logits[j:j + 1])
+            if req.handoff_id is not None:
+                self._complete_handoff(slot, req, plen, logits[j:j + 1],
+                                       rows)
+            else:
+                self._activate_with_token(slot, req, plen, int(first[j]))
 
-    def _insert_rows(self, slot: int, rows) -> None:
-        """Copy stored prefix rows into ``slot``'s first positions."""
+    def _insert_rows(self, slot: int, rows, length: int) -> None:
+        """Copy the first ``length`` stored prefix rows into ``slot``."""
         for layer, r in zip(self.cache, rows):
             for key in ("k", "v"):
-                layer[key][slot, :r[key].shape[1]] = r[key][0]
+                layer[key][slot, :length] = r[key][0, :length]
 
     def _slot_rows(self, slot: int, width: int) -> list:
         """A copy of ``slot``'s first ``width`` KV rows (a prefix entry)."""
@@ -822,10 +969,14 @@ class InferenceEngine:
         contiguous layout's prefix cache."""
         if self.prefix_cache is None:
             return
-        self.prefix_cache.put(self._ns_ids(req.adapter, req.prompt_ids),
-                              PrefixEntry(
-            length=plen, bucket=rows[0]["k"].shape[1], rows=rows,
-            last_logits=last_logits))
+        key_ids = self._ns_ids(req.adapter, req.prompt_ids)
+        entry = PrefixEntry(length=plen, bucket=rows[0]["k"].shape[1],
+                            rows=rows, last_logits=last_logits)
+        self.prefix_cache.put(key_ids, entry)
+        if getattr(self.kv_pool, "offload_on_put", False):
+            # LMCache write-through: a sibling or restarted engine starts
+            # with this prefix warm
+            self.kv_pool.offload(key_ids[:plen], entry)
 
     def _prefill_entries(self) -> list[tuple[int, dict, list[int]]]:
         """(slot, state, next chunk's token ids) of every mid-prefill slot."""
@@ -939,18 +1090,24 @@ class InferenceEngine:
                 continue
             req, plen = st["req"], st["plen"]
             del self.slot_prefill[slot]
+            rows = None
             if self.paged is not None:
-                self._paged_store_prefix(req, plen, slot)
+                self._paged_store_prefix(req, plen, slot, st["last_logits"])
             elif self.prefix_cache is not None:
-                self._store_prefix(req, plen, self._slot_rows(slot, plen),
-                                   st["last_logits"])
-            self._activate(slot, req, plen, st["last_logits"])
+                rows = self._slot_rows(slot, plen)
+                self._store_prefix(req, plen, rows, st["last_logits"])
+            # the rows ride to the handoff path, gathered once
+            self._activate(slot, req, plen, st["last_logits"], rows)
 
     def _activate(self, slot: int, req: Request, plen: int,
-                  last_logits: torch.Tensor) -> None:
+                  last_logits: torch.Tensor, rows=None) -> None:
         """Sample the first token from the prompt's last logits and make the
         slot decodable. A preempted request resumes without sampling: its
-        next token was emitted before the preemption."""
+        next token was emitted before the preemption. A prefill-role
+        request is handed off instead (``rows``: its prompt rows, when
+        the caller already copied them)."""
+        if req.handoff_id is not None:
+            return self._complete_handoff(slot, req, plen, last_logits, rows)
         if req.resume_last is not None:
             return self._activate_with_token(slot, req, plen, 0)
         dev, p = self.device, req.params
@@ -1087,38 +1244,69 @@ class InferenceEngine:
         writes stay inside the view (their scatter targets are trash)."""
         return np.minimum(self._decode_index(), max(width - wwin, 0))
 
-    def _paged_lookup(self, req: Request) -> PagedHit | None:
-        """Paged admission's prefix hit: the page index's longest
-        full-page match, its pages refcounted into the hit (the JAX
-        kv-pool tier and handoff hits are queue A item 5)."""
-        pages = self.prefix_cache.lookup(
-            self._ns_ids(req.adapter, req.prompt_ids))
-        if not pages:
+    def _paged_lookup(self, req: Request, plen: int) -> PagedHit | None:
+        """Paged admission's prefix hit, best first (JAX
+        ``_paged_lookup``): a claimed handoff entry (host rows, validated
+        at submit), the page index's longest full-page match (its pages
+        refcounted into the hit), then the kv-pool tiers (a host entry,
+        scattered into the slot's pages at admission)."""
+        ext = req.kv_entry
+        if ext is not None:
+            req.kv_entry = None
+            self.kv_admitted += 1
+            return PagedHit(length=ext.length, entry=ext,
+                            last_logits=ext.last_logits, external=True)
+        if self.prefix_cache is None:
             return None
-        return PagedHit(length=len(pages) * self.paged.page_size,
-                        pages=pages)
+        key_ids = self._ns_ids(req.adapter, req.prompt_ids)
+        pages = self.prefix_cache.lookup(key_ids)
+        if pages:
+            return PagedHit(length=len(pages) * self.paged.page_size,
+                            pages=pages)
+        if self.kv_pool is None:
+            return None
+        host = self.kv_pool.lookup(key_ids, usable=self._tier_usable(plen))
+        if host is None:
+            return None
+        return PagedHit(
+            length=host.length, entry=host,
+            last_logits=host.last_logits if host.length == plen else None)
 
     def _paged_begin_prefill(self, req: Request, slot: int, plen: int,
                              hit: PagedHit | None) -> None:
         """Reserve the prompt's actual pages (+1 decode token, not a
-        cache_len worst case), map the hit's shared pages, then chunk or
-        prefill the suffix at once. A dry pool hands the shared refs back,
-        requeues the request at the head and stops admission for this
-        step (decode-side growth may preempt; admission never does). The
-        JAX page-by-page shrink of a hit whose suffix cannot fit has
-        nothing to do here: the port's one-shot writes exactly the
-        suffix's rows, which always fit."""
-        if hit is not None:
+        cache_len worst case), map the hit's shared pages or scatter its
+        entry's rows, then chunk or prefill the suffix at once. A dry pool
+        hands the shared refs back (and a claimed entry back to the
+        request: a claim is consumed once), requeues the request at the
+        head and stops admission for this step (decode-side growth may
+        preempt; admission never does). The JAX page-by-page shrink of a
+        hit whose suffix cannot fit has nothing to do here: the port's
+        one-shot writes exactly the suffix's rows, which always fit."""
+        if hit is not None and hit.pages:
             self.paged.map_shared(slot, hit.pages)
         if not self.paged.extend(slot, plen + 1):
             self.paged.release_slot(slot)
             self.slot_req[slot] = None
             self.slot_ready[slot] = False
+            if hit is not None and hit.external:
+                req.kv_entry = hit.entry
+                self.kv_admitted -= 1
             self._paged_admit_blocked = True
             with self.pending.mutex:
                 self.pending.queue.appendleft(req)
             return
         done = hit.length if hit is not None else 0
+        if hit is not None and hit.entry is not None:
+            self._paged_insert_entry(slot, hit.entry, hit.length)
+            # promote a tier hit into the page index: the next request
+            # with this prefix shares the pages instead of fetching rows
+            self._paged_register_pages(req.prompt_ids[:hit.length], slot,
+                                       req.adapter)
+            if hit.length == plen:
+                self._activate(slot, req, plen,
+                               hit.last_logits.to(self.device))
+                return
         if self._should_chunk(done, plen - done):
             self.slot_req[slot] = req
             self.slot_ready[slot] = False
@@ -1127,8 +1315,31 @@ class InferenceEngine:
             return
         last = self._paged_suffix(slot, req.prompt_ids[done:], done,
                                   req.adapter)
-        self._paged_store_prefix(req, plen, slot)
+        self._paged_store_prefix(req, plen, slot, last)
         self._activate(slot, req, plen, last)
+
+    def _paged_gather_entry(self, slot: int, plen: int,
+                            last_logits) -> PrefixEntry:
+        """A page-wise prefix entry of ``slot``'s first ``plen`` positions:
+        its live pages' rows (``ceil(plen / P) * P``), gathered into one
+        fresh tensor that owes nothing to the pool (JAX
+        ``_paged_gather_entry``)."""
+        width = self.paged.entry_width(plen)
+        flat = self.paged.gather_rows(slot, width)
+        keys = self.paged.keys
+        rows = [{k: flat[i * len(keys) + j][None] for j, k in enumerate(keys)}
+                for i in range(self.paged.n_layers)]
+        return PrefixEntry(length=plen, bucket=width, rows=rows,
+                           last_logits=last_logits,
+                           page_size=self.paged.page_size)
+
+    def _paged_insert_entry(self, slot: int, entry, length: int) -> None:
+        """Scatter a host entry's first ``length`` rows into ``slot``'s
+        reserved pages: one copy to the card (cast to the pool's dtype),
+        one ``index_copy_`` (JAX ``_paged_insert_entry``)."""
+        self._paged_cow_fork(slot, 0, length)
+        rows = kvp.rows_to_device(entry, self.device, self.paged.store.dtype)
+        self.paged.scatter_rows(rows, slot, length)
 
     def _paged_suffix(self, slot: int, suffix: list[int], done: int,
                       adapter: str | None = None) -> torch.Tensor:
@@ -1323,11 +1534,102 @@ class InferenceEngine:
             self.prefix_cache.register(
                 self._ns_ids(adapter, token_ids[:nfull * P]), pages)
 
-    def _paged_store_prefix(self, req: Request, plen: int, slot: int) -> None:
+    def _paged_store_prefix(self, req: Request, plen: int, slot: int,
+                            last_logits) -> None:
         """The paged twin of :meth:`_store_prefix`: the prompt's KV is
-        already in the slot's pages, so storing it is indexing them."""
+        already in the slot's pages, so storing it is indexing them, plus
+        the kv-pool write-through of a page-wise entry."""
         self._paged_register_pages(req.prompt_ids[:plen], slot,
                                    req.adapter)
+        if getattr(self.kv_pool, "offload_on_put", False):
+            self.kv_pool.offload(
+                self._ns_ids(req.adapter, req.prompt_ids[:plen]),
+                self._paged_gather_entry(slot, plen, last_logits))
+
+    # --- the disaggregated handoff (JAX engine.py:2424-2540) ----------------
+
+    def _complete_handoff(self, slot: int, req: Request, plen: int,
+                          last_logits, rows=None) -> None:
+        """Prefill-role completion: the prompt's KV is in ``slot``. Copy
+        it (and the last logits the decode replica samples its first
+        token from) into an entry that owes nothing to the slot, free the
+        slot, and queue the entry for a publisher thread, which copies it
+        to the host and publishes it under the request's handoff id, then
+        finishes the request without a token. The engine thread pays the
+        gather only; a slow or dead pool stalls the waiting request, never
+        the step loop. ``rows``: the prompt's rows, already copied."""
+        if self.paged is not None:
+            entry = self._paged_gather_entry(slot, plen, last_logits)
+            self.paged.release_slot(slot)
+        else:
+            entry = PrefixEntry(
+                length=plen, bucket=plen,
+                rows=rows if rows is not None else self._slot_rows(slot,
+                                                                   plen),
+                last_logits=last_logits)
+        ready = None
+        if self.device.type == "cuda":
+            # the publisher's copy waits on this, on a stream of its own
+            ready = torch.cuda.Event()
+            ready.record()
+        self.slot_req[slot] = None
+        self.slot_ready[slot] = False
+        self.slot_budget[slot] = 0
+        self.slot_hist[slot] = None
+        self.slot_constraint[slot] = None
+        if not self._publishers:
+            self._publishers = [
+                threading.Thread(target=self._run_publisher, daemon=True,
+                                 name=f"handoff-publisher-{i}")
+                for i in range(self._n_publishers)]
+            for t in self._publishers:
+                t.start()
+        self._publish_queue.put((req, entry, ready))
+
+    def _run_publisher(self) -> None:
+        """A handoff publisher: copy an entry to the host and publish it,
+        then finish its request ("handoff", or "handoff_failed" when the
+        copy or the store failed), so a caller waiting on the request
+        knows the KV is claimable. Several run at once: publishes are
+        independent I/O."""
+        stream = None
+        while True:
+            item = self._publish_queue.get()
+            if item is None:
+                return
+            req, entry, ready = item
+            try:
+                if ready is None:
+                    host = kvp.entry_to_host(entry)
+                else:
+                    if stream is None:
+                        stream = torch.cuda.Stream(device=self.device)
+                    with torch.cuda.stream(stream):
+                        stream.wait_event(ready)
+                        for layer in entry.rows:
+                            for t in layer.values():
+                                t.record_stream(stream)
+                        entry.last_logits.record_stream(stream)
+                        host = kvp.entry_to_host(entry)
+                del entry
+                self.handoff.publish(req.handoff_id, host)
+            except Exception as e:  # noqa: BLE001 — a transport fault or a
+                # pool refusal: the request must still finish, and the
+                # caller serves it elsewhere
+                with self._publish_lock:
+                    self.handoff_publish_failed += 1
+                _log.warning("handoff publish %s failed: %s: %s",
+                             req.handoff_id, type(e).__name__, e)
+                req.finish_reason = "handoff_failed"
+            else:
+                with self._publish_lock:
+                    self.handoff_published += 1
+                req.finish_reason = "handoff"
+            req.finish_time = time.monotonic()
+            # the KV being claimable is a prefill replica's first token
+            req.first_token_time = req.finish_time
+            self._record_finished(req)
+            req.tokens.put(_FINISH)
 
     # --- speculative decoding (JAX engine.py:1242-1358, 3360-3580) ---------
 
@@ -1791,10 +2093,13 @@ class InferenceEngine:
         active = self._ready_slots()
         # at decode_steps 1 a spec engine keeps speculating while prompts
         # prefill: a round yields 1 + accepted tokens per dispatch, the
-        # fused step one. It composes only where the round can run after
-        # this step's chunks have advanced each prefill row
+        # fused step one. A decode replica never suspends it (a prefill
+        # there is the rare degraded path, JAX engine.py:4012-4025). It
+        # composes only where the round can run after this step's chunks
+        # have advanced each prefill row
         spec_composes = (
-            self.decode_steps == 1 and self._spec_applicable(active)
+            (self.decode_steps == 1 or self.role == "decode")
+            and self._spec_applicable(active)
             and all(st["done"] + budget * self.chunked_prefill
                     + self.speculative_k + 1 <= self.cache_len
                     for st in self.slot_prefill.values()))
@@ -1811,7 +2116,10 @@ class InferenceEngine:
             if self.slot_prefill and active:
                 n = self._plan_block(active)
                 ok, why = self._mixed_feasible(n)
+                # a decode replica reaches here only where speculation
+                # cannot run at all, so it never logs a suspension
                 if (ok and self.speculative_k is not None
+                        and self.role != "decode"
                         and not self._spec_suspended_logged):
                     self._spec_suspended_logged = True
                     _log.info("speculative decoding suspended while a "
@@ -1869,6 +2177,8 @@ class InferenceEngine:
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=30.0)
+        for _ in self._publishers:   # each publisher exits on a None
+            self._publish_queue.put(None)
 
     def is_alive(self) -> bool:
         """True while submitted requests can still make progress."""

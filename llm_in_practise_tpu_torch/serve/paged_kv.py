@@ -280,14 +280,24 @@ class PagePool:
 
 @dataclasses.dataclass
 class PagedHit:
-    """A paged-admission prefix hit: ``pages`` already hold the prefix KV
-    (the index lookup took one share ref per page for the caller, which
-    the engine maps into the slot's block table). The JAX hit's row
-    ``entry`` (kv-pool tiers, handoff claims) belongs to ROADMAP.md queue
-    A item 5 and has no counterpart here."""
+    """A paged-admission prefix hit, one of two kinds:
+
+    - ``pages``: physical pages already holding the prefix KV (the index
+      lookup took one share ref per page for the caller, which the engine
+      maps into the slot's block table);
+    - ``entry``: a row entry instead (a kv-pool tier hit or a claimed
+      handoff, a :class:`~.kv_pool.HostEntry` on the host), whose first
+      ``length`` rows are scattered into the slot's pages at admission.
+
+    ``last_logits`` rides along for a full-length entry (the first token
+    samples from it). ``external`` marks a claimed handoff entry, which is
+    consumed once: a dry-pool requeue puts it back on the request."""
 
     length: int
-    pages: list[int]
+    pages: list[int] | None = None
+    entry: object | None = None
+    last_logits: object | None = None
+    external: bool = False
 
 
 class PagedKV:
@@ -400,6 +410,33 @@ class PagedKV:
         lp = np.minimum(t // P, self.pages_per_slot - 1)
         return (self.block_tables[slot, lp] * P
                 + (t % P)).astype(np.int32)[None, :]
+
+    def entry_width(self, length: int) -> int:
+        """Rows of a page-wise entry of ``length`` positions: its live
+        pages, not a pow2 bucket nor ``cache_len``."""
+        return pages_for(length, self.page_size) * self.page_size
+
+    def gather_rows(self, slot: int, width: int) -> torch.Tensor:
+        """A fresh ``(layers x keys, width, heads, dim)`` tensor of
+        ``slot``'s first ``width`` positions, every layer's K and V in one
+        ``index_select`` (a page-wise entry's rows): it owes nothing to
+        the pool, whose pages may be rewritten as soon as the slot is
+        released."""
+        idx = torch.from_numpy(self.row_gather_idx(slot, width).reshape(-1)
+                               .astype(np.int64)).to(self.store.device)
+        return byte_view(self.store).index_select(1, idx).view(
+            self.store.dtype)
+
+    def scatter_rows(self, rows: torch.Tensor, slot: int,
+                     length: int) -> None:
+        """Write ``rows`` (``(layers x keys, >= length, heads, dim)`` in
+        the pool's dtype, on its device) into ``slot``'s (reserved) pages
+        at positions ``[0, length)``, in place: one ``index_copy_``."""
+        sidx = self.rows_scatter_idx([slot], [length], length)
+        flat = torch.from_numpy(sidx.reshape(-1).astype(np.int64)).to(
+            self.store.device)
+        byte_view(self.store).index_copy_(1, flat,
+                                          byte_view(rows[:, :length]))
 
     def scatter_idx(self, starts: np.ndarray, valid: np.ndarray,
                     width: int) -> np.ndarray:

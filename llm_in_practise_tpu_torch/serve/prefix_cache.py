@@ -15,10 +15,11 @@ pool. Two forms here, one per KV layout:
 - :class:`PagedPrefixIndex` (paged layout): hash-per-page chains over the
   physical pages themselves, refcounted, zero copies.
 
-:class:`PrefixLRU` is the generic store under :class:`PrefixCache`. The
-JAX package's kv-pool tiers reuse it through an eviction hook
-(``on_evict``), an exact-key ``peek`` and ``pop_lru``; those come with
-the tiers (ROADMAP.md queue A item 5).
+:class:`PrefixLRU` is the generic store under :class:`PrefixCache`; the
+host pool and the pool server of :mod:`.kv_pool` reuse it through its
+eviction hook (``on_evict``), the exact-key ``peek`` and ``pop_lru``. A
+contiguous engine with tiers chains an offload onto its L1's
+``on_evict``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,15 @@ class PrefixEntry:
     bucket: int           # stored rows per layer (the prompt's width)
     rows: list            # per-layer {key: (1, bucket, ...) tensor}
     last_logits: object   # (1, vocab) logits at the final prefix position
+    # the cache layout the rows were sliced from: the KV buffers' slot axis
+    # (the port's caches are all slot axis 0; a JAX scan-layout engine's
+    # entries, slot axis 1, reach a port engine only through a shared
+    # pool, and admission filters them out)
+    slot_axis: int = 0
+    # page-wise entries (paged producers): rows span
+    # ceil(length / page_size) * page_size positions; 0 = a row entry of
+    # the prompt's width
+    page_size: int = 0
 
 
 class PrefixLRU:
@@ -42,13 +52,15 @@ class PrefixLRU:
     longest-strict-prefix lookup.
 
     Generic over the value type: ``length_of(value)`` returns the value's
-    true token count.
+    true token count. ``on_evict(key, value)`` fires, outside the lock,
+    for every budget eviction: the tiers' offload hooks attach here.
     """
 
     def __init__(self, *, max_tokens: int, min_prefix: int,
-                 length_of=None):
+                 length_of=None, on_evict=None):
         self.max_tokens = max_tokens
         self.min_prefix = min_prefix
+        self.on_evict = on_evict
         self._length_of = length_of or (lambda v: v.length)
         # the engine thread mutates while other threads read
         self._entries: "OrderedDict[tuple, object]" = OrderedDict()  # guarded-by: _lock
@@ -98,6 +110,7 @@ class PrefixLRU:
         if length < self.min_prefix:
             return
         key = tuple(prompt_ids[:length])
+        evicted: list[tuple[tuple, object]] = []
         with self._lock:
             old = self._entries.pop(key, None)
             if old is not None:
@@ -106,8 +119,32 @@ class PrefixLRU:
             self._total_tokens += length
             while (self._total_tokens > self.max_tokens
                    and len(self._entries) > 1):
-                _, evalue = self._entries.popitem(last=False)
+                ekey, evalue = self._entries.popitem(last=False)
                 self._total_tokens -= self._length_of(evalue)
+                evicted.append((ekey, evalue))
+        if self.on_evict is not None:
+            for ekey, evalue in evicted:
+                self.on_evict(ekey, evalue)
+
+    def peek(self, key):
+        """Exact-key read that leaves the LRU order alone (accounting
+        hooks), or None."""
+        with self._lock:
+            return self._entries.get(tuple(key))
+
+    def pop_lru(self):
+        """Evict and return the least recently used ``(key, value)``, or
+        None when empty. Unlike :meth:`put`'s budget loop this empties
+        the store: a caller enforcing a budget of its own (bytes) owns
+        the floor."""
+        with self._lock:
+            if not self._entries:
+                return None
+            key, value = self._entries.popitem(last=False)
+            self._total_tokens -= self._length_of(value)
+        if self.on_evict is not None:
+            self.on_evict(key, value)
+        return key, value
 
     def clear(self) -> None:
         with self._lock:
@@ -119,8 +156,10 @@ class PrefixCache(PrefixLRU):
     """The contiguous engine's L1: device-tensor prefix entries + reuse
     accounting."""
 
-    def __init__(self, *, max_tokens: int = 32768, min_prefix: int = 16):
-        super().__init__(max_tokens=max_tokens, min_prefix=min_prefix)
+    def __init__(self, *, max_tokens: int = 32768, min_prefix: int = 16,
+                 on_evict=None):
+        super().__init__(max_tokens=max_tokens, min_prefix=min_prefix,
+                         on_evict=on_evict)
         self.full_hits = 0
         self.tokens_saved = 0
 

@@ -127,12 +127,18 @@ def test_slot_reuse_and_budget_bookkeeping():
 
 @pytest.mark.parametrize("knob", [
     dict(mesh=object()),
-    dict(adapter_registry=dict(mesh=object())), dict(kv_pool=object()),
-    dict(handoff=object()), dict(session_store=object())])
+    dict(adapter_registry=dict(mesh=object())), dict(role="prefill"),
+    dict(role="router"), dict(session_store=object())])
 def test_unported_engine_knobs_raise(knob):
     from llm_in_practise_tpu_torch.serve.multi_lora import AdapterRegistry
 
     model = tiny_port_model(64, seed=5)
+    if "role" in knob:
+        # the KV tiers and the handoff are ported: a prefill role needs a
+        # handoff store, and a role must be one of the three (JAX :776)
+        with pytest.raises(ValueError, match="role"):
+            InferenceEngine(model, **knob)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if "adapter_registry" in knob:
             # LoRA serving is ported; its registry's tensor-parallel bank
@@ -169,9 +175,20 @@ def test_prefix_cache_and_paged_knobs_construct_and_serve(knob):
 def test_unported_submit_arguments_raise():
     eng = InferenceEngine(tiny_port_model(64, seed=5), max_slots=1,
                           cache_len=16, cache_dtype=torch.float32)
-    for kw in (dict(kv_entry=object()), dict(session_id="s")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            eng.submit([1, 2, 3], **kw)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        eng.submit([1, 2, 3], session_id="s")
+    # kv_entry is ported (the disaggregated handoff): an entry that does
+    # not fit the prompt is counted in kv_rejected and the request
+    # prefills locally
+    from llm_in_practise_tpu_torch.serve.kv_pool import HostEntry
+
+    bogus = HostEntry(length=2, bucket=2, rows=[], last_logits=None)
+    req = eng.submit([1, 2, 3], SamplingParams(greedy=True, max_tokens=2),
+                     kv_entry=bogus)
+    while eng.step():
+        pass
+    assert eng.kv_rejected == 1 and eng.kv_admitted == 0
+    assert len(req.result()) == 2
 
 
 def test_background_thread_serves_and_stops():

@@ -22,14 +22,15 @@ import importlib, pkgutil, sys
 import llm_in_practise_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 assert "llm_in_practise_tpu_torch.serve.disagg" in names, names
-for name in ("constrain", "arrivals", "multi_lora", "adapters"):
+for name in ("constrain", "arrivals", "multi_lora", "adapters", "kv_pool"):
     assert "llm_in_practise_tpu_torch.serve." + name in names, names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "flax", "llm_in_practise_tpu")
+             if m in ("jax", "jaxlib", "flax", "llm_in_practise_tpu",
+                      "ml_dtypes")
              or m.startswith(("jax.", "jaxlib.", "flax.",
-                              "llm_in_practise_tpu.")))
+                              "llm_in_practise_tpu.", "ml_dtypes.")))
 print(len(names), bad)
 """
 
@@ -57,7 +58,7 @@ def _imported_roots(path):
 
 
 def test_chip_smoke_and_port_sources_import_neither():
-    forbidden = {"jax", "jaxlib", "flax", "llm_in_practise_tpu"}
+    forbidden = {"jax", "jaxlib", "flax", "llm_in_practise_tpu", "ml_dtypes"}
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "llm_in_practise_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -134,14 +135,20 @@ def test_cli_rejects_unported_flags():
                   ["--kv-cache-dtype", "fp8"], ["--speculative", "4"],
                   ["--speculative"],
                   ["--speculative", "4", "--draft-model-path", "d"],
-                  ["--lora-modules", "a=b"]):
+                  ["--lora-modules", "a=b"], ["--kv-offload"],
+                  ["--kv-remote", "127.0.0.1:8100"],
+                  ["--role", "decode", "--kv-remote", "127.0.0.1:8100"]):
         check_not_ported(build_parser().parse_args(base + extra))
     # --quantized_dir is optional: without it --model_path is the input
     check_not_ported(build_parser().parse_args(["--tokenizer_path", "t"]))
-    for extra in (["--tensor-parallel-size", "2"], ["--kv-offload"],
-                  ["--session-store"]):
+    for extra in (["--tensor-parallel-size", "2"], ["--session-store"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             check_not_ported(build_parser().parse_args(base + extra))
+    # the pool server's Prometheus port is item 6
+    from llm_in_practise_tpu_torch.serve.kv_pool import main as pool_main
+
+    with pytest.raises(NotImplementedError, match="item 6"):
+        pool_main(["--port", "0", "--metrics-port", "8101"])
 
 
 def test_nvcc_command_targets_sm90a_into_an_ignored_dir():
