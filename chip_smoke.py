@@ -171,6 +171,30 @@ Phases, in order; any failure exits non-zero:
    Readings: TPOT / TTFT per traffic, the delta's device ms and kernels
    per decode step, MiB gathered per step, bank MiB, swap seconds, twin
    captures and recaptures.
+   Then ``serve_sessions`` on the full-depth NF4 model (session-native
+   serving, the chat page, ``/metrics`` and the HBM ledger; paged, pages
+   of 16, prefix caching, decode blocks of 8): 8 sessions of 3 turns
+   from ``serve/arrivals.py::synthesize_sessions``, one request at a
+   time, with 4 unrelated 600-token requests between two rounds in a
+   2048-token pool, on an engine without a store (its later turns must
+   come out cold or under half their history) and twice on one with a
+   ``SessionStore`` (every later turn admits from at least its pinned
+   pages; the streams equal the second run's byte for byte and every
+   token is in the top 5 of a teacher-forced forward); pins yielding in
+   a 512-token pool (pressure evictions, no allocation failure while a
+   pin remains, no slot loses a page, survivors are chain prefixes, a TTL
+   sweep empties ``session_pins``); two replicas behind their own servers
+   over loopback sharing a pool server started with ``--metrics-port``:
+   a conversation moved from A to B by ``X-Session-ID`` is claimed and
+   prefills only what its prompt does not share with the published
+   history, a never-published session is a counted local prefill, a
+   mismatched entry is discarded unscattered; ``/metrics`` parses and
+   equals ``/debug/sessions`` and ``/debug/hbm``, the ledger books the
+   pool, the weights and the pins and returns to its baseline, the
+   pool's ``kvpool_*`` families, ``GET /`` and ``/chat`` and the SSE the
+   page's script reads; B1 thin on both replicas. Readings: warm and
+   cold TTFT by turn, the migration's prefill tokens and TTFT, the
+   ledger's residual beside ``torch.cuda.memory_allocated``.
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
    Qwen3-8B projection shape (both also at ragged shapes,
    ``NF4_FWD_EDGE_SHAPES`` on both forward routes and
@@ -5407,12 +5431,14 @@ def pool_stats(address) -> dict:
     return RemoteKVClient(address, timeout=30.0).stats()
 
 
-def start_pool_server() -> tuple:
-    """``python -m llm_in_practise_tpu_torch.serve.kv_pool --port 0``: the
-    process and the address it printed."""
+def start_pool_server(metrics_port: int = 0) -> tuple:
+    """``python -m llm_in_practise_tpu_torch.serve.kv_pool --port 0
+    --metrics-port N`` (0: no scrape plane): the process and the address
+    it printed first."""
     proc = subprocess.Popen(
         [sys.executable, "-u", "-m", "llm_in_practise_tpu_torch.serve.kv_pool",
-         "--port", "0"], stdout=subprocess.PIPE, text=True,
+         "--port", "0", "--metrics-port", str(metrics_port)],
+        stdout=subprocess.PIPE, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     line = proc.stdout.readline()
     if " on " not in line:
@@ -5837,6 +5863,726 @@ def disagg_phase(model, shallow, tok, seed: int, card: str,
     return {"disagg": res, "launches": counts["nf4_matmul"],
             "routes": read_routes()["nf4_matmul"],
             "int8_launches": int8_launches}
+
+
+SESS = dict(decode_steps=8, kv_layout="paged", kv_page_size=16,
+            prefix_cache=True)
+SESS_ARRIVALS = dict(seed=7, n_sessions=8, turns=(3, 3),
+                     prompt_tokens=(24, 64), max_tokens=(16, 32))
+SESS_POOL = 2048             # page-pool tokens of leg 1: every pin and a filler
+SESS_FILLERS = 4             # unrelated requests between two turn rounds ...
+SESS_FILLER_TOKENS = 600     # ... of this many prompt tokens: 4 x 604 > 2048
+SESS_YIELD_POOL = 512        # leg 2: too small for every pin and 3 slots
+SESS_YIELD_PROMPT = 150      # leg 2's prompt tokens
+SESS_FLEET_TOKENS = 32       # new tokens of a fleet leg's chat
+SESS_PAGE_TOKENS = 256       # the chat page's max_tokens, as its script posts
+
+
+def sess_words() -> list[str]:
+    survey = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "SURVEY.md")
+    with open(survey, encoding="utf-8") as f:
+        return f.read().split()
+
+
+def sess_text_ids(tok, words, start: int, n: int) -> list[int]:
+    """``n`` token ids of SURVEY.md's words from word ``start`` (taken
+    modulo the corpus)."""
+    start %= len(words)
+    ids = tok.encode(" ".join((words * 3)[start:start + 4 * n]))
+    if len(ids) < n:
+        raise SystemExit(f"serve_sessions: {len(ids)} ids, wanted {n}")
+    return ids[:n]
+
+
+def sess_schedule(tok) -> tuple[list, dict, list]:
+    """The 8 three-turn sessions of ``synthesize_sessions`` (each turn's
+    new suffix as SURVEY.md token ids of its drawn length), in turn
+    rounds (every first turn, then every second, ...), and the fillers of
+    the gaps between rounds (``SESS_FILLERS`` each, distinct)."""
+    from llm_in_practise_tpu_torch.serve.arrivals import synthesize_sessions
+
+    words = sess_words()
+    sched = synthesize_sessions(**SESS_ARRIVALS)
+    suffix = {(a.session_id, a.turn): sess_text_ids(
+        tok, words, 211 * i, a.prompt_tokens) for i, a in enumerate(sched)}
+    rounds = [[a for a in sched if a.turn == t]
+              for t in range(SESS_ARRIVALS["turns"][1])]
+    fillers = [[sess_text_ids(tok, words, 5000 + 1777 * (g * SESS_FILLERS + i),
+                              SESS_FILLER_TOKENS)
+                for i in range(SESS_FILLERS)]
+               for g in range(len(rounds) - 1)]
+    return rounds, suffix, fillers
+
+
+class SessRecorder:
+    """Per request (by uid) the admission's hit length, and per session
+    the pages each finish pinned; the prefill tokens each engine ran
+    (suffixes, one-shot batches and scatters of pulled entries)."""
+
+    def __init__(self, engine):
+        self.hit_len, self.pinned, self.prefill_tokens = {}, {}, 0
+        self.scatters = 0
+        begin, suffix = engine._paged_begin_prefill, engine._paged_suffix
+        batch, insert = engine._prefill_batch, engine._paged_insert_entry
+
+        def begin_w(req, slot, plen, hit):
+            self.hit_len.setdefault(req.uid, 0 if hit is None else hit.length)
+            return begin(req, slot, plen, hit)
+
+        def suffix_w(slot, toks, done, adapter=None):
+            self.prefill_tokens += len(toks)
+            return suffix(slot, toks, done, adapter)
+
+        def batch_w(b):
+            self.prefill_tokens += sum(plen for _, _, plen in b)
+            return batch(b)
+
+        def insert_w(slot, entry, length):
+            self.scatters += 1
+            return insert(slot, entry, length)
+
+        engine._paged_begin_prefill = begin_w
+        engine._paged_suffix = suffix_w
+        engine._prefill_batch = batch_w
+        engine._paged_insert_entry = insert_w
+        store = engine.session_store
+        if store is not None:
+            finish = store.note_finish
+
+            def finish_w(sid, token_ids, pages, **kw):
+                self.pinned[sid] = list(pages)
+                return finish(sid, token_ids, pages, **kw)
+
+            store.note_finish = finish_w
+
+
+def sess_engine(model, tok, seed: int, **kw):
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    kw = {**SESS, "cache_dtype": torch.bfloat16, **kw}
+    return InferenceEngine(model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+                           eos_id=tok.token_to_id(IM_END), seed=seed, **kw)
+
+
+def sess_drive(engine, rec, rounds, suffix, fillers, with_sid: bool) -> list:
+    """The schedule through ``engine``, one request at a time: each
+    session's turn is its history (the last prompt and its stream) and
+    its new suffix; the fillers run between two rounds. Returns one row
+    per turn."""
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    hist, rows = {}, []
+    for t, rnd in enumerate(rounds):
+        for a in rnd:
+            prompt = hist.get(a.session_id, []) + suffix[(a.session_id,
+                                                          a.turn)]
+            pinned_before = len(rec.pinned.get(a.session_id, []))
+            sp = SamplingParams(greedy=True, max_tokens=a.max_tokens)
+            r = engine.submit(prompt, sp,
+                              session_id=a.session_id if with_sid else None)
+            drain(engine)
+            out = list(r.output_ids)
+            rows.append({"sid": a.session_id, "turn": t, "prompt": prompt,
+                         "stream": out, "outcome": r.cache_outcome,
+                         "hit_len": rec.hit_len.get(r.uid, 0),
+                         "ttft_s": r.ttft_s,
+                         "history_pages": (len(hist[a.session_id]) - 1)
+                         // engine.paged.page_size
+                         if a.session_id in hist else 0,
+                         "pinned_before": pinned_before})
+            hist[a.session_id] = prompt + out
+        if t < len(fillers):
+            sp = SamplingParams(greedy=True, max_tokens=4)
+            for f in fillers[t]:
+                engine.submit(f, sp)
+                drain(engine)
+    if engine.error is not None:
+        raise SystemExit(f"serve_sessions: engine failed: {engine.error!r}")
+    return rows
+
+
+def sess_reset(engine) -> None:
+    """Drop every pin and index entry: the pool back to empty."""
+    store = engine.session_store
+    if store is not None:
+        for sid in list(store._sessions):
+            store.drop(sid)
+    engine.prefix_cache.clear()
+    engine.paged.pool.check_leaks(0)
+
+
+def parse_metrics(text: str) -> dict:
+    """A strict reading of a Prometheus text exposition: every sample
+    belongs to a ``# TYPE``-declared family (a histogram's ``_bucket`` /
+    ``_count`` / ``_sum`` to its own), labels parse with their escapes,
+    values are floats. ``{(sample name, frozenset(labels)): value}``."""
+    import re
+
+    kinds, out = {}, {}
+    sample = re.compile(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"(,|$)')
+    for line in text.split("\n"):
+        if not line or line.startswith("# HELP"):
+            continue
+        if line.startswith("# TYPE"):
+            _, _, name, kind = line.split(" ")
+            kinds[name] = kind
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise SystemExit(f"serve_sessions: bad exposition line {line!r}")
+        name, raw = m.group(1), m.group(3) or ""
+        fam = name
+        for suf in ("_bucket", "_count", "_sum"):
+            if name.endswith(suf) and kinds.get(name[:-len(suf)]) \
+                    == "histogram":
+                fam = name[:-len(suf)]
+        if fam not in kinds:
+            raise SystemExit(f"serve_sessions: sample {name} of no family")
+        labels, pos = {}, 0
+        while pos < len(raw):
+            lm = label.match(raw, pos)
+            if lm is None:
+                raise SystemExit(f"serve_sessions: bad labels {raw!r}")
+            labels[lm.group(1)] = (lm.group(2).replace('\\"', '"')
+                                   .replace("\\n", "\n")
+                                   .replace("\\\\", "\\"))
+            pos = lm.end()
+        out[(name, frozenset(labels.items()))] = float(m.group(4))
+    return out
+
+
+def get_url(url: str) -> tuple[int, str, str]:
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read().decode()
+
+
+def post_session(base: str, body: dict, sid: str | None) -> dict:
+    """A chat with the conversation handle in ``X-Session-ID``."""
+    headers = {"Content-Type": "application/json"}
+    if sid is not None:
+        headers["X-Session-ID"] = sid
+    req = urllib.request.Request(base + "/v1/chat/completions",
+                                 data=json.dumps(body).encode(),
+                                 headers=headers)
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise SystemExit(f"serve_sessions: HTTP {r.status}")
+        return json.loads(r.read())
+
+
+def sess_pins_leg(model, tok, seed: int, rounds, suffix, fillers) -> dict:
+    """Leg 1, pins under pressure: the schedule on an engine without a
+    store (the control: the fillers must cost it the conversations), then
+    twice on one engine with a store (the second run after every pin and
+    index entry is dropped: the same shapes, so the same bytes)."""
+    ctl = sess_engine(model, tok, seed, kv_pool_tokens=SESS_POOL)
+    crec = SessRecorder(ctl)
+    control = sess_drive(ctl, crec, rounds, suffix, fillers, with_sid=False)
+    ctl.stop()
+    del ctl
+    from llm_in_practise_tpu_torch.serve.sessions import SessionStore
+
+    store = SessionStore()
+    eng = sess_engine(model, tok, seed, kv_pool_tokens=SESS_POOL,
+                      session_store=store)
+    rec = SessRecorder(eng)
+    runs, counters = [], []
+    for _ in range(2):
+        rec.pinned.clear()
+        runs.append(sess_drive(eng, rec, rounds, suffix, fillers,
+                               with_sid=True))
+        counters.append(store.counters())
+        sess_reset(eng)
+    warm = [r for r in runs[0] if r["turn"] > 0]
+    cold = [r for r in control if r["turn"] > 0]
+    # (a) every later turn admits from at least its pinned history
+    pinned_ok = all(r["outcome"] in ("hit", "partial")
+                    and r["hit_len"] >= r["pinned_before"]
+                    * eng.paged.page_size > 0 for r in warm)
+    # the control lost the conversations to the fillers
+    pressure_real = all(r["outcome"] == "cold"
+                        or 2 * r["hit_len"] <= r["history_pages"]
+                        * eng.paged.page_size for r in cold)
+    # (b) byte-equal to the second run; top 5 of a cold recompute
+    equal = [a["stream"] == b["stream"] for a, b in zip(*runs)]
+    top5 = teacher_forced(model, [r["prompt"] for r in warm],
+                          [r["stream"] for r in warm])
+    tokens = [len(r["stream"]) for r in warm]
+
+    def by_turn(rows, key):
+        return {t: statistics.median(r[key] for r in rows if r["turn"] == t)
+                for t in sorted({r["turn"] for r in rows})}
+
+    out = {"checks": {"a_pinned_history_hit": pinned_ok,
+                      "control_pressure_real": pressure_real,
+                      "b_equal_second_run": all(equal),
+                      "b_top5": top5 == tokens},
+           "outcomes_warm": [r["outcome"] for r in runs[0]],
+           "outcomes_control": [r["outcome"] for r in control],
+           "hit_len_warm": [r["hit_len"] for r in warm],
+           "pinned_pages_before": [r["pinned_before"] for r in warm],
+           "hit_len_control": [r["hit_len"] for r in cold],
+           "ttft_warm_run2_s_by_turn": by_turn(runs[1], "ttft_s"),
+           "ttft_control_s_by_turn": by_turn(control, "ttft_s"),
+           "ttft_warm_run2_s": [r["ttft_s"] for r in runs[1]],
+           "ttft_control_s": [r["ttft_s"] for r in control],
+           "prompt_tokens": [len(r["prompt"]) for r in runs[0]],
+           "store_counters_by_run": counters,
+           "pool_alloc_failures": eng.paged.pool.snapshot()["alloc_failures"],
+           "turns": len(runs[0]), "top5_agreeing": sum(top5),
+           "tokens": sum(tokens)}
+    eng.stop()
+    return out
+
+
+def sess_yield_leg(model, tok, seed: int) -> dict:
+    """Leg 2, pins yield: ``SESS_YIELD_POOL`` tokens of pool, 6 sessions
+    in two waves of 3 concurrent requests (the second wave's slots need
+    the first wave's pins)."""
+    from llm_in_practise_tpu_torch.obs.hbm import get_ledger
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+    from llm_in_practise_tpu_torch.serve.sessions import SessionStore
+
+    led = get_ledger()
+    base = led.account_bytes("session_pins")
+    store = SessionStore()
+    eng = sess_engine(model, tok, seed, kv_pool_tokens=SESS_YIELD_POOL,
+                      session_store=store)
+    rec = SessRecorder(eng)
+    pool = eng.paged.pool
+    failures, slot_pages_ok = [], []
+    alloc, reclaim = pool.try_alloc, pool.reclaim
+
+    def try_alloc(n):
+        got = alloc(n)
+        if got is None:
+            failures.append(store.pinned_pages)
+        return got
+
+    def reclaim_w(n):
+        freed = reclaim(n)
+        # no live slot lost a page: every mapped page still referenced
+        slot_pages_ok.append(all(
+            pool.refcount(p) >= 1 for s in range(eng.max_slots)
+            for p in eng.paged.slot_pages(s)))
+        return freed
+
+    pool.try_alloc, pool.reclaim = try_alloc, reclaim_w
+    words = sess_words()
+    prompts = [sess_text_ids(tok, words, 9000 + 313 * i, SESS_YIELD_PROMPT)
+               for i in range(6)]
+    sp = SamplingParams(greedy=True, max_tokens=16)
+    streams = []
+    for wave in (prompts[:3], prompts[3:]):
+        reqs = [eng.submit(p, sp, session_id=f"yield-{len(streams) + j}")
+                for j, p in enumerate(wave)]
+        drain(eng)
+        streams += [list(r.output_ids) for r in reqs]
+    top5 = teacher_forced(model, prompts, streams)
+    chain_prefix = all(s.pages == rec.pinned[sid][:len(s.pages)]
+                       for sid, s in store._sessions.items())
+    pinned_bytes = led.account_bytes("session_pins") - base
+    booked = pinned_bytes == store.pinned_pages * eng.paged.page_bytes
+    ev = dict(store.counters()["evictions"])
+    store.ttl_s = 1e-3
+    time.sleep(0.01)
+    store.sweep()
+    out = {"checks": {
+        "pressure_evictions": ev["pressure"] > 0,
+        "admission_never_blocked_on_pins": all(f == 0 for f in failures),
+        "no_slot_lost_a_page": all(slot_pages_ok) and top5 == [
+            len(s) for s in streams],
+        "surviving_pins_chain_prefixes": chain_prefix,
+        "session_pins_booked": booked,
+        "ttl_sweep_to_zero": (store.pinned_pages == 0
+                              and led.account_bytes("session_pins")
+                              == base)},
+        "evictions": ev, "alloc_failures_pins": failures,
+        "reclaims": len(slot_pages_ok), "preemptions": eng.preemptions,
+        "pool_tokens": SESS_YIELD_POOL, "top5_agreeing": sum(top5),
+        "tokens": sum(len(s) for s in streams)}
+    eng.prefix_cache.clear()
+    pool.check_leaks(0)
+    eng.stop()
+    return out
+
+
+def sess_fleet_leg(model, tok, seed: int, card: str) -> dict:
+    """Leg 3 and 4: replicas A and B behind their own OpenAIServers over
+    loopback, sharing a pool server started as ``python -m
+    llm_in_practise_tpu_torch.serve.kv_pool --port 0 --metrics-port N``;
+    the migration, a lost entry, a mismatched entry, then the planes
+    (``/metrics``, ``/debug/sessions``, ``/debug/hbm``, the pool's
+    ``/metrics``, the chat page)."""
+    import gc
+    import socket
+
+    import torch
+
+    from llm_in_practise_tpu_torch.obs.cost import tree_bytes
+    from llm_in_practise_tpu_torch.obs.hbm import get_ledger
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+    from llm_in_practise_tpu_torch.serve.disagg import RemoteHandoff
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+    from llm_in_practise_tpu_torch.serve.sessions import (
+        SessionStore,
+        session_hid,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        mport = s.getsockname()[1]
+    proc, address = start_pool_server(mport)
+    name = "qwen3-8b-nf4"
+    led = get_ledger()
+    checks, res = {}, {}
+    servers = {}
+    timer = DisaggTimer(torch.cuda.synchronize)
+    try:
+        base = led.baseline()
+        reps = {}
+        for r in ("A", "B"):
+            store = SessionStore()
+            eng = sess_engine(model, tok, seed, session_store=store,
+                              handoff=RemoteHandoff(
+                                  address, namespace=name, timeout=60.0))
+            handles = []
+            submit = eng.submit
+
+            def submit_w(*a, _submit=submit, _h=handles, **kw):
+                h = _submit(*a, **kw)
+                _h.append(h)
+                return h
+
+            eng.submit = submit_w
+            srv = OpenAIServer(eng, tok, model_name=name)
+            port = srv.serve(host="127.0.0.1", port=0, background=True)
+            servers[r] = srv
+            reps[r] = {"engine": eng, "store": store, "handles": handles,
+                       "rec": SessRecorder(eng),
+                       "base": f"http://127.0.0.1:{port}",
+                       "routes": dict.fromkeys(("thin", "wgmma"), 0)}
+
+        def chat_to(r, messages, sid, max_tokens=SESS_FLEET_TOKENS):
+            rep = reps[r]
+            r0 = dict(read_routes()["nf4_matmul"])
+            p0, n0 = rep["rec"].prefill_tokens, len(rep["handles"])
+            got = post_session(rep["base"], {
+                "model": name, "temperature": 0.0, "max_tokens": max_tokens,
+                "messages": messages}, sid)
+            for k, v in read_routes()["nf4_matmul"].items():
+                rep["routes"][k] += v - r0[k]
+            h = rep["handles"][n0]
+            return {"text": got["choices"][0]["message"]["content"],
+                    "prompt": list(h.prompt_ids),
+                    "stream": list(h.output_ids), "ttft_s": h.ttft_s,
+                    "outcome": h.cache_outcome,
+                    "prefill_tokens": rep["rec"].prefill_tokens - p0}
+
+        def pulls(r):
+            return dict(reps[r]["store"].counters()["pulls"])
+
+        # (3) the migration: turn 1 on A, its publish, turn 2 on B
+        sid = "fleet-1"
+        msgs = chat("Explain session pinning in a few sentences.")
+        t1 = chat_to("A", msgs, sid)
+        flushed = reps["A"]["store"].flush(60.0)
+        msgs2 = msgs + [{"role": "assistant", "content": t1["text"]},
+                        {"role": "user",
+                         "content": "And how does a replica take it over?"}]
+        pb0 = pulls("B")
+        t2b = chat_to("B", msgs2, sid)
+        pb1 = pulls("B")
+        # what B pulled: A's published history (its full pages); the
+        # prefix B's prompt shares with it
+        hist = list(reps["A"]["store"].lookup(sid).token_ids)
+        P = reps["B"]["engine"].paged.page_size
+        nfull = len(hist) // P * P
+        lcp = 0
+        while (lcp < min(nfull, len(t2b["prompt"]) - 1)
+               and t2b["prompt"][lcp] == hist[lcp]):
+            lcp += 1
+        t2a = chat_to("A", msgs2, sid)       # A's own turn 2, from its pin
+        top5 = teacher_forced(model, [t2b["prompt"]], [t2b["stream"]])[0]
+        checks["migration_claimed_on_B"] = (pb1["claimed"] - pb0["claimed"]
+                                            == 1)
+        checks["migration_published_on_A"] = (
+            flushed and pulls("A")["published"] >= 1)
+        checks["no_publish_failed"] = (pulls("A")["publish_failed"]
+                                       == pulls("B")["publish_failed"] == 0)
+        checks["B_prefilled_only_the_suffix"] = (
+            t2b["outcome"] == "partial" and lcp > 0
+            and t2b["prefill_tokens"] == len(t2b["prompt"]) - lcp)
+        checks["B_top5"] = top5 == len(t2b["stream"]) > 0
+        res["migration"] = {
+            "turn1_prompt_tokens": len(t1["prompt"]),
+            "published_tokens": nfull, "shared_prefix": lcp,
+            "turn2_prompt_tokens": len(t2b["prompt"]),
+            "B_prefill_tokens": t2b["prefill_tokens"],
+            "B_outcome": t2b["outcome"], "A_turn2_outcome": t2a["outcome"],
+            "B_ttft_s": t2b["ttft_s"], "A_turn2_ttft_s": t2a["ttft_s"],
+            "A_turn1_ttft_s": t1["ttft_s"],
+            "B_equal_A_turn2": t2b["stream"] == t2a["stream"],
+            "first_divergence_vs_A": first_divergence([t2b["stream"]],
+                                                      [t2a["stream"]])[0],
+            "B_top5_agreeing": top5, "tokens": len(t2b["stream"])}
+        # the same migration at the token level (the engines' own submit,
+        # the API's pull): the whole published history is the turn-2
+        # prompt's prefix, so B prefills only the new turn. The publish and
+        # claim pieces are timed by the handoff's wrappers
+        sid2 = "fleet-tokens"
+        words = sess_words()
+        p1 = sess_text_ids(tok, words, 7000, 48)
+        new = sess_text_ids(tok, words, 7400, 40)
+        sp = SamplingParams(greedy=True, max_tokens=SESS_FLEET_TOKENS)
+        eng_a, eng_b = reps["A"]["engine"], reps["B"]["engine"]
+        if not all(rep["store"].flush(60.0) for rep in reps.values()):
+            raise SystemExit("serve_sessions: a publisher did not drain")
+        r0 = dict(read_routes()["nf4_matmul"])
+        mark = timer.mark()
+        eb0 = len(timer.entry_bytes)
+        r1 = eng_a.submit(p1, sp, session_id=sid2)
+        out1 = r1.result()
+        if not reps["A"]["store"].flush(60.0):
+            raise SystemExit("serve_sessions: A's publisher did not drain")
+        publish = timer.since(mark)
+        entry_bytes = timer.entry_bytes[eb0:]
+        n_pub = len(reps["A"]["store"].lookup(sid2).token_ids) // P * P
+        for k, v in read_routes()["nf4_matmul"].items():
+            reps["A"]["routes"][k] += v - r0[k]
+        p2 = p1 + out1 + new
+        r0 = dict(read_routes()["nf4_matmul"])
+        mark, pf0 = timer.mark(), reps["B"]["rec"].prefill_tokens
+        t0 = time.perf_counter()
+        servers["B"]._session_pull(eng_b, sid2)
+        pull_s = time.perf_counter() - t0
+        r2 = eng_b.submit(p2, sp, session_id=sid2)
+        out2 = r2.result()
+        claim = timer.since(mark)
+        for k, v in read_routes()["nf4_matmul"].items():
+            reps["B"]["routes"][k] += v - r0[k]
+        tok_prefill = reps["B"]["rec"].prefill_tokens - pf0
+        top5_t = teacher_forced(model, [p2], [out2])[0]
+        checks["token_migration_prefills_only_the_new_turn"] = (
+            r2.cache_outcome == "partial" and n_pub >= len(p1) // P * P > 0
+            and tok_prefill == len(p2) - n_pub and top5_t == len(out2) > 0)
+        res["token_migration"] = {
+            "turn1_prompt_tokens": len(p1), "published_tokens": n_pub,
+            "entry_bytes": entry_bytes,
+            "turn2_prompt_tokens": len(p2), "B_prefill_tokens": tok_prefill,
+            "B_ttft_s": r2.ttft_s, "A_turn1_ttft_s": r1.ttft_s,
+            "pull_s": pull_s, "B_top5_agreeing": top5_t,
+            "tokens": len(out2),
+            "publish_s": {k: publish[k]["sum_s"]
+                          for k in ("to_host", "encode", "hput")},
+            "claim_s": {k: claim[k]["sum_s"]
+                        for k in ("hclaim", "decode", "to_card", "scatter")}}
+        # a lost entry: a session never published
+        pb0 = pulls("B")
+        lost = chat_to("B", chat("A session nobody published."), "fleet-lost")
+        pb1 = pulls("B")
+        checks["lost_counted_local_prefill"] = (
+            pb1["lost"] - pb0["lost"] == 1 and pb1["claimed"] == pb0["claimed"]
+            and lost["prefill_tokens"] > 0 and len(lost["stream"]) > 0)
+        # a mismatched entry: A's latest publish, its tokens shifted so no
+        # prefix matches, pinned under another session's key
+        if not reps["A"]["store"].flush(60.0):
+            raise SystemExit("serve_sessions: A's publisher did not drain")
+        hs = RemoteHandoff(address, namespace=name, timeout=60.0)
+        entry = hs.claim(session_hid(sid))
+        if entry is None:
+            raise SystemExit("serve_sessions: A's second publish is gone")
+        entry.token_ids = [t + 1 for t in entry.token_ids]
+        hs.publish(session_hid("fleet-mismatch"), entry)
+        del entry
+        pb0, sc0 = pulls("B"), reps["B"]["rec"].scatters
+        mis = chat_to("B", msgs2, "fleet-mismatch")
+        pb1 = pulls("B")
+        checks["mismatch_discarded_never_scattered"] = (
+            pb1["claimed"] - pb0["claimed"] == 1
+            and pb1["lost"] - pb0["lost"] == 1
+            and reps["B"]["rec"].scatters == sc0
+            and len(mis["stream"]) > 0)
+        res["lost"] = {"prefill_tokens": lost["prefill_tokens"],
+                       "outcome": lost["outcome"]}
+        res["mismatch"] = {"prefill_tokens": mis["prefill_tokens"],
+                           "outcome": mis["outcome"]}
+        res["pulls"] = {r: pulls(r) for r in reps}
+
+        # (4) the planes: /metrics against /debug/sessions and /debug/hbm
+        # (the ledger is the process's: every publish has landed first)
+        if not all(rep["store"].flush(60.0) for rep in reps.values()):
+            raise SystemExit("serve_sessions: a publisher did not drain")
+        planes = {}
+        for r, rep in reps.items():
+            _, ctype, text = get_url(rep["base"] + "/metrics")
+            samples = parse_metrics(text)
+            dbg = json.loads(get_url(rep["base"] + "/debug/sessions")[2])
+            hbm = json.loads(get_url(rep["base"] + "/debug/hbm")[2])
+            text2 = get_url(rep["base"] + "/metrics")[2]
+            samples2 = parse_metrics(text2)
+
+            def val(s, n, **lb):
+                return s.get((n, frozenset(lb.items())))
+
+            sess_ok = (val(samples, "llm_sessions_active") == dbg["active"]
+                       and val(samples, "llm_session_pinned_pages")
+                       == dbg["pinned_pages"]
+                       and all(val(samples, "llm_session_turns_total",
+                                   cache=k) == v
+                               for k, v in dbg["turns"].items())
+                       and all(val(samples, "llm_session_evictions_total",
+                                   reason=k) == v
+                               for k, v in dbg["evictions"].items())
+                       and all(val(samples, "llm_session_pulls_total",
+                                   event=k) == v
+                               for k, v in dbg["pulls"].items()))
+            accounts = {a: v["bytes"] for g in hbm["tree"].values()
+                        for a, v in g["accounts"].items()}
+            hbm_ok = all(val(samples2, "llm_hbm_ledger_bytes", owner=a) == b
+                         for a, b in accounts.items())
+            planes[r] = {"metrics_content_type": ctype,
+                         "families": len({k[0] for k in samples}),
+                         "session_families_equal_debug": sess_ok,
+                         "ledger_families_equal_debug_hbm": hbm_ok}
+            checks[f"metrics_{r}"] = sess_ok and hbm_ok and \
+                ctype.startswith("text/plain")
+        # the pool's scrape plane
+        _, _, ptext = get_url(f"http://127.0.0.1:{mport}/metrics")
+        pool = parse_metrics(ptext)
+        pinned = pool.get(("kvpool_handoff_total",
+                           frozenset({("event", "pinned")})))
+        checks["pool_metrics"] = (
+            pinned is not None and pinned >= 2
+            and ("kvpool_handoff_wire_seconds_count",
+                 frozenset({("op", "hput")})) in pool)
+        planes["pool"] = {"families": len({k[0] for k in pool}),
+                          "handoff_pinned": pinned}
+        # the chat page, and the JSON its script posts
+        page = {}
+        for path in ("/", "/chat"):
+            status, ctype, body = get_url(reps["A"]["base"] + path)
+            page[path] = (status == 200 and ctype.startswith("text/html")
+                          and name in body and "/v1/chat/completions" in body)
+        r0 = dict(read_routes()["nf4_matmul"])
+        sse = post_chat(reps["A"]["base"], {
+            "model": name, "messages": [{"role": "user", "content": "hi"}],
+            "stream": True, "max_tokens": SESS_PAGE_TOKENS})
+        for k, v in read_routes()["nf4_matmul"].items():
+            reps["A"]["routes"][k] += v - r0[k]
+        checks["chat_page"] = all(page.values()) and sse.get("done") is True
+        planes["chat_page"] = {"paths": page,
+                               "sse_finish_reason": sse["finish_reason"],
+                               "sse_wall_s": sse["wall_s"]}
+        # B1 on both replicas, thin (every prompt under WGMMA_MIN_M rows)
+        checks["b1_thin_on_both_replicas"] = all(
+            rep["routes"]["thin"] > 0 and rep["routes"]["wgmma"] == 0
+            for rep in reps.values())
+        res["b1_routes_by_replica"] = {r: rep["routes"]
+                                       for r, rep in reps.items()}
+        # /debug/hbm with A alone (B stopped and collected)
+        servers.pop("B").shutdown()
+        del reps["B"], eng_b, r2     # a request holds its engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        hbm = json.loads(get_url(reps["A"]["base"] + "/debug/hbm")[2])
+        moved = led.leaked_since(base)
+        pins = reps["A"]["store"].pinned_pages
+        checks["debug_hbm_books"] = (
+            moved.get("kv_pool.pages") == eng_a.paged.pool_bytes
+            and moved.get("weights/model") == tree_bytes(model)
+            and moved.get("session_pins", 0) == pins * eng_a.paged.page_bytes
+            and pins > 0)
+        torch.cuda.synchronize()
+        planes["debug_hbm_A"] = {
+            "moved_since_phase_start": moved,
+            "pool_bytes": eng_a.paged.pool_bytes,
+            "tree_bytes_model": tree_bytes(model),
+            "pinned_pages": pins, "page_bytes": eng_a.paged.page_bytes,
+            "reconciliation": hbm["reconciliation"],
+            "memory_allocated": torch.cuda.memory_allocated(),
+            "unattributed_bytes": led.unattributed_bytes(),
+            "transient_view": hbm["tree"]["transient_view"]["accounts"][
+                "transient_view"],
+            "reclaims": hbm["reclaims"]}
+        servers.pop("A").shutdown()
+        checks["leaked_since_baseline_empty"] = led.leaked_since(base) == {}
+        res["planes"] = planes
+    finally:
+        timer.close()
+        for srv in servers.values():
+            srv.shutdown()
+        proc.terminate()
+        proc.wait(timeout=30)
+    return {"checks": checks, **res}
+
+
+def sessions_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
+    """serve_sessions: session-native serving, the chat page and the
+    planes, on the full-depth NF4 model (paged, pages of 16, prefix
+    caching, decode blocks of 8, bf16 KV). Legs: (1) pins under pressure,
+    8 sessions of 3 turns from ``serve/arrivals.py::synthesize_sessions``
+    one request at a time, ``SESS_FILLERS`` unrelated requests of
+    ``SESS_FILLER_TOKENS`` between two rounds in a ``SESS_POOL``-token
+    pool: an engine without a store must lose the conversations (its
+    later turns cold or under half their history), the store's must
+    admit every later turn from at least its pinned pages, with streams
+    byte-equal to a second run of the same engine and every token in the
+    top 5 of a teacher-forced cold recompute; (2) pins yield in a
+    ``SESS_YIELD_POOL``-token pool: pressure evictions, no allocation
+    failure while a pin remains, no slot loses a page, survivors are
+    chain prefixes, a TTL sweep brings ``session_pins`` to 0; (3) fleet
+    migration between two replicas over HTTP and a pool server: B claims
+    ``session_hid(sid)`` and prefills only what its prompt does not share
+    with the published history, a never-published session is a counted
+    local prefill, a mismatched entry is discarded unscattered; (4) the
+    planes: ``/metrics`` parses and equals ``/debug/sessions`` and
+    ``/debug/hbm``, the ledger books the pool, the weights and the pins,
+    and returns to its phase-start baseline, the pool's ``/metrics``, the
+    chat page and its SSE; B1 thin on both replicas. Every failed check
+    exits non-zero."""
+    import torch
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    rounds, suffix, fillers = sess_schedule(tok)
+    res = {"card": card, "layers": N_LAYER_FULL, "max_slots": MAX_SLOTS,
+           "cache_len": CACHE_LEN, **SESS, "pool_tokens": SESS_POOL,
+           "fillers": SESS_FILLERS, "filler_tokens": SESS_FILLER_TOKENS}
+    t0 = time.monotonic()
+    res["pins"] = sess_pins_leg(model, tok, seed, rounds, suffix, fillers)
+    res["pins"]["wall_s"] = time.monotonic() - t0
+    log("serve_sessions pins:", json.dumps(res["pins"]))
+    t0 = time.monotonic()
+    res["yield"] = sess_yield_leg(model, tok, seed)
+    res["yield"]["wall_s"] = time.monotonic() - t0
+    log("serve_sessions yield:", json.dumps(res["yield"]))
+    t0 = time.monotonic()
+    res["fleet"] = sess_fleet_leg(model, tok, seed, card)
+    res["fleet"]["wall_s"] = time.monotonic() - t0
+    log("serve_sessions fleet:", json.dumps(res["fleet"], default=str))
+    checks = {f"pins_{k}": v for k, v in res["pins"]["checks"].items()}
+    checks.update({f"yield_{k}": v for k, v in res["yield"]["checks"].items()})
+    checks.update({f"fleet_{k}": v for k, v in res["fleet"]["checks"].items()})
+    counts = read_counters()
+    res.update(checks=checks, nf4_cell_tpot_p50_s=nf4_cell["tpot_p50_s"],
+               max_memory_allocated_gib=(
+                   torch.cuda.max_memory_allocated() / 2**30),
+               phase_wall_s=time.monotonic() - t_phase)
+    log("serve_sessions:", json.dumps({k: v for k, v in res.items()
+                                       if k in ("checks", "phase_wall_s",
+                                                "max_memory_allocated_gib")}))
+    if not all(checks.values()):
+        raise SystemExit(f"serve_sessions: checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"sessions": res, "launches": counts["nf4_matmul"],
+            "routes": read_routes()["nf4_matmul"]}
 
 
 def flash_bound(b: int, length: int, h: int, d: int, products: int,
@@ -7281,8 +8027,13 @@ def main(argv=None) -> int:
             t0 = time.monotonic()
             lora = lora_phase(model, tok, args.seed, card,
                               served[fmt]["serve"])
-            del model
             phase_time("serve_lora", t0)
+            free()         # serve_lora's engines and registries
+            t0 = time.monotonic()
+            sessions = sessions_phase(model, tok, args.seed, card,
+                                      served[fmt]["serve"])
+            del model
+            phase_time("serve_sessions", t0)
         free()
     t0 = time.monotonic()
     awq_res = awq_check(tok, args.seed)
@@ -7343,6 +8094,7 @@ def main(argv=None) -> int:
             "serve_nf4_struct": struct["routes"],
             "serve_nf4_lora": lora["routes"],
             "serve_nf4_disagg": disagg["routes"],
+            "serve_nf4_sessions": sessions["routes"],
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
         **decode_fields(decode, "nf4"),
@@ -7352,7 +8104,8 @@ def main(argv=None) -> int:
         "launches": (served["nf4"]["launches"] + sched["launches"]
                      + paged["launches"] + spec["launches"]
                      + struct["launches"] + lora["launches"]
-                     + disagg["launches"] + launches["nf4_matmul"]
+                     + disagg["launches"] + sessions["launches"]
+                     + launches["nf4_matmul"]
                      + ckpt["launches"]["ckpt_serve_nf4"]
                      + ckpt_train["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
@@ -7362,6 +8115,7 @@ def main(argv=None) -> int:
                              "serve_nf4_struct": struct["launches"],
                              "serve_nf4_lora": lora["launches"],
                              "serve_disagg": disagg["launches"],
+                             "serve_sessions": sessions["launches"],
                              "train_nf4": launches["nf4_matmul"],
                              "ckpt_serve_nf4":
                                  ckpt["launches"]["ckpt_serve_nf4"],
@@ -7480,6 +8234,10 @@ def main(argv=None) -> int:
         {k: v for k, v in disagg["disagg"].items()
          if k in ("readings", "checks", "b1_routes_by_role", "phase_wall_s",
                   "max_memory_allocated_gib", "nf4_cell_tpot_p50_s")}))
+    log("serve_sessions summary:", json.dumps(
+        {k: v for k, v in sessions["sessions"].items()
+         if k in ("checks", "phase_wall_s", "max_memory_allocated_gib",
+                  "nf4_cell_tpot_p50_s")}))
     log("serve_sched summary:", json.dumps(
         {k: v for k, v in sched["sched"].items()
          if k in ("short", "long", "profile", "capture_s", "graph_pool_mib",

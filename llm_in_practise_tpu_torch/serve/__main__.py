@@ -9,7 +9,8 @@
         [--no-mixed-step] [--max-queue N] [--queue-timeout SECONDS] \\
         [--speculative [4] [--draft-model-path DRAFT.msgpack]] \\
         [--lora-modules NAME=ADAPTER_DIR ...] [--kv-offload] \\
-        [--kv-remote HOST:PORT] [--role prefill|decode|both]
+        [--kv-remote HOST:PORT] [--role prefill|decode|both] \\
+        [--session-store [--session-ttl SECONDS]]
 
 ``DIR`` holds the ``packed.npz`` + ``manifest.json`` that either
 package's exporters write (``quant/io.py``, ``convert_hf``): NF4,
@@ -43,10 +44,17 @@ splits prefill from decode across replicas (it needs ``--kv-remote``:
 the KV handoff travels through the pool server); a decode replica turns
 ngram speculation on unless ``--speculative 0``. With ``--lora-modules``
 and a tier, each adapter gets an engine of its own (its own tiers and
-handoff namespace), as in the JAX CLI. ``TOK.json`` is a BPE tokenizer
-saved by either package. The flags of the JAX package's
-``examples/serve_openai.py`` that this port does not have yet (sessions,
-tensor parallelism, the tracing and SLO flags) are accepted and raise
+handoff namespace), as in the JAX CLI. ``--session-store`` keeps each
+conversation's KV pinned across turns for requests that carry a session
+id (the ``X-Session-ID`` header or the body's ``session_id``; paged
+layout: pinned pages, contiguous: turn bookkeeping only), idle for at
+most ``--session-ttl`` seconds; with ``--kv-remote`` every finished turn
+is also published to the pool for the fleet's warm path. The server
+answers ``GET /metrics``, ``/debug/kv``, ``/debug/sessions``,
+``/debug/hbm`` and the chat page at ``GET /``. ``TOK.json`` is a BPE
+tokenizer saved by either package. The flags of the JAX package's
+``examples/serve_openai.py`` that this port does not have yet (tensor
+parallelism, the tracing and SLO flags) are accepted and raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -60,8 +68,6 @@ import torch
 
 # JAX CLI flag -> (argparse kwargs, ROADMAP.md queue A item)
 _NOT_PORTED = {
-    "--session-store": (dict(action="store_true"), 5),
-    "--session-ttl": (dict(type=float, default=None), 5),
     "--tensor-parallel-size": (dict(type=int, default=1), 14),
     "--trace-file": (dict(default=None), 6),
     "--ttft-slo": (dict(type=float, default=None), 6),
@@ -175,6 +181,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "'decode' decodes from claimed KV "
                         "(kv_transfer_params.handoff_id); needs "
                         "--kv-remote")
+    p.add_argument("--session-store", dest="session_store",
+                   action="store_true",
+                   help="session-native serving: requests carrying a "
+                        "session id (X-Session-ID header or body field) "
+                        "keep their conversation KV pinned across turns, "
+                        "and with --kv-remote each finished turn is "
+                        "published to the pool's handoff namespace (the "
+                        "fleet-wide warm path)")
+    p.add_argument("--session-ttl", dest="session_ttl", type=float,
+                   default=600.0, metavar="SECONDS",
+                   help="idle TTL for pinned session KV (with "
+                        "--session-store)")
     for flag, (kw, _) in _NOT_PORTED.items():
         p.add_argument(flag, dest=flag.lstrip("-").replace("-", "_"), **kw)
     return p
@@ -317,8 +335,21 @@ def build_server(args):
 
         registry = AdapterRegistry(model)
     eos_id = tok.token_to_id(IM_END)
+    session_store = None
+    if args.session_store:
+        from llm_in_practise_tpu_torch.serve.sessions import SessionStore
+
+        session_store = SessionStore(ttl_s=args.session_ttl)
+        pins = ("pinned pages" if args.kv_layout == "paged"
+                else "turn bookkeeping only (contiguous layout: no pages "
+                     "to pin; warm turns ride the prefix cache)")
+        warm = ("fleet warm path via " + args.kv_remote
+                if args.kv_remote else "local pins only (no --kv-remote)")
+        print(f"session store: ttl {args.session_ttl:g}s, {pins}, {warm}",
+              flush=True)
     engine = build_engine(model, args, eos_id=eos_id, draft_model=draft,
                           adapter_registry=registry,
+                          session_store=session_store,
                           **engine_kw_for(args, args.model_name))
     adapters = {}
     if args.lora_modules:
@@ -395,18 +426,23 @@ def engine_kwargs(args, *, eos_id: int | None) -> dict:
 
 
 def build_engine(model, args, *, eos_id: int | None, draft_model=None,
-                 adapter_registry=None, **kw):
+                 adapter_registry=None, session_store=None, **kw):
     """The engine the CLI's ``args`` describe, over a loaded model (and
-    the loaded draft of ``--draft-model-path``, and the registry of
-    ``--lora-modules``); ``kw``: :func:`engine_kw_for`'s knobs."""
+    the loaded draft of ``--draft-model-path``, the registry of
+    ``--lora-modules`` and the store of ``--session-store``); ``kw``:
+    :func:`engine_kw_for`'s knobs."""
     from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
 
     return InferenceEngine(
         model, **engine_kwargs(args, eos_id=eos_id), **kw,
-        draft_model=draft_model, adapter_registry=adapter_registry)
+        draft_model=draft_model, adapter_registry=adapter_registry,
+        session_store=session_store)
 
 
 def main(argv=None) -> None:
+    from llm_in_practise_tpu_torch.obs.logging import setup_logging
+
+    setup_logging()
     parser = build_parser()
     args = parser.parse_args(argv)
     validate_args(args, parser.error)
@@ -415,7 +451,8 @@ def main(argv=None) -> None:
     print(f"serving {args.quantized_dir or args.model_path} on "
           f"{args.host}:{args.port} "
           f"({server.engine.device}; /v1/chat/completions, "
-          "/v1/embeddings, /v1/models, /health)", flush=True)
+          "/v1/embeddings, /v1/models, /health, /metrics, /debug/kv, "
+          "/debug/sessions, /debug/hbm, the chat page at /)", flush=True)
     server.serve(host=args.host, port=args.port)
 
 

@@ -42,16 +42,31 @@ Port of the chat part of ``llm_in_practise_tpu/serve/api.py``:
   from it (a lost claim re-prefills locally), and a shed request re-pins
   its claimed entry so the retry elsewhere can still claim it.
 
+- sessions (JAX ``api.py:351-355, 422-448``, :mod:`.sessions`): a chat
+  names its conversation by the ``X-Session-ID`` header (which wins) or
+  the body's ``session_id``; on an engine with a session store, an
+  unknown session claims ``session_hid(sid)`` from the handoff store and
+  adopts it (a lost entry is counted and prefills locally, never a 5xx);
+  ``GET /debug/sessions`` reports the store;
+- the planes (JAX ``api.py:668-1087, 1123-1158``): ``GET /metrics``
+  renders :meth:`OpenAIServer._build_registry`'s families over the live
+  counters of the engine, the meters, the store, the adapter registry
+  and the HBM ledger; ``GET /debug/hbm`` is the ledger's ownership tree;
+- the chat page: ``GET /`` and ``GET /chat`` answer :func:`webui_html`,
+  a streaming chat over ``/v1/chat/completions``.
+
 Built on the stdlib ``ThreadingHTTPServer``. Handler threads submit
 requests and read token queues; the engine's own thread does every step.
 An embedding forward runs on its handler thread under the engine's lock,
-between two steps. ``/metrics``, the other debug routes and the session
-pull are not ported yet (ROADMAP.md queue A items 5-6).
+between two steps. ``/debug/requests``, ``/debug/traces``, ``POST
+/debug/profile`` and the dispatch, compile, latency-histogram and
+goodput families are ROADMAP.md queue A item 6's second part.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import html
 import json
 import logging
 import threading
@@ -62,6 +77,13 @@ import numpy as np
 import torch
 
 from llm_in_practise_tpu_torch.data.sft import IM_START, render_chatml
+from llm_in_practise_tpu_torch.obs.cost import device_memory_stats
+from llm_in_practise_tpu_torch.obs.hbm import (
+    get_ledger,
+    host_entry_bytes,
+    register_hbm_ledger,
+)
+from llm_in_practise_tpu_torch.obs.registry import Registry
 from llm_in_practise_tpu_torch.serve import constrain, schemas
 from llm_in_practise_tpu_torch.serve.disagg import (
     new_handoff_id,
@@ -73,7 +95,11 @@ from llm_in_practise_tpu_torch.serve.engine import (
     InferenceEngine,
     SamplingParams,
 )
-from llm_in_practise_tpu_torch.serve.http_util import JsonHandler
+from llm_in_practise_tpu_torch.serve.http_util import (
+    JsonHandler,
+    serve_obs_get,
+)
+from llm_in_practise_tpu_torch.serve.sessions import session_hid
 
 _log = logging.getLogger(__name__)
 
@@ -88,9 +114,10 @@ def build_prompt(messages) -> str:
 class HandoffMeter:
     """Claim-side accounting of the disaggregated handoff, in a decode
     replica's API layer, where handoff ids arrive and resolve to a pinned
-    entry or turn out lost (JAX ``obs/meter.py::HandoffMeter``; its
-    ``/metrics`` rendering is ROADMAP.md queue A item 6). Handler threads
-    increment concurrently, so the increments hold a lock."""
+    entry or turn out lost (JAX ``obs/meter.py::HandoffMeter``), rendered
+    as ``llm_handoff_total{event}`` and ``llm_handoff_lost_total``.
+    Handler threads increment concurrently, so the increments hold a
+    lock."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -146,6 +173,7 @@ class OpenAIServer:
         # structured requests by kind (llm_structured_requests_total)
         self.structured_counts = {"json_object": 0, "json_schema": 0,
                                   "tool_call": 0}
+        self.registry = self._build_registry()
 
     # --- structured output ---------------------------------------------------
 
@@ -243,6 +271,25 @@ class OpenAIServer:
             pooled = hidden[0].to(torch.float32).mean(dim=0)
             return pooled.cpu().numpy().astype(np.float64)
 
+    def _session_pull(self, engine, session_id: str | None) -> None:
+        """The fleet miss path (JAX ``api.py:422-448``): a session this
+        replica holds nothing for (the router moved it here) claims its
+        published entry from the handoff store on this thread and hands it
+        to the store, which admission consumes; a lost entry only means a
+        local prefill, counted, never an error."""
+        store = getattr(engine, "session_store", None)
+        if session_id is None or store is None or store.known(session_id):
+            return
+        pool = getattr(engine, "handoff", None) or self.handoff
+        if pool is None:
+            return
+        pulled = pool.claim(session_hid(session_id))
+        if pulled is not None:
+            store.adopt(session_id, pulled)
+            get_ledger().pulse("handoff_staging", host_entry_bytes(pulled))
+        else:
+            store.note_lost()
+
     def handle_prefill(self, body: dict, send_json):
         """``POST /internal/handoff/prefill``: the prefill half of a
         disaggregated request. Prefill only, publish the prompt's KV into
@@ -303,12 +350,18 @@ class OpenAIServer:
                                "prompt_tokens": len(handle.prompt_ids),
                                "model": req.model})
 
-    def handle_chat(self, body: dict, send_json, send_stream):
+    def handle_chat(self, body: dict, send_json, send_stream,
+                    session_id: str | None = None):
         try:
             req = schemas.ChatCompletionRequest.from_dict(body)
         except schemas.ValidationError as e:
             return send_json(422, {"error": {
                 "message": str(e), "type": "invalid_request_error"}})
+        # sessions: the X-Session-ID header (``session_id``) wins; the body
+        # field covers clients that cannot set headers. An engine without
+        # a store ignores it
+        if session_id is None and isinstance(body.get("session_id"), str):
+            session_id = body["session_id"]
         engine = self.engine_for(req.model)
         if engine is None:
             return send_json(404, {"error": {
@@ -347,7 +400,15 @@ class OpenAIServer:
             if store is not None:
                 kv_entry = store.claim(str(hid))
             self.handoff_meter.claim_outcome(kv_entry is not None)
-        handle = engine.submit(prompt_ids, params, kv_entry=kv_entry)
+            if kv_entry is not None:
+                # claim-side staging: the host entry lives only until
+                # admission scatters it, shorter than any scrape, so it
+                # pulses (peak) instead of booking (level)
+                get_ledger().pulse("handoff_staging",
+                                   host_entry_bytes(kv_entry))
+        self._session_pull(engine, session_id)
+        handle = engine.submit(prompt_ids, params, kv_entry=kv_entry,
+                               session_id=session_id)
         req_id = schemas.completion_id()
 
         def queue_full_429(message):
@@ -451,6 +512,252 @@ class OpenAIServer:
             usage=schemas.Usage(len(prompt_ids), len(out_ids)),
             tool_calls=tool_calls))
 
+    # --- the scrape plane ----------------------------------------------------
+
+    def _build_registry(self) -> Registry:
+        """The ``/metrics`` families (JAX ``OpenAIServer._build_registry``'s
+        names, types, labels and help, the subset the port has): each
+        reads the live counters of the engine, the meters, the session
+        store, the adapter registries or the HBM ledger at scrape time,
+        so no count is kept twice."""
+        reg = Registry()
+        eng = self.engine
+        s = eng.stats
+        reg.counter_func("llm_requests_total",
+                         lambda: s.requests_total,
+                         "requests submitted to the engine")
+        reg.counter_func("llm_tokens_generated_total",
+                         lambda: s.tokens_generated_total,
+                         "output tokens emitted")
+        reg.gauge_func("llm_num_requests_waiting", lambda: s.queue_depth,
+                       "requests queued for a slot")
+        reg.gauge_func("llm_num_requests_running", lambda: s.active_slots,
+                       "requests occupying slots")
+        reg.counter_func("llm_requests_shed_total",
+                         lambda: s.requests_shed,
+                         "requests shed by admission control")
+
+        # the card's allocator, read live; a CPU engine renders the family
+        # with no samples (fail open)
+        def _hbm():
+            stats = device_memory_stats(eng.device)
+            return [({"kind": kind}, value)
+                    for kind, value in (("in_use",
+                                         stats.get("bytes_in_use")),
+                                        ("peak",
+                                         stats.get("peak_bytes_in_use")),
+                                        ("limit",
+                                         stats.get("bytes_limit")))
+                    if value is not None]
+
+        reg.gauge_func("llm_device_hbm_bytes", _hbm,
+                       "device memory from device.memory_stats(): "
+                       "bytes in use / peak / limit")
+        # the ownership ledger: per-owner attribution of the bytes the
+        # family above only totals, and the residual between the two
+        register_hbm_ledger(reg)
+        # disaggregation: published / claimed say the handoff plane works;
+        # lost and local prefills say how often the decode pool prefilled
+        # itself
+        hm = self.handoff_meter
+        reg.counter_func(
+            "llm_handoff_total",
+            lambda: [({"event": "published"}, eng.handoff_published),
+                     ({"event": "publish_failed"},
+                      eng.handoff_publish_failed),
+                     ({"event": "claimed"}, hm.claimed),
+                     ({"event": "kv_admitted"}, eng.kv_admitted),
+                     ({"event": "kv_rejected"}, eng.kv_rejected),
+                     ({"event": "repinned"}, hm.repinned),
+                     ({"event": "repin_failed"}, hm.repin_failed)],
+            "disaggregated KV handoff events")
+        reg.counter_func("llm_handoff_lost_total", lambda: hm.lost,
+                         "handoff ids that resolved to no entry")
+        reg.counter_func("llm_local_prefills_total",
+                         lambda: eng.local_prefills,
+                         "prefills a decode-role replica ran itself")
+
+        # sessions: the store read live, one snapshot per family; the
+        # families exist without a store (no samples), so the set is
+        # stable
+        def _sess(reader):
+            def read():
+                st = getattr(eng, "session_store", None)
+                return [] if st is None else reader(st.counters())
+            return read
+
+        reg.gauge_func("llm_sessions_active",
+                       _sess(lambda c: [({}, c["active"])]),
+                       "conversations with server-held KV pinned on "
+                       "this replica")
+        reg.gauge_func("llm_session_pinned_pages",
+                       _sess(lambda c: [({}, c["pinned_pages"])]),
+                       "KV pages refcount-pinned under session handles")
+        reg.counter_func(
+            "llm_session_turns_total",
+            _sess(lambda c: [({"cache": k}, v)
+                             for k, v in sorted(c["turns"].items())]),
+            "finished session turns by admission cache outcome "
+            "(hit / partial / cold)")
+        reg.counter_func(
+            "llm_session_evictions_total",
+            _sess(lambda c: [({"reason": k}, v)
+                             for k, v in sorted(c["evictions"].items())]),
+            "session pin evictions (ttl / pressure / capacity)")
+        reg.counter_func(
+            "llm_session_pulls_total",
+            _sess(lambda c: [({"event": k}, v)
+                             for k, v in sorted(c["pulls"].items())]),
+            "fleet warm-path events (published / publish_failed / "
+            "claimed / lost)")
+
+        # the prefix cache, read live (no cache: no samples)
+        def _pc(attr):
+            def read():
+                pc = eng.prefix_cache
+                return [] if pc is None else [({}, getattr(pc, attr))]
+            return read
+
+        reg.counter_func("llm_prefix_cache_hits_total", _pc("hits"))
+        reg.counter_func("llm_prefix_cache_full_hits_total",
+                         _pc("full_hits"))
+        reg.counter_func("llm_prefix_cache_misses_total", _pc("misses"))
+        reg.counter_func("llm_prefix_cache_tokens_saved_total",
+                         _pc("tokens_saved"))
+        reg.gauge_func("llm_prefix_cache_tokens", _pc("cached_tokens"))
+        if eng.paged is not None:
+            # the paged plane: free pages are admittable tokens, shared
+            # pages are prefix reuse, preemptions an undersized pool
+            pool = eng.paged.pool
+
+            def _pages():
+                free = pool.free_pages
+                return [({"state": "free"}, free),
+                        ({"state": "used"}, pool.capacity - free),
+                        ({"state": "shared"}, pool.shared_pages)]
+
+            reg.gauge_func("llm_kv_pages", _pages,
+                           "page-pool occupancy by state (shared = "
+                           "refcount > 1, also counted in used)")
+            reg.gauge_func("llm_kv_pages_total", lambda: pool.capacity,
+                           "allocatable pages in the pool")
+            reg.gauge_func("llm_kv_page_size",
+                           lambda: pool.page_size,
+                           "tokens per KV page")
+            reg.gauge_func(
+                "llm_kv_page_fragmentation",
+                lambda: [({}, eng.debug_kv().get("fragmentation", 0.0))],
+                "allocated-but-unfilled token slack of slot-mapped "
+                "pages (contiguous layouts waste cache_len - context "
+                "per slot; paged keeps this under one page)")
+            reg.counter_func("llm_kv_preemptions_total",
+                             lambda: eng.preemptions,
+                             "slots preempted (recompute-resume) under "
+                             "page-pool pressure")
+            reg.counter_func("llm_kv_rejected_too_large_total",
+                             lambda: eng.rejected_too_large,
+                             "prompts refused at submit: pages needed "
+                             "exceed pool capacity (HTTP 422)")
+        if eng.speculative_k is not None:
+            reg.counter_func("llm_spec_proposed_total",
+                             lambda: eng.spec_proposed,
+                             "drafted tokens submitted to verify")
+            reg.counter_func("llm_spec_accepted_total",
+                             lambda: eng.spec_accepted,
+                             "drafted tokens the verify accepted")
+            reg.counter_func("llm_spec_rounds_total",
+                             lambda: eng.spec_rounds,
+                             "fused spec-verify dispatches issued")
+            reg.counter_func("llm_spec_round_tokens_total",
+                             lambda: eng.spec_round_tokens,
+                             "tokens committed by spec dispatches "
+                             "(accepted + bonus + block extension)")
+
+            def _acceptance():
+                proposed = eng.spec_proposed     # one read each: a torn
+                accepted = eng.spec_accepted     # pair stays <= 1.0
+                if proposed <= 0:
+                    return []
+                return [({}, min(accepted / proposed, 1.0))]
+
+            reg.gauge_func("llm_spec_acceptance_rate", _acceptance,
+                           "lifetime accepted/proposed drafted tokens "
+                           "(no samples until the first draft)")
+        if eng.decode_steps > 1:
+            reg.counter_func("llm_multi_decode_blocks_total",
+                             lambda: eng.multi_blocks)
+
+        def _structured():
+            with self._structured_lock:
+                return [({"kind": k}, v)
+                        for k, v in sorted(self.structured_counts.items())]
+
+        reg.counter_func(
+            "llm_structured_requests_total", _structured,
+            "requests that carried a grammar constraint, by kind "
+            "(json_object / json_schema / tool_call)")
+        reg.counter_func(
+            "llm_grammar_mask_seconds_total",
+            lambda: eng.grammar_mask_seconds_total,
+            "engine-thread seconds staging grammar logit masks "
+            "(includes lazy automaton-state compiles; the steptrace "
+            "grammar_compile/grammar_mask activities split the two)")
+        reg.counter_func(
+            "llm_spec_grammar_rejects_total",
+            lambda: eng.spec_grammar_rejects,
+            "drafted tokens rejected by the grammar during fused "
+            "spec-round mask staging (the on-device acceptance "
+            "cumprod truncates at each)")
+
+        # multi-LoRA: the base engine's registry and any distinct one
+        # behind the adapters= handles, read live (none: no samples)
+        def _adapter_regs():
+            seen = {}
+            for e in (eng, *self.adapters.values()):
+                r = getattr(e, "adapter_registry", None)
+                if r is not None:
+                    seen[id(r)] = r
+            return list(seen.values())
+
+        def _adapter_sum(key):
+            def read():
+                regs = _adapter_regs()
+                if not regs:
+                    return []
+                return [({}, sum(r.stats()[key] for r in regs))]
+            return read
+
+        reg.gauge_func("llm_adapters_loaded", _adapter_sum("loaded"),
+                       "LoRA adapters resident in the registry banks")
+        reg.gauge_func("llm_adapter_bytes", _adapter_sum("bytes_loaded"),
+                       "HBM bytes held by loaded adapter factor rows "
+                       "(f32 payload at the padded bucket rank)")
+        reg.counter_func("llm_adapter_swap_seconds_total",
+                         _adapter_sum("swap_seconds_total"),
+                         "cumulative seconds spent hot-loading adapter "
+                         "checkpoints into the banks")
+        reg.counter_func("llm_adapter_evictions_total",
+                         _adapter_sum("evictions_total"),
+                         "adapter rows evicted under the registry byte "
+                         "budget (refcount-0 LRU only)")
+
+        def _tenant_tokens():
+            out: dict[str, int] = {}
+            for r in _adapter_regs():
+                for name, n in r.stats()["tenant_tokens"].items():
+                    out[name] = out.get(name, 0) + n
+            return [({"adapter": name}, n)
+                    for name, n in sorted(out.items())]
+
+        reg.counter_func("llm_tenant_tokens_total", _tenant_tokens,
+                         "output tokens generated per adapter tenant "
+                         "(finished requests; base-model traffic is "
+                         "not labeled)")
+        return reg
+
+    def metrics_text(self) -> str:
+        return self.registry.render()
+
     # --- HTTP plumbing -------------------------------------------------------
 
     def make_handler(self):
@@ -481,18 +788,34 @@ class OpenAIServer:
                     pass  # client went away mid-stream
 
             def do_GET(self):
-                if self.path == "/health":
-                    return self._json(200, {"status": "ok"})
-                if self.path == "/debug/kv":
-                    return self._json(200, server.engine.debug_kv())
-                if self.path == "/v1/models":
-                    return self._json(200, {
-                        "object": "list",
-                        "data": [{"id": name, "object": "model",
-                                  "owned_by": "llm-in-practise-tpu-torch"}
-                                 for name in (server.model_name,
-                                              *server.adapters)],
-                    })
+                if serve_obs_get(self, server.metrics_text):
+                    return None
+                try:
+                    if self.path == "/debug/kv":
+                        return self._json(200, server.engine.debug_kv())
+                    if self.path == "/debug/sessions":
+                        return self._json(200,
+                                          server.engine.debug_sessions())
+                    if self.path == "/debug/hbm":
+                        return self._json(200, get_ledger().debug_tree())
+                    if self.path == "/v1/models":
+                        return self._json(200, {
+                            "object": "list",
+                            "data": [{"id": name, "object": "model",
+                                      "owned_by":
+                                          "llm-in-practise-tpu-torch"}
+                                     for name in (server.model_name,
+                                                  *server.adapters)],
+                        })
+                    if self.path in ("/", "/chat"):
+                        return self._text(
+                            200, webui_html(server.model_name).encode(),
+                            "text/html; charset=utf-8")
+                except Exception as e:  # noqa: BLE001 — a GET fault must
+                    # answer the client, not drop the connection
+                    return self._json(500, {"error": {
+                        "message": f"{type(e).__name__}: {e}",
+                        "type": "internal_error"}})
                 return self._json(404, {"error": {"message": "not found"}})
 
             def do_POST(self):
@@ -508,7 +831,11 @@ class OpenAIServer:
                         return server.handle_embeddings(body, self._json)
                     if self.path == "/internal/handoff/prefill":
                         return server.handle_prefill(body, self._json)
-                    return server.handle_chat(body, self._json, self._sse)
+                    # the conversation handle rides the header (router or
+                    # client) or the body; the header wins
+                    return server.handle_chat(
+                        body, self._json, self._sse,
+                        session_id=self.headers.get("X-Session-ID"))
                 except Exception as e:  # noqa: BLE001 — a handler fault must
                     # still answer the client unless a response already went
                     if self._responded:
@@ -547,3 +874,61 @@ class OpenAIServer:
         self.engine.stop()
         for eng in self.adapters.values():
             eng.stop()
+
+
+def webui_html(model_name: str) -> str:
+    """Minimal streaming chat page — the reference's Gradio web UIs
+    (``Scripts/inference/05-…-webui-infr.py``, streaming ``06-…:52-75``)
+    without the Gradio dependency: vanilla HTML + fetch over the SSE
+    endpoint, incremental delta rendering, multi-turn history."""
+    name_html = html.escape(model_name)
+    name_js = json.dumps(model_name)  # JS string literal, quotes included
+    return """<!doctype html>
+<meta charset="utf-8"><title>chat — """ + name_html + """</title>
+<style>
+ body{font-family:system-ui,sans-serif;max-width:720px;margin:2rem auto;padding:0 1rem}
+ #log{border:1px solid #ccc;border-radius:8px;padding:1rem;min-height:300px;
+      white-space:pre-wrap}
+ .u{color:#036;font-weight:600}.a{color:#222}
+ form{display:flex;gap:.5rem;margin-top:1rem}
+ input{flex:1;padding:.5rem;font-size:1rem}
+ button{padding:.5rem 1rem}
+</style>
+<h2>""" + name_html + """</h2>
+<div id=log></div>
+<form id=f><input id=q autocomplete=off placeholder="message…">
+<button>send</button></form>
+<script>
+const log=document.getElementById('log'),f=document.getElementById('f'),
+      q=document.getElementById('q'),history=[];
+f.onsubmit=async e=>{
+  e.preventDefault();
+  const text=q.value.trim(); if(!text)return; q.value='';
+  history.push({role:'user',content:text});
+  log.append(Object.assign(document.createElement('div'),
+    {className:'u',textContent:'you: '+text}));
+  const out=Object.assign(document.createElement('div'),
+    {className:'a',textContent:'bot: '});
+  log.append(out);
+  const r=await fetch('/v1/chat/completions',{method:'POST',
+    headers:{'Content-Type':'application/json'},
+    body:JSON.stringify({model:""" + name_js + """,messages:history,
+                         stream:true,max_tokens:256})});
+  const reader=r.body.getReader(),dec=new TextDecoder();
+  let buf='',answer='';
+  for(;;){
+    const {done,value}=await reader.read(); if(done)break;
+    buf+=dec.decode(value,{stream:true});
+    let i;
+    while((i=buf.indexOf('\\n\\n'))>=0){
+      const line=buf.slice(0,i).trim(); buf=buf.slice(i+2);
+      if(!line.startsWith('data:'))continue;
+      const data=line.slice(5).trim();
+      if(data==='[DONE]')continue;
+      const delta=JSON.parse(data).choices?.[0]?.delta?.content;
+      if(delta){answer+=delta;out.textContent='bot: '+answer;}
+    }
+  }
+  history.push({role:'assistant',content:answer});
+};
+</script>"""

@@ -66,6 +66,17 @@ Port of ``llm_in_practise_tpu/serve/engine.py``:
   and publisher threads copy its KV to the host and publish it; a
   ``role="decode"`` engine admits a claimed entry (``submit(kv_entry=)``)
   as a full prefix hit.
+- **Sessions** (JAX ``engine.py`` "session" sections, :mod:`.sessions`):
+  with a :class:`~.sessions.SessionStore`, a request carrying a
+  ``session_id`` pins its conversation's full pages under that id when
+  it finishes (and, with a handoff store, publishes a page-aligned entry
+  for the fleet); admission takes a fleet-pulled entry ahead of a
+  shorter page-index hit. Every request carries its admission's cache
+  outcome (``hit`` / ``partial`` / ``cold``).
+- **HBM ledger** (:mod:`..obs.hbm`): the engine books its weights, its
+  contiguous or draft caches at build and returns every byte at
+  :meth:`InferenceEngine.stop`; the page pool, the adapter registry and
+  the store book their own.
 
 Threading: HTTP handler threads call :meth:`InferenceEngine.submit`,
 which touches no tensor; one background thread runs :meth:`step` and
@@ -80,12 +91,15 @@ import logging
 import queue
 import threading
 import time
+import weakref
 from typing import Any
 
 import numpy as np
 import torch
 
 from llm_in_practise_tpu_torch.infer.sampling import sample_token_batched
+from llm_in_practise_tpu_torch.obs.cost import tree_bytes
+from llm_in_practise_tpu_torch.obs.hbm import get_ledger, host_entry_bytes
 from llm_in_practise_tpu_torch.models.layers import to_kv_dtype
 from llm_in_practise_tpu_torch.serve import kv_pool as kvp
 from llm_in_practise_tpu_torch.serve.disagg import (
@@ -193,6 +207,14 @@ class Request:
     kv_entry: Any = dataclasses.field(default=None, repr=False,
                                       compare=False)
     handoff_id: str | None = None
+    # the conversation handle (serve/sessions.py): on finish the slot's
+    # full pages are pinned under it in the engine's SessionStore, and
+    # admission consults the store's pending fleet pulls under it
+    session_id: str | None = None
+    # the prefix / handoff / session hit outcome at FIRST admission
+    # ("hit" | "partial" | "cold"): llm_session_turns_total's label
+    cache_outcome: str | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def next_item(self, poll_s: float = 1.0):
         """Next queue item: a token id or the finish sentinel. The wait is
@@ -231,6 +253,47 @@ class Request:
             return None
         return ((self.finish_time - self.first_token_time)
                 / (self.n_generated - 1))
+
+
+class EngineStats:
+    """The plain request counters ``/metrics`` reads (JAX ``EngineStats``;
+    its TTFT / TPOT histograms and goodput are ROADMAP.md queue A item
+    6's second part). Written from HTTP threads (submit, sheds) and the
+    engine thread (admission, finishes), under ``lock``."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.requests_total = 0          # guarded-by: lock
+        self.tokens_generated_total = 0  # guarded-by: lock
+        self.queue_depth = 0             # guarded-by: lock
+        self.active_slots = 0            # guarded-by: lock
+        self.requests_shed = 0           # guarded-by: lock
+
+    def observe_finished(self, req: Request) -> None:
+        with self.lock:
+            self.tokens_generated_total += req.n_generated
+
+
+def _kv_bytes(cache) -> int:
+    """Device bytes of a contiguous cache's K and V buffers (its per-layer
+    index vectors are not KV)."""
+    return sum(buf.numel() * buf.element_size() for layer in cache
+               for key, buf in layer.items() if key != "index")
+
+
+def _release_books(ledger, booked: dict) -> None:
+    """Return every byte an engine booked (the dict empties: a second call
+    frees nothing)."""
+    for owner, n in booked.items():
+        ledger.book(owner, -n)
+    booked.clear()
+
+
+def _shares_weights(a, b) -> bool:
+    """Whether modules ``a`` and ``b`` hold any parameter storage in
+    common (a target serving as its own draft)."""
+    return bool({p.data_ptr() for p in a.parameters()}
+                & {p.data_ptr() for p in b.parameters()})
 
 
 def _not_ported(knob: str, item: int, what: str) -> NotImplementedError:
@@ -290,6 +353,9 @@ class InferenceEngine:
       which a prefill engine needs): the disaggregated split. A decode
       replica that has to prefill anyway (a lost or mismatched entry)
       counts it in ``local_prefills`` and logs it once.
+    - ``session_store``: a :class:`~.sessions.SessionStore` that requests
+      name at :meth:`submit` (``session_id``); attached after the page
+      pool, the prefix index and the handoff store, which it reads.
 
     On the card each decode block, each fused mixed step, each spec round
     and each draft roll is one CUDA graph replay (:mod:`.graphs`), and
@@ -319,8 +385,6 @@ class InferenceEngine:
             raise ValueError(
                 "role='prefill' needs a handoff store to publish KV into "
                 "(serve.disagg.LocalHandoff or RemoteHandoff)")
-        if session_store is not None:
-            raise _not_ported("session_store", 5, "session-native serving")
         if chunked_prefill is not None and chunked_prefill < 1:
             raise ValueError(
                 f"chunked_prefill must be >= 1, got {chunked_prefill}")
@@ -444,6 +508,13 @@ class InferenceEngine:
         self.kv_rejected = 0            # claimed entries that failed checks
         self.local_prefills = 0         # prefills a decode replica ran
         self._decode_prefill_logged = False
+        # session-native serving (serve/sessions.py): attached after the
+        # paged, prefix and handoff wiring above, which attach() reads;
+        # the store chains into the page pool's reclaim hook after the
+        # page index, so pins yield to active slots
+        self.session_store = session_store
+        if session_store is not None:
+            session_store.attach(self)
         # speculative decoding (JAX engine.py:619-703): the counters count
         # real drafted positions only (padding and undrafted slots in
         # neither); rounds are spec dispatches and round tokens what they
@@ -548,9 +619,27 @@ class InferenceEngine:
         self.mixed_blocks = 0
         self.multi_blocks = 0
         self.multi_steps_total = 0
-        self.requests_shed = 0
+        self.stats = EngineStats()
         self.dispatches_total = 0
         self.last_step_dispatches = 0
+        # HBM ledger (obs/hbm.py): this engine's durable device buffers
+        # under their owner accounts; stop() returns every byte. The page
+        # pool booked itself inside PagedKV; each paged dispatch pulses
+        # its gather view
+        self._hbm = get_ledger()
+        self._hbm_booked: dict[str, int] = {}   # engine thread and stop()
+        # freed once: by stop(), or when the engine is collected unstopped
+        self._hbm_release = weakref.finalize(self, _release_books,
+                                             self._hbm, self._hbm_booked)
+        self._hbm_book("weights/model", tree_bytes(self.model))
+        if self.cache is not None:
+            self._hbm_book("kv.contiguous", _kv_bytes(self.cache))
+        if draft_model is not None:
+            # a target that drafts for itself owns those bytes once
+            if not _shares_weights(draft_model, self.model):
+                self._hbm_book("weights/draft_model",
+                               tree_bytes(draft_model))
+            self._hbm_book("kv.draft", _kv_bytes(self.draft_cache))
 
     # --- submission ----------------------------------------------------------
 
@@ -570,10 +659,12 @@ class InferenceEngine:
         ``kv_rejected`` and the request prefills); admission inserts it
         as a full prefix hit. ``handoff_id``: a prefill-only request,
         whose prompt KV is published under that id; it finishes with
-        ``"handoff"`` (or ``"handoff_failed"``) and emits no token."""
+        ``"handoff"`` (or ``"handoff_failed"``) and emits no token.
+        ``session_id``: the conversation handle; on finish the turn's full
+        KV pages stay pinned under it (:mod:`.sessions`) and admission
+        consults the store's pending fleet pull. Ignored on an engine
+        without a ``session_store``."""
         params = params or SamplingParams()
-        if session_id is not None:
-            raise _not_ported("session_id", 5, "session-native serving")
         prompt_ids = list(map(int, prompt_ids))
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -581,7 +672,10 @@ class InferenceEngine:
         if len(prompt_ids) > max_prompt:  # sliding-window crop
             prompt_ids = prompt_ids[-max_prompt:]
         req = Request(next(self._uid), prompt_ids, params, engine=self,
-                      adapter=adapter, handoff_id=handoff_id)
+                      adapter=adapter, handoff_id=handoff_id,
+                      session_id=session_id)
+        if session_id is not None and self.session_store is not None:
+            self.session_store.touch(session_id)
         if (self.paged is not None
                 and not self.paged.fits_ever(len(prompt_ids) + 1)):
             # its pages and the first decode's exceed the pool even when
@@ -589,6 +683,8 @@ class InferenceEngine:
             # not after aging in the queue
             with self._submit_lock:
                 self.rejected_too_large += 1
+            with self.stats.lock:
+                self.stats.requests_total += 1
             req.finish_time = time.monotonic()
             req.finish_reason = "too_large"
             req.tokens.put(_FINISH)
@@ -609,6 +705,8 @@ class InferenceEngine:
             # validated before the request is queued: the engine thread
             # may admit it the moment it is
             req.kv_entry = self._accept_external_kv(kv_entry, prompt_ids)
+        with self.stats.lock:
+            self.stats.requests_total += 1
         with self._submit_lock:
             shed = (self.max_queue is not None
                     and self.pending.qsize() >= self.max_queue)
@@ -616,6 +714,8 @@ class InferenceEngine:
                 self.pending.put(req)
         if shed:
             return self._shed(req)
+        with self.stats.lock:
+            self.stats.queue_depth = self.pending.qsize()
         self._wake.set()
         return req
 
@@ -626,9 +726,14 @@ class InferenceEngine:
         req.finish_reason = "queue_full"
         self._record_finished(req)
         req.tokens.put(_FINISH)
-        with self._submit_lock:
-            self.requests_shed += 1
+        with self.stats.lock:
+            self.stats.requests_shed += 1
         return req
+
+    @property
+    def requests_shed(self) -> int:
+        """Requests shed by admission control (``llm_requests_shed_total``)."""
+        return self.stats.requests_shed
 
     def _record_finished(self, req: Request) -> None:
         """The one finish funnel of a request that held an adapter (sheds
@@ -747,6 +852,7 @@ class InferenceEngine:
                         admitted = True
                         continue
                     seen.add(key)
+                self._note_cache_outcome(req, None, plen)
                 batch.append((slot, req, plen))
             else:
                 self._begin_prefill(req, slot, plen, hit)
@@ -756,6 +862,28 @@ class InferenceEngine:
         for slot, req, plen in deferred:
             self._begin_prefill(req, slot, plen)   # a fresh lookup
         return admitted
+
+    def _update_stats(self) -> None:
+        """The queue and slot gauges, after every step."""
+        with self.stats.lock:
+            self.stats.queue_depth = self.pending.qsize()
+            self.stats.active_slots = sum(r is not None
+                                          for r in self.slot_req)
+
+    @staticmethod
+    def _note_cache_outcome(req: Request, hit, plen: int) -> None:
+        """Label the request's admission outcome from the prefix / handoff
+        / session hit it resolved (JAX ``_note_cache_outcome``). The first
+        admission wins: a preemption's re-admission hits its OWN
+        registered pages and must not relabel a cold request as warm."""
+        if req.cache_outcome is not None or req.resume_last is not None:
+            return
+        if hit is None:
+            req.cache_outcome = "cold"
+        elif hit.length >= plen:
+            req.cache_outcome = "hit"
+        else:
+            req.cache_outcome = "partial"
 
     def _chunk_span(self, rem: int) -> int:
         """Padded length the chunked path writes for ``rem`` tokens."""
@@ -842,6 +970,7 @@ class InferenceEngine:
             hit = self._lookup_prefix(req, plen)
         if self.paged is not None:
             return self._paged_begin_prefill(req, slot, plen, hit)
+        self._note_cache_outcome(req, hit, plen)
         if hit is not None:
             self._insert_rows(slot, hit.rows, hit.length)
             if hit.length == plen:
@@ -1173,18 +1302,33 @@ class InferenceEngine:
     def _finish_slot(self, slot: int, reason: str) -> None:
         """Finish ``slot``'s request and free the slot. In the paged layout
         its full pages are indexed for sharing on the way out (a follow-up
-        turn reuses the conversation's KV) and its block table releases
-        its references."""
+        turn reuses the conversation's KV), a session's are pinned under
+        its id, and its block table releases its references."""
         req = self.slot_req[slot]
         req.finish_time = time.monotonic()
         req.finish_reason = reason
+        hist = self.slot_hist[slot]
+        in_session = (self.session_store is not None
+                      and req.session_id is not None)
         if self.paged is not None:
-            hist = self.slot_hist[slot]
             if hist:
                 self._paged_register_pages(hist[:-1], slot, req.adapter)
+                if in_session:
+                    # pin and publish BEFORE release_slot: the block table
+                    # still maps the pages, so the pin's share() can never
+                    # race a refcount-zero free
+                    self._session_note_finish(slot, req, hist[:-1])
             self.paged.release_slot(slot)
+        elif in_session:
+            # contiguous layout: no pages to pin; the store keeps the
+            # conversation's history and turn accounting (warm turns ride
+            # the row cache's LRU)
+            self.session_store.note_finish(
+                req.session_id, hist[:-1] if hist else req.prompt_ids, [],
+                adapter=req.adapter, cache_outcome=req.cache_outcome)
         self._record_finished(req)
         req.tokens.put(_FINISH)
+        self.stats.observe_finished(req)
         self.slot_req[slot] = None
         self.slot_ready[slot] = False
         self.slot_budget[slot] = 0
@@ -1247,23 +1391,44 @@ class InferenceEngine:
     def _paged_lookup(self, req: Request, plen: int) -> PagedHit | None:
         """Paged admission's prefix hit, best first (JAX
         ``_paged_lookup``): a claimed handoff entry (host rows, validated
-        at submit), the page index's longest full-page match (its pages
-        refcounted into the hit), then the kv-pool tiers (a host entry,
-        scattered into the slot's pages at admission)."""
+        at submit), a fleet-pulled session entry longer than the page
+        hit, the longer of the page index's full-page match and the
+        session's own pinned chain (its pages refcounted into the hit),
+        then the kv-pool tiers (a host entry, scattered into the slot's
+        pages at admission). JAX reaches a pin through the index only,
+        whose LRU drops a pinned chain's entries first under pressure;
+        the port also asks the store, so a pin is found while it lives
+        (ROADMAP.md §C)."""
         ext = req.kv_entry
         if ext is not None:
             req.kv_entry = None
             self.kv_admitted += 1
             return PagedHit(length=ext.length, entry=ext,
                             last_logits=ext.last_logits, external=True)
-        if self.prefix_cache is None:
-            return None
-        key_ids = self._ns_ids(req.adapter, req.prompt_ids)
-        pages = self.prefix_cache.lookup(key_ids)
+        pages = []
+        if self.prefix_cache is not None:
+            key_ids = self._ns_ids(req.adapter, req.prompt_ids)
+            pages = self.prefix_cache.lookup(key_ids)
+        if self.session_store is not None and req.session_id is not None:
+            pinned = self.session_store.pinned_prefix(
+                req.session_id, req.prompt_ids, req.adapter)
+            if len(pinned) > len(pages):
+                # the longer chain wins; the other's references go back
+                pages, pinned = pinned, pages
+            if pinned:
+                self.paged.pool.release(pinned)
+            # a fleet-pulled session entry outranks a SHORTER page hit;
+            # when it wins, the page references go straight back
+            hit = self._session_pull_hit(
+                req, plen, len(pages) * self.paged.page_size)
+            if hit is not None:
+                if pages:
+                    self.paged.pool.release(pages)
+                return hit
         if pages:
             return PagedHit(length=len(pages) * self.paged.page_size,
                             pages=pages)
-        if self.kv_pool is None:
+        if self.kv_pool is None or self.prefix_cache is None:
             return None
         host = self.kv_pool.lookup(key_ids, usable=self._tier_usable(plen))
         if host is None:
@@ -1271,6 +1436,31 @@ class InferenceEngine:
         return PagedHit(
             length=host.length, entry=host,
             last_logits=host.last_logits if host.length == plen else None)
+
+    def _session_pull_hit(self, req: Request, plen: int, page_len: int):
+        """A :class:`~.paged_kv.PagedHit` from the session store's pending
+        fleet pull for this request, or None (JAX ``_session_pull_hit``).
+        The entry rides the tier entries' scatter, and it is consumed
+        once: an entry that loses to a longer page hit or cannot be used
+        is dropped (the local re-prefill)."""
+        pulled = self.session_store.take_pending(req.session_id,
+                                                 req.prompt_ids)
+        if pulled is None:
+            return None
+        host, n = pulled
+        if host.last_logits is None and n >= plen:
+            # no stored logits for the last position: keep one token to
+            # recompute (the page-index hit keeps the same)
+            n = plen - 1
+        if getattr(host, "slot_axis", 0) != 0 or n <= page_len or n <= 0:
+            return None
+        if rows_mismatch(host, self) is not None:
+            # another model's rows: never scattered
+            self.session_store.note_lost()
+            return None
+        return PagedHit(
+            length=n, entry=host,
+            last_logits=host.last_logits if n == plen else None)
 
     def _paged_begin_prefill(self, req: Request, slot: int, plen: int,
                              hit: PagedHit | None) -> None:
@@ -1283,6 +1473,7 @@ class InferenceEngine:
         preempt; admission never does). The JAX page-by-page shrink of a
         hit whose suffix cannot fit has nothing to do here: the port's
         one-shot writes exactly the suffix's rows, which always fit."""
+        self._note_cache_outcome(req, hit, plen)
         if hit is not None and hit.pages:
             self.paged.map_shared(slot, hit.pages)
         if not self.paged.extend(slot, plen + 1):
@@ -1357,6 +1548,7 @@ class InferenceEngine:
         starts[slot], valid[slot] = done, c
         sidx = self.paged.scatter_idx(starts, valid, c)[slot:slot + 1]
         dev = self.device
+        self.paged.pulse_view(width, 1)
         g, view = gather_view(
             self.paged, self._pg(self.paged.row_gather_idx(slot, width)), 1,
             torch.tensor([done], device=dev))
@@ -1389,6 +1581,7 @@ class InferenceEngine:
             self._paged_cow_fork(slot, st["done"], len(chunk))
         dev = self.device
         starts_t = torch.from_numpy(starts).to(dev)
+        self.paged.pulse_view(width)
         g, view = gather_view(self.paged, self._pg(self.paged.gather_idx(
             width)), self.max_slots, starts_t)
         last, _ = batched_chunk(self.model, view,
@@ -1470,6 +1663,7 @@ class InferenceEngine:
             # draft's
             self._draft_uid[slot] = -1
         self.preemptions += 1
+        self._hbm.note_reclaim("kv_pool.pages", "preempt")
         with self.pending.mutex:
             self.pending.queue.appendleft(req)
         _log.info("preempted slot %d (uid %d) under page-pool pressure; "
@@ -1546,6 +1740,34 @@ class InferenceEngine:
                 self._ns_ids(req.adapter, req.prompt_ids[:plen]),
                 self._paged_gather_entry(slot, plen, last_logits))
 
+    def _session_note_finish(self, slot: int, req: Request,
+                             token_ids) -> None:
+        """Session pin and fleet publish of a finishing paged slot (JAX
+        ``_session_note_finish``). ``token_ids`` is the KV-valid history
+        (``hist[:-1]``: the last emitted token's KV was never written).
+        Pins the full-page chain under the session id; with a handoff
+        store, gathers a page-aligned copy on this thread (the pages are
+        still slot-mapped) and hands it to the store's publisher, which
+        copies it to the host and puts it, as the handoff's publishers
+        do."""
+        P = self.paged.page_size
+        nfull = len(token_ids) // P
+        pages = self.paged.slot_pages(slot)[:nfull] if nfull > 0 else []
+        self.session_store.note_finish(
+            req.session_id, token_ids, pages, adapter=req.adapter,
+            cache_outcome=req.cache_outcome)
+        if self.handoff is not None and nfull > 0:
+            # no last logits: the entry is a page-aligned PARTIAL prefix by
+            # design, and the claiming replica recomputes at least the
+            # suffix, which gives fresh logits
+            entry = self._paged_gather_entry(slot, nfull * P, None)
+            ready = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record()
+            self.session_store.publish(req.session_id,
+                                       token_ids[:nfull * P], entry, ready)
+
     # --- the disaggregated handoff (JAX engine.py:2424-2540) ----------------
 
     def _complete_handoff(self, slot: int, req: Request, plen: int,
@@ -1598,6 +1820,7 @@ class InferenceEngine:
             if item is None:
                 return
             req, entry, ready = item
+            staged = 0
             try:
                 if ready is None:
                     host = kvp.entry_to_host(entry)
@@ -1612,6 +1835,11 @@ class InferenceEngine:
                         entry.last_logits.record_stream(stream)
                         host = kvp.entry_to_host(entry)
                 del entry
+                # ledger account handoff_staging (host plane): the entry's
+                # RAM between the copy to the host and the store's put,
+                # freed below whether the put lands or not
+                staged = host_entry_bytes(host)
+                self._hbm.book("handoff_staging", staged)
                 self.handoff.publish(req.handoff_id, host)
             except Exception as e:  # noqa: BLE001 — a transport fault or a
                 # pool refusal: the request must still finish, and the
@@ -1625,11 +1853,14 @@ class InferenceEngine:
                 with self._publish_lock:
                     self.handoff_published += 1
                 req.finish_reason = "handoff"
+            if staged:
+                self._hbm.book("handoff_staging", -staged)
             req.finish_time = time.monotonic()
             # the KV being claimable is a prefill replica's first token
             req.first_token_time = req.finish_time
             self._record_finished(req)
             req.tokens.put(_FINISH)
+            self.stats.observe_finished(req)
 
     # --- speculative decoding (JAX engine.py:1242-1358, 3360-3580) ---------
 
@@ -2086,6 +2317,7 @@ class InferenceEngine:
                 return self._step_locked()
             finally:
                 self.last_step_dispatches = self.dispatches_total - before
+                self._update_stats()
 
     def _step_locked(self) -> bool:
         admitted = self._admit()
@@ -2172,13 +2404,29 @@ class InferenceEngine:
             self.error = e
             _log.exception("inference engine loop died")
 
+    def _hbm_book(self, owner: str, n_bytes: int) -> None:
+        """Book one durable allocation under ``owner`` and remember it, so
+        :meth:`stop` frees exactly what ``__init__`` booked."""
+        self._hbm.book(owner, n_bytes)
+        self._hbm_booked[owner] = n_bytes
+
     def stop(self) -> None:
+        """Stop the loop and the publishers, drop every session pin, and
+        return every ledger byte this engine booked (idempotent: a second
+        stop finds the books already empty)."""
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=30.0)
         for _ in self._publishers:   # each publisher exits on a None
             self._publish_queue.put(None)
+        self._publishers = []
+        if self.session_store is not None:
+            # pool leak checks then see only live-slot references
+            self.session_store.close()
+        self._hbm_release()
+        if self.paged is not None:
+            self.paged.close()
 
     def is_alive(self) -> bool:
         """True while submitted requests can still make progress."""
@@ -2199,10 +2447,8 @@ class InferenceEngine:
                 "max_slots": self.max_slots,
                 "cache_len": self.cache_len,
                 "kv_tokens_reserved": self.max_slots * self.cache_len,
-                "kv_bytes": sum(buf.numel() * buf.element_size()
-                                for layer in self.cache
-                                for key, buf in layer.items()
-                                if key != "index"),
+                "ledger_account": "kv.contiguous",
+                "kv_bytes": _kv_bytes(self.cache),
             }
         snap = self.paged.debug_snapshot()
         live = 0
@@ -2232,12 +2478,18 @@ class InferenceEngine:
 
     def draft_kv_bytes(self) -> int:
         """Device bytes of the draft model's K and V cache (0 without a
-        draft)."""
+        draft): its ledger account ``kv.draft``."""
         if self.draft_cache is None:
             return 0
-        return sum(buf.numel() * buf.element_size()
-                   for layer in self.draft_cache
-                   for key, buf in layer.items() if key != "index")
+        return _kv_bytes(self.draft_cache)
+
+    def debug_sessions(self) -> dict:
+        """The ``GET /debug/sessions`` payload: pinned conversations and
+        the turn, eviction and pull counters; ``{"enabled": false}``
+        without a store, so the route answers on every replica."""
+        if self.session_store is None:
+            return {"enabled": False}
+        return self.session_store.debug_snapshot()
 
     def page_capacity_detail(self, prompt_tokens: int) -> dict:
         """Why a prompt gets 422: the page math of the API's error body."""

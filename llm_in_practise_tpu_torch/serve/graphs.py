@@ -280,6 +280,9 @@ class StepGraphs:
             self.noise[:n].uniform_(0.0, 1.0, generator=generator)
         window = arrays["sidx"].size if "sidx" in arrays else None
         key = (kind, n, all_greedy, width, window)
+        if kind.removeprefix(LORA) in PAGED_KINDS:
+            # the gather view this step materializes beside the pool
+            self.paged.pulse_view(width)
         if not self.capture:
             return self._body(key)
         entry = self.graphs.get(key)

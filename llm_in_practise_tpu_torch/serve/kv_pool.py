@@ -25,9 +25,9 @@ package's server. The port reads and writes those bytes through
 table (no ``ml_dtypes``).
 
 The engine talks to one :class:`TieredKV` facade: lookups cascade L2 ->
-L3 and a hit is promoted upward. The server's Prometheus plane (its
-registry and ``--metrics-port``) is ROADMAP.md queue A item 6; its
-counters are attributes and answer the ``stats`` op.
+L3 and a hit is promoted upward. The server's counters answer the
+``stats`` op and, on its scrape plane, ``/metrics``
+(:meth:`KVPoolServer.serve_metrics`, the CLI's ``--metrics-port``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,10 @@ import time
 import torch
 
 from llm_in_practise_tpu_torch.models.layers import to_kv_dtype
+from llm_in_practise_tpu_torch.obs.registry import (
+    HistogramAccumulator,
+    Registry,
+)
 from llm_in_practise_tpu_torch.serve.prefix_cache import (
     PrefixEntry,
     PrefixLRU,
@@ -333,9 +337,11 @@ class KVPoolServer:
         self.handoff_claims = 0
         self.handoff_expired = 0
         self.handoff_rejected = 0
-        # per-op count and seconds of the handoff data plane, prelude seen
-        # to reply sent (JAX: the kvpool_handoff_wire_seconds histogram)
-        self.handoff_wire = {"hput": [0, 0.0], "hclaim": [0, 0.0]}  # guarded-by: _acct_lock
+        # per-op seconds of the handoff data plane, prelude seen to reply
+        # sent (kvpool_handoff_wire_seconds; each accumulator has its own
+        # lock)
+        self.handoff_wire = {"hput": HistogramAccumulator(),
+                             "hclaim": HistogramAccumulator()}
         self._namespaces: set[str] = set()  # guarded-by: _acct_lock
         # live entries per namespace: a namespace whose last entry is
         # evicted releases its slot
@@ -369,9 +375,7 @@ class KVPoolServer:
                         pool._dispatch(self.request, header, payload)
                         wire = pool.handoff_wire.get(header.get("op"))
                         if wire is not None:
-                            with pool._acct_lock:
-                                wire[0] += 1
-                                wire[1] += time.perf_counter() - t0
+                            wire.observe(time.perf_counter() - t0)
                     except Exception as e:  # noqa: BLE001 — malformed
                         # header, over-cap frame, mid-read EOF, bad op
                         # arguments: contain the fault to this connection
@@ -386,6 +390,10 @@ class KVPoolServer:
         self.address = self._server.server_address
         self._thread = threading.Thread(target=self._server.serve_forever,
                                         daemon=True)
+        # the scrape plane: the TCP protocol above is the data plane, this
+        # registry and its HTTP endpoint the Prometheus plane
+        self.registry = self._build_registry(Registry())
+        self._metrics_httpd = None
 
     def start(self) -> "KVPoolServer":
         self._thread.start()
@@ -394,6 +402,90 @@ class KVPoolServer:
     def stop(self) -> None:
         self._server.shutdown()
         self._server.server_close()
+        if self._metrics_httpd is not None:
+            self._metrics_httpd.shutdown()
+            self._metrics_httpd.server_close()
+            self._metrics_httpd = None
+
+    # -- metrics exposition -------------------------------------------------
+
+    def _build_registry(self, reg):
+        """The ``kvpool_*`` families (JAX ``KVPoolServer._build_registry``),
+        read from the live counters at scrape time (the ``stats`` op reads
+        the same ones)."""
+        reg.counter_func("kvpool_hits_total", lambda: self.hits,
+                         "prefix lookups served from the pool")
+        reg.counter_func("kvpool_misses_total", lambda: self.misses,
+                         "prefix lookups that found nothing "
+                         "(incl. unknown namespaces)")
+        reg.counter_func("kvpool_evictions_total", lambda: self.evictions,
+                         "LRU entries dropped under token/byte pressure")
+        reg.counter_func("kvpool_rejected_total", lambda: self.rejected,
+                         "puts refused (namespace budget / size caps)")
+        reg.counter_func("kvpool_conn_errors_total",
+                         lambda: self.conn_errors,
+                         "connections torn down on protocol/transport "
+                         "faults")
+        reg.gauge_func("kvpool_entries", lambda: self._store.n_entries)
+        reg.gauge_func("kvpool_cached_tokens",
+                       lambda: (self._store.cached_tokens
+                                - self._store.n_entries))
+        reg.gauge_func("kvpool_cached_bytes", lambda: self.cached_bytes,
+                       "bytes pinned by LRU entries (RAM in use)")
+        reg.gauge_func("kvpool_namespaces",
+                       lambda: self.n_namespaces)
+        reg.counter_func(
+            "kvpool_handoff_total",
+            lambda: [({"event": "pinned"}, self.handoff_puts),
+                     ({"event": "claimed"}, self.handoff_claims),
+                     ({"event": "ttl_reclaimed"}, self.handoff_expired),
+                     ({"event": "rejected"}, self.handoff_rejected)],
+            "disaggregated handoff pins/claims/TTL-reclaims/refusals")
+        reg.gauge_func("kvpool_handoff_pending",
+                       lambda: self.handoff_pending)
+        reg.gauge_func("kvpool_handoff_bytes",
+                       lambda: self.handoff_bytes,
+                       "bytes pinned by unclaimed handoff entries")
+        reg.gauge_func("kvpool_handoff_pages",
+                       lambda: self.handoff_pages,
+                       "live KV pages pinned by unclaimed page-wise "
+                       "handoff entries (0 for bucket-width producers)")
+        reg.histogram_func(
+            "kvpool_handoff_wire_seconds",
+            lambda: [({"op": op}, acc)
+                     for op, acc in sorted(self.handoff_wire.items())],
+            "handoff op wire+serialize time, prelude-seen to "
+            "response-sent (hput = publish, hclaim = claim)")
+        return reg
+
+    def metrics_text(self) -> str:
+        return self.registry.render()
+
+    def serve_metrics(self, host: str = "127.0.0.1", port: int = 8101) -> int:
+        """Start the HTTP ``/metrics`` (and ``/health``) endpoint next to
+        the TCP data plane; returns the bound port (``port=0`` picks a
+        free one). Call once, from the owner."""
+        import http.server
+
+        from llm_in_practise_tpu_torch.serve.http_util import (
+            JsonHandler,
+            serve_obs_get,
+        )
+
+        pool = self
+
+        class Handler(JsonHandler):
+            def do_GET(self):
+                if not serve_obs_get(self, pool.metrics_text):
+                    self._json(404, {"error": {"message": "not found"}})
+
+        class Server(http.server.ThreadingHTTPServer):
+            daemon_threads = True
+
+        self._metrics_httpd = Server((host, port), Handler)
+        threading.Thread(target=self._metrics_httpd.serve_forever,
+                         daemon=True).start()
+        return self._metrics_httpd.server_address[1]
 
     # -- ops ----------------------------------------------------------------
 
@@ -823,20 +915,28 @@ def main(argv=None) -> None:
     p.add_argument("--max-bytes", type=int, default=4 << 30,
                    help="global pool budget in blob bytes")
     p.add_argument("--max-namespaces", type=int, default=64)
-    p.add_argument("--metrics-port", type=int, default=0,
-                   help="Prometheus /metrics port; not ported yet (0 = off)")
+    p.add_argument("--metrics-port", type=int, default=8101,
+                   help="HTTP port for Prometheus /metrics (+/health) next "
+                        "to the TCP data plane; 0 disables")
     args = p.parse_args(argv)
-    if args.metrics_port:
-        raise NotImplementedError(
-            "--metrics-port is not ported to the PyTorch pool server yet "
-            "(ROADMAP.md queue A item 6); the counters answer the stats op")
     server = KVPoolServer(args.host, args.port, max_tokens=args.max_tokens,
                           max_bytes=args.max_bytes,
                           max_namespaces=args.max_namespaces)
     server.start()
+    # the data plane's address first: a launcher reads the first line
     print(f"kv pool server on {server.address[0]}:{server.address[1]} "
           f"(budget {args.max_tokens} tokens / {args.max_bytes} bytes)",
           flush=True)
+    if args.metrics_port:
+        try:
+            mport = server.serve_metrics(args.host, args.metrics_port)
+            print(f"kv pool metrics at {args.host}:{mport}/metrics",
+                  flush=True)
+        except OSError as e:
+            # a second pool on the host collides on the default port: the
+            # data plane, already up, stays up with metrics off
+            print(f"kv pool metrics DISABLED: cannot bind "
+                  f"{args.host}:{args.metrics_port} ({e})", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -33,9 +33,11 @@ writes and zeroing touch only rows no slot indexes, and run under the
 engine's step lock (:meth:`AdapterRegistry.attach`), so no replay or
 capture is in flight while a row changes.
 
-Left out: tensor-parallel placement of the banks (``mesh=``, JAX
-``_place``; ROADMAP.md queue A item 14) and the HBM ledger's bookings
-(item 6); the registry keeps ``bytes_loaded`` and its counters.
+Each registration books its payload bytes into the HBM ledger's
+``adapters/r<b>`` account (evictions free them; a budget eviction counts
+a ``budget`` reclaim); the banks' power-of-two padding beyond the payload
+shows in the ledger's residual. Left out: tensor-parallel placement of
+the banks (``mesh=``, JAX ``_place``; ROADMAP.md queue A item 14).
 
 :class:`AdapterHandle` keeps the engine-per-adapter surface
 (``serve/api.py``'s ``adapters=``) over one shared engine.
@@ -58,6 +60,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from llm_in_practise_tpu_torch.obs.hbm import get_ledger
 from llm_in_practise_tpu_torch.peft.lora import LoRAConfig, stack_lora_tree
 
 _BLOCK_RE = re.compile(r"blocks\.(\d+)\.(.*)")
@@ -386,6 +389,7 @@ class AdapterRegistry:
                 n_bytes=n_bytes, last_used=time.monotonic(), source=source)
             self.bytes_loaded += n_bytes
             self.loads_total += 1
+            get_ledger().book(f"adapters/r{rb}", n_bytes)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)   # the swap's cost
             dt = time.monotonic() - t0
@@ -419,13 +423,15 @@ class AdapterRegistry:
                       victim.name, victim.n_bytes)
             self._evict_locked(victim)
             self.evictions_total += 1
+            get_ledger().note_reclaim(f"adapters/r{victim.rb}", "budget")
 
     def _evict_locked(self, rec: _AdapterRec) -> None:
         """Free ``rec``'s row (zeroed when it is taken again) and its
-        bytes."""
+        bytes, in the registry and in the ledger."""
         self._adapters.pop(rec.name, None)
         self._buckets[rec.rb].free.append(rec.row)
         self.bytes_loaded -= rec.n_bytes
+        get_ledger().book(f"adapters/r{rec.rb}", -rec.n_bytes)
 
     def evict(self, name: str) -> bool:
         """Explicit unload; refuses while requests are in flight."""

@@ -26,9 +26,10 @@ each paged step
    routed to the reserved **trash page** (physical page 0).
 
 The engine holds the step bodies (:mod:`.engine`, :mod:`.graphs`); this
-module is the host bookkeeping and the pool tensors. Unlike the JAX
-module it books nothing into an HBM ledger (``obs.hbm.get_ledger``):
-the ledger is ROADMAP.md queue A item 6, not ported yet.
+module is the host bookkeeping and the pool tensors. The pool tensor is
+the HBM ledger's ``kv_pool.pages`` account (booked at build, freed at
+:meth:`PagedKV.close`), and every gather view pulses
+``transient_view`` (:meth:`PagedKV.pulse_view`).
 
 Sharing/refcount protocol: a physical page's refcount equals the number
 of slot block tables mapping it, plus one if the
@@ -40,9 +41,12 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import weakref
 
 import numpy as np
 import torch
+
+from llm_in_practise_tpu_torch.obs.hbm import get_ledger
 
 #: physical page 0 is never allocated: host-built scatter indices route
 #: every discarded write (idle rows, padding beyond a row's valid window)
@@ -334,9 +338,23 @@ class PagedKV:
         self.kv = [{key: self.store[i * len(self.keys) + j]
                     for j, key in enumerate(self.keys)}
                    for i in range(self.n_layers)]
+        # ledger account kv_pool.pages: the pool tensor is the one real
+        # device allocation here; page and row rates derive from it, so
+        # every page count converts to bytes the same way everywhere
+        # (/debug/kv, /debug/hbm, session pins)
         self.pool_bytes = self.store.numel() * self.store.element_size()
         self.row_bytes = self.pool_bytes // pool_rows
         self.page_bytes = self.row_bytes * self.page_size
+        led = get_ledger()
+        led.book("kv_pool.pages", self.pool_bytes)
+        # freed once: by close(), or when the pool is collected unclosed
+        self._ledger_free = weakref.finalize(
+            self, led.book, "kv_pool.pages", -self.pool_bytes)
+
+    def close(self) -> None:
+        """Return the pool's ledger claim (engine stop). Idempotent: a
+        second stop must not free the account twice."""
+        self._ledger_free()
 
     def view_bytes(self, width: int, n_slots: int | None = None) -> int:
         """Device bytes of one transient gather view: ``n_slots`` rows of
@@ -344,6 +362,13 @@ class PagedKV:
         holds next to the pool)."""
         s = self.max_slots if n_slots is None else int(n_slots)
         return int(width) * s * self.row_bytes
+
+    def pulse_view(self, width: int, n_slots: int | None = None) -> None:
+        """Pulse ledger account ``transient_view`` with one dispatch's
+        gather view: the view lives only inside the dispatch, so only the
+        account's high-water mark moves (the pool + view coexistence
+        peak)."""
+        get_ledger().pulse("transient_view", self.view_bytes(width, n_slots))
 
     # -- capacity -------------------------------------------------------------
 
@@ -494,9 +519,8 @@ class PagedKV:
 
     def debug_snapshot(self) -> dict:
         """The ``GET /debug/kv`` payload: pool occupancy, sharing and
-        per-slot block-table sizes, from ONE :meth:`PagePool.snapshot`.
-        The JAX payload's ledger cross-links (``ledger_account``) are
-        left out with the ledger."""
+        per-slot block-table sizes, from ONE :meth:`PagePool.snapshot`,
+        with the ledger account the pool's bytes are booked under."""
         pool = self.pool.snapshot()
         mapped = int(np.sum(self.slot_pages_n))
         return {
@@ -513,6 +537,7 @@ class PagedKV:
             "alloc_failures": pool["alloc_failures"],
             "block_table_pages_per_slot": [
                 int(n) for n in self.slot_pages_n],
+            "ledger_account": "kv_pool.pages",
             "page_bytes": self.page_bytes,
             "pool_bytes": self.pool_bytes,
             "slot_mapped_bytes": mapped * self.page_bytes,

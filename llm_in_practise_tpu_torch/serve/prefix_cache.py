@@ -19,7 +19,8 @@ pool. Two forms here, one per KV layout:
 host pool and the pool server of :mod:`.kv_pool` reuse it through its
 eviction hook (``on_evict``), the exact-key ``peek`` and ``pop_lru``. A
 contiguous engine with tiers chains an offload onto its L1's
-``on_evict``.
+``on_evict``. The page index's evictions under pool pressure count as
+``prefix_evict`` reclaims of the HBM ledger's ``kv_pool.pages``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import dataclasses
 import itertools
 import threading
 from collections import OrderedDict
+
+from llm_in_practise_tpu_torch.obs.hbm import get_ledger
 
 
 @dataclasses.dataclass
@@ -347,6 +350,7 @@ class PagedPrefixIndex:
             while len(dropped) < n and self._entries:
                 dropped.extend(self._evict_lru_locked())
         if dropped:
+            get_ledger().note_reclaim("kv_pool.pages", "prefix_evict")
             self.pool.release(dropped)
         return len(dropped)
 

@@ -139,6 +139,19 @@ def test_unported_engine_knobs_raise(knob):
         with pytest.raises(ValueError, match="role"):
             InferenceEngine(model, **knob)
         return
+    if "session_store" in knob:
+        # sessions are ported: a store attaches (an object that is not one
+        # has no attach), and the engine reports it
+        from llm_in_practise_tpu_torch.serve.sessions import SessionStore
+
+        with pytest.raises(AttributeError, match="attach"):
+            InferenceEngine(model, **knob)
+        store = SessionStore()
+        eng = InferenceEngine(model, session_store=store, kv_layout="paged")
+        assert store.engine is eng and store.pool is eng.paged.pool
+        assert eng.debug_sessions()["enabled"] is True
+        eng.stop()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if "adapter_registry" in knob:
             # LoRA serving is ported; its registry's tensor-parallel bank
@@ -175,8 +188,14 @@ def test_prefix_cache_and_paged_knobs_construct_and_serve(knob):
 def test_unported_submit_arguments_raise():
     eng = InferenceEngine(tiny_port_model(64, seed=5), max_slots=1,
                           cache_len=16, cache_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.submit([1, 2, 3], session_id="s")
+    # session_id is ported: an engine without a store serves the request
+    # and ignores the handle
+    req = eng.submit([1, 2, 3], SamplingParams(greedy=True, max_tokens=2),
+                     session_id="s")
+    while eng.step():
+        pass
+    assert len(req.result()) == 2 and req.session_id == "s"
+    assert eng.debug_sessions() == {"enabled": False}
     # kv_entry is ported (the disaggregated handoff): an entry that does
     # not fit the prompt is counted in kv_rejected and the request
     # prefills locally

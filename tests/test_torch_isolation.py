@@ -22,8 +22,10 @@ import importlib, pkgutil, sys
 import llm_in_practise_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 assert "llm_in_practise_tpu_torch.serve.disagg" in names, names
-for name in ("constrain", "arrivals", "multi_lora", "adapters", "kv_pool"):
-    assert "llm_in_practise_tpu_torch.serve." + name in names, names
+for name in ("serve.constrain", "serve.arrivals", "serve.multi_lora",
+             "serve.adapters", "serve.kv_pool", "serve.sessions",
+             "obs.logging", "obs.registry", "obs.cost", "obs.hbm"):
+    assert "llm_in_practise_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -137,18 +139,22 @@ def test_cli_rejects_unported_flags():
                   ["--speculative", "4", "--draft-model-path", "d"],
                   ["--lora-modules", "a=b"], ["--kv-offload"],
                   ["--kv-remote", "127.0.0.1:8100"],
-                  ["--role", "decode", "--kv-remote", "127.0.0.1:8100"]):
+                  ["--role", "decode", "--kv-remote", "127.0.0.1:8100"],
+                  ["--session-store"],
+                  ["--session-store", "--session-ttl", "30"]):
         check_not_ported(build_parser().parse_args(base + extra))
     # --quantized_dir is optional: without it --model_path is the input
     check_not_ported(build_parser().parse_args(["--tokenizer_path", "t"]))
-    for extra in (["--tensor-parallel-size", "2"], ["--session-store"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the session TTL defaults to the JAX CLI's
+    assert build_parser().parse_args(base).session_ttl == 600.0
+    # tensor parallelism (item 14) and the tracing and SLO flags (item
+    # 6's second part) are still refused
+    for extra, item in ((["--tensor-parallel-size", "2"], 14),
+                        (["--tp-quantized-collectives"], 14),
+                        (["--trace-file", "t.jsonl"], 6),
+                        (["--ttft-slo", "2"], 6), (["--tpot-slo", "0.1"], 6)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             check_not_ported(build_parser().parse_args(base + extra))
-    # the pool server's Prometheus port is item 6
-    from llm_in_practise_tpu_torch.serve.kv_pool import main as pool_main
-
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pool_main(["--port", "0", "--metrics-port", "8101"])
 
 
 def test_nvcc_command_targets_sm90a_into_an_ignored_dir():

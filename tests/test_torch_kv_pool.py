@@ -405,10 +405,11 @@ def test_handoff_pin_survives_eviction_pressure(servers):
     assert server.stats()["handoff_pending"] == 0
     # each handoff op is timed once (booked just after its reply)
     deadline = time.monotonic() + 5
-    while (server.handoff_wire["hclaim"][0] < 1
+    while (server.handoff_wire["hclaim"].count < 1
            and time.monotonic() < deadline):
         time.sleep(0.01)
-    assert [server.handoff_wire[op][0] for op in ("hput", "hclaim")] == [1, 1]
+    assert [server.handoff_wire[op].count
+            for op in ("hput", "hclaim")] == [1, 1]
 
 
 def test_handoff_ttl_reclaim_and_budget(servers):
@@ -470,19 +471,33 @@ def test_slow_remote_lookup_trips_cooldown(servers):
 
 
 def test_pool_server_cli_serves_and_refuses_metrics_port():
+    """The CLI serves the data plane and, since the scrape plane was
+    ported, ``--metrics-port`` too (it no longer refuses the flag): the
+    data plane's address is the first line, the metrics address the
+    second, and ``/metrics`` renders the ``kvpool_*`` families."""
+    import socket
     import subprocess
     import sys
+    import urllib.request
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pkv.main(["--metrics-port", "8101"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        mport = sock.getsockname()[1]
     proc = subprocess.Popen(
         [sys.executable, "-u", "-m", "llm_in_practise_tpu_torch.serve.kv_pool",
-         "--port", "0"], stdout=subprocess.PIPE, text=True)
+         "--port", "0", "--metrics-port", str(mport)],
+        stdout=subprocess.PIPE, text=True)
     try:
         line = proc.stdout.readline()
         host, port = line.split(" on ")[1].split(" ")[0].rsplit(":", 1)
         client = RemoteKVClient((host, int(port)), timeout=5.0)
         assert client.stats()["entries"] == 0
+        assert f":{mport}/metrics" in proc.stdout.readline()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{mport}/metrics", timeout=10) as r:
+            text = r.read().decode()
+        assert "# TYPE kvpool_hits_total counter" in text
+        assert 'kvpool_handoff_total{event="pinned"} 0' in text
     finally:
         proc.terminate()
         proc.wait(timeout=10)
