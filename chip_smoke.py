@@ -153,8 +153,9 @@ Phases, in order; any failure exits non-zero:
    entry, publish and claim seconds by piece, TTFT after a claim and
    TPOT beside ``both``, the write-through's cost, L3 ``get`` ms per MiB
    of the largest entry ``cache_len`` admits at full depth.
-   Then ``serve_lora`` on the full-depth NF4 model (batched multi-LoRA;
-   paged, chunked prefill 256, decode blocks of 8, the mixed step): four
+   Then ``serve_lora`` on the ``CUT_LAYERS`` NF4 model (batched
+   multi-LoRA; paged, chunked prefill 256, decode blocks of 8, the mixed
+   step): four
    seeded adapters (``sft-a`` and ``sft-b`` r 16 on the SFT default's
    attention targets, ``sft-a`` written by ``save_named`` and loaded by
    path; ``qv-8`` r 8 on q and v; ``ladder-6`` r 6 on q and the MLP), the
@@ -195,6 +196,31 @@ Phases, in order; any failure exits non-zero:
    page's script reads; B1 thin on both replicas. Readings: warm and
    cold TTFT by turn, the migration's prefill tokens and TTFT, the
    ledger's residual beside ``torch.cuda.memory_allocated``.
+   Then ``serve_obs`` on the full-depth NF4 model (the tracer and the
+   device plane): a server from ``serve.build_server`` with the CLI's
+   defaults (paged, pages of 16, decode steps of 1) and ``--trace-file``,
+   ``--ttft-slo 2.0``, ``--tpot-slo 0.1``; the NF4 cell's 8 chats (4
+   streamed, 2 with a client ``traceparent``) and a ~700-token document.
+   Each request's trace roots at ``api.chat`` with the engine's phase
+   spans under it; ``/debug/traces``, the trace file (both lanes),
+   ``/debug/requests`` (segments sum to wall within 1%) and ``/metrics``
+   (TTFT counts, dispatches equal to the engine's and the step records',
+   every step a partition, coverage >= 0.95, busy + host gap = 1,
+   goodput's tokens the tokens generated, no MFU or bandwidth gauge
+   above 1.05); a 1 ms TPOT SLO makes every request violate, blamed on
+   spans of the blame list; ``POST /debug/profile`` while 4 chats stream
+   answers 200 with B1 thin-M kernels in its trace, a second POST 409;
+   the compile family equals the graphs' captures; the recorder and the
+   tracer swapped off and on on one engine give the same greedy streams
+   and TPOT p50 within 1.05. Then a prefill and a decode replica, each
+   with its own tracer, over a pool server: one trace id in both rings
+   (``handoff.publish`` in one, ``handoff.claim`` in the other), B1's
+   wgmma route on the prefill replica only. Readings: a decode step's
+   partition by activity, the busy share by CUDA events beside
+   torch.profiler's (decode, and an eager prefill), the MFU and bandwidth
+   gauges per phase, TTFT / TPOT p50 from the histograms beside the
+   client's clock, the critical path, compile seconds, the profile's
+   bytes and seconds, the on / off TPOT ratio.
 6. Training kernels: the NF4 forward and backward at M = 8192 for every
    Qwen3-8B projection shape (both also at ragged shapes,
    ``NF4_FWD_EDGE_SHAPES`` on both forward routes and
@@ -280,8 +306,9 @@ PROJ_SHAPES = {  # Qwen3-8B block projections: name -> (K, N)
 CHECK_M = (1, 8, 512)
 N_LAYER = 36    # full depth of Qwen3-8B
 N_LAYER_FULL = N_LAYER
-# serve_spec and serve_struct run at this depth, every check kept, so the
-# script stays inside half its time limit as later slices add phases
+# serve_spec, serve_struct and serve_lora (and serve_disagg's cross-layout
+# and tier legs) run at this depth, every check kept, so the script stays
+# inside half its time limit as later slices add phases
 CUT_LAYERS = 12
 MAX_SLOTS = 8
 CACHE_LEN = 1024
@@ -1073,7 +1100,11 @@ def device_ms(calls, rounds: int = 20):
     allocations, the ctypes call) is not counted. None where the profiler
     records no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from llm_in_practise_tpu_torch.obs.meter import (
+        exclusive_profile as profile,
+    )
 
     for call in calls:
         call()
@@ -1095,7 +1126,11 @@ def device_ms_each(calls, key: str, rounds: int = 20):
     ``key``, taken in launch order (each call launches one). None where the
     profiler records no such kernel times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from llm_in_practise_tpu_torch.obs.meter import (
+        exclusive_profile as profile,
+    )
 
     for call in calls:
         call()
@@ -1591,7 +1626,11 @@ def profile_decode(engine, prompts, kernel_name: str, steps: int = 16
     Kernels run on one stream, so their summed time is the device's busy
     time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from llm_in_practise_tpu_torch.obs.meter import (
+        exclusive_profile as profile,
+    )
 
     from llm_in_practise_tpu_torch.serve.engine import SamplingParams
 
@@ -1873,7 +1912,11 @@ def sched_profile(engine, tok) -> dict:
     host wall per block (no profiler), then the device time of as many
     blocks under torch.profiler. Each block is one graph replay."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from llm_in_practise_tpu_torch.obs.meter import (
+        exclusive_profile as profile,
+    )
 
     from llm_in_practise_tpu_torch.serve.engine import SamplingParams
 
@@ -2964,7 +3007,11 @@ def spec_profile(engine, prompts) -> dict:
     round is about 30000 kernels). The chats are left in flight; the
     engine does no counted work after this."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from llm_in_practise_tpu_torch.obs.meter import (
+        exclusive_profile as profile,
+    )
 
     from llm_in_practise_tpu_torch.serve.engine import SamplingParams
 
@@ -4777,7 +4824,11 @@ def lora_profile(engine, prompts, pins) -> dict:
     (the host wall of those steps includes the captures of each new view
     width, so it is not read); the requests then run to their end."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from llm_in_practise_tpu_torch.obs.meter import (
+        exclusive_profile as profile,
+    )
 
     from llm_in_practise_tpu_torch.serve.engine import SamplingParams
 
@@ -5003,7 +5054,8 @@ def lora_http(model, tok, registry, seed: int) -> dict:
 
 
 def lora_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
-    """serve_lora on the NF4 model (Qwen3-8B width, full depth): batched
+    """serve_lora on the NF4 model (Qwen3-8B width, ``CUT_LAYERS`` deep
+    since the serve_obs phase came in; every check kept): batched
     multi-LoRA over the NF4 base. Four seeded adapters: ``sft-a`` and
     ``sft-b`` (r 16, alpha 32, the repo's SFT targets; ``sft-a`` written
     by ``save_named`` and loaded by ``register(path)``), ``qv-8`` (r 8,
@@ -5930,9 +5982,9 @@ class SessRecorder:
             self.hit_len.setdefault(req.uid, 0 if hit is None else hit.length)
             return begin(req, slot, plen, hit)
 
-        def suffix_w(slot, toks, done, adapter=None):
+        def suffix_w(slot, toks, done, req):
             self.prefill_tokens += len(toks)
-            return suffix(slot, toks, done, adapter)
+            return suffix(slot, toks, done, req)
 
         def batch_w(b):
             self.prefill_tokens += sum(plen for _, _, plen in b)
@@ -6582,6 +6634,657 @@ def sessions_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
         raise SystemExit(f"serve_sessions: checks failed: "
                          f"{[k for k, v in checks.items() if not v]}")
     return {"sessions": res, "launches": counts["nf4_matmul"],
+            "routes": read_routes()["nf4_matmul"]}
+
+
+# serve_obs: the tracer and the device plane (obs/trace.py,
+# obs/steptrace.py, obs/cost.py, obs/meter.py, obs/prof.py) on a server
+# that serve.build_server builds with the CLI's defaults (paged, pages of
+# 16, decode steps of 1, no chunking) over the full-depth NF4 model
+OBS_SLO = (2.0, 0.1)     # --ttft-slo / --tpot-slo: the reference's SLAs
+OBS_DOC_TOKENS = 700     # the document's prompt: a one-shot wgmma prefill
+OBS_PROFILE_S = 1.0      # POST /debug/profile's duration
+OBS_PROFILE_TOKENS = 256  # the streams that run under the capture
+OBS_ONOFF_ROUNDS = 3     # rounds with the planes on, and off, alternating
+OBS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "obs_phase")
+# a decode step's device time must not read above the card's bandwidth
+# by more than rounding: a gauge above this is a fault of the cost model
+# or of the timing, not the card
+OBS_GAUGE_MAX = 1.05
+OBS_ONOFF_MAX = 1.05     # TPOT p50 with the planes on over off
+
+
+def obs_chat(base: str, body: dict, headers: dict | None = None) -> dict:
+    """One chat over HTTP; for a stream, the client clock's TTFT (to the
+    first event carrying content) beside its total."""
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise SystemExit(f"serve_obs: HTTP {r.status}")
+        if not body.get("stream"):
+            out = json.loads(r.read())
+            return {"content": out["choices"][0]["message"]["content"],
+                    "finish_reason": out["choices"][0]["finish_reason"],
+                    "wall_s": time.monotonic() - t0}
+        ttft, text, finish, done = None, [], None, False
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            data = line[len("data: "):]
+            if data == "[DONE]":
+                done = True
+                break
+            ev = json.loads(data)
+            if "error" in ev:
+                raise SystemExit(f"serve_obs: stream error {ev}")
+            delta = ev["choices"][0]["delta"].get("content")
+            if delta:
+                if ttft is None:
+                    ttft = time.monotonic() - t0
+                text.append(delta)
+            finish = ev["choices"][0].get("finish_reason") or finish
+    return {"content": "".join(text), "finish_reason": finish, "done": done,
+            "ttft_s": ttft, "wall_s": time.monotonic() - t0}
+
+
+def delta_quantile(before, after, q: float) -> float | None:
+    """The bucket-interpolated ``q`` quantile (``HistogramAccumulator``'s
+    rule) of the observations between two snapshots of a histogram."""
+    bounds, cum1, n1, _ = after
+    _, cum0, n0, _ = before
+    count = n1 - n0
+    if count <= 0:
+        return None
+    rank = q * count
+    prev_bound, prev_cum = 0.0, 0
+    for bound, c1, c0 in zip(bounds, cum1, cum0):
+        c = c1 - c0
+        if c >= rank:
+            if bound == float("inf"):
+                return prev_bound
+            span = c - prev_cum
+            frac = (rank - prev_cum) / span if span else 1.0
+            return prev_bound + frac * (bound - prev_bound)
+        prev_bound, prev_cum = bound, c
+    return bounds[-2]
+
+
+def obs_kernels(path: str) -> dict:
+    """The kernel events of a gzipped Chrome trace, and those of B1's
+    thin-M (``Nf4Thin``) and wgmma (``Nf4Fwd``) kernels."""
+    import gzip
+
+    with gzip.open(path, "rt") as f:
+        data = json.load(f)
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"events": len(events), "kernels": len(kernels),
+            "b1_thin": sum("Nf4Thin" in e.get("name", "") for e in kernels),
+            "b1_wgmma": sum("Nf4Fwd" in e.get("name", "") for e in kernels)}
+
+
+def settle(engine) -> None:
+    """Return once the engine thread's step in flight (the one that
+    finished the last request) has closed its record: a step holds the
+    engine's lock to its end."""
+    with engine._lock:
+        pass
+
+
+def obs_round(engine, gate, prompts, max_tokens: int) -> tuple[list, list]:
+    """``prompts`` submitted while admission is parked (so the engine
+    thread admits them in one step), then released; their requests when
+    all finish, and the step records of the round."""
+    from llm_in_practise_tpu_torch.serve.engine import SamplingParams
+
+    steps0 = engine.steptrace.snapshot()["steps"]
+    gate.clear()
+    reqs = [engine.submit(p, SamplingParams(greedy=True,
+                                            max_tokens=max_tokens))
+            for p in prompts]
+    gate.set()
+    engine._wake.set()
+    for r in reqs:
+        r.result()
+    settle(engine)
+    n = engine.steptrace.snapshot()["steps"] - steps0
+    return reqs, (engine.steptrace.records(limit=n) if n > 0 else [])
+
+
+def obs_profiled_round(engine, gate, prompts, max_tokens: int) -> dict:
+    """The same round twice (greedy: the same steps): alone, where the
+    step records' CUDA-event time gives the device time per step and the
+    busy share; then under the profiler (CUDA activity), whose kernel
+    time per step and busy share sit beside the events' share in that
+    profiled round (the profiler slows the steps it traces)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from llm_in_practise_tpu_torch.obs.meter import exclusive_profile
+
+    _, plain = obs_round(engine, gate, prompts, max_tokens)
+    with exclusive_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, recs = obs_round(engine, gate, prompts, max_tokens)
+        torch.cuda.synchronize()
+    kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    wall0 = sum(r["wall_s"] for r in plain)
+    wall = sum(r["wall_s"] for r in recs)
+    return {"steps": len(plain), "steps_profiled": len(recs),
+            "event_device_ms_per_step": (
+                sum(r["device_s"] for r in plain) * 1e3 / len(plain)),
+            "wall_ms_per_step": wall0 * 1e3 / len(plain),
+            "event_busy": sum(r["device_s"] for r in plain) / wall0,
+            "profiler_kernel_ms_per_step": (
+                kernel_us / 1e3 / len(recs) if kernel_us
+                else "not measured"),
+            "profiled_wall_ms_per_step": wall * 1e3 / len(recs),
+            "profiler_busy": (kernel_us / 1e6 / wall if kernel_us
+                              else "not measured"),
+            "event_busy_profiled": sum(r["device_s"] for r in recs) / wall}
+
+
+def decode_partition(recs) -> dict:
+    """Medians of the decode steps' records (one dispatch and no index
+    build: no prefill in the step): wall, device and host activities."""
+    steps = [r for r in recs if r["dispatches"] == 1
+             and r["activities"].get("index_build", 0.0) == 0.0]
+    if not steps:
+        return {"steps": 0}
+    return {"steps": len(steps),
+            "wall_s": statistics.median(r["wall_s"] for r in steps),
+            "device_s": statistics.median(r["device_s"] for r in steps),
+            **{a: statistics.median(r["activities"].get(a, 0.0)
+                                    for r in steps)
+               for a in ("queue_drain", "admit", "plan", "dispatch_wait",
+                         "sample_commit", "other")}}
+
+
+def obs_server_leg(model, tok, seed: int) -> dict:
+    """Leg 1: the server of ``build_server`` with ``--trace-file``,
+    ``--ttft-slo`` and ``--tpot-slo``; checks (a)-(h) of
+    :func:`obs_phase`, and the readings."""
+    import threading
+
+    import torch
+
+    from llm_in_practise_tpu_torch.obs import meter
+    from llm_in_practise_tpu_torch.obs.meter import GoodputMeter
+    from llm_in_practise_tpu_torch.obs.steptrace import (
+        DEVICE_LANE_TID,
+        HOST_LANE_TID,
+        StepTrace,
+    )
+    from llm_in_practise_tpu_torch.obs.trace import (
+        Tracer,
+        format_traceparent,
+        get_tracer,
+        new_context,
+    )
+    from llm_in_practise_tpu_torch.serve.__main__ import (
+        build_parser,
+        build_server,
+    )
+
+    os.makedirs(OBS_DIR, exist_ok=True)
+    trace_path = os.path.join(OBS_DIR, "trace.jsonl")
+    if os.path.exists(trace_path):
+        os.remove(trace_path)
+    os.environ["LLM_TPU_PROFILE_DIR"] = os.path.join(OBS_DIR, "profiles")
+    args = build_parser().parse_args([
+        "--tokenizer_path", "-", "--max_slots", str(MAX_SLOTS),
+        "--cache_len", str(CACHE_LEN), "--kv-cache-dtype", "bfloat16",
+        "--trace-file", trace_path, "--ttft-slo", str(OBS_SLO[0]),
+        "--tpot-slo", str(OBS_SLO[1])])
+    server = build_server(args, model=model, tokenizer=tok)
+    engine = server.engine
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(*a, **kw):
+        seen.append(submit(*a, **kw))
+        return seen[-1]
+
+    engine.submit = recording_submit
+    # admission parked while a round is submitted (never by holding the
+    # engine's lock: the engine thread retakes it between steps)
+    gate = threading.Event()
+    gate.set()
+    admit = engine._admit
+
+    def gated_admit():
+        return admit() if gate.is_set() else False
+
+    engine._admit = gated_admit
+    port = server.serve(host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{port}"
+    name = args.model_name
+    doc = long_messages(tok, OBS_DOC_TOKENS, 7)
+
+    def body(messages, stream=False, max_tokens=MAX_TOKENS):
+        return {"model": name, "temperature": 0.0, "max_tokens": max_tokens,
+                "stream": stream, "messages": messages}
+
+    chats = ckpt_chats()
+    clients = [new_context(), new_context()]   # chats 0 and 1 carry them
+
+    def traffic(max_tokens=MAX_TOKENS, with_doc=True):
+        with concurrent.futures.ThreadPoolExecutor(MAX_SLOTS + 1) as pool:
+            futs = []
+            for i, m in enumerate(chats):
+                hdr = ({"traceparent": format_traceparent(clients[i])}
+                       if i < len(clients) else None)
+                futs.append(pool.submit(obs_chat, base,
+                                        body(m, i % 2 == 1, max_tokens), hdr))
+            if with_doc:
+                futs.append(pool.submit(obs_chat, base, body(doc)))
+            return [f.result() for f in futs]
+
+    s = engine.stats
+    res, checks = {}, {}
+    try:
+        traffic()                                   # warm-up: the captures
+        settle(engine)
+        seen.clear()
+        before = parse_metrics(get_url(base + "/metrics")[2])
+        hist0 = {"ttft": s.ttft.snapshot(), "tpot": s.tpot.snapshot()}
+        steps0 = engine.steptrace.snapshot()["steps"]
+        disp0 = engine.dispatches_total
+        zero_routes = read_routes()["nf4_matmul"]
+        t0 = time.monotonic()
+        results = traffic()
+        res["round_wall_s"] = time.monotonic() - t0
+        settle(engine)
+        reqs = list(seen)
+        n_steps = engine.steptrace.snapshot()["steps"] - steps0
+        recs = engine.steptrace.records(limit=n_steps)
+        traces = json.loads(get_url(base + "/debug/traces")[2])
+        dreq = json.loads(get_url(base + "/debug/requests")[2])
+        text = get_url(base + "/metrics")[2]
+        after = parse_metrics(text)
+        hist1 = {"ttft": s.ttft.snapshot(), "tpot": s.tpot.snapshot()}
+        round_routes = {k: v - zero_routes[k] for k, v in
+                        read_routes()["nf4_matmul"].items()}
+
+        # (a) every request's trace: api.chat at the root (a client's
+        # traceparent adopted), the engine's phase spans under it
+        tracer = server.tracer
+        span_ok = []
+        for r in reqs:
+            spans = tracer.trace(r.trace.trace_id)
+            roots = [sp for sp in spans if sp["span_id"] == r.trace.span_id]
+            kids = {sp["name"] for sp in spans
+                    if sp["parent_id"] == r.trace.span_id}
+            ok = (len(roots) == 1 and roots[0]["name"] == "api.chat"
+                  and {"engine.queue_wait", "engine.admit",
+                       "engine.decode"} <= kids)
+            client = [c for c in clients if c.trace_id == r.trace.trace_id]
+            if client:
+                ok = ok and roots[0]["parent_id"] == client[0].span_id
+            elif roots:
+                ok = ok and roots[0]["parent_id"] is None
+            if roots and roots[0]["attrs"].get("stream"):
+                ok = ok and "api.stream_flush" in kids
+            span_ok.append(ok)
+        checks["spans_under_api_chat"] = len(reqs) == MAX_SLOTS + 1 and all(
+            span_ok)
+        checks["client_traceparent_adopted"] = all(
+            any(t["trace_id"] == c.trace_id for t in traces["traces"])
+            for c in clients)
+        # (c) each request's segments sum to its wall time
+        by_uid = {d["uid"]: d for d in dreq["finished"]}
+        seg_err = []
+        for r in reqs:
+            d = by_uid[r.uid]
+            total = sum(v for k, v in d["segments"].items()
+                        if k != "stream_flush")
+            seg_err.append(abs(total - d["wall_s"]) / d["wall_s"])
+        checks["segments_sum_to_wall"] = max(seg_err) <= 0.01
+
+        # (d) /metrics (parse_metrics is strict) against the engine
+        def val(fams, name, **labels):
+            return fams.get((name, frozenset(labels.items())), 0.0)
+
+        checks["ttft_counts_requests"] = (
+            val(after, "llm_ttft_seconds_count")
+            - val(before, "llm_ttft_seconds_count") == len(reqs))
+        checks["dispatches_equal_engine"] = (
+            val(after, "llm_dispatches_total") == engine.dispatches_total
+            and engine.dispatches_total - disp0
+            == sum(r["dispatches"] for r in recs))
+        part_err = max(abs(sum(r["activities"].values()) + r["device_s"]
+                           - r["wall_s"]) for r in recs)
+        checks["every_step_a_partition"] = part_err <= 1e-6 and all(
+            0 <= r["device_s"] <= r["wall_s"] for r in recs)
+        snap = engine.steptrace.snapshot()
+        checks["coverage_ge_0_95"] = snap["coverage"] >= 0.95
+        busy = val(after, "llm_device_busy_fraction")
+        gap = val(after, "llm_host_gap_fraction")
+        checks["busy_plus_gap_is_1"] = abs(busy + gap - 1.0) <= 1e-9
+        ok_tok = val(after, "llm_goodput_tokens_total", slo="ok")
+        bad_tok = val(after, "llm_goodput_tokens_total", slo="violated")
+        checks["goodput_tokens_equal_generated"] = (
+            ok_tok + bad_tok == val(after, "llm_tokens_generated_total")
+            == s.tokens_generated_total)
+        gauges = {g: {dict(k[1])["phase"]: v for k, v in after.items()
+                      if k[0] == g}
+                  for g in ("llm_dispatch_mfu", "llm_dispatch_hbm_bw_util",
+                            "llm_dispatch_tokens_per_dispatch")}
+        checks["gauges_for_both_phases"] = all(
+            set(gauges[g]) == {"prefill", "decode"} for g in gauges)
+        checks["no_gauge_over_1_05"] = all(
+            v <= OBS_GAUGE_MAX for g in ("llm_dispatch_mfu",
+                                         "llm_dispatch_hbm_bw_util")
+            for v in gauges[g].values())
+        res["gauges"] = gauges
+        res["cost_model"] = {
+            "weight_bytes": engine.cost_model.weight_bytes,
+            "kv_bytes_per_token": engine.cost_model.kv_bytes_per_token,
+            "peak_flops": engine.cost_model.peak_flops,
+            "peak_hbm_bw": engine.cost_model.peak_hbm_bw,
+            "device_kind": engine.cost_model.device_kind}
+        res["round_b1_routes"] = round_routes
+        streams = [r for r in results if "done" in r]
+        res["latency"] = {
+            "ttft_p50_s_histogram": delta_quantile(hist0["ttft"],
+                                                   hist1["ttft"], 0.5),
+            "ttft_p50_s_engine": statistics.median(r.ttft_s for r in reqs),
+            "ttft_p50_s_client_streams": statistics.median(
+                r["ttft_s"] for r in streams),
+            "tpot_p50_s_histogram": delta_quantile(hist0["tpot"],
+                                                   hist1["tpot"], 0.5),
+            "tpot_p50_s_engine": statistics.median(
+                r.tpot_s for r in reqs if r.tpot_s is not None)}
+        cp = {dict(k[1])["segment"]: v - val(before, k[0], **dict(k[1]))
+              for k, v in after.items()
+              if k[0] == "llm_request_critical_path_seconds_total"}
+        res["critical_path_round_s"] = cp
+        # the counted round's decode steps (the document's 1024-wide
+        # view among them) and, below, the on rounds' (the 8 chats)
+        res["decode_step_partition_p50"] = {"round": decode_partition(recs)}
+        res["steptrace"] = {k: snap[k] for k in (
+            "steps", "coverage", "device_busy_fraction",
+            "host_gap_fraction")}
+
+        # (e) a TPOT SLO no request meets: every one violates, blamed on
+        # a phase of the blame list
+        blame0 = dict(s.goodput.snapshot()["blame"])
+        viol0 = s.goodput.snapshot()["requests_violated"]
+        s.goodput.configure(tpot_slo_s=0.001)
+        traffic(with_doc=False)
+        gp = s.goodput.snapshot()
+        s.goodput.configure(*OBS_SLO)
+        blame = {k: v - blame0.get(k, 0) for k, v in gp["blame"].items()
+                 if v - blame0.get(k, 0)}
+        checks["every_request_violates"] = (
+            gp["requests_violated"] - viol0 == MAX_SLOTS)
+        checks["blame_names_blame_spans"] = (
+            sum(blame.values()) == MAX_SLOTS
+            and set(blame) <= set(GoodputMeter.BLAME_SPANS))
+        res["blame"] = blame
+        blame_fams = parse_metrics(get_url(base + "/metrics")[2])
+        checks["blame_family_renders"] = sum(
+            v for k, v in blame_fams.items()
+            if k[0] == "llm_slo_blame_total") == sum(gp["blame"].values())
+
+        # (f) POST /debug/profile while 4 chats stream; a second POST
+        # while it runs is a 409
+        with concurrent.futures.ThreadPoolExecutor(6) as pool:
+            streams_f = [pool.submit(obs_chat, base,
+                                     body(m, True, OBS_PROFILE_TOKENS))
+                         for m in chats[:4]]
+            wait_for(lambda: s.active_slots >= 4 and engine.stats
+                     .tokens_generated_total > 0, "4 streams decoding")
+            t_cap = time.monotonic()
+            cap = pool.submit(post_json, base + "/debug/profile",
+                              {"duration_s": OBS_PROFILE_S})
+            wait_for(meter._profile_lock.locked, "the capture to start")
+            second = post_json(base + "/debug/profile", {"duration_s": 0.1})
+            status, payload = cap.result()
+            cap_s = time.monotonic() - t_cap
+            for f in streams_f:
+                f.result()
+        kern = obs_kernels(payload["perfetto"][0]) if status == 200 else {}
+        checks["profile_200_with_b1_thin"] = (
+            status == 200 and kern.get("b1_thin", 0) > 0)
+        checks["profile_concurrent_409"] = second[0] == 409
+        res["profile"] = {"status": status, "second_status": second[0],
+                          "post_seconds": cap_s,
+                          "duration_s": payload.get("duration_s"),
+                          "bytes": sum(os.path.getsize(f)
+                                       for f in payload.get("files", [])),
+                          **kern}
+
+        # (g) the compile family is the graphs' own capture record
+        cm = engine.compile_meter
+        cap_total = sum(engine.graphs.capture_s.values())
+        checks["compile_equals_captures"] = (
+            cm.compile_events == len(engine.graphs.capture_s) > 0
+            and abs(cm.compile_seconds - cap_total) <= 0.01 * cap_total)
+        res["compile"] = {"events": cm.compile_events,
+                          "seconds": cm.compile_seconds,
+                          "graphs_capture_s": cap_total}
+
+        # (h) the recorder and the tracer off against on, swapped on this
+        # one engine (no graph is captured again): the same greedy
+        # streams, and TPOT p50 within OBS_ONOFF_MAX
+        prompts = [prompt_ids(tok, m) for m in chats]
+        on = (engine.steptrace, engine.tracer)
+        tpot = {"on": [], "off": []}
+        streams, on_recs = [], []
+        for i in range(2 * OBS_ONOFF_ROUNDS):
+            mode = "on" if i % 2 == 0 else "off"
+            with engine._lock:
+                if mode == "on":
+                    engine.steptrace, engine.tracer = on
+                else:
+                    engine.steptrace = StepTrace(enabled=False)
+                    engine.tracer = Tracer(enabled=False)
+            rq, rr = obs_round(engine, gate, prompts, MAX_TOKENS)
+            on_recs += rr
+            tpot[mode] += [r.tpot_s for r in rq if r.tpot_s is not None]
+            streams.append([r.output_ids for r in rq])
+        with engine._lock:
+            engine.steptrace, engine.tracer = on
+        res["decode_step_partition_p50"]["chats"] = decode_partition(on_recs)
+        ratio = statistics.median(tpot["on"]) / statistics.median(tpot["off"])
+        checks["streams_equal_on_off"] = all(st == streams[0]
+                                             for st in streams)
+        checks["tpot_on_off_le_1_05"] = ratio <= OBS_ONOFF_MAX
+        res["on_off"] = {"tpot_p50_on_s": statistics.median(tpot["on"]),
+                         "tpot_p50_off_s": statistics.median(tpot["off"]),
+                         "ratio": ratio, "rounds_each": OBS_ONOFF_ROUNDS}
+
+        # readings: the busy share by events beside the profiler's, over
+        # the same steps: the 8 chats (1 prefill step, then decode), and
+        # the document's one-shot eager prefill alone
+        res["busy_vs_profiler"] = {
+            "chats_round": obs_profiled_round(engine, gate, prompts, 32),
+            "doc_prefill": obs_profiled_round(
+                engine, gate, [prompt_ids(tok, doc)], 1)}
+        res["gauges_end"] = {phase: snap for phase, snap in
+                             engine.dispatch_meter.phase_snapshot().items()}
+    finally:
+        server.shutdown()
+        get_tracer().set_trace_file(None)     # flushes the sink
+    if engine.error is not None:
+        raise SystemExit(f"serve_obs: engine failed: {engine.error!r}")
+
+    # (b) /debug/traces parsed above; every line of the trace file parses
+    # and the file holds both lanes
+    lanes, n_lines, bad = {"host": 0, "device": 0}, 0, 0
+    with open(trace_path, encoding="utf-8") as f:
+        for line in f:
+            n_lines += 1
+            try:
+                ev = json.loads(line)
+            except json.JSONDecodeError:
+                bad += 1
+                continue
+            if ev.get("cat") == "steptrace" and ev.get("ph") == "X":
+                if ev["tid"] == HOST_LANE_TID:
+                    lanes["host"] += 1
+                elif ev["tid"] == DEVICE_LANE_TID:
+                    lanes["device"] += 1
+    checks["trace_file_parses_both_lanes"] = (
+        bad == 0 and n_lines > 0 and lanes["host"] > 0
+        and lanes["device"] > 0)
+    checks["debug_traces_parses"] = bool(traces["traces"])
+    res["trace_file"] = {"lines": n_lines, "bytes":
+                         os.path.getsize(trace_path), **lanes}
+    res["checks"] = checks
+    return res
+
+
+def obs_disagg_leg(model, tok, seed: int) -> dict:
+    """Leg 2: a prefill and a decode replica over the same model object
+    and a pool server, each with a tracer of its own (as two processes
+    would have): ``POST /internal/handoff/prefill`` with a
+    ``traceparent``, then a chat on the decode server whose
+    ``kv_transfer_params`` carry the handoff id and the trace. One trace
+    id in both rings (``handoff.publish`` in the prefill replica's,
+    ``handoff.claim`` in the decode replica's); B1's wgmma route runs on
+    the prefill replica only."""
+    import torch
+
+    from llm_in_practise_tpu_torch.data.sft import IM_END
+    from llm_in_practise_tpu_torch.obs.trace import (
+        Tracer,
+        format_traceparent,
+        new_context,
+    )
+    from llm_in_practise_tpu_torch.serve.api import OpenAIServer
+    from llm_in_practise_tpu_torch.serve.disagg import RemoteHandoff
+    from llm_in_practise_tpu_torch.serve.engine import InferenceEngine
+
+    proc, address = start_pool_server(0)
+    name = "qwen3-8b-nf4"
+    tracers = {"prefill": Tracer(enabled=True), "decode": Tracer(enabled=True)}
+    engines = {role: InferenceEngine(
+        model, max_slots=MAX_SLOTS, cache_len=CACHE_LEN,
+        eos_id=tok.token_to_id(IM_END), cache_dtype=torch.bfloat16,
+        seed=seed, kv_layout="paged", role=role,
+        handoff=RemoteHandoff(address, namespace=name),
+        tracer=tracers[role]) for role in ("prefill", "decode")}
+    servers = {role: OpenAIServer(engines[role], tok, model_name=name,
+                                  role=role) for role in engines}
+    bases = {role: "http://127.0.0.1:"
+             f"{s.serve(host='127.0.0.1', port=0, background=True)}"
+             for role, s in servers.items()}
+    client = new_context()
+    tp = format_traceparent(client)
+    body = {"model": name, "temperature": 0.0, "max_tokens": MAX_TOKENS,
+            "messages": long_messages(tok, OBS_DOC_TOKENS, 11)}
+    out = {}
+    try:
+        r0 = read_routes()["nf4_matmul"]
+        req = urllib.request.Request(
+            bases["prefill"] + "/internal/handoff/prefill",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json", "traceparent": tp})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            got = json.loads(r.read())
+        r1 = read_routes()["nf4_matmul"]
+        # the router rides the trace along in the handoff body
+        chat_res = post_chat(bases["decode"], dict(
+            body, kv_transfer_params={"handoff_id": got["handoff_id"],
+                                      "trace": tp}))
+        r2 = read_routes()["nf4_matmul"]
+    finally:
+        for s in servers.values():
+            s.shutdown()
+        proc.terminate()
+        proc.wait(timeout=60)
+    routes = {"prefill": {k: r1[k] - r0[k] for k in r0},
+              "decode": {k: r2[k] - r1[k] for k in r0}}
+    names = {role: {sp["name"] for sp in t.trace(client.trace_id)}
+             for role, t in tracers.items()}
+    roots = [sp for t in tracers.values() for sp in t.trace(client.trace_id)
+             if sp["name"] in ("api.prefill", "api.chat")]
+    dec = engines["decode"]
+    checks = {
+        "one_trace_across_replicas": (
+            {"api.prefill", "engine.admit", "handoff.publish"}
+            <= names["prefill"]
+            and {"api.chat", "handoff.claim", "engine.decode"}
+            <= names["decode"]
+            and len(roots) == 2
+            and all(sp["parent_id"] == client.span_id for sp in roots)),
+        "claimed_not_prefilled": (dec.kv_admitted == 1
+                                  and dec.local_prefills == 0),
+        "b1_wgmma_on_prefill_only": (routes["prefill"]["wgmma"] > 0
+                                     and routes["decode"]["wgmma"] == 0
+                                     and routes["decode"]["thin"] > 0),
+        "chat_finished": chat_res["finish_reason"] in ("stop", "length")}
+    out.update(checks=checks, routes=routes,
+               prompt_tokens=got["prompt_tokens"],
+               spans={role: sorted(n) for role, n in names.items()})
+    return out
+
+
+def obs_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
+    """serve_obs: the tracer and the device plane on the full-depth NF4
+    model. Leg 1, a server from ``serve.build_server`` with the CLI's
+    defaults and ``--trace-file``, ``--ttft-slo 2.0``, ``--tpot-slo 0.1``:
+    the NF4 cell's 8 chats (4 streamed, 2 with a client ``traceparent``)
+    and a ~700-token document. Checks, each exiting non-zero: (a) each
+    request's trace has ``api.chat`` at its root (a client's trace id
+    adopted) and the engine's phase spans under it; (b) ``/debug/traces``
+    and every line of the trace file parse, and the file has the host and
+    the device lane; (c) ``/debug/requests``: each request's segments sum
+    to its wall time within 1%; (d) ``/metrics`` parses strictly,
+    ``llm_ttft_seconds`` counts the requests, ``llm_dispatches_total``
+    equals the engine's count and the step records', every step record
+    is a partition, coverage >= 0.95, busy + host gap = 1, goodput's ok +
+    violated tokens are the tokens generated, both phases have MFU and
+    bandwidth gauges and none reads above 1.05; (e) under a TPOT SLO of
+    1 ms every request violates and ``llm_slo_blame_total`` names spans
+    of ``GoodputMeter.BLAME_SPANS``; (f) ``POST /debug/profile`` while 4
+    chats stream answers 200 with B1 thin-M kernels in its trace, and a
+    second POST during it 409; (g) the compile family equals the graphs'
+    captures; (h) the recorder and the tracer off against on, swapped on
+    one engine, give the same greedy streams and TPOT p50 within 1.05.
+    Leg 2: :func:`obs_disagg_leg`. Readings, with the card: a decode
+    step's partition by activity, the busy share by events beside the
+    profiler's, the MFU and bandwidth gauges per phase, TTFT / TPOT p50
+    from the histograms beside the client's clock, the critical path by
+    segment, compile seconds, the profile's bytes and seconds, the on /
+    off TPOT ratio."""
+    import torch
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    res = {"card": card, "layers": N_LAYER_FULL, "max_slots": MAX_SLOTS,
+           "cache_len": CACHE_LEN, "slo": OBS_SLO}
+    t0 = time.monotonic()
+    res["server"] = obs_server_leg(model, tok, seed)
+    res["server"]["wall_s"] = time.monotonic() - t0
+    log("serve_obs server:", json.dumps(res["server"], default=str))
+    t0 = time.monotonic()
+    res["disagg"] = obs_disagg_leg(model, tok, seed)
+    res["disagg"]["wall_s"] = time.monotonic() - t0
+    log("serve_obs disagg:", json.dumps(res["disagg"], default=str))
+    checks = {f"server_{k}": v for k, v in res["server"]["checks"].items()}
+    checks.update({f"disagg_{k}": v
+                   for k, v in res["disagg"]["checks"].items()})
+    counts = read_counters()
+    res.update(checks=checks, nf4_cell_tpot_p50_s=nf4_cell["tpot_p50_s"],
+               max_memory_allocated_gib=(
+                   torch.cuda.max_memory_allocated() / 2**30),
+               phase_wall_s=time.monotonic() - t_phase)
+    log("serve_obs:", json.dumps({k: v for k, v in res.items()
+                                  if k in ("checks", "phase_wall_s",
+                                           "max_memory_allocated_gib")}))
+    if not all(checks.values()):
+        raise SystemExit(f"serve_obs: checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"obs": res, "launches": counts["nf4_matmul"],
             "routes": read_routes()["nf4_matmul"]}
 
 
@@ -7260,7 +7963,11 @@ def matmul_params(cfg) -> int:
 
 def train_phase(n_layer: int, seed: int, card: str) -> dict:
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from llm_in_practise_tpu_torch.obs.meter import (
+        exclusive_profile as profile,
+    )
 
     from llm_in_practise_tpu_torch.train.optim import adamw
     from llm_in_practise_tpu_torch.train.step import (
@@ -8021,19 +8728,27 @@ def main(argv=None) -> int:
             t0 = time.monotonic()
             disagg = disagg_phase(model, shallow, tok, args.seed, card,
                                   served[fmt]["serve"])
-            del shallow
             phase_time("serve_disagg", t0)
             free()         # serve_disagg's engines
+            # serve_lora at CUT_LAYERS deep too (every check kept)
             t0 = time.monotonic()
-            lora = lora_phase(model, tok, args.seed, card,
+            set_depth(CUT_LAYERS)
+            lora = lora_phase(shallow, tok, args.seed, card,
                               served[fmt]["serve"])
+            set_depth(N_LAYER_FULL)
+            del shallow
             phase_time("serve_lora", t0)
             free()         # serve_lora's engines and registries
             t0 = time.monotonic()
             sessions = sessions_phase(model, tok, args.seed, card,
                                       served[fmt]["serve"])
-            del model
             phase_time("serve_sessions", t0)
+            free()         # serve_sessions' engines and servers
+            t0 = time.monotonic()
+            obs = obs_phase(model, tok, args.seed, card,
+                            served[fmt]["serve"])
+            del model
+            phase_time("serve_obs", t0)
         free()
     t0 = time.monotonic()
     awq_res = awq_check(tok, args.seed)
@@ -8095,6 +8810,7 @@ def main(argv=None) -> int:
             "serve_nf4_lora": lora["routes"],
             "serve_nf4_disagg": disagg["routes"],
             "serve_nf4_sessions": sessions["routes"],
+            "serve_nf4_obs": obs["routes"],
             "step_nf4": steps["nf4"]["launches_by_route"],
             "train_nf4": train_routes}),
         **decode_fields(decode, "nf4"),
@@ -8105,7 +8821,7 @@ def main(argv=None) -> int:
                      + paged["launches"] + spec["launches"]
                      + struct["launches"] + lora["launches"]
                      + disagg["launches"] + sessions["launches"]
-                     + launches["nf4_matmul"]
+                     + obs["launches"] + launches["nf4_matmul"]
                      + ckpt["launches"]["ckpt_serve_nf4"]
                      + ckpt_train["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
@@ -8116,6 +8832,7 @@ def main(argv=None) -> int:
                              "serve_nf4_lora": lora["launches"],
                              "serve_disagg": disagg["launches"],
                              "serve_sessions": sessions["launches"],
+                             "serve_obs": obs["launches"],
                              "train_nf4": launches["nf4_matmul"],
                              "ckpt_serve_nf4":
                                  ckpt["launches"]["ckpt_serve_nf4"],
@@ -8236,6 +8953,10 @@ def main(argv=None) -> int:
                   "max_memory_allocated_gib", "nf4_cell_tpot_p50_s")}))
     log("serve_sessions summary:", json.dumps(
         {k: v for k, v in sessions["sessions"].items()
+         if k in ("checks", "phase_wall_s", "max_memory_allocated_gib",
+                  "nf4_cell_tpot_p50_s")}))
+    log("serve_obs summary:", json.dumps(
+        {k: v for k, v in obs["obs"].items()
          if k in ("checks", "phase_wall_s", "max_memory_allocated_gib",
                   "nf4_cell_tpot_p50_s")}))
     log("serve_sched summary:", json.dumps(

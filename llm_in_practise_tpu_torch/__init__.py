@@ -9,3 +9,5 @@ package. Entry points run on ``cuda`` unless the caller passes
 Importing the package imports no submodule: the CUDA kernels build at
 their first call, never at import.
 """
+
+__version__ = "0.1.0"

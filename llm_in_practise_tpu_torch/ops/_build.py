@@ -139,13 +139,20 @@ def build_all() -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed (a
+    build's seconds go to every watching
+    :class:`~llm_in_practise_tpu_torch.obs.prof.CompileMeter`)."""
     with _lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
+        t0 = time.monotonic()
         proc, tmp, final = _start(name)
         _finish(name, proc, tmp, final)
+        if proc is not None:
+            from llm_in_practise_tpu_torch.obs.prof import note_build
+
+            note_build(time.monotonic() - t0)
         lib = ctypes.CDLL(str(final))
         for sym, (restype, argtypes) in KERNELS[name].items():
             fn = getattr(lib, sym)

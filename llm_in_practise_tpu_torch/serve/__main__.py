@@ -10,7 +10,8 @@
         [--speculative [4] [--draft-model-path DRAFT.msgpack]] \\
         [--lora-modules NAME=ADAPTER_DIR ...] [--kv-offload] \\
         [--kv-remote HOST:PORT] [--role prefill|decode|both] \\
-        [--session-store [--session-ttl SECONDS]]
+        [--session-store [--session-ttl SECONDS]] [--trace-file PATH] \\
+        [--ttft-slo SECONDS] [--tpot-slo SECONDS]
 
 ``DIR`` holds the ``packed.npz`` + ``manifest.json`` that either
 package's exporters write (``quant/io.py``, ``convert_hf``): NF4,
@@ -49,13 +50,21 @@ conversation's KV pinned across turns for requests that carry a session
 id (the ``X-Session-ID`` header or the body's ``session_id``; paged
 layout: pinned pages, contiguous: turn bookkeeping only), idle for at
 most ``--session-ttl`` seconds; with ``--kv-remote`` every finished turn
-is also published to the pool for the fleet's warm path. The server
-answers ``GET /metrics``, ``/debug/kv``, ``/debug/sessions``,
-``/debug/hbm`` and the chat page at ``GET /``. ``TOK.json`` is a BPE
+is also published to the pool for the fleet's warm path.
+``--trace-file PATH`` appends every request span (and, with the step
+recorder on, each engine step's host and device lanes) to PATH as Chrome
+trace events, one JSON per line (Perfetto opens it; the span ring at
+``GET /debug/traces`` is on either way, ``LLM_TPU_TRACE=off`` turns
+tracing off and ``LLM_TPU_STEPTRACE=off`` the step recorder).
+``--ttft-slo`` / ``--tpot-slo`` turn on SLO goodput accounting
+(``llm_goodput_tokens_total{slo}``, ``llm_slo_blame_total{phase}``). The
+server answers ``GET /metrics``, ``/debug/kv``, ``/debug/sessions``,
+``/debug/hbm``, ``/debug/requests``, ``/debug/traces``, ``POST
+/debug/profile`` and the chat page at ``GET /``. ``TOK.json`` is a BPE
 tokenizer saved by either package. The flags of the JAX package's
 ``examples/serve_openai.py`` that this port does not have yet (tensor
-parallelism, the tracing and SLO flags) are accepted and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+parallelism) are accepted and raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -69,9 +78,6 @@ import torch
 # JAX CLI flag -> (argparse kwargs, ROADMAP.md queue A item)
 _NOT_PORTED = {
     "--tensor-parallel-size": (dict(type=int, default=1), 14),
-    "--trace-file": (dict(default=None), 6),
-    "--ttft-slo": (dict(type=float, default=None), 6),
-    "--tpot-slo": (dict(type=float, default=None), 6),
     "--tp-quantized-collectives": (dict(action="store_true"), 14),
 }
 
@@ -193,6 +199,22 @@ def build_parser() -> argparse.ArgumentParser:
                    default=600.0, metavar="SECONDS",
                    help="idle TTL for pinned session KV (with "
                         "--session-store)")
+    p.add_argument("--trace-file", dest="trace_file", default=None,
+                   metavar="PATH",
+                   help="append Chrome trace events (one JSON per line) "
+                        "for every request span to PATH — open in "
+                        "Perfetto / chrome://tracing; the in-memory "
+                        "span ring is always on at GET /debug/traces "
+                        "(LLM_TPU_TRACE=off disables tracing)")
+    p.add_argument("--ttft-slo", dest="ttft_slo", type=float, default=None,
+                   metavar="SECONDS",
+                   help="SLO goodput accounting: TTFT threshold — "
+                        "tokens of requests that miss it count as "
+                        "llm_goodput_tokens_total{slo=violated}")
+    p.add_argument("--tpot-slo", dest="tpot_slo", type=float, default=None,
+                   metavar="SECONDS",
+                   help="SLO goodput accounting: per-token (TPOT) "
+                        "threshold")
     for flag, (kw, _) in _NOT_PORTED.items():
         p.add_argument(flag, dest=flag.lstrip("-").replace("-", "_"), **kw)
     return p
@@ -287,9 +309,11 @@ def load_draft_model(path: str, device):
     return model
 
 
-def build_server(args):
+def build_server(args, *, model=None, tokenizer=None):
     """Load the export or the merged model, build the model, engine and
-    server (not started)."""
+    server (not started). ``model`` / ``tokenizer``: ones already loaded,
+    served in place of ``--quantized_dir`` / ``--model_path`` and
+    ``--tokenizer_path``."""
     from llm_in_practise_tpu_torch.core.device import resolve_device
     from llm_in_practise_tpu_torch.data.bpe import BPETokenizer
     from llm_in_practise_tpu_torch.data.sft import IM_END
@@ -301,8 +325,18 @@ def build_server(args):
     from llm_in_practise_tpu_torch.serve.quantized import QuantizedModel
 
     device = resolve_device(args.device)
-    tok = BPETokenizer.load(args.tokenizer_path)
-    if args.quantized_dir:
+    if args.trace_file:
+        from llm_in_practise_tpu_torch.obs.trace import get_tracer
+
+        get_tracer().set_trace_file(args.trace_file)
+        print(f"chrome trace events -> {args.trace_file} (open in "
+              "Perfetto)", flush=True)
+    tok = (tokenizer if tokenizer is not None
+           else BPETokenizer.load(args.tokenizer_path))
+    if model is not None:
+        print(f"model: {type(model).__name__} given by the caller",
+              flush=True)
+    elif args.quantized_dir:
         tree, meta = load_packed(args.quantized_dir)
         if meta.get("family", "qwen3") != "qwen3":
             raise NotImplementedError(
@@ -419,6 +453,8 @@ def engine_kwargs(args, *, eos_id: int | None) -> dict:
         kv_page_size=args.kv_page_size, kv_pool_tokens=args.kv_pool_tokens,
         prefix_cache=args.prefix_caching, max_queue=args.max_queue,
         queue_timeout_s=args.queue_timeout,
+        ttft_slo_s=args.ttft_slo,
+        tpot_slo_s=args.tpot_slo,
         speculative_k=(args.speculative
                        if getattr(args, "speculative_resolved", False)
                        else default_speculative_k(args.role,
@@ -452,7 +488,8 @@ def main(argv=None) -> None:
           f"{args.host}:{args.port} "
           f"({server.engine.device}; /v1/chat/completions, "
           "/v1/embeddings, /v1/models, /health, /metrics, /debug/kv, "
-          "/debug/sessions, /debug/hbm, the chat page at /)", flush=True)
+          "/debug/sessions, /debug/hbm, /debug/requests, /debug/traces, "
+          "POST /debug/profile, the chat page at /)", flush=True)
     server.serve(host=args.host, port=args.port)
 
 

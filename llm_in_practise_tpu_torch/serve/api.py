@@ -51,16 +51,27 @@ Port of the chat part of ``llm_in_practise_tpu/serve/api.py``:
 - the planes (JAX ``api.py:668-1087, 1123-1158``): ``GET /metrics``
   renders :meth:`OpenAIServer._build_registry`'s families over the live
   counters of the engine, the meters, the store, the adapter registry
-  and the HBM ledger; ``GET /debug/hbm`` is the ledger's ownership tree;
+  and the HBM ledger (the build identity, dispatches and their per-phase
+  MFU / bandwidth, compile events, the step timeline's busy and host-gap
+  fractions, TTFT / TPOT histograms, the critical path and SLO goodput);
+  ``GET /debug/hbm`` is the ledger's ownership tree, ``GET
+  /debug/requests`` the recent requests' critical paths, ``GET
+  /debug/traces`` the span ring and ``POST /debug/profile`` a bounded
+  ``torch.profiler`` capture;
+- tracing (JAX ``api.py:291-581, 1178-1192``): a chat is an ``api.chat``
+  span (a prefill for handoff ``api.prefill``) that adopts the client's
+  ``traceparent`` header, or the ``trace`` a router rides along in
+  ``kv_transfer_params``; ``handoff.claim``, ``session.pull`` and
+  ``api.stream_flush`` hang under it, and the engine's phase spans too;
 - the chat page: ``GET /`` and ``GET /chat`` answer :func:`webui_html`,
   a streaming chat over ``/v1/chat/completions``.
 
 Built on the stdlib ``ThreadingHTTPServer``. Handler threads submit
 requests and read token queues; the engine's own thread does every step.
 An embedding forward runs on its handler thread under the engine's lock,
-between two steps. ``/debug/requests``, ``/debug/traces``, ``POST
-/debug/profile`` and the dispatch, compile, latency-histogram and
-goodput families are ROADMAP.md queue A item 6's second part.
+between two steps. The tensor-parallel families (``llm_tp_size``,
+``llm_collective_*``) wait for sharded serving (ROADMAP.md queue A item
+14).
 """
 
 from __future__ import annotations
@@ -69,6 +80,7 @@ import dataclasses
 import html
 import json
 import logging
+import sys
 import threading
 import time
 from http.server import ThreadingHTTPServer
@@ -77,13 +89,16 @@ import numpy as np
 import torch
 
 from llm_in_practise_tpu_torch.data.sft import IM_START, render_chatml
+from llm_in_practise_tpu_torch.obs.buildinfo import register_build_info
 from llm_in_practise_tpu_torch.obs.cost import device_memory_stats
 from llm_in_practise_tpu_torch.obs.hbm import (
     get_ledger,
     host_entry_bytes,
     register_hbm_ledger,
 )
+from llm_in_practise_tpu_torch.obs.meter import HandoffMeter, register_goodput
 from llm_in_practise_tpu_torch.obs.registry import Registry
+from llm_in_practise_tpu_torch.obs.trace import parse_traceparent
 from llm_in_practise_tpu_torch.serve import constrain, schemas
 from llm_in_practise_tpu_torch.serve.disagg import (
     new_handoff_id,
@@ -98,6 +113,7 @@ from llm_in_practise_tpu_torch.serve.engine import (
 from llm_in_practise_tpu_torch.serve.http_util import (
     JsonHandler,
     serve_obs_get,
+    serve_obs_post,
 )
 from llm_in_practise_tpu_torch.serve.sessions import session_hid
 
@@ -111,50 +127,22 @@ def build_prompt(messages) -> str:
     return rendered + f"\n{IM_START}assistant\n"
 
 
-class HandoffMeter:
-    """Claim-side accounting of the disaggregated handoff, in a decode
-    replica's API layer, where handoff ids arrive and resolve to a pinned
-    entry or turn out lost (JAX ``obs/meter.py::HandoffMeter``), rendered
-    as ``llm_handoff_total{event}`` and ``llm_handoff_lost_total``.
-    Handler threads increment concurrently, so the increments hold a
-    lock."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.claimed = 0        # guarded-by: _lock — ids that resolved
-        self.lost = 0           # guarded-by: _lock — nothing: re-prefill
-        self.repinned = 0       # guarded-by: _lock — re-published sheds
-        self.repin_failed = 0   # guarded-by: _lock — re-pins that failed
-
-    def claim_outcome(self, entry_found: bool) -> None:
-        with self._lock:
-            if entry_found:
-                self.claimed += 1
-            else:
-                self.lost += 1
-
-    def note_repin(self, ok: bool) -> None:
-        with self._lock:
-            if ok:
-                self.repinned += 1
-            else:
-                self.repin_failed += 1
-
-
 class OpenAIServer:
     """Wires engine + tokenizer + HTTP. ``tokenizer`` needs ``encode``/``decode``.
 
     ``role`` gates the handoff endpoint (a ``"decode"`` server answers it
     501); ``handoff`` is the store a decode server claims from, by default
-    the engine's own."""
+    the engine's own. ``tracer`` records the API's spans, by default the
+    engine's tracer (one ring per replica)."""
 
     def __init__(self, engine: InferenceEngine, tokenizer, *,
                  model_name: str = "llm-in-practise-tpu-torch",
                  adapters: dict | None = None, role: str = "both",
-                 handoff=None):
+                 handoff=None, tracer=None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
+        self.tracer = tracer if tracer is not None else engine.tracer
         self.role = validate_roles(role)
         self.handoff = (handoff if handoff is not None
                         else getattr(engine, "handoff", None))
@@ -271,30 +259,37 @@ class OpenAIServer:
             pooled = hidden[0].to(torch.float32).mean(dim=0)
             return pooled.cpu().numpy().astype(np.float64)
 
-    def _session_pull(self, engine, session_id: str | None) -> None:
+    def _session_pull(self, engine, session_id: str | None,
+                      span=None) -> None:
         """The fleet miss path (JAX ``api.py:422-448``): a session this
         replica holds nothing for (the router moved it here) claims its
-        published entry from the handoff store on this thread and hands it
-        to the store, which admission consumes; a lost entry only means a
-        local prefill, counted, never an error."""
+        published entry from the handoff store on this thread (a
+        ``session.pull`` span under ``span``) and hands it to the store,
+        which admission consumes; a lost entry only means a local prefill,
+        counted, never an error."""
         store = getattr(engine, "session_store", None)
         if session_id is None or store is None or store.known(session_id):
             return
         pool = getattr(engine, "handoff", None) or self.handoff
         if pool is None:
             return
-        pulled = pool.claim(session_hid(session_id))
+        with self.tracer.span("session.pull", parent=span,
+                              session=session_id) as ps:
+            pulled = pool.claim(session_hid(session_id))
+            ps.set(found=pulled is not None)
         if pulled is not None:
             store.adopt(session_id, pulled)
             get_ledger().pulse("handoff_staging", host_entry_bytes(pulled))
         else:
             store.note_lost()
 
-    def handle_prefill(self, body: dict, send_json):
+    def handle_prefill(self, body: dict, send_json, trace=None):
         """``POST /internal/handoff/prefill``: the prefill half of a
         disaggregated request. Prefill only, publish the prompt's KV into
         the model's handoff store, and answer the handoff id that a
-        router passes to a decode replica in ``kv_transfer_params``."""
+        router passes to a decode replica in ``kv_transfer_params``.
+        ``trace``: the caller's ``traceparent`` context; the
+        ``api.prefill`` span joins it."""
         if self.role == "decode":
             return send_json(501, {"error": {
                 "message": "decode replicas do not prefill for handoff",
@@ -319,39 +314,51 @@ class OpenAIServer:
                 "type": "unsupported_error"}})
         prompt_ids = self.tokenizer.encode(build_prompt(req.messages))
         hid = new_handoff_id()
-        handle = engine.submit(prompt_ids, SamplingParams(max_tokens=1),
-                               handoff_id=hid)
+        span = self.tracer.start_span("api.prefill", parent=trace,
+                                      model=req.model, handoff_id=hid)
+        # the span's finish_reason is what the caller saw
+        outcome = "error"
         try:
-            handle.result()   # a prefill emits no token
-        except EngineDeadError:
-            return send_json(503, {"error": {
-                "message": "engine is not running", "type": "internal_error",
-                "code": "engine_dead"}})
-        if handle.finish_reason == "too_large":
-            detail = engine.page_capacity_detail(len(prompt_ids))
-            return send_json(422, {"error": {
-                "message": (
-                    "prompt can never fit this replica's KV page pool "
-                    f"({detail['pages_needed']} pages needed vs "
-                    f"{detail['pages_capacity']} capacity)"),
-                "type": "invalid_request_error", "code": "prompt_too_large",
-                "detail": detail}})
-        if handle.finish_reason == "queue_full":
-            return send_json(429, {"error": {
-                "message": "prefill queue full — retry another replica",
-                "type": "rate_limit_error", "code": "queue_full"}})
-        if handle.finish_reason != "handoff":
-            return send_json(503, {"error": {
-                "message": "KV publish failed (pool unreachable or handoff "
-                           "budget exhausted) — serve this request "
-                           "undisaggregated",
-                "type": "internal_error", "code": "handoff_failed"}})
-        return send_json(200, {"handoff_id": hid,
-                               "prompt_tokens": len(handle.prompt_ids),
-                               "model": req.model})
+            handle = engine.submit(prompt_ids, SamplingParams(max_tokens=1),
+                                   handoff_id=hid, trace=span.context())
+            try:
+                handle.result()   # a prefill emits no token
+            except EngineDeadError:
+                outcome = "engine_dead"
+                return send_json(503, {"error": {
+                    "message": "engine is not running",
+                    "type": "internal_error", "code": "engine_dead"}})
+            if handle.finish_reason == "too_large":
+                outcome = "too_large"
+                detail = engine.page_capacity_detail(len(prompt_ids))
+                return send_json(422, {"error": {
+                    "message": (
+                        "prompt can never fit this replica's KV page pool "
+                        f"({detail['pages_needed']} pages needed vs "
+                        f"{detail['pages_capacity']} capacity)"),
+                    "type": "invalid_request_error",
+                    "code": "prompt_too_large", "detail": detail}})
+            if handle.finish_reason == "queue_full":
+                outcome = "queue_full"
+                return send_json(429, {"error": {
+                    "message": "prefill queue full — retry another replica",
+                    "type": "rate_limit_error", "code": "queue_full"}})
+            if handle.finish_reason != "handoff":
+                outcome = "handoff_failed"
+                return send_json(503, {"error": {
+                    "message": "KV publish failed (pool unreachable or "
+                               "handoff budget exhausted) — serve this "
+                               "request undisaggregated",
+                    "type": "internal_error", "code": "handoff_failed"}})
+            outcome = "handoff"
+            return send_json(200, {"handoff_id": hid,
+                                   "prompt_tokens": len(handle.prompt_ids),
+                                   "model": req.model})
+        finally:
+            span.end(finish_reason=outcome)
 
     def handle_chat(self, body: dict, send_json, send_stream,
-                    session_id: str | None = None):
+                    session_id: str | None = None, trace=None):
         try:
             req = schemas.ChatCompletionRequest.from_dict(body)
         except schemas.ValidationError as e:
@@ -387,18 +394,43 @@ class OpenAIServer:
             with self._structured_lock:
                 self.structured_counts[kind] += 1
             params = dataclasses.replace(params, constraint=automaton)
+        xfer = body.get("kv_transfer_params")
+        hid = xfer.get("handoff_id") if isinstance(xfer, dict) else None
+        # trace continuity: the traceparent header first; the handoff
+        # body's ride-along copy covers a hop whose intermediary strips
+        # headers (the prefill -> decode hop stays one trace)
+        ctx = trace
+        if ctx is None and isinstance(xfer, dict) and xfer.get("trace"):
+            ctx = parse_traceparent(str(xfer["trace"]))
+        span = self.tracer.start_span(
+            "api.chat", parent=ctx, model=req.model or self.model_name,
+            stream=bool(req.stream), handed_off=bool(hid))
+        try:
+            return self._chat(engine, req, prompt_ids, params, kind, hid,
+                              session_id, span, send_json, send_stream)
+        except BaseException as e:
+            # a handler fault answers 500 in do_POST; the span records it
+            span.end(status=500, finish_reason="error",
+                     error=type(e).__name__)
+            raise
+
+    def _chat(self, engine, req, prompt_ids, params, kind, hid, session_id,
+              span, send_json, send_stream):
+        """The chat after validation, under its ``api.chat`` ``span``,
+        which every outcome ends."""
         # disaggregated serving: a router that prefilled this prompt on a
         # prefill replica points at the pinned entry; a lost claim
         # degrades to a local prefill, counted by the engine
         kv_entry = store = None
-        xfer = body.get("kv_transfer_params")
-        hid = xfer.get("handoff_id") if isinstance(xfer, dict) else None
         if hid:
             # the model's own store (handoff namespaces are per model),
             # else the server's
             store = getattr(engine, "handoff", None) or self.handoff
-            if store is not None:
-                kv_entry = store.claim(str(hid))
+            with self.tracer.span("handoff.claim", parent=span,
+                                  handoff_id=str(hid)) as cs:
+                if store is not None:
+                    kv_entry = store.claim(str(hid))
+                cs.set(found=kv_entry is not None)
             self.handoff_meter.claim_outcome(kv_entry is not None)
             if kv_entry is not None:
                 # claim-side staging: the host entry lives only until
@@ -406,9 +438,9 @@ class OpenAIServer:
                 # pulses (peak) instead of booking (level)
                 get_ledger().pulse("handoff_staging",
                                    host_entry_bytes(kv_entry))
-        self._session_pull(engine, session_id)
+        self._session_pull(engine, session_id, span)
         handle = engine.submit(prompt_ids, params, kv_entry=kv_entry,
-                               session_id=session_id)
+                               session_id=session_id, trace=span.context())
         req_id = schemas.completion_id()
 
         def queue_full_429(message):
@@ -428,6 +460,7 @@ class OpenAIServer:
                                  hid, type(e).__name__, e)
                 else:
                     self.handoff_meter.note_repin(True)
+            span.end(status=429, finish_reason="queue_full")
             return send_json(429, {"error": {
                 "message": message + " — retry later or against another "
                                      "replica",
@@ -437,6 +470,7 @@ class OpenAIServer:
         # not load: 422 with the page math, at submit, before any stream
         if handle.finish_reason == "too_large":
             detail = engine.page_capacity_detail(len(prompt_ids))
+            span.end(status=422, finish_reason="too_large")
             return send_json(422, {"error": {
                 "message": (
                     "prompt can never fit this replica's KV page pool: "
@@ -453,6 +487,7 @@ class OpenAIServer:
             return queue_full_429("engine queue full")
 
         def engine_dead_503():
+            span.end(status=503, finish_reason="engine_dead")
             return send_json(503, {"error": {
                 "message": "engine is not running; retry against another "
                            "replica",
@@ -467,25 +502,8 @@ class OpenAIServer:
                 return engine_dead_503()
             if first is _FINISH and handle.finish_reason == "queue_full":
                 return queue_full_429("request timed out waiting for a slot")
-
-            def chunks():
-                yield schemas.chat_completion_chunk(
-                    req_id=req_id, model=req.model, delta=None)
-                tokens, prev_text = [], ""
-                tok = first
-                while tok is not _FINISH:
-                    tokens.append(tok)
-                    text = self.tokenizer.decode(tokens)
-                    delta, prev_text = text[len(prev_text):], text
-                    if delta:
-                        yield schemas.chat_completion_chunk(
-                            req_id=req_id, model=req.model, delta=delta)
-                    tok = handle.next_item()
-                yield schemas.chat_completion_chunk(
-                    req_id=req_id, model=req.model, delta=None,
-                    finish_reason=handle.finish_reason or "stop")
-
-            return send_stream(chunks())
+            return send_stream(self._stream_chunks(
+                engine, handle, first, req, req_id, span))
 
         try:
             out_ids = handle.result()
@@ -506,11 +524,70 @@ class OpenAIServer:
                     json.dumps(call["arguments"], separators=(",", ":")))]
             except (ValueError, KeyError, TypeError):
                 tool_calls = None
+        span.end(status=200, finish_reason=handle.finish_reason or "stop",
+                 completion_tokens=len(out_ids))
         return send_json(200, schemas.chat_completion_response(
             req_id=req_id, model=req.model, text=text,
             finish_reason=handle.finish_reason or "stop",
             usage=schemas.Usage(len(prompt_ids), len(out_ids)),
             tool_calls=tool_calls))
+
+    def _stream_chunks(self, engine, handle, first, req, req_id, span):
+        """The SSE events of a streamed chat. The time the consumer spends
+        writing each chunk (the yield-to-resume gaps; the engine's decode
+        waits inside ``next_item`` are not counted) is the
+        ``api.stream_flush`` span and the request's ``stream_flush``
+        segment, and ``span`` ends with how the stream ended."""
+        flush_s = 0.0
+        n_chunks = 0
+        try:
+            t = time.monotonic()
+            yield schemas.chat_completion_chunk(
+                req_id=req_id, model=req.model, delta=None)
+            flush_s += time.monotonic() - t
+            n_chunks += 1
+            tokens, prev_text = [], ""
+            tok = first
+            while tok is not _FINISH:
+                tokens.append(tok)
+                text = self.tokenizer.decode(tokens)
+                delta, prev_text = text[len(prev_text):], text
+                if delta:
+                    t = time.monotonic()
+                    yield schemas.chat_completion_chunk(
+                        req_id=req_id, model=req.model, delta=delta)
+                    flush_s += time.monotonic() - t
+                    n_chunks += 1
+                tok = handle.next_item()
+            t = time.monotonic()
+            yield schemas.chat_completion_chunk(
+                req_id=req_id, model=req.model, delta=None,
+                finish_reason=handle.finish_reason or "stop")
+            flush_s += time.monotonic() - t
+            n_chunks += 1
+        finally:
+            self.tracer.record("api.stream_flush", span, duration_s=flush_s,
+                               chunks=n_chunks)
+            exc = sys.exc_info()[1]
+            # the request's own segment only on a clean end: the stream
+            # then saw the finish the engine releases after its last cp
+            # write, so this thread owns the dict (swapped, not mutated:
+            # /debug/requests may be reading the old one). A disconnect
+            # books the aggregate only
+            if exc is None:
+                handle.cp = {**handle.cp,
+                             "stream_flush": handle.cp.get("stream_flush",
+                                                           0.0) + flush_s}
+            engine.stats.note_stream_flush(flush_s)
+            if exc is None:
+                span.end(status=200,
+                         finish_reason=handle.finish_reason or "stop")
+            elif isinstance(exc, GeneratorExit):
+                span.end(status=200, finish_reason="client_disconnect",
+                         chunks_sent=n_chunks)
+            else:
+                span.end(status=200, finish_reason="stream_error",
+                         error=type(exc).__name__, chunks_sent=n_chunks)
 
     # --- the scrape plane ----------------------------------------------------
 
@@ -523,6 +600,18 @@ class OpenAIServer:
         reg = Registry()
         eng = self.engine
         s = eng.stats
+        # the build identity: the labels a fleet joins every series on
+        register_build_info(reg, {
+            "server": "api",
+            "model": self.model_name,
+            "role": self.role,
+            "max_slots": eng.max_slots,
+            "cache_len": eng.cache_len,
+            "kv_layout": "paged" if eng.paged is not None else "dense",
+            "speculative_k": getattr(eng, "speculative_k", 0),
+            "decode_steps": getattr(eng, "decode_steps", 1),
+            "adapters": sorted(self.adapters),
+        })
         reg.counter_func("llm_requests_total",
                          lambda: s.requests_total,
                          "requests submitted to the engine")
@@ -536,6 +625,51 @@ class OpenAIServer:
         reg.counter_func("llm_requests_shed_total",
                          lambda: s.requests_shed,
                          "requests shed by admission control")
+        # dispatch accounting: dispatches per step is the step scheduler's
+        # plan (the fused mixed step makes it ~1.0 under mixed load)
+        dm = eng.dispatch_meter
+        reg.counter_func("llm_dispatches_total", lambda: dm.total,
+                         "jitted engine-program launches")
+        reg.gauge_func("llm_dispatches_per_step",
+                       lambda: dm.mean_per_step,
+                       "rolling mean dispatches per engine step")
+        reg.counter_func("llm_mixed_blocks_total",
+                         lambda: eng.mixed_blocks,
+                         "fused prefill+decode dispatches")
+
+        # the device plane: live per-phase MFU / bandwidth use / tokens per
+        # dispatch. A phase appears at its first dispatch; without a
+        # data-sheet peak (the CPU) the utilization gauges carry no
+        # samples, the token gauge still does
+        def _phase_gauge(field):
+            def read():
+                return [({"phase": phase}, snap[field])
+                        for phase, snap in dm.phase_snapshot().items()
+                        if snap.get(field) is not None]
+            return read
+
+        reg.gauge_func("llm_dispatch_mfu", _phase_gauge("mfu"),
+                       "rolling per-dispatch model FLOP utilization "
+                       "(useful FLOPs / wall time / chip peak)")
+        reg.gauge_func("llm_dispatch_hbm_bw_util",
+                       _phase_gauge("hbm_bw_util"),
+                       "rolling per-dispatch HBM bandwidth utilization "
+                       "(weights + KV traffic / wall time / peak BW)")
+        reg.gauge_func("llm_dispatch_tokens_per_dispatch",
+                       _phase_gauge("tokens_per_dispatch"),
+                       "rolling mean tokens processed per dispatch")
+        # compile telemetry: the engine's CUDA-graph captures and the
+        # kernel builds in the server's life
+        cmeter = eng.compile_meter
+        reg.counter_func("llm_compile_events_total",
+                         lambda: cmeter.compile_events,
+                         "jit executable-cache misses paid by the "
+                         "serving thread")
+        reg.counter_func("llm_compile_seconds_total",
+                         lambda: cmeter.compile_seconds,
+                         "cumulative seconds stalled in jit "
+                         "trace/compile (persistent-cache loads "
+                         "included)")
 
         # the card's allocator, read live; a CPU engine renders the family
         # with no samples (fail open)
@@ -556,6 +690,67 @@ class OpenAIServer:
         # the ownership ledger: per-owner attribution of the bytes the
         # family above only totals, and the residual between the two
         register_hbm_ledger(reg)
+        # SLO goodput: tokens priced by whether their request met the TTFT
+        # / TPOT SLOs; zero until thresholds are configured
+        register_goodput(reg, s.goodput)
+        # per-role latency labels: a prefill replica's TTFT is KV-ready
+        # time, a decode replica's TPOT the interference-free number
+        role_labels = {} if self.role == "both" else {"role": self.role}
+
+        def _ttft():
+            out = [(role_labels, s.ttft)]
+            out.extend(({**role_labels, "cache": k}, acc)
+                       for k, acc in sorted(s.ttft_by_cache.items()))
+            return out
+
+        reg.histogram_func("llm_ttft_seconds", _ttft,
+                           "time to first token (prefill replicas: "
+                           "KV-claimable time); cache-labeled children "
+                           "split by admission prefix/handoff outcome")
+        reg.histogram_func("llm_tpot_seconds",
+                           lambda: [(role_labels, s.tpot)],
+                           "mean time per output token after the first")
+        # the step timeline: where the engine thread's time between
+        # dispatches goes, and the device-busy / host-gap dial; every read
+        # goes through the recorder's atomically swapped snapshot
+        stp = eng.steptrace
+
+        def _host_gap():
+            snap = stp.snapshot()
+            return [({"activity": a}, v)
+                    for a, v in sorted(snap["host_seconds"].items())]
+
+        reg.counter_func("llm_host_gap_seconds_total", _host_gap,
+                         "engine-thread seconds between dispatches, by "
+                         "host activity (queue_drain/admit/plan/"
+                         "index_build/draft_propose/grammar_compile/"
+                         "grammar_mask/dispatch_wait/sample_commit/"
+                         "publish/other)")
+        reg.counter_func(
+            "llm_step_wall_seconds_total",
+            lambda: stp.snapshot()["step_wall_seconds_total"],
+            "cumulative engine step() wall seconds (non-idle steps)")
+        reg.counter_func(
+            "llm_engine_steps_total",
+            lambda: stp.snapshot()["steps"],
+            "non-idle engine step() iterations recorded")
+        reg.gauge_func(
+            "llm_device_busy_fraction",
+            lambda: stp.snapshot()["device_busy_fraction"],
+            "rolling fraction of step wall time the device was busy "
+            "(forced dispatch windows / step wall, last 50 steps)")
+        reg.gauge_func(
+            "llm_host_gap_fraction",
+            lambda: stp.snapshot()["host_gap_fraction"],
+            "rolling fraction of step wall time the chip waited on "
+            "Python (1 - device_busy; the item-3 overlap target)")
+        # every finished request's wall time by critical-path segment
+        # (GET /debug/requests has the per-request view)
+        reg.counter_func(
+            "llm_request_critical_path_seconds_total",
+            lambda: [({"segment": seg}, v) for seg, v in
+                     sorted(s.critical_path_snapshot().items())],
+            "finished requests' wall seconds by critical-path segment")
         # disaggregation: published / claimed say the handoff plane works;
         # lost and local prefills say how often the decode pool prefilled
         # itself
@@ -788,11 +983,14 @@ class OpenAIServer:
                     pass  # client went away mid-stream
 
             def do_GET(self):
-                if serve_obs_get(self, server.metrics_text):
+                if serve_obs_get(self, server.metrics_text, server.tracer):
                     return None
                 try:
                     if self.path == "/debug/kv":
                         return self._json(200, server.engine.debug_kv())
+                    if self.path == "/debug/requests":
+                        return self._json(200,
+                                          server.engine.debug_requests())
                     if self.path == "/debug/sessions":
                         return self._json(200,
                                           server.engine.debug_sessions())
@@ -821,21 +1019,29 @@ class OpenAIServer:
             def do_POST(self):
                 if self.path not in ("/v1/chat/completions",
                                      "/v1/embeddings",
-                                     "/internal/handoff/prefill"):
+                                     "/internal/handoff/prefill",
+                                     "/debug/profile"):
                     return self._json(404, {"error": {"message": "not found"}})
                 body, err = self._read_json()
                 if err:
                     return self._json(400, err)
+                if serve_obs_post(self, body):
+                    return None
+                # a client's (or router's) traceparent: the spans minted
+                # here join its trace
+                ctx = parse_traceparent(self.headers.get("traceparent"))
                 try:
                     if self.path == "/v1/embeddings":
                         return server.handle_embeddings(body, self._json)
                     if self.path == "/internal/handoff/prefill":
-                        return server.handle_prefill(body, self._json)
+                        return server.handle_prefill(body, self._json,
+                                                     trace=ctx)
                     # the conversation handle rides the header (router or
                     # client) or the body; the header wins
                     return server.handle_chat(
                         body, self._json, self._sse,
-                        session_id=self.headers.get("X-Session-ID"))
+                        session_id=self.headers.get("X-Session-ID"),
+                        trace=ctx)
                 except Exception as e:  # noqa: BLE001 — a handler fault must
                     # still answer the client unless a response already went
                     if self._responded:

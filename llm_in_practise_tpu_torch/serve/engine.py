@@ -77,6 +77,22 @@ Port of ``llm_in_practise_tpu/serve/engine.py``:
   contiguous or draft caches at build and returns every byte at
   :meth:`InferenceEngine.stop`; the page pool, the adapter registry and
   the store book their own.
+- **The tracer and the device plane** (JAX ``engine.py`` ``_trace_phase``,
+  ``_note_device_phase``, ``steptrace`` and the critical path): a request
+  submitted with a ``trace`` context gets its phase spans
+  (``engine.queue_wait``, ``engine.admit``, ``engine.prefill_chunk``,
+  ``engine.decode``, ``handoff.publish``) in the engine's
+  :class:`~..obs.trace.Tracer`; every ``step()`` is one record of the
+  :class:`~..obs.steptrace.StepTrace`, its wall time split between named
+  host activities and the card's time; each dispatch books its phase's
+  tokens, MFU and HBM-bandwidth use (:class:`~..obs.cost.CostModel`) in
+  the :class:`~..obs.meter.DispatchMeter`; every finished request's wall
+  time splits into critical-path segments (``GET /debug/requests``), and
+  its TTFT and TPOT go into histograms and the SLO goodput meter. The
+  device time of a dispatch is the card's: a pair of CUDA events around
+  it, read after the fetch the engine already makes (the eager chunk
+  paths, which fetch nothing, wait on their end event), clamped to the
+  dispatch window's wall time; on the CPU it is that wall time.
 
 Threading: HTTP handler threads call :meth:`InferenceEngine.submit`,
 which touches no tensor; one background thread runs :meth:`step` and
@@ -92,14 +108,25 @@ import queue
 import threading
 import time
 import weakref
+from collections import deque
 from typing import Any
 
 import numpy as np
 import torch
 
 from llm_in_practise_tpu_torch.infer.sampling import sample_token_batched
-from llm_in_practise_tpu_torch.obs.cost import tree_bytes
+from llm_in_practise_tpu_torch.obs import debug
+from llm_in_practise_tpu_torch.obs.cost import CostModel, tree_bytes
 from llm_in_practise_tpu_torch.obs.hbm import get_ledger, host_entry_bytes
+from llm_in_practise_tpu_torch.obs.meter import DispatchMeter, GoodputMeter
+from llm_in_practise_tpu_torch.obs.prof import (
+    CompileMeter,
+    unwatch_builds,
+    watch_builds,
+)
+from llm_in_practise_tpu_torch.obs.registry import HistogramAccumulator
+from llm_in_practise_tpu_torch.obs.steptrace import StepTrace
+from llm_in_practise_tpu_torch.obs.trace import get_tracer
 from llm_in_practise_tpu_torch.models.layers import to_kv_dtype
 from llm_in_practise_tpu_torch.serve import kv_pool as kvp
 from llm_in_practise_tpu_torch.serve.disagg import (
@@ -153,6 +180,21 @@ class SamplingParams:
 
 _FINISH = object()  # sentinel closing a request's token queue
 _UNSET = object()   # "not looked up yet" (a prefix hit may be None)
+
+# Per-request critical-path segments (JAX engine.py:87-101): a finished
+# request's wall time splits into these (GET /debug/requests, and
+# llm_request_critical_path_seconds_total{segment}). ``host_gap`` is the
+# residual no attributed segment claims; ``stream_flush`` is the API's
+# SSE write tail, measured on the handler thread concurrently with
+# decode, so it is reported beside the engine segments but outside the
+# wall-clock partition.
+CP_SEGMENTS = ("queue_wait", "admission", "prefill_dispatch",
+               "decode_dispatch", "host_gap", "handoff_wire",
+               "preempt_recompute", "stream_flush")
+# a re-admission after a preemption pays these again: they are charged
+# to preempt_recompute
+_CP_RECOMPUTE_SEGS = frozenset(
+    ("queue_wait", "admission", "prefill_dispatch"))
 
 
 class EngineDeadError(RuntimeError):
@@ -212,9 +254,35 @@ class Request:
     # admission consults the store's pending fleet pulls under it
     session_id: str | None = None
     # the prefix / handoff / session hit outcome at FIRST admission
-    # ("hit" | "partial" | "cold"): llm_session_turns_total's label
+    # ("hit" | "partial" | "cold"): the label of llm_session_turns_total
+    # and of llm_ttft_seconds{cache}
     cache_outcome: str | None = dataclasses.field(
         default=None, repr=False, compare=False)
+    # the TraceContext the API minted for this request: the engine parents
+    # its phase spans to it (None: nothing is recorded)
+    trace: Any = dataclasses.field(default=None, repr=False, compare=False)
+    # critical-path seconds by segment (CP_SEGMENTS). Writers are
+    # phase-exclusive (the HTTP thread at submit, the engine thread while
+    # slotted, the publisher at publish, the API thread after the stream
+    # closes), so no lock is needed
+    cp: dict = dataclasses.field(default_factory=dict, repr=False,
+                                 compare=False)
+    # stamped by a preemption: the re-admission's segments are charged to
+    # preempt_recompute from here on
+    requeue_time: float | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # origin of the next queue_wait interval: re-armed at every queue pop
+    # and by a preemption, so N requeues book N disjoint waits
+    cp_queue_origin: float | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def cp_add(self, seg: str, dt: float) -> None:
+        """Add ``dt`` seconds to critical-path segment ``seg``; after a
+        preemption the re-paid admission segments go to
+        ``preempt_recompute``."""
+        if self.requeue_time is not None and seg in _CP_RECOMPUTE_SEGS:
+            seg = "preempt_recompute"
+        self.cp[seg] = self.cp.get(seg, 0.0) + float(dt)
 
     def next_item(self, poll_s: float = 1.0):
         """Next queue item: a token id or the finish sentinel. The wait is
@@ -256,10 +324,12 @@ class Request:
 
 
 class EngineStats:
-    """The plain request counters ``/metrics`` reads (JAX ``EngineStats``;
-    its TTFT / TPOT histograms and goodput are ROADMAP.md queue A item
-    6's second part). Written from HTTP threads (submit, sheds) and the
-    engine thread (admission, finishes), under ``lock``."""
+    """The counters and histograms ``/metrics`` reads (JAX
+    ``EngineStats``). Counters are written from HTTP threads (submit,
+    sheds, stream tails), the engine thread (admission, finishes) and the
+    publishers, under ``lock``; the histograms carry their own locks.
+    TTFT and TPOT are fixed-bucket histograms (O(1) memory), TTFT also
+    split by the admission's cache outcome."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -268,10 +338,76 @@ class EngineStats:
         self.queue_depth = 0             # guarded-by: lock
         self.active_slots = 0            # guarded-by: lock
         self.requests_shed = 0           # guarded-by: lock
+        self.ttft = HistogramAccumulator()
+        self.tpot = HistogramAccumulator()
+        self.ttft_by_cache = {k: HistogramAccumulator()
+                              for k in ("hit", "partial", "cold")}
+        # llm_request_critical_path_seconds_total{segment}
+        self.critical_path = {seg: 0.0 for seg in CP_SEGMENTS}  # guarded-by: lock
+        # SLO goodput: inert until thresholds are configured
+        self.goodput = GoodputMeter()
+
+    def note_stream_flush(self, dt: float) -> None:
+        """Book a stream's SSE write tail (API handler thread) into the
+        critical-path aggregate: it arrives after the engine finished the
+        request."""
+        with self.lock:
+            self.critical_path["stream_flush"] += float(dt)
+
+    def critical_path_snapshot(self) -> dict:
+        with self.lock:
+            return dict(self.critical_path)
 
     def observe_finished(self, req: Request) -> None:
         with self.lock:
             self.tokens_generated_total += req.n_generated
+        if req.ttft_s is not None:
+            self.ttft.observe(req.ttft_s)
+            acc = self.ttft_by_cache.get(req.cache_outcome or "cold")
+            (acc or self.ttft_by_cache["cold"]).observe(req.ttft_s)
+        if req.tpot_s is not None:
+            self.tpot.observe(req.tpot_s)
+        if self.goodput.enabled and req.finish_reason != "queue_full":
+            # sheds are counted apart (requests_shed, the 429s)
+            self.goodput.observe(
+                tokens=req.n_generated, ttft_s=req.ttft_s,
+                tpot_s=req.tpot_s,
+                trace_id=getattr(req.trace, "trace_id", None))
+
+
+class _DeviceWindow:
+    """One dispatch's window: its wall time on the engine thread, and on
+    the card a pair of CUDA events on the engine's stream, recorded
+    outside any capture. :meth:`launched` records the end event after the
+    last launch; :meth:`close`, called after the fetch the engine makes
+    anyway, reads the card's time (clamped to the window's wall time, so
+    a step record stays a partition); on the CPU the device time is the
+    wall time."""
+
+    __slots__ = ("t0", "start", "end")
+
+    def __init__(self, timed: bool):
+        self.t0 = time.perf_counter()
+        self.start = self.end = None
+        if timed:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+
+    def launched(self) -> None:
+        if self.start is not None and self.end is None:
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.end.record()
+
+    def close(self) -> tuple[float, float]:
+        """``(device seconds, wall seconds)`` of the window."""
+        wall = time.perf_counter() - self.t0
+        if self.start is None:
+            return wall, wall
+        self.launched()
+        # complete already after a fetch; an eager chunk that fetched
+        # nothing waits here for its last kernel
+        self.end.synchronize()
+        return min(self.start.elapsed_time(self.end) / 1e3, wall), wall
 
 
 def _kv_bytes(cache) -> int:
@@ -356,6 +492,12 @@ class InferenceEngine:
     - ``session_store``: a :class:`~.sessions.SessionStore` that requests
       name at :meth:`submit` (``session_id``); attached after the page
       pool, the prefix index and the handoff store, which it reads.
+    - ``tracer`` (default: the process tracer, :func:`~..obs.trace.get_tracer`)
+      records the phase spans of requests submitted with a ``trace``;
+      ``steptrace`` (default: a new :class:`~..obs.steptrace.StepTrace`,
+      off under ``LLM_TPU_STEPTRACE=off``) records each step;
+      ``ttft_slo_s`` / ``tpot_slo_s`` turn on the SLO goodput meter
+      (``stats.goodput``).
 
     On the card each decode block, each fused mixed step, each spec round
     and each draft roll is one CUDA graph replay (:mod:`.graphs`), and
@@ -374,7 +516,10 @@ class InferenceEngine:
                  adapter_registry=None, kv_pool=None, role: str = "both",
                  handoff=None, session_store=None,
                  max_queue: int | None = None,
-                 queue_timeout_s: float | None = None):
+                 queue_timeout_s: float | None = None, tracer=None,
+                 steptrace: StepTrace | None = None,
+                 ttft_slo_s: float | None = None,
+                 tpot_slo_s: float | None = None):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
                              f"got {kv_layout!r}")
@@ -550,10 +695,31 @@ class InferenceEngine:
             # plain block
             self._draft_window = max(
                 16, 1 << (speculative_k + decode_steps - 1).bit_length())
+        # the planes (JAX engine.py:737-872): the request spans go to
+        # the tracer, each step's timeline to the recorder (engine thread
+        # writes, scrapes read its swapped snapshot), the dispatches and
+        # their MFU / bandwidth to the dispatch meter, the graph captures
+        # and kernel builds to the compile meter
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.steptrace = steptrace if steptrace is not None else StepTrace()
+        # recent finished requests with their critical paths, for GET
+        # /debug/requests (deque appends and list() are GIL-atomic)
+        self.finished: deque = deque(maxlen=128)
+        self.dispatch_meter = DispatchMeter()
+        self.compile_meter = CompileMeter()
+        watch_builds(self.compile_meter)
+        # None for a model the analytic geometry does not cover; its
+        # peaks are None on a device with no data-sheet entry (the CPU)
+        self.cost_model = CostModel.from_model(model, cache_dtype=cache_dtype)
+        self._timed = self.device.type == "cuda"
+        # enable_debug(disable_jit=True): eager step bodies, which the NaN
+        # trap can see into
         self.graphs = StepGraphs(model, self.cache, max_slots=max_slots,
                                  chunk=chunked_prefill,
                                  decode_steps=decode_steps,
-                                 capture=self.device.type == "cuda",
+                                 capture=(self.device.type == "cuda"
+                                          and not debug.graphs_disabled()),
+                                 compile_meter=self.compile_meter,
                                  paged=self.paged, spec_k=speculative_k,
                                  draft=draft_model,
                                  draft_cache=self.draft_cache,
@@ -607,8 +773,8 @@ class InferenceEngine:
         # batches; batched chunks over every slot, the fused step's
         # included; single-slot chunks and suffixes; spec verifies over
         # every slot, k + 1 rows each; the draft's single-slot catch-up
-        # chunks and its rolls), blocks, sheds, and step-path dispatches
-        # (the JAX DispatchMeter's count)
+        # chunks and its rolls), blocks, sheds; the step-path dispatches
+        # are the dispatch meter's count
         self.decode_steps_run = 0
         self.prefill_batches_run = 0
         self.chunk_batches_run = 0
@@ -620,8 +786,11 @@ class InferenceEngine:
         self.multi_blocks = 0
         self.multi_steps_total = 0
         self.stats = EngineStats()
-        self.dispatches_total = 0
         self.last_step_dispatches = 0
+        # goodput blames a violated request's longest span in this ring
+        self.stats.goodput.tracer = self.tracer
+        if ttft_slo_s is not None or tpot_slo_s is not None:
+            self.stats.goodput.configure(ttft_slo_s, tpot_slo_s)
         # HBM ledger (obs/hbm.py): this engine's durable device buffers
         # under their owner accounts; stop() returns every byte. The page
         # pool booked itself inside PagedKV; each paged dispatch pulses
@@ -646,7 +815,7 @@ class InferenceEngine:
     def submit(self, prompt_ids, params: SamplingParams | None = None, *,
                kv_entry=None, handoff_id: str | None = None,
                session_id: str | None = None,
-               adapter: str | None = None) -> Request:
+               adapter: str | None = None, trace=None) -> Request:
         """Queue a request; safe from any thread (touches no tensor). Past
         ``max_queue`` waiting requests it is shed at once; a paged prompt
         that can never fit the pool finishes at once as ``too_large``.
@@ -663,7 +832,9 @@ class InferenceEngine:
         ``session_id``: the conversation handle; on finish the turn's full
         KV pages stay pinned under it (:mod:`.sessions`) and admission
         consults the store's pending fleet pull. Ignored on an engine
-        without a ``session_store``."""
+        without a ``session_store``. ``trace``: a
+        :class:`~..obs.trace.TraceContext` the engine parents this
+        request's phase spans to."""
         params = params or SamplingParams()
         prompt_ids = list(map(int, prompt_ids))
         if not prompt_ids:
@@ -673,7 +844,7 @@ class InferenceEngine:
             prompt_ids = prompt_ids[-max_prompt:]
         req = Request(next(self._uid), prompt_ids, params, engine=self,
                       adapter=adapter, handoff_id=handoff_id,
-                      session_id=session_id)
+                      session_id=session_id, trace=trace)
         if session_id is not None and self.session_store is not None:
             self.session_store.touch(session_id)
         if (self.paged is not None
@@ -687,6 +858,7 @@ class InferenceEngine:
                 self.stats.requests_total += 1
             req.finish_time = time.monotonic()
             req.finish_reason = "too_large"
+            self._record_finished(req)
             req.tokens.put(_FINISH)
             return req
         if adapter is not None:
@@ -703,8 +875,11 @@ class InferenceEngine:
             req.adapter_ref = True
         if kv_entry is not None:
             # validated before the request is queued: the engine thread
-            # may admit it the moment it is
+            # may admit it the moment it is. The decode side's half of the
+            # handoff's wire cost
+            t0 = time.monotonic()
             req.kv_entry = self._accept_external_kv(kv_entry, prompt_ids)
+            req.cp_add("handoff_wire", time.monotonic() - t0)
         with self.stats.lock:
             self.stats.requests_total += 1
         with self._submit_lock:
@@ -735,15 +910,81 @@ class InferenceEngine:
         """Requests shed by admission control (``llm_requests_shed_total``)."""
         return self.stats.requests_shed
 
+    @property
+    def dispatches_total(self) -> int:
+        """Step-path dispatches since construction (``llm_dispatches_total``)."""
+        return self.dispatch_meter.total
+
     def _record_finished(self, req: Request) -> None:
-        """The one finish funnel of a request that held an adapter (sheds
-        and finishes, not a preemption's requeue): drop its refcount and
-        book its generated tokens to the tenant."""
+        """The one finish funnel of a request (sheds, too-large rejects,
+        handoffs and finishes; not a preemption's requeue): close its
+        critical path (``host_gap`` is the wall time no segment claims),
+        add it to the ``/debug/requests`` ring, and for an adapter's
+        request drop its refcount and book its tokens to the tenant. Runs
+        on whichever thread finishes the request."""
+        wall = (req.finish_time or time.monotonic()) - req.submit_time
+        if req.finish_reason == "queue_full" and not req.cp:
+            req.cp["queue_wait"] = wall   # a shed spent its life waiting
+        attributed = sum(v for k, v in req.cp.items() if k != "stream_flush")
+        req.cp["host_gap"] = max(0.0, wall - attributed)
+        with self.stats.lock:
+            cp = self.stats.critical_path
+            for seg, dt in req.cp.items():
+                # stream_flush is booked by note_stream_flush only
+                if seg in cp and seg != "stream_flush":
+                    cp[seg] += dt
+        # the ring must not pin a claimed entry a shed never used
+        req.kv_entry = None
+        self.finished.append(req)
         if req.adapter_ref:
             req.adapter_ref = False
             reg = self.adapter_registry
             reg.release(req.adapter)
             reg.note_tokens(req.adapter, req.n_generated)
+
+    # --- the planes (JAX engine.py:2027-2135) --------------------------------
+
+    def _trace_phase(self, req: Request, name: str, duration_s: float,
+                     **attrs) -> None:
+        """One engine phase span for a traced request (an untraced one
+        costs an ``is None``)."""
+        if req.trace is None:
+            return
+        self.tracer.record(name, req.trace, duration_s=duration_s,
+                           uid=req.uid, **attrs)
+
+    @staticmethod
+    def _cp_pf_spent(req: Request) -> float:
+        """Prefill-attributed critical-path seconds booked so far: the
+        admission segment is the admit wall minus what the prefill
+        dispatches inside it claimed."""
+        return (req.cp.get("prefill_dispatch", 0.0)
+                + req.cp.get("preempt_recompute", 0.0))
+
+    def _cp_admission(self, req: Request, dt: float, pre: float) -> None:
+        req.cp_add("admission",
+                   max(0.0, dt - (self._cp_pf_spent(req) - pre)))
+
+    def _window(self) -> _DeviceWindow:
+        return _DeviceWindow(self._timed)
+
+    def _note_device_phase(self, phase: str, *, tokens: int,
+                           attended_keys: float, weight_passes: float,
+                           kv_read_tokens: float, dt: float) -> None:
+        """Book one dispatch's device time ``dt`` (the card's, from its
+        window): into the step record (deducted from the enclosing host
+        activity) and, with its phase's FLOPs and bytes from the cost
+        model, into the dispatch meter's MFU and bandwidth gauges. Draft
+        dispatches are not booked (the cost model covers the target)."""
+        self.steptrace.note_device(dt, phase)
+        cm = self.cost_model
+        mfu = bw = None
+        if cm is not None and dt > 0:
+            mfu = cm.mfu(cm.step_flops(tokens, attended_keys), dt)
+            bw = cm.hbm_util(
+                cm.step_bytes(weight_passes, kv_read_tokens, tokens), dt)
+        self.dispatch_meter.note_phase(phase, tokens=tokens, duration_s=dt,
+                                       mfu=mfu, hbm_bw_util=bw)
 
     # --- multi-LoRA (JAX engine.py:1983-2025) --------------------------------
 
@@ -781,7 +1022,8 @@ class InferenceEngine:
         reg = self.adapter_registry
         if reg is None or all(a is None for a in adapters):
             return None
-        return reg.dispatch_args(list(adapters))
+        with self.steptrace.scope("adapter_gather"):
+            return reg.dispatch_args(list(adapters))
 
     # --- admission and prefill -----------------------------------------------
 
@@ -795,14 +1037,16 @@ class InferenceEngine:
             # FIFO: staleness is monotone from the head; a preempted
             # request resumes a live stream and is never shed
             now = time.monotonic()
-            while True:
-                with self.pending.mutex:
-                    head = self.pending.queue[0] if self.pending.queue else None
-                    if (head is None or head.resume_last is not None
-                            or now - head.submit_time <= timeout_s):
-                        break
-                    self.pending.queue.popleft()
-                self._shed(head)
+            with self.steptrace.scope("queue_drain"):
+                while True:
+                    with self.pending.mutex:
+                        head = (self.pending.queue[0] if self.pending.queue
+                                else None)
+                        if (head is None or head.resume_last is not None
+                                or now - head.submit_time <= timeout_s):
+                            break
+                        self.pending.queue.popleft()
+                    self._shed(head)
         self._paged_admit_blocked = False
         admitted = False
         batch: list[tuple[int, Request, int]] = []
@@ -814,17 +1058,31 @@ class InferenceEngine:
             if self._paged_admit_blocked:
                 break   # the pool could not cover the last admission
             req = None
-            while req is None:
-                try:
-                    req = self.pending.get_nowait()
-                except queue.Empty:
-                    break
-                if (timeout_s is not None and req.resume_last is None
-                        and time.monotonic() - req.submit_time > timeout_s):
-                    self._shed(req)
-                    req = None
+            with self.steptrace.scope("queue_drain"):
+                while req is None:
+                    try:
+                        req = self.pending.get_nowait()
+                    except queue.Empty:
+                        break
+                    if (timeout_s is not None and req.resume_last is None
+                            and time.monotonic() - req.submit_time
+                            > timeout_s):
+                        self._shed(req)
+                        req = None
             if req is None:
                 break
+            # submit -> a slot free for it: under load, where a request's
+            # time goes
+            self._trace_phase(req, "engine.queue_wait",
+                              time.monotonic() - req.submit_time, slot=slot)
+            cp_base = req.cp_queue_origin
+            if cp_base is None:
+                # first pop: a claimed entry's upload at submit is already
+                # handoff_wire; queue_wait starts after it
+                cp_base = req.submit_time + req.cp.get("handoff_wire", 0.0)
+            req.cp_add("queue_wait", max(0.0, time.monotonic() - cp_base))
+            # re-armed: a requeue (a dry pool) books only its own wait
+            req.cp_queue_origin = time.monotonic()
             plen = len(req.prompt_ids)
             hit = self._lookup_prefix(req, plen)
             if self.role == "decode" and (hit is None or hit.length < plen):
@@ -855,12 +1113,35 @@ class InferenceEngine:
                 self._note_cache_outcome(req, None, plen)
                 batch.append((slot, req, plen))
             else:
+                t0 = time.monotonic()
+                path = ("kv_direct_insert"
+                        if hit is not None and hit.length == plen
+                        else "prefill")
+                pre = self._cp_pf_spent(req)
                 self._begin_prefill(req, slot, plen, hit)
+                dt = time.monotonic() - t0
+                self._trace_phase(req, "engine.admit", dt, slot=slot,
+                                  path=path, prompt_tokens=plen)
+                self._cp_admission(req, dt, pre)
             admitted = True
         if batch:
+            t0 = time.monotonic()
+            pre = {req.uid: self._cp_pf_spent(req) for _, req, _ in batch}
             self._prefill_batch(batch)
+            dt = time.monotonic() - t0
+            for slot, req, plen in batch:
+                self._trace_phase(req, "engine.admit", dt, slot=slot,
+                                  path="oneshot_batch", prompt_tokens=plen,
+                                  batched=len(batch))
+                self._cp_admission(req, dt, pre[req.uid])
         for slot, req, plen in deferred:
+            t0 = time.monotonic()
+            pre = self._cp_pf_spent(req)
             self._begin_prefill(req, slot, plen)   # a fresh lookup
+            dt = time.monotonic() - t0
+            self._trace_phase(req, "engine.admit", dt, slot=slot,
+                              path="deferred_prefix_hit", prompt_tokens=plen)
+            self._cp_admission(req, dt, pre)
         return admitted
 
     def _update_stats(self) -> None:
@@ -987,8 +1268,16 @@ class InferenceEngine:
             self._prefill_batch([(slot, req, plen)])
             return
         suffix = req.prompt_ids[done:]
-        last = self._chunk_slot(slot, suffix, done, width=len(suffix),
-                                adapter=req.adapter)
+        with self.steptrace.scope("dispatch_wait"):
+            win = self._window()
+            last = self._chunk_slot(slot, suffix, done, width=len(suffix),
+                                    adapter=req.adapter)
+            dev, wall = win.close()
+            keys = CostModel.chunk_keys(len(suffix), done)
+            self._note_device_phase(
+                "prefill", tokens=len(suffix), attended_keys=keys,
+                weight_passes=1, kv_read_tokens=keys, dt=dev)
+        req.cp_add("prefill_dispatch", wall)
         rows = (self._slot_rows(slot, plen)
                 if self.prefix_cache is not None or req.handoff_id is not None
                 else None)
@@ -1022,63 +1311,82 @@ class InferenceEngine:
         n = len(batch)
         lens = [plen for _, _, plen in batch]
         width = max(lens)
-        ids = np.zeros((n, width), np.int64)
-        for j, (_, req, plen) in enumerate(batch):
-            ids[j, :plen] = req.prompt_ids
-        pre = self.model.init_cache(n, width, dtype=self.cache_dtype)
+        with self.steptrace.scope("index_build"):
+            ids = np.zeros((n, width), np.int64)
+            for j, (_, req, plen) in enumerate(batch):
+                ids[j, :plen] = req.prompt_ids
         # one bank row per request (its adapter, or row 0)
         lora = self._lora_args_for([r.adapter for _, r, _ in batch])
-        with lora_scope(lora, dev):
-            hidden, pre = self.model(torch.from_numpy(ids).to(dev),
-                                     cache=pre, return_hidden=True)
-            last_pos = torch.tensor(lens, device=dev) - 1
-            last = hidden[torch.arange(n, device=dev), last_pos]   # (n, D)
-            logits = self.model.head(last).to(torch.float32)       # (n, V)
-        slots = [s for s, _, _ in batch]
-        if self.paged is not None:
-            self.paged.write_rows(
-                pre, self.paged.rows_scatter_idx(slots, lens, width))
-        else:
-            idx = torch.tensor(slots, device=dev)
-            for eng, layer in zip(self.cache, pre):
-                eng["k"][idx, :width] = layer["k"]
-                eng["v"][idx, :width] = layer["v"]
-        masked = logits
-        if any(r.params.constraint is not None for _, r, _ in batch):
-            # constrained members' first tokens obey their grammars' start
-            # states; zero rows leave the rest of the batch as it was. The
-            # prefix cache keeps the unmasked logits: a later hit samples
-            # under its own request's grammar, or none.
-            masked = logits + torch.from_numpy(self._grammar_mask_rows(
-                [self._ensure_constraint(r) for _, r, _ in batch])).to(dev)
-        first = sample_token_batched(
-            self.generator, masked,
-            temperature=torch.tensor(
-                [r.params.temperature for _, r, _ in batch], device=dev),
-            top_k=torch.tensor([r.params.top_k for _, r, _ in batch],
-                               device=dev),
-            top_p=torch.tensor([r.params.top_p for _, r, _ in batch],
-                               device=dev),
-            greedy=torch.tensor([r.params.greedy for _, r, _ in batch],
-                                device=dev),
-        ).cpu().numpy()
-        self.prefill_batches_run += 1
-        self.dispatches_total += 1
-        for j, (slot, req, plen) in enumerate(batch):
-            rows = None
+        with self.steptrace.scope("dispatch_wait"):
+            win = self._window()
+            pre = self.model.init_cache(n, width, dtype=self.cache_dtype)
+            with lora_scope(lora, dev):
+                hidden, pre = self.model(torch.from_numpy(ids).to(dev),
+                                         cache=pre, return_hidden=True)
+                last_pos = torch.tensor(lens, device=dev) - 1
+                last = hidden[torch.arange(n, device=dev), last_pos]  # (n, D)
+                logits = self.model.head(last).to(torch.float32)      # (n, V)
+            slots = [s for s, _, _ in batch]
             if self.paged is not None:
-                self._paged_store_prefix(req, plen, slot, logits[j:j + 1])
-            elif (self.prefix_cache is not None
-                  or req.handoff_id is not None):
-                rows = slice_cache_rows(
-                    [{k: layer[k][j:j + 1] for k in ("k", "v")}
-                     for layer in pre], plen)
-                self._store_prefix(req, plen, rows, logits[j:j + 1])
-            if req.handoff_id is not None:
-                self._complete_handoff(slot, req, plen, logits[j:j + 1],
-                                       rows)
+                self.paged.write_rows(
+                    pre, self.paged.rows_scatter_idx(slots, lens, width))
             else:
-                self._activate_with_token(slot, req, plen, int(first[j]))
+                idx = torch.tensor(slots, device=dev)
+                for eng, layer in zip(self.cache, pre):
+                    eng["k"][idx, :width] = layer["k"]
+                    eng["v"][idx, :width] = layer["v"]
+            masked = logits
+            if any(r.params.constraint is not None for _, r, _ in batch):
+                # constrained members' first tokens obey their grammars'
+                # start states; zero rows leave the rest of the batch as
+                # it was. The prefix cache keeps the unmasked logits: a
+                # later hit samples under its own request's grammar, or
+                # none.
+                masked = logits + torch.from_numpy(self._grammar_mask_rows(
+                    [self._ensure_constraint(r) for _, r, _ in batch])
+                ).to(dev)
+            first = sample_token_batched(
+                self.generator, masked,
+                temperature=torch.tensor(
+                    [r.params.temperature for _, r, _ in batch], device=dev),
+                top_k=torch.tensor([r.params.top_k for _, r, _ in batch],
+                                   device=dev),
+                top_p=torch.tensor([r.params.top_p for _, r, _ in batch],
+                                   device=dev),
+                greedy=torch.tensor([r.params.greedy for _, r, _ in batch],
+                                    device=dev),
+            )
+            win.launched()
+            first = first.cpu().numpy()
+            dev_s, wall = win.close()
+            # useful (unpadded) tokens only: the padding is lost MFU
+            keys = sum(CostModel.chunk_keys(p, 0) for p in lens)
+            self._note_device_phase(
+                "prefill", tokens=sum(lens), attended_keys=keys,
+                weight_passes=1, kv_read_tokens=keys, dt=dev_s)
+        self.prefill_batches_run += 1
+        self.dispatch_meter.count()
+        for _, req, _ in batch:
+            # every member waited the whole batched dispatch
+            req.cp_add("prefill_dispatch", wall)
+        with self.steptrace.scope("sample_commit"):
+            for j, (slot, req, plen) in enumerate(batch):
+                rows = None
+                if self.paged is not None:
+                    self._paged_store_prefix(req, plen, slot,
+                                             logits[j:j + 1])
+                elif (self.prefix_cache is not None
+                      or req.handoff_id is not None):
+                    rows = slice_cache_rows(
+                        [{k: layer[k][j:j + 1] for k in ("k", "v")}
+                         for layer in pre], plen)
+                    self._store_prefix(req, plen, rows, logits[j:j + 1])
+                if req.handoff_id is not None:
+                    self._complete_handoff(slot, req, plen,
+                                           logits[j:j + 1], rows)
+                else:
+                    self._activate_with_token(slot, req, plen,
+                                              int(first[j]))
 
     def _insert_rows(self, slot: int, rows, length: int) -> None:
         """Copy the first ``length`` stored prefix rows into ``slot``."""
@@ -1141,41 +1449,69 @@ class InferenceEngine:
         c = self.chunked_prefill
         progressed = False
         while budget > 0 and self.slot_prefill:
-            entries = self._prefill_entries()
+            with self.steptrace.scope("index_build"):
+                entries = self._prefill_entries()
             batchable = self.paged is not None or (len(entries) > 1 and all(
                 int(self.slot_len[s]) + c <= self.cache_len
                 for s in range(self.max_slots)
                 if s not in self.slot_prefill
                 and self.slot_req[s] is not None))   # free rows are dead
-            if batchable:
-                tok, starts, lens = self._chunk_batch_rows(entries)
-                dev = self.device
-                # the slot plane's adapters (its mid-prefill rows' among
-                # them)
-                with lora_scope(self._lora_args(), dev):
-                    if self.paged is not None:
-                        last = self._paged_chunk_dispatch(entries, tok,
-                                                          starts, lens)
-                    else:
-                        last, _ = batched_chunk(
-                            self.model, self.cache,
-                            torch.from_numpy(tok).to(dev),
-                            torch.from_numpy(starts).to(dev),
-                            torch.from_numpy(lens).to(dev))
-                self.chunk_batches_run += 1
-                self.dispatches_total += 1
-                for slot, st, chunk in entries:
-                    st["last_logits"] = last[slot:slot + 1]
-                    st["done"] += len(chunk)
-            else:
-                for slot, st, chunk in entries:
-                    st["last_logits"] = self._chunk_slot(
-                        slot, chunk, st["done"], adapter=st["req"].adapter)
-                    st["done"] += len(chunk)
+            # the device plane reads each chunk's context before it moves
+            pf_tokens = sum(len(chunk) for _, _, chunk in entries)
+            pf_keys = sum(CostModel.chunk_keys(len(chunk), st["done"])
+                          for _, st, chunk in entries)
+            # the slot plane's adapters (its mid-prefill rows' among them)
+            lora = self._lora_args() if batchable else None
+            with self.steptrace.scope("dispatch_wait"):
+                win = self._window()
+                if batchable:
+                    tok, starts, lens = self._chunk_batch_rows(entries)
+                    dev = self.device
+                    with lora_scope(lora, dev):
+                        if self.paged is not None:
+                            last = self._paged_chunk_dispatch(entries, tok,
+                                                              starts, lens)
+                        else:
+                            last, _ = batched_chunk(
+                                self.model, self.cache,
+                                torch.from_numpy(tok).to(dev),
+                                torch.from_numpy(starts).to(dev),
+                                torch.from_numpy(lens).to(dev))
+                    self.chunk_batches_run += 1
+                    self.dispatch_meter.count()
+                    for slot, st, chunk in entries:
+                        st["last_logits"] = last[slot:slot + 1]
+                        st["done"] += len(chunk)
+                else:
+                    for slot, st, chunk in entries:
+                        st["last_logits"] = self._chunk_slot(
+                            slot, chunk, st["done"],
+                            adapter=st["req"].adapter)
+                        st["done"] += len(chunk)
+                # nothing fetches a chunk's logits before its prompt ends:
+                # the window waits on its end event
+                dev_s, wall = win.close()
+                self._trace_chunks(entries, wall, batched=batchable)
+                self._note_device_phase(
+                    "prefill", tokens=pf_tokens, attended_keys=pf_keys,
+                    weight_passes=1 if batchable else len(entries),
+                    kv_read_tokens=pf_keys, dt=dev_s)
             budget -= 1
             progressed = True
-            self._finalize_prefills()
+            with self.steptrace.scope("sample_commit"):
+                self._finalize_prefills()
         return progressed
+
+    def _trace_chunks(self, entries, dt: float, *, batched: bool,
+                      fused: bool = False) -> None:
+        """One ``engine.prefill_chunk`` span per traced mid-prefill row;
+        each row waited the whole chunk dispatch (``prefill_dispatch``)."""
+        for slot, st, chunk in entries:
+            self._trace_phase(st["req"], "engine.prefill_chunk", dt,
+                              slot=slot, done=st["done"],
+                              chunk_tokens=len(chunk), batched=batched,
+                              fused=fused)
+            st["req"].cp_add("prefill_dispatch", dt)
 
     def _chunk_slot(self, slot: int, chunk: list[int], done: int,
                     width: int | None = None,
@@ -1191,7 +1527,7 @@ class InferenceEngine:
                 width or self.chunked_prefill)
             last = self.model.head(hidden[:, len(chunk) - 1])
         self.chunk_slots_run += 1
-        self.dispatches_total += 1
+        self.dispatch_meter.count()
         return last.to(torch.float32)
 
     def _chunk_slot_impl(self, model, cache, slot: int, chunk: list[int],
@@ -1307,6 +1643,13 @@ class InferenceEngine:
         req = self.slot_req[slot]
         req.finish_time = time.monotonic()
         req.finish_reason = reason
+        if req.first_token_time is not None:
+            # the decode phase, first token to finish; recorded before the
+            # stream closes, so a consumer that saw it end finds the span
+            self._trace_phase(
+                req, "engine.decode", req.finish_time - req.first_token_time,
+                slot=slot, tokens=req.n_generated,
+                finish_reason=req.finish_reason)
         hist = self.slot_hist[slot]
         in_session = (self.session_store is not None
                       and req.session_id is not None)
@@ -1504,8 +1847,7 @@ class InferenceEngine:
             self.slot_prefill[slot] = {"req": req, "plen": plen,
                                        "done": done, "last_logits": None}
             return
-        last = self._paged_suffix(slot, req.prompt_ids[done:], done,
-                                  req.adapter)
+        last = self._paged_suffix(slot, req.prompt_ids[done:], done, req)
         self._paged_store_prefix(req, plen, slot, last)
         self._activate(slot, req, plen, last)
 
@@ -1533,34 +1875,44 @@ class InferenceEngine:
         self.paged.scatter_rows(rows, slot, length)
 
     def _paged_suffix(self, slot: int, suffix: list[int], done: int,
-                      adapter: str | None = None) -> torch.Tensor:
+                      req: Request) -> torch.Tensor:
         """The one-shot prefill of ``suffix`` into ``slot`` at ``done``: a
         single-row chunk over a view of the slot's own pages only (JAX
-        ``_paged_suffix``), under the slot's ``adapter`` through a one-row
+        ``_paged_suffix``), under ``req``'s adapter through a one-row
         index (where JAX sends an adapter's suffix through its all-slots
         chunk, whose compiled program indexes the slot plane: the same
         math). Returns the (1, vocab) f32 logits at the last position."""
         c = len(suffix)
-        width = self._paged_width(done + c)
-        self._paged_cow_fork(slot, done, c)
-        starts = np.zeros((self.max_slots,), np.int64)
-        valid = np.zeros((self.max_slots,), np.int64)
-        starts[slot], valid[slot] = done, c
-        sidx = self.paged.scatter_idx(starts, valid, c)[slot:slot + 1]
+        with self.steptrace.scope("index_build"):
+            width = self._paged_width(done + c)
+            self._paged_cow_fork(slot, done, c)
+            starts = np.zeros((self.max_slots,), np.int64)
+            valid = np.zeros((self.max_slots,), np.int64)
+            starts[slot], valid[slot] = done, c
+            sidx = self.paged.scatter_idx(starts, valid, c)[slot:slot + 1]
+            self.paged.pulse_view(width, 1)
         dev = self.device
-        self.paged.pulse_view(width, 1)
-        g, view = gather_view(
-            self.paged, self._pg(self.paged.row_gather_idx(slot, width)), 1,
-            torch.tensor([done], device=dev))
-        with lora_scope(self._lora_args_for([adapter]), dev):
-            hidden, _ = self.model(torch.tensor([suffix], device=dev),
-                                   cache=view, return_hidden=True)
-            last = self.model.head(hidden[:, c - 1])
-        scatter_window(self.paged, g,
-                       self._pg(window_idx(np.array([done]), width, c)),
-                       self._pg(sidx))
+        lora = self._lora_args_for([req.adapter])
+        with self.steptrace.scope("dispatch_wait"):
+            win = self._window()
+            g, view = gather_view(
+                self.paged, self._pg(self.paged.row_gather_idx(slot, width)),
+                1, torch.tensor([done], device=dev))
+            with lora_scope(lora, dev):
+                hidden, _ = self.model(torch.tensor([suffix], device=dev),
+                                       cache=view, return_hidden=True)
+                last = self.model.head(hidden[:, c - 1])
+            scatter_window(self.paged, g,
+                           self._pg(window_idx(np.array([done]), width, c)),
+                           self._pg(sidx))
+            dev_s, wall = win.close()
+            keys = CostModel.chunk_keys(c, done)
+            self._note_device_phase(
+                "prefill", tokens=c, attended_keys=keys, weight_passes=1,
+                kv_read_tokens=keys, dt=dev_s)
+        req.cp_add("prefill_dispatch", wall)
         self.chunk_slots_run += 1
-        self.dispatches_total += 1
+        self.dispatch_meter.count()
         return last.to(torch.float32)
 
     def _paged_chunk_dispatch(self, entries, tok, starts, lens
@@ -1664,6 +2016,10 @@ class InferenceEngine:
             self._draft_uid[slot] = -1
         self.preemptions += 1
         self._hbm.note_reclaim("kv_pool.pages", "preempt")
+        # the re-admission's wait and recompute are preempt_recompute from
+        # here on, and its queue wait starts here
+        req.requeue_time = time.monotonic()
+        req.cp_queue_origin = req.requeue_time
         with self.pending.mutex:
             self.pending.queue.appendleft(req)
         _log.info("preempted slot %d (uid %d) under page-pool pressure; "
@@ -1757,14 +2113,15 @@ class InferenceEngine:
             req.session_id, token_ids, pages, adapter=req.adapter,
             cache_outcome=req.cache_outcome)
         if self.handoff is not None and nfull > 0:
-            # no last logits: the entry is a page-aligned PARTIAL prefix by
-            # design, and the claiming replica recomputes at least the
-            # suffix, which gives fresh logits
-            entry = self._paged_gather_entry(slot, nfull * P, None)
-            ready = None
-            if self.device.type == "cuda":
-                ready = torch.cuda.Event()
-                ready.record()
+            with self.steptrace.scope("publish"):
+                # no last logits: the entry is a page-aligned PARTIAL
+                # prefix by design, and the claiming replica recomputes at
+                # least the suffix, which gives fresh logits
+                entry = self._paged_gather_entry(slot, nfull * P, None)
+                ready = None
+                if self.device.type == "cuda":
+                    ready = torch.cuda.Event()
+                    ready.record()
             self.session_store.publish(req.session_id,
                                        token_ids[:nfull * P], entry, ready)
 
@@ -1780,33 +2137,36 @@ class InferenceEngine:
         finishes the request without a token. The engine thread pays the
         gather only; a slow or dead pool stalls the waiting request, never
         the step loop. ``rows``: the prompt's rows, already copied."""
-        if self.paged is not None:
-            entry = self._paged_gather_entry(slot, plen, last_logits)
-            self.paged.release_slot(slot)
-        else:
-            entry = PrefixEntry(
-                length=plen, bucket=plen,
-                rows=rows if rows is not None else self._slot_rows(slot,
-                                                                   plen),
-                last_logits=last_logits)
-        ready = None
-        if self.device.type == "cuda":
-            # the publisher's copy waits on this, on a stream of its own
-            ready = torch.cuda.Event()
-            ready.record()
-        self.slot_req[slot] = None
-        self.slot_ready[slot] = False
-        self.slot_budget[slot] = 0
-        self.slot_hist[slot] = None
-        self.slot_constraint[slot] = None
-        if not self._publishers:
-            self._publishers = [
-                threading.Thread(target=self._run_publisher, daemon=True,
-                                 name=f"handoff-publisher-{i}")
-                for i in range(self._n_publishers)]
-            for t in self._publishers:
-                t.start()
-        self._publish_queue.put((req, entry, ready))
+        with self.steptrace.scope("publish"):
+            if self.paged is not None:
+                entry = self._paged_gather_entry(slot, plen, last_logits)
+                self.paged.release_slot(slot)
+            else:
+                entry = PrefixEntry(
+                    length=plen, bucket=plen,
+                    rows=(rows if rows is not None
+                          else self._slot_rows(slot, plen)),
+                    last_logits=last_logits)
+            ready = None
+            if self.device.type == "cuda":
+                # the publisher's copy waits on this, on a stream of its
+                # own
+                ready = torch.cuda.Event()
+                ready.record()
+            self.slot_req[slot] = None
+            self.slot_ready[slot] = False
+            self.slot_budget[slot] = 0
+            self.slot_hist[slot] = None
+            self.slot_constraint[slot] = None
+            if not self._publishers:
+                self._publishers = [
+                    threading.Thread(target=self._run_publisher,
+                                     daemon=True,
+                                     name=f"handoff-publisher-{i}")
+                    for i in range(self._n_publishers)]
+                for t in self._publishers:
+                    t.start()
+            self._publish_queue.put((req, plen, entry, ready))
 
     def _run_publisher(self) -> None:
         """A handoff publisher: copy an entry to the host and publish it,
@@ -1819,7 +2179,8 @@ class InferenceEngine:
             item = self._publish_queue.get()
             if item is None:
                 return
-            req, entry, ready = item
+            req, plen, entry, ready = item
+            t0 = time.monotonic()
             staged = 0
             try:
                 if ready is None:
@@ -1855,6 +2216,12 @@ class InferenceEngine:
                 req.finish_reason = "handoff"
             if staged:
                 self._hbm.book("handoff_staging", -staged)
+            # the copy to the host and the store's put: the transfer cost
+            # the disaggregation trade pays, per request
+            self._trace_phase(req, "handoff.publish", time.monotonic() - t0,
+                              handoff_id=req.handoff_id, prompt_tokens=plen,
+                              ok=req.finish_reason == "handoff")
+            req.cp_add("handoff_wire", time.monotonic() - t0)
             req.finish_time = time.monotonic()
             # the KV being claimable is a prefill replica's first token
             req.first_token_time = req.finish_time
@@ -1943,7 +2310,7 @@ class InferenceEngine:
                 self._chunk_slot_impl(self.draft_model, self.draft_cache, s,
                                       chunk, done, W)
                 self.draft_chunks_run += 1
-                self.dispatches_total += 1
+                self.dispatch_meter.count()
                 self._draft_sync[s] = done + len(chunk)
             rows.append(s)
         if not rows:
@@ -1965,7 +2332,7 @@ class InferenceEngine:
                               roll_lens=lens)
         drafts = out["drafts"].cpu().numpy()
         self.draft_rolls_run += 1
-        self.dispatches_total += 1
+        self.dispatch_meter.count()
         proposed = {}
         for s in rows:
             self._draft_sync[s] = len(self.slot_hist[s])
@@ -1981,37 +2348,44 @@ class InferenceEngine:
         (nothing dispatched but a draft) when the round does not apply or
         nothing was drafted: the caller runs the plain block."""
         k = self.speculative_k
-        if not self._spec_applicable(active):
+        with self.steptrace.scope("plan"):
+            applicable = self._spec_applicable(active)
+            if applicable:
+                m = plan_spec_extension(
+                    block=self._plan_block(active), k=k,
+                    headroom=self._spec_headroom(active))
+        if not applicable:
             return False
-        m = plan_spec_extension(block=self._plan_block(active), k=k,
-                                headroom=self._spec_headroom(active))
         # draft before touching the page pool (drafting needs no page),
         # so a step that drafts nothing preempts nobody for a
         # reservation it never uses
-        if self.draft_model is not None:
-            drafts = self._draft_model_propose(active, k)
-        else:
-            drafts = {}
-            for s in active:
-                d = self._draft(self.slot_hist[s], k)
-                if d is not None:
-                    drafts[s] = d
+        with self.steptrace.scope("draft_propose"):
+            if self.draft_model is not None:
+                drafts = self._draft_model_propose(active, k)
+            else:
+                drafts = {}
+                for s in active:
+                    d = self._draft(self.slot_hist[s], k)
+                    if d is not None:
+                        drafts[s] = d
         if not drafts:
             return False
         w = k + 1 + m                         # rows the round writes
         if self.paged is not None:
             # reserve the round's rows (may preempt; a preempted slot's
             # draft watermark is dropped in _paged_preempt)
-            active = self._paged_reserve_active(active, w)
+            with self.steptrace.scope("admit"):
+                active = self._paged_reserve_active(active, w)
             if not active:
                 return True
             drafts = {s: d for s, d in drafts.items() if s in active}
-        tokens = np.zeros((self.max_slots, k + 1), np.int64)
-        tokens[:, 0] = self.slot_last_token
-        for s, d in drafts.items():
-            tokens[s, 1:1 + len(d)] = d
-        mask = np.zeros((self.max_slots,), np.int64)
-        mask[active] = 1
+        with self.steptrace.scope("index_build"):
+            tokens = np.zeros((self.max_slots, k + 1), np.int64)
+            tokens[:, 0] = self.slot_last_token
+            for s, d in drafts.items():
+                tokens[s, 1:1 + len(d)] = d
+            mask = np.zeros((self.max_slots,), np.int64)
+            mask[active] = 1
         # constrained slots: k + 1 masks staged along each slot's drafts,
         # so a grammar-forbidden draft stops the acceptance (m is 0 then:
         # _plan_block caps a constrained block at 1)
@@ -2020,46 +2394,64 @@ class InferenceEngine:
         # the verify is the target's forward: it runs under the slots'
         # adapters (the drafts above were base)
         gm["lora"] = self._lora_args()
-        if self.paged is not None:
-            width = self._paged_width(
-                max(int(self.slot_len[s]) for s in active) + w)
-            base = self._paged_index_vec(width, w)
-            valid = np.zeros((self.max_slots,), np.int64)
-            for s in active:
-                valid[s] = w
-                self._paged_cow_fork(s, int(self.slot_len[s]), w)
-            out = self.graphs.run(
-                "pspec" if gmasks is None else "pmspec", m, all_greedy=True,
-                generator=None, width=width, spec_tokens=tokens, index=base,
-                spec_mask=mask, gidx=self.paged.gather_idx(width),
-                vidx=window_idx(base, width, w),
-                sidx=self.paged.scatter_idx(base, valid, w), **gm)
-        else:
-            # the whole cache is the view: free rows' dead window is
-            # clamped inside it, live rows fit (_spec_applicable and the
-            # headroom cap on m)
-            base = self._paged_index_vec(self.cache_len, w)
-            out = self.graphs.run("spec" if gmasks is None else "mspec", m,
-                                  all_greedy=True, generator=None,
-                                  spec_tokens=tokens, index=base,
-                                  spec_mask=mask, **gm)
-        spec = out["spec"].cpu().numpy()    # out | n_acc | extra, one copy
+        with self.steptrace.scope("dispatch_wait"):
+            win = self._window()
+            if self.paged is not None:
+                width = self._paged_width(
+                    max(int(self.slot_len[s]) for s in active) + w)
+                base = self._paged_index_vec(width, w)
+                valid = np.zeros((self.max_slots,), np.int64)
+                for s in active:
+                    valid[s] = w
+                    self._paged_cow_fork(s, int(self.slot_len[s]), w)
+                out = self.graphs.run(
+                    "pspec" if gmasks is None else "pmspec", m,
+                    all_greedy=True, generator=None, width=width,
+                    spec_tokens=tokens, index=base, spec_mask=mask,
+                    gidx=self.paged.gather_idx(width),
+                    vidx=window_idx(base, width, w),
+                    sidx=self.paged.scatter_idx(base, valid, w), **gm)
+            else:
+                # the whole cache is the view: free rows' dead window is
+                # clamped inside it, live rows fit (_spec_applicable and
+                # the headroom cap on m)
+                base = self._paged_index_vec(self.cache_len, w)
+                out = self.graphs.run(
+                    "spec" if gmasks is None else "mspec", m,
+                    all_greedy=True, generator=None, spec_tokens=tokens,
+                    index=base, spec_mask=mask, **gm)
+            win.launched()
+            spec = out["spec"].cpu().numpy()  # out | n_acc | extra, one copy
+            dev_s, wall = win.close()
+            # the verify is one (k + 1)-row forward per slot and m
+            # single-token steps; useful positions only (an undrafted
+            # slot's zero padding is lost MFU)
+            useful = {s: len(drafts.get(s, ())) + 1 + m for s in active}
+            keys = sum(CostModel.block_keys(useful[s],
+                                            int(self.slot_len[s]))
+                       for s in active)
+            self._note_device_phase(
+                "decode", tokens=sum(useful.values()), attended_keys=keys,
+                weight_passes=1 + m, kv_read_tokens=keys, dt=dev_s)
         self.spec_rounds += 1
         self.spec_verifies_run += 1
         self.decode_steps_run += m
-        self.dispatches_total += 1
-        for s in active:
-            n_acc = int(spec[s, k + 1])
-            n_drafted = len(drafts.get(s, ()))
-            self.spec_proposed += n_drafted
-            self.spec_accepted += min(n_acc, n_drafted)
-            burst = [int(t) for t in spec[s, :n_acc + 1]]
-            burst += [int(t) for t in spec[s, k + 2:]]
-            for tok in burst:
-                if self.slot_req[s] is None:
-                    break                     # finished mid-burst
-                self._commit_token(s, tok)
-                self.spec_round_tokens += 1
+        self.dispatch_meter.count()
+        with self.steptrace.scope("sample_commit"):
+            for s in active:
+                self.slot_req[s].cp_add("decode_dispatch", wall)
+            for s in active:
+                n_acc = int(spec[s, k + 1])
+                n_drafted = len(drafts.get(s, ()))
+                self.spec_proposed += n_drafted
+                self.spec_accepted += min(n_acc, n_drafted)
+                burst = [int(t) for t in spec[s, :n_acc + 1]]
+                burst += [int(t) for t in spec[s, k + 2:]]
+                for tok in burst:
+                    if self.slot_req[s] is None:
+                        break                     # finished mid-burst
+                    self._commit_token(s, tok)
+                    self.spec_round_tokens += 1
         return True
 
     # --- grammar (structured output, JAX engine.py:3609-3713) --------------
@@ -2068,7 +2460,8 @@ class InferenceEngine:
         """``req``'s grammar cursor, minted from its compiled automaton at
         first touch (activation), or None."""
         if req.constraint_state is None and req.params.constraint is not None:
-            req.constraint_state = req.params.constraint.cursor()
+            with self.steptrace.scope("grammar_compile"):
+                req.constraint_state = req.params.constraint.cursor()
         return req.constraint_state
 
     def _constrained_active(self, active: list[int]) -> bool:
@@ -2080,15 +2473,24 @@ class InferenceEngine:
         state compiles included, goes into
         ``grammar_mask_seconds_total``."""
         t0 = time.monotonic()
-        out = np.zeros(
-            (len(cursors),
-             next(c.vocab_size for c in cursors if c is not None)),
-            np.float32)
-        for j, cs in enumerate(cursors):
-            if cs is not None:
-                out[j] = cs.mask_row()
+        with self.steptrace.scope("grammar_mask"):
+            out = np.zeros(
+                (len(cursors),
+                 next(c.vocab_size for c in cursors if c is not None)),
+                np.float32)
+            for j, cs in enumerate(cursors):
+                if cs is not None:
+                    out[j] = self._mask_row(cs)
         self.grammar_mask_seconds_total += time.monotonic() - t0
         return out
+
+    def _mask_row(self, cs) -> np.ndarray:
+        """``cs``'s mask row; a lazy vocab-wide compile of its state books
+        under ``grammar_compile``."""
+        if cs.needs_compile():
+            with self.steptrace.scope("grammar_compile"):
+                cs.auto.ensure(cs.cur)
+        return cs.mask_row()
 
     def _fill_stage(self, name: str, rows: dict) -> np.ndarray:
         """Write ``rows`` ({index: mask row}) into the graphs' host stage
@@ -2109,9 +2511,11 @@ class InferenceEngine:
         if not self._constrained_active(active):
             return None
         t0 = time.monotonic()
-        stage = self._fill_stage("gmask", {
-            s: cs.mask_row() for s, cs in enumerate(self.slot_constraint)
-            if cs is not None})
+        with self.steptrace.scope("grammar_mask"):
+            stage = self._fill_stage("gmask", {
+                s: self._mask_row(cs)
+                for s, cs in enumerate(self.slot_constraint)
+                if cs is not None})
         self.grammar_mask_seconds_total += time.monotonic() - t0
         return stage
 
@@ -2129,21 +2533,25 @@ class InferenceEngine:
         if not rows:
             return None
         t0 = time.monotonic()
-        staged = {}
-        for s, cs in rows:
-            auto, cur = cs.auto, cs.cur
-            n_drafted = len(drafts.get(s, ()))
-            for j in range(k + 1):
-                staged[s, j] = auto.mask(cur)
-                if j >= k:
-                    break
-                nxt = auto.step(cur, int(tokens[s, j + 1]))
-                if nxt is None:
-                    if j < n_drafted:
-                        self.spec_grammar_rejects += 1
-                    break
-                cur = nxt
-        gmasks = self._fill_stage("gmasks", staged)
+        with self.steptrace.scope("grammar_mask"):
+            staged = {}
+            for s, cs in rows:
+                auto, cur = cs.auto, cs.cur
+                n_drafted = len(drafts.get(s, ()))
+                for j in range(k + 1):
+                    if not auto.compiled(cur):
+                        with self.steptrace.scope("grammar_compile"):
+                            auto.ensure(cur)
+                    staged[s, j] = auto.mask(cur)
+                    if j >= k:
+                        break
+                    nxt = auto.step(cur, int(tokens[s, j + 1]))
+                    if nxt is None:
+                        if j < n_drafted:
+                            self.spec_grammar_rejects += 1
+                        break
+                    cur = nxt
+            gmasks = self._fill_stage("gmasks", staged)
         self.grammar_mask_seconds_total += time.monotonic() - t0
         return gmasks
 
@@ -2225,13 +2633,15 @@ class InferenceEngine:
             # the decode half's n rows per ready slot (may preempt); the
             # prefill half was reserved at admission, and the scan's
             # garbage rows above each watermark scatter to the trash page
-            active = self._paged_reserve_active(active, n)
+            with self.steptrace.scope("admit"):
+                active = self._paged_reserve_active(active, n)
             if not active or not self.slot_prefill:
                 return False
-        entries = self._prefill_entries()
-        tok, starts, lens = self._chunk_batch_rows(entries)
-        advance = np.zeros((self.max_slots,), np.int64)
-        advance[active] = n
+        with self.steptrace.scope("index_build"):
+            entries = self._prefill_entries()
+            tok, starts, lens = self._chunk_batch_rows(entries)
+            advance = np.zeros((self.max_slots,), np.int64)
+            advance[active] = n
         # the decode half masks each constrained slot (n is 1 then);
         # mid-prefill rows are masked at their first token, in _activate
         gmask = self._grammar_masks(active)
@@ -2240,43 +2650,77 @@ class InferenceEngine:
         arrays = dict(chunk_ids=tok, starts=starts, lens=lens,
                       advance=advance, lora=self._lora_args(),
                       **self._sampling_arrays(active, gmask))
-        if self.paged is None:
-            out = self.graphs.run(masked + "mixed", n, **arrays)
-        else:
-            # the view holds each prefill row's chunk and the scan's n
-            # garbage rows above it, and each occupied decode row's dead
-            # chunk window (the scan's real n rows overwrite its head)
-            width = self._paged_width(max(
-                [st["done"] + c + n for _, st, _ in entries]
-                + [int(self.slot_len[s]) + c for s in range(self.max_slots)
-                   if s not in self.slot_prefill
-                   and self.slot_req[s] is not None] + [c + n]))
-            starts = np.minimum(starts, width - c)
-            valid = np.zeros((self.max_slots,), np.int64)
+        # the one fused dispatch's device time splits between the phases
+        # by their FLOPs (by tokens without a cost model)
+        pf_tokens = sum(len(chunk) for _, _, chunk in entries)
+        pf_keys = sum(CostModel.chunk_keys(len(chunk), st["done"])
+                      for _, st, chunk in entries)
+        dc_tokens = n * len(active)
+        dc_keys = sum(CostModel.block_keys(n, int(self.slot_len[s]))
+                      for s in active)
+        with self.steptrace.scope("dispatch_wait"):
+            win = self._window()
+            if self.paged is None:
+                out = self.graphs.run(masked + "mixed", n, **arrays)
+            else:
+                # the view holds each prefill row's chunk and the scan's n
+                # garbage rows above it, and each occupied decode row's
+                # dead chunk window (the scan's real n rows overwrite its
+                # head)
+                width = self._paged_width(max(
+                    [st["done"] + c + n for _, st, _ in entries]
+                    + [int(self.slot_len[s]) + c
+                       for s in range(self.max_slots)
+                       if s not in self.slot_prefill
+                       and self.slot_req[s] is not None] + [c + n]))
+                starts = np.minimum(starts, width - c)
+                valid = np.zeros((self.max_slots,), np.int64)
+                for slot, st, chunk in entries:
+                    starts[slot] = st["done"]
+                    valid[slot] = len(chunk)
+                    self._paged_cow_fork(slot, st["done"], len(chunk))
+                for s in active:
+                    valid[s] = n
+                    self._paged_cow_fork(s, int(self.slot_len[s]), n)
+                arrays["starts"] = starts
+                out = self.graphs.run(
+                    "p" + masked + "mixed", n, width=width,
+                    gidx=self.paged.gather_idx(width),
+                    vidx=window_idx(starts, width, c),
+                    sidx=self.paged.scatter_idx(starts, valid, c), **arrays)
+            win.launched()
+            toks = out["toks"].cpu().numpy()
+            dev_s, wall = win.close()
+            self.mixed_blocks += 1
+            self.chunk_batches_run += 1
+            self.decode_steps_run += n
+            self.dispatch_meter.count()
             for slot, st, chunk in entries:
-                starts[slot] = st["done"]
-                valid[slot] = len(chunk)
-                self._paged_cow_fork(slot, st["done"], len(chunk))
+                # a copy: the graph's output is rewritten by its next
+                # replay
+                st["last_logits"] = out["chunk_last"][slot:slot + 1].clone()
+                st["done"] += len(chunk)
+            self._trace_chunks(entries, wall, batched=True, fused=True)
+            cm = self.cost_model
+            if cm is not None:
+                pf, df = (cm.step_flops(pf_tokens, pf_keys),
+                          cm.step_flops(dc_tokens, dc_keys))
+                share = pf / (pf + df) if pf + df > 0 else 0.5
+            else:
+                share = pf_tokens / max(pf_tokens + dc_tokens, 1)
+            self._note_device_phase(
+                "prefill", tokens=pf_tokens, attended_keys=pf_keys,
+                weight_passes=1, kv_read_tokens=pf_keys, dt=dev_s * share)
+            self._note_device_phase(
+                "decode", tokens=dc_tokens, attended_keys=dc_keys,
+                weight_passes=n, kv_read_tokens=dc_keys,
+                dt=dev_s * (1 - share))
+        with self.steptrace.scope("sample_commit"):
+            # the decode rows waited the whole fused dispatch too
             for s in active:
-                valid[s] = n
-                self._paged_cow_fork(s, int(self.slot_len[s]), n)
-            arrays["starts"] = starts
-            out = self.graphs.run(
-                "p" + masked + "mixed", n, width=width,
-                gidx=self.paged.gather_idx(width),
-                vidx=window_idx(starts, width, c),
-                sidx=self.paged.scatter_idx(starts, valid, c), **arrays)
-        toks = out["toks"].cpu().numpy()
-        self.mixed_blocks += 1
-        self.chunk_batches_run += 1
-        self.decode_steps_run += n
-        self.dispatches_total += 1
-        for slot, st, chunk in entries:
-            # a copy: the graph's output is rewritten by its next replay
-            st["last_logits"] = out["chunk_last"][slot:slot + 1].clone()
-            st["done"] += len(chunk)
-        self._finalize_prefills()
-        self._commit_block(active, toks, n)
+                self.slot_req[s].cp_add("decode_dispatch", wall)
+            self._finalize_prefills()
+            self._commit_block(active, toks, n)
         return True
 
     def _decode_index(self) -> np.ndarray:
@@ -2297,30 +2741,57 @@ class InferenceEngine:
         # (_plan_block made n 1; decode_scan raises otherwise)
         gmask = self._grammar_masks(active)
         lora = self._lora_args()
-        if self.paged is not None:
-            out = self._paged_decode_dispatch(active, n, gmask, lora)
-        else:
-            out = self.graphs.run(
-                "decode" if gmask is None else "mdecode", n,
-                index=self._decode_index(), lora=lora,
-                **self._sampling_arrays(active, gmask))
-        toks = out["toks"].cpu().numpy()
+        with self.steptrace.scope("dispatch_wait"):
+            win = self._window()
+            if self.paged is not None:
+                out = self._paged_decode_dispatch(active, n, gmask, lora)
+            else:
+                out = self.graphs.run(
+                    "decode" if gmask is None else "mdecode", n,
+                    index=self._decode_index(), lora=lora,
+                    **self._sampling_arrays(active, gmask))
+            win.launched()
+            toks = out["toks"].cpu().numpy()
+            dev_s, wall = win.close()
+            keys = sum(CostModel.block_keys(n, int(self.slot_len[s]))
+                       for s in active)
+            self._note_device_phase(
+                "decode", tokens=n * len(active), attended_keys=keys,
+                weight_passes=n, kv_read_tokens=keys, dt=dev_s)
         self.decode_steps_run += n
-        self.dispatches_total += 1
-        self._commit_block(active, toks, n)
+        self.dispatch_meter.count()
+        with self.steptrace.scope("sample_commit"):
+            for s in active:
+                self.slot_req[s].cp_add("decode_dispatch", wall)
+            self._commit_block(active, toks, n)
 
     def step(self) -> bool:
-        """One engine iteration. Returns False when fully idle."""
-        with self._lock, torch.inference_mode():
-            before = self.dispatches_total
+        """One engine iteration. Returns False when fully idle. The step
+        recorder brackets the whole step (the Perfetto lanes are captured
+        only while the tracer has a file sink); an idle poll records
+        nothing. While :func:`~..obs.debug.enable_debug` traps NaNs the
+        step runs under the trap."""
+        with self._lock, torch.inference_mode(), debug.step_trap():
+            before = self.dispatch_meter.total
+            self.steptrace.step_begin(
+                timeline=getattr(self.tracer, "has_file_sink", False))
+            busy = False
             try:
-                return self._step_locked()
+                busy = self._step_locked()
+                return busy
             finally:
-                self.last_step_dispatches = self.dispatches_total - before
+                spent = self.dispatch_meter.total - before
+                self.last_step_dispatches = spent
+                if busy or spent:
+                    self.dispatch_meter.note_step(spent)
+                    self.steptrace.step_end(self.tracer)
+                else:
+                    self.steptrace.step_abort()
                 self._update_stats()
 
     def _step_locked(self) -> bool:
-        admitted = self._admit()
+        with self.steptrace.scope("admit"):
+            admitted = self._admit()
         budget = self.prefill_budget
         active = self._ready_slots()
         # at decode_steps 1 a spec engine keeps speculating while prompts
@@ -2329,12 +2800,13 @@ class InferenceEngine:
         # there is the rare degraded path, JAX engine.py:4012-4025). It
         # composes only where the round can run after this step's chunks
         # have advanced each prefill row
-        spec_composes = (
-            (self.decode_steps == 1 or self.role == "decode")
-            and self._spec_applicable(active)
-            and all(st["done"] + budget * self.chunked_prefill
-                    + self.speculative_k + 1 <= self.cache_len
-                    for st in self.slot_prefill.values()))
+        with self.steptrace.scope("plan"):
+            spec_composes = (
+                (self.decode_steps == 1 or self.role == "decode")
+                and self._spec_applicable(active)
+                and all(st["done"] + budget * self.chunked_prefill
+                        + self.speculative_k + 1 <= self.cache_len
+                        for st in self.slot_prefill.values()))
         pre_progress = False
         if (self.mixed_step and self.slot_prefill and active
                 and not spec_composes):
@@ -2346,8 +2818,9 @@ class InferenceEngine:
                 budget = 1
                 active = self._ready_slots()
             if self.slot_prefill and active:
-                n = self._plan_block(active)
-                ok, why = self._mixed_feasible(n)
+                with self.steptrace.scope("plan"):
+                    n = self._plan_block(active)
+                    ok, why = self._mixed_feasible(n)
                 # a decode replica reaches here only where speculation
                 # cannot run at all, so it never logs a suspension
                 if (ok and self.speculative_k is not None
@@ -2374,13 +2847,15 @@ class InferenceEngine:
             return admitted or progressed or bool(self.slot_prefill)
         if self._try_speculative(active):
             return True
-        n = self._plan_block(active)
-        # every row the block writes must land inside the cache
-        if n > 1 and any(self.slot_len[s] + n > self.cache_len
-                         for s in active):
-            n = 1
+        with self.steptrace.scope("plan"):
+            n = self._plan_block(active)
+            # every row the block writes must land inside the cache
+            if n > 1 and any(self.slot_len[s] + n > self.cache_len
+                             for s in active):
+                n = 1
         if self.paged is not None:
-            active = self._paged_reserve_active(active, n)
+            with self.steptrace.scope("admit"):
+                active = self._paged_reserve_active(active, n)
             if not active:
                 return True   # the reservation preempted or finished all
         self._decode(active, n)
@@ -2425,6 +2900,7 @@ class InferenceEngine:
             # pool leak checks then see only live-slot references
             self.session_store.close()
         self._hbm_release()
+        unwatch_builds(self.compile_meter)
         if self.paged is not None:
             self.paged.close()
 
@@ -2482,6 +2958,41 @@ class InferenceEngine:
         if self.draft_cache is None:
             return 0
         return _kv_bytes(self.draft_cache)
+
+    def debug_requests(self, limit: int = 64) -> dict:
+        """The ``GET /debug/requests`` payload: the ring of recently
+        finished requests, each with its critical-path segments
+        (``CP_SEGMENTS``). The engine segments partition the request's
+        submit-to-finish wall time (``host_gap`` is the residual);
+        ``stream_flush`` is the API's SSE tail, measured concurrently with
+        decode, and may be absent while a stream's handler is still
+        open. Lock-free snapshots of the GIL-atomic deque."""
+        now = time.monotonic()
+        out = []
+        for r in list(self.finished)[-limit:]:
+            wall = (r.finish_time - r.submit_time
+                    if r.finish_time is not None else None)
+            out.append({
+                "uid": r.uid,
+                "finish_reason": r.finish_reason,
+                "prompt_tokens": len(r.prompt_ids),
+                "completion_tokens": r.n_generated,
+                "cache": r.cache_outcome,
+                "ttft_s": (round(r.ttft_s, 6)
+                           if r.ttft_s is not None else None),
+                "wall_s": round(wall, 6) if wall is not None else None,
+                "age_s": (round(now - r.finish_time, 3)
+                          if r.finish_time is not None else None),
+                "segments": {k: round(v, 6) for k, v in r.cp.items()},
+            })
+        return {
+            "capacity": self.finished.maxlen,
+            "segments": list(CP_SEGMENTS),
+            "critical_path_seconds_total":
+                {k: round(v, 6) for k, v in
+                 self.stats.critical_path_snapshot().items()},
+            "finished": out,
+        }
 
     def debug_sessions(self) -> dict:
         """The ``GET /debug/sessions`` payload: pinned conversations and

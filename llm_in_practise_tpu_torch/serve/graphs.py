@@ -116,12 +116,14 @@ class StepGraphs:
     CUDA graph per variant over ``cache`` (the contiguous layout) or
     ``paged`` (a :class:`~.paged_kv.PagedKV`). With ``spec_k`` the spec
     kinds have their buffers; with ``draft`` (a model) and its
-    ``draft_cache`` the roll has its own, ``draft_window`` wide."""
+    ``draft_cache`` the roll has its own, ``draft_window`` wide. Each
+    capture's seconds go to ``compile_meter`` (a
+    :class:`~..obs.prof.CompileMeter`) too."""
 
     def __init__(self, model, cache, *, max_slots: int, chunk: int | None,
                  decode_steps: int, capture: bool, paged=None,
                  spec_k: int | None = None, draft=None, draft_cache=None,
-                 draft_window: int | None = None):
+                 draft_window: int | None = None, compile_meter=None):
         dev = model.device
         self.model = model
         self.cache = cache
@@ -129,6 +131,8 @@ class StepGraphs:
         self.draft = draft
         self.draft_cache = draft_cache
         self.capture = capture
+        # every capture's seconds also go here (llm_compile_*)
+        self.compile_meter = compile_meter
         self.decode_steps = decode_steps
         self.vocab = model.config.vocab_size
         self._mixed = make_mixed_step(model)
@@ -373,6 +377,8 @@ class StepGraphs:
         self.graphs[key] = (graph, out, launch_count.delta(before, after))
         self.pool_bytes += torch.cuda.memory_reserved() - reserved
         self.capture_s[key] = time.monotonic() - t0
+        if self.compile_meter is not None:
+            self.compile_meter.note(self.capture_s[key])
         if key[0].startswith(LORA):
             self.lora_recaptures += key in self._lora_captured
             self._lora_captured.add(key)

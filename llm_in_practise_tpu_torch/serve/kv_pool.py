@@ -26,8 +26,10 @@ table (no ``ml_dtypes``).
 
 The engine talks to one :class:`TieredKV` facade: lookups cascade L2 ->
 L3 and a hit is promoted upward. The server's counters answer the
-``stats`` op and, on its scrape plane, ``/metrics``
-(:meth:`KVPoolServer.serve_metrics`, the CLI's ``--metrics-port``).
+``stats`` op and, on its scrape plane, ``/metrics`` with
+``llm_build_info`` (:meth:`KVPoolServer.serve_metrics`, the CLI's
+``--metrics-port``), which also answers ``/debug/traces`` and ``POST
+/debug/profile``.
 """
 
 from __future__ import annotations
@@ -410,9 +412,20 @@ class KVPoolServer:
     # -- metrics exposition -------------------------------------------------
 
     def _build_registry(self, reg):
-        """The ``kvpool_*`` families (JAX ``KVPoolServer._build_registry``),
-        read from the live counters at scrape time (the ``stats`` op reads
-        the same ones)."""
+        """``llm_build_info`` and the ``kvpool_*`` families (JAX
+        ``KVPoolServer._build_registry``), read from the live counters at
+        scrape time (the ``stats`` op reads the same ones)."""
+        from llm_in_practise_tpu_torch.obs.buildinfo import (
+            register_build_info,
+        )
+
+        register_build_info(reg, {
+            "server": "kv_pool",
+            "max_tokens": self.max_tokens,
+            "max_bytes": self.max_bytes,
+            "max_namespaces": self.max_namespaces,
+            "min_prefix": self.min_prefix,
+        })
         reg.counter_func("kvpool_hits_total", lambda: self.hits,
                          "prefix lookups served from the pool")
         reg.counter_func("kvpool_misses_total", lambda: self.misses,
@@ -470,14 +483,26 @@ class KVPoolServer:
         from llm_in_practise_tpu_torch.serve.http_util import (
             JsonHandler,
             serve_obs_get,
+            serve_obs_post,
         )
 
         pool = self
 
         class Handler(JsonHandler):
             def do_GET(self):
+                # the pool records no spans of its own; a process that
+                # hosts it beside an engine shares the process tracer
                 if not serve_obs_get(self, pool.metrics_text):
                     self._json(404, {"error": {"message": "not found"}})
+
+            def do_POST(self):
+                # a capture holds whatever runs in this process
+                body, err = self._read_json()
+                if err:
+                    return self._json(400, err)
+                if not serve_obs_post(self, body):
+                    self._json(404, {"error": {"message": "not found"}})
+                return None
 
         class Server(http.server.ThreadingHTTPServer):
             daemon_threads = True

@@ -24,7 +24,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 assert "llm_in_practise_tpu_torch.serve.disagg" in names, names
 for name in ("serve.constrain", "serve.arrivals", "serve.multi_lora",
              "serve.adapters", "serve.kv_pool", "serve.sessions",
-             "obs.logging", "obs.registry", "obs.cost", "obs.hbm"):
+             "obs.logging", "obs.registry", "obs.cost", "obs.hbm",
+             "obs.trace", "obs.steptrace", "obs.meter", "obs.prof",
+             "obs.buildinfo", "obs.debug"):
     assert "llm_in_practise_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -141,18 +143,26 @@ def test_cli_rejects_unported_flags():
                   ["--kv-remote", "127.0.0.1:8100"],
                   ["--role", "decode", "--kv-remote", "127.0.0.1:8100"],
                   ["--session-store"],
-                  ["--session-store", "--session-ttl", "30"]):
+                  ["--session-store", "--session-ttl", "30"],
+                  ["--trace-file", "t.jsonl"], ["--ttft-slo", "2"],
+                  ["--tpot-slo", "0.1"]):
         check_not_ported(build_parser().parse_args(base + extra))
+    # the tracing and SLO flags carry their values, off by default
+    args = build_parser().parse_args(base + ["--trace-file", "t.jsonl",
+                                             "--ttft-slo", "2",
+                                             "--tpot-slo", "0.1"])
+    assert (args.trace_file, args.ttft_slo, args.tpot_slo) == (
+        "t.jsonl", 2.0, 0.1)
+    args = build_parser().parse_args(base)
+    assert (args.trace_file, args.ttft_slo, args.tpot_slo) == (
+        None, None, None)
     # --quantized_dir is optional: without it --model_path is the input
     check_not_ported(build_parser().parse_args(["--tokenizer_path", "t"]))
     # the session TTL defaults to the JAX CLI's
     assert build_parser().parse_args(base).session_ttl == 600.0
-    # tensor parallelism (item 14) and the tracing and SLO flags (item
-    # 6's second part) are still refused
+    # tensor parallelism (item 14) is still refused
     for extra, item in ((["--tensor-parallel-size", "2"], 14),
-                        (["--tp-quantized-collectives"], 14),
-                        (["--trace-file", "t.jsonl"], 6),
-                        (["--ttft-slo", "2"], 6), (["--tpot-slo", "0.1"], 6)):
+                        (["--tp-quantized-collectives"], 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             check_not_ported(build_parser().parse_args(base + extra))
 

@@ -155,3 +155,34 @@ def test_pool_registry_renders_strict_and_reads_live_counters():
         assert pool.stats()["handoff_puts"] == 1
     finally:
         pool._server.server_close()
+
+
+# the families of the tracer and the device plane (JAX api.py:700-1087),
+# less the tensor-parallel three, which wait for sharded serving
+PLANE_FAMILIES = (
+    "llm_build_info", "llm_compile_events_total", "llm_compile_seconds_total",
+    "llm_device_busy_fraction", "llm_host_gap_fraction",
+    "llm_host_gap_seconds_total", "llm_step_wall_seconds_total",
+    "llm_engine_steps_total", "llm_dispatch_mfu", "llm_dispatch_hbm_bw_util",
+    "llm_dispatch_tokens_per_dispatch", "llm_dispatches_per_step",
+    "llm_dispatches_total", "llm_mixed_blocks_total",
+    "llm_goodput_tokens_total", "llm_slo_requests_total",
+    "llm_slo_blame_total", "llm_ttft_seconds", "llm_tpot_seconds",
+    "llm_request_critical_path_seconds_total")
+TP_FAMILIES = ("llm_collective_bytes_total", "llm_collective_seconds_total",
+               "llm_tp_size")
+
+
+def test_port_registers_the_tracer_and_device_plane_families(registries):
+    server, pool = registries["port"]
+    assert len(PLANE_FAMILIES) == 20
+    assert set(PLANE_FAMILIES) <= server.family_names()
+    assert not set(TP_FAMILIES) & server.family_names()
+    assert set(TP_FAMILIES) <= registries["jax"][0].family_names()
+    assert "llm_build_info" in pool.family_names()
+    # each renders through the strict parser, the histograms with buckets
+    fams = parse_exposition(server.render())
+    for name in PLANE_FAMILIES:
+        assert name in fams, name
+    assert fams["llm_ttft_seconds"].kind == "histogram"
+    assert "llm_build_info" in parse_exposition(pool.render())
