@@ -55,13 +55,16 @@ Phases, in order; any failure exits non-zero:
    generation for 8 prompts on it through the engine (every decode
    projection on int4's thin-M route). Each decode step of these engines
    is one CUDA graph replay.
-   Between the NF4 and the int4 runs, ``serve_sched`` on the NF4 model:
-   chunked prefill 256, decode blocks of 8, the fused mixed step,
-   ``max_queue`` 4. Six chats, two
-   long prompts (700 and 900 tokens) that chunk-prefill while they
-   decode, two more of each that queue, and a burst past the queue that
-   must get 429: through the engine with the fused step and without it
-   (identical greedy tokens), then over HTTP with the counters zeroed
+   Between the NF4 and the int4 runs, the serving feature phases below,
+   all but ``serve_obs`` on one NF4 model built as the full one is but
+   ``CUT_LAYERS`` (8) deep, every check kept, so that the script stays
+   inside half its time limit. First ``serve_sched``: chunked prefill
+   256, decode blocks of 8, the fused mixed step, ``max_queue`` 4. Six
+   chats, two long prompts
+   (700 and 900 tokens) that chunk-prefill while they decode, two more
+   of each that queue, and a burst past the queue that must get 429:
+   through the engine with the fused step and without it (identical
+   greedy tokens), then over HTTP with the counters zeroed
    before and read after (B1's launches per route must follow from the
    engine's forward counts, through graph replays); a decode-only
    profile of replayed blocks; a sampled block (captured, then
@@ -127,33 +130,30 @@ Phases, in order; any failure exits non-zero:
    embeddings' too (and their vectors agree with the plain version's).
    Readings: TPOT and TTFT of constrained and plain requests, the first
    request's TPOT, mask staging and copy times, grammar compile time per
-   state, ``vocab_strings`` time, masked captures. ``serve_spec`` and
-   ``serve_struct`` run on an NF4 model built as the full one but
-   ``CUT_LAYERS`` (12) deep, every check kept, so that the script stays
-   inside half its time limit.
+   state, ``vocab_strings`` time, masked captures.
    Then ``serve_disagg`` (the KV tiers and the disaggregated prefill/
    decode handoff): a pool server started as ``python -m
    llm_in_practise_tpu_torch.serve.kv_pool --port 0``, a prefill replica
    and a decode replica (ngram k = 4, the decode default) with
    ``RemoteHandoff`` stores and a ``role="both"`` engine for the golden
    streams (paged, pages of 16, chunked prefill 256, decode blocks of
-   8); the NF4 cell's 8 chats and two ~700-token documents. Leg 1 on the
-   full-depth model: each prompt alone (streams equal to the ``both``
-   engine's byte for byte), then all at once (every token in the top 5
-   of a teacher-forced forward); a lost handoff (an id claimed twice
+   8); the NF4 cell's 8 chats and two ~700-token documents. Leg 1: each
+   prompt alone (streams equal to the ``both`` engine's byte for byte),
+   then all at once (every token in the top 5 of a teacher-forced
+   forward); a lost handoff (an id claimed twice
    re-prefills, counted); HTTP (``/internal/handoff/prefill``, then
    chats with ``kv_transfer_params``, streamed and not; 501 from the
-   decode server). On the ``CUT_LAYERS`` model: paged -> contiguous and
-   contiguous -> paged, a ``--kv-offload`` engine whose small L1's
-   evictions re-hit from L2, and two engines sharing the pool server by
-   write-through (the second's first request an L3 hit); fp8 -> fp8 on
-   a 2-layer int8 model. The decode replica never prefills in a
+   decode server). Then paged -> contiguous and contiguous -> paged, a
+   ``--kv-offload`` engine whose small L1's evictions re-hit from L2,
+   and two engines sharing the pool server by write-through (the
+   second's first request an L3 hit); fp8 -> fp8 on a 2-layer int8
+   model. The decode replica never prefills in a
    handed-off leg, the pool's pending handoffs return to 0, and B1 runs
    wgmma launches only on the prefill replica. Readings: bytes per
    entry, publish and claim seconds by piece, TTFT after a claim and
    TPOT beside ``both``, the write-through's cost, L3 ``get`` ms per MiB
    of the largest entry ``cache_len`` admits at full depth.
-   Then ``serve_lora`` on the ``CUT_LAYERS`` NF4 model (batched
+   Then ``serve_lora`` (batched
    multi-LoRA; paged, chunked prefill 256, decode blocks of 8, the mixed
    step): four
    seeded adapters (``sft-a`` and ``sft-b`` r 16 on the SFT default's
@@ -172,7 +172,7 @@ Phases, in order; any failure exits non-zero:
    Readings: TPOT / TTFT per traffic, the delta's device ms and kernels
    per decode step, MiB gathered per step, bank MiB, swap seconds, twin
    captures and recaptures.
-   Then ``serve_sessions`` on the full-depth NF4 model (session-native
+   Then ``serve_sessions`` (session-native
    serving, the chat page, ``/metrics`` and the HBM ledger; paged, pages
    of 16, prefix caching, decode blocks of 8): 8 sessions of 3 turns
    from ``serve/arrivals.py::synthesize_sessions``, one request at a
@@ -196,7 +196,7 @@ Phases, in order; any failure exits non-zero:
    page's script reads; B1 thin on both replicas. Readings: warm and
    cold TTFT by turn, the migration's prefill tokens and TTFT, the
    ledger's residual beside ``torch.cuda.memory_allocated``.
-   Then ``serve_obs`` on the full-depth NF4 model (the tracer and the
+   Then ``serve_obs`` on a full-depth NF4 model (the tracer and the
    device plane): a server from ``serve.build_server`` with the CLI's
    defaults (paged, pages of 16, decode steps of 1) and ``--trace-file``,
    ``--ttft-slo 2.0``, ``--tpot-slo 0.1``; the NF4 cell's 8 chats (4
@@ -240,16 +240,22 @@ Phases, in order; any failure exits non-zero:
    over an NF4, an int4 and an int8 base, with the kernels and again with
    every kernel swapped for its plain version; the loss and every LoRA
    gradient must agree, and each kernel's launches (the forwards' per
-   route) must equal the count derived from the model.
+   route) must equal the count derived from the model. Over the NF4 base
+   also the materialized-dequant path (``make_qlora_loss_fn_args``: the
+   base dequantized to bf16, the delta added to the kernel, plain
+   matmuls, no NF4 kernel launched) against the fused step's loss and
+   gradients, at the same tolerances.
 8. Train: QLoRA on Qwen3-8B (36 layers, NF4 base, LoRA r 8 on q/v_proj,
    remat on every block, fused cross-entropy over the tied embedding,
    AdamW lr 1e-4), batch 8 x 1024 random tokens: one warm-up step, then
    timed steps with the launch counters zeroed before and read after;
    every kernel's launches per step must equal the count derived from
    the model (every NF4 forward on the wgmma route), and one more step is
-   profiled.
+   profiled. Then one ``make_eval_step`` on the trained model: B1 7 times
+   per layer on the wgmma route, the flash forward once per layer, no
+   backward kernel.
 9. Checkpoints (``ckpt``), at Qwen3-8B width with tied embeddings and
-   seeded bf16 weights, ``CKPT_LAYERS`` (8) layers deep (the card's
+   seeded bf16 weights, ``CKPT_LAYERS`` (2) layers deep (the card's
    machine takes 45 GiB of disk writes per run), every file deleted after
    its check: the state written as an HF directory in the published layout
    (five safetensors shards, an index, ``config.json``); ``convert_hf``
@@ -265,7 +271,28 @@ Phases, in order; any failure exits non-zero:
    for the first prompt equal to a one-slot server's answer on the same
    model (an 8-slot engine rounds the f32 head otherwise). Bytes,
    seconds and GB/s of every read and write, host and card peaks.
-10. Print the kernel summary (all nine kernels), the card, and the final
+10. Post-training quantization (``quantize``), at Qwen3-8B width,
+   ``QUANT_LAYERS`` (2) deep, seeded bf16 weights written by ``save_named``
+   as ``model.msgpack`` beside the phase's tokenizer: the quantize CLI's
+   code path (``quantize.run``) for GPTQ (g128, GPTQModel's recipe), AWQ
+   (the CLI's g32) and int8 on the card. Checks: (b) one calibration
+   stats entry per block projection, none for the embedding or head; (c)
+   GPTQ's calibration error ``tr(A^T H A)`` over the model below RTN's on
+   the same Hessians (the ratio per projection shape); (d) each AWQ
+   matrix's chosen loss at most its alpha = 0 loss, which equals RTN's
+   exactly, and the CLI's scale is the chosen alpha's; (e) each packed
+   export served by ``serve.build_server --quantized_dir`` answers the 8
+   chats over HTTP with B6 (GPTQ, AWQ) or B8 (int8) on every projection,
+   on the derived route; (f) the GPTQ export's PPL through the serving
+   forward (B6 on the wgmma route) equals the CLI's over the dequantized
+   tree within ``QUANT_PPL_TOL``; (g) ``sft_recipe`` on the DeepSeek-R1
+   QLoRA recipe (``SFT_STEPS`` steps, ``merge_after``) over an HF dir at
+   Qwen3-8B width and ``SFT_LAYERS`` layers: finite losses, the adapter
+   restores with the trained shapes in f32 and a nonzero ``b``, the merged
+   ``model.msgpack`` reads back, the flash kernels ran. Readings:
+   calibration seconds and stats bytes, GPTQ and AWQ seconds per
+   projection shape, fp / quantized PPLs, bytes written, card peak.
+11. Print the kernel summary (all nine kernels), the card, and the final
    status line.
 
 Needs the repository checkout beside it (it imports the port) and CUDA.
@@ -276,6 +303,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import faulthandler
 import gc
 import json
 import math
@@ -291,6 +319,7 @@ import urllib.request
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_OPS_PER_S = 989e12   # dense bf16 tensor-core rate, data sheet
 KERNEL_TOL = 1e-2              # max|kernel - plain| <= KERNEL_TOL * max|plain|
+STALL_DUMP_S = 240             # no phase ends for this long: dump stacks
 # whole-model logits, kernels vs plain versions, 36 random bf16 layers:
 # measured 0.035 to 0.046 * max|plain| (seed 0, H100 80GB HBM3, 700 W);
 # a wrong nibble, codebook entry or absmax block decorrelates the logits
@@ -306,10 +335,10 @@ PROJ_SHAPES = {  # Qwen3-8B block projections: name -> (K, N)
 CHECK_M = (1, 8, 512)
 N_LAYER = 36    # full depth of Qwen3-8B
 N_LAYER_FULL = N_LAYER
-# serve_spec, serve_struct and serve_lora (and serve_disagg's cross-layout
-# and tier legs) run at this depth, every check kept, so the script stays
-# inside half its time limit as later slices add phases
-CUT_LAYERS = 12
+# every serving feature phase from serve_sched to serve_sessions runs at
+# this depth, every check kept, so the script stays inside half its time limit
+# as later slices add phases
+CUT_LAYERS = 8
 MAX_SLOTS = 8
 CACHE_LEN = 1024
 MAX_TOKENS = 64
@@ -1468,10 +1497,8 @@ def awq_decode(model, tok, seed: int) -> dict:
     return res
 
 
-def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok,
-                keep_model: bool = False) -> dict:
-    """The serving cell of ``fmt``; with ``keep_model`` the result holds
-    the model under ``"model"`` for the next phase."""
+def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok) -> dict:
+    """The serving cell of ``fmt``."""
     import torch
 
     from llm_in_practise_tpu_torch.data.sft import IM_END
@@ -1612,10 +1639,7 @@ def serve_phase(fmt: str, n_layer: int, seed: int, card: str, tok,
     out["decode_profile"] = profile_decode(
         engine, [r.prompt_ids for r in reqs], kernel_name)
     log("decode profile:", json.dumps(out["decode_profile"]))
-    res = {"launches": launches, "serve": out, "routes": routes}
-    if keep_model:
-        res["model"] = model
-    return res
+    return {"launches": launches, "serve": out, "routes": routes}
 
 
 def profile_decode(engine, prompts, kernel_name: str, steps: int = 16
@@ -2083,7 +2107,7 @@ def replay_one(engine, key, gen, restore) -> dict:
 
 
 def sched_phase(model, tok, seed: int, card: str) -> dict:
-    """serve_sched on ``model`` (Qwen3-8B width, NF4, full depth): the
+    """serve_sched on ``model`` (Qwen3-8B width, NF4): the
     traffic of :func:`sched_traffic` fused, then sequential
     (``mixed_step=False``) through the engine directly (their greedy
     tokens must be identical), then fused over HTTP (the counted main
@@ -2566,7 +2590,7 @@ def paged_profile(engine, contiguous, tok, card: str) -> dict:
 
 
 def paged_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
-    """serve_paged on the NF4 model (Qwen3-8B width, full depth): the
+    """serve_paged on the NF4 model (Qwen3-8B width): the
     shared-prefix traffic on five engines, the pool-pressure run, fp8 KV,
     a 2-layer int8 model, HTTP through the CLI's defaults and a decode
     profile beside the contiguous layout. Launch counters are zeroed at
@@ -3403,7 +3427,7 @@ def verify_vs_decode(model) -> dict:
 
 
 def spec_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
-    """serve_spec on the NF4 model (Qwen3-8B width, full depth): the 8
+    """serve_spec on the NF4 model (Qwen3-8B width): the 8
     chats over HTTP on an ngram engine built by the CLI's code (whose
     parser and draft loader also take ``--speculative 4
     --draft-model-path``), then through seven engines: paged plain,
@@ -4258,7 +4282,7 @@ def struct_http(model, tok, seed: int) -> dict:
 
 
 def struct_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
-    """serve_struct on the NF4 model (Qwen3-8B width, full depth): the JAX
+    """serve_struct on the NF4 model (Qwen3-8B width): the JAX
     structured bench's traffic, ``arrivals.synthesize(seed=42, 16
     requests, mean gap 20 ms, cv 2, prompts of 8-48 tokens, 72-128 new
     tokens)``, half carrying the bench's schema and half plain, replayed
@@ -5054,8 +5078,8 @@ def lora_http(model, tok, registry, seed: int) -> dict:
 
 
 def lora_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
-    """serve_lora on the NF4 model (Qwen3-8B width, ``CUT_LAYERS`` deep
-    since the serve_obs phase came in; every check kept): batched
+    """serve_lora on the NF4 model (Qwen3-8B width, ``CUT_LAYERS`` deep;
+    every check kept): batched
     multi-LoRA over the NF4 base. Four seeded adapters: ``sft-a`` and
     ``sft-b`` (r 16, alpha 32, the repo's SFT targets; ``sft-a`` written
     by ``save_named`` and loaded by ``register(path)``), ``qv-8`` (r 8,
@@ -5607,8 +5631,7 @@ def disagg_http(pre, dec, store, tok, golden, msgs) -> dict:
     return out
 
 
-def disagg_phase(model, shallow, tok, seed: int, card: str,
-                 nf4_cell: dict) -> dict:
+def disagg_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
     """serve_disagg: the KV tiers and the disaggregated handoff. A pool
     server started as ``python -m llm_in_practise_tpu_torch.serve.kv_pool
     --port 0``; a ``role="prefill"`` and a ``role="decode"`` engine (ngram
@@ -5616,13 +5639,11 @@ def disagg_phase(model, shallow, tok, seed: int, card: str,
     ``role="both"`` engine of the decode replica's knobs for the golden
     streams; paged (pages of 16), 8 slots, cache_len 1024, chunked
     prefill 256, decode blocks of 8. Traffic: the NF4 cell's 8 chats and
-    two ~700-token documents. Legs: (1) paged -> paged on the full-depth
-    model, each prompt alone, then all at once; (2) paged -> contiguous
+    two ~700-token documents. Legs: (1) paged -> paged, each prompt alone, then all at once; (2) paged -> contiguous
     and contiguous -> paged, (6) the tiers: a contiguous engine with
     ``--kv-offload`` and an L1 of ``DISAGG_L1_TOKENS`` whose evictions
     re-hit from L2, and two paged engines sharing the pool server by
-    write-through, the second's first request an L3 hit, on the
-    ``CUT_LAYERS`` model; (3) fp8 -> fp8 on a 2-layer int8 model; (4) a
+    write-through, the second's first request an L3 hit; (3) fp8 -> fp8 on a 2-layer int8 model; (4) a
     lost handoff; (5) HTTP. Checks, each exiting non-zero: where one
     request runs alone on engines of the same shapes the streams equal
     the ``both`` engine's byte for byte, elsewhere every token is in the
@@ -5661,9 +5682,8 @@ def disagg_phase(model, shallow, tok, seed: int, card: str,
     msgs, prompts = disagg_traffic(tok)
     proc, address = start_pool_server()
     timer = DisaggTimer(sync)
-    checks, res = {}, {"card": card, "layers": N_LAYER_FULL,
-                       "cut_layers": CUT_LAYERS, "max_slots": MAX_SLOTS,
-                       "cache_len": CACHE_LEN, **DISAGG,
+    checks, res = {}, {"card": card, "layers": N_LAYER,
+                       "max_slots": MAX_SLOTS, "cache_len": CACHE_LEN, **DISAGG,
                        "prompt_tokens": [len(p) for p in prompts]}
     routes_by_role = {r: dict.fromkeys(("thin", "wgmma"), 0)
                       for r in ("prefill", "decode", "both")}
@@ -5680,7 +5700,7 @@ def disagg_phase(model, shallow, tok, seed: int, card: str,
                                  speculative_k=4, **kw)
             return pre, dec, both
 
-        # leg 1: paged -> paged, full depth. A warm-up of chat 0 through
+        # leg 1: paged -> paged. A warm-up of chat 0 through
         # all three (the counted run starts after its graph captures)
         pre, dec, both = trio(model)
         disagg_leg("warm-up", pre, dec, store, both, prompts[:1],
@@ -5738,17 +5758,17 @@ def disagg_phase(model, shallow, tok, seed: int, card: str,
         free()
         launches_full = read_counters()["nf4_matmul"]
 
-        # leg 2: across layouts, CUT_LAYERS deep
+        # leg 2: across layouts
         leg2 = {}
         for src, dst in (("paged", "contiguous"), ("contiguous", "paged")):
-            pre, dec, both = trio(shallow, src, dst)
+            pre, dec, both = trio(model, src, dst)
             r = disagg_leg(f"leg2 {src}->{dst}", pre, dec, store, both,
                            prompts[:MAX_SLOTS], sequential=True)
             docs = disagg_leg(f"leg2 {src}->{dst} documents", pre, dec,
                               store, None, prompts[MAX_SLOTS:],
                               sequential=False)
             docs["top5_agreeing"] = teacher_forced(
-                shallow, prompts[MAX_SLOTS:], docs["streams"])
+                model, prompts[MAX_SLOTS:], docs["streams"])
             leg2[f"{src}->{dst}"] = {
                 "equal_to_both": r["equal_to_both"],
                 "interference_free": r["interference_free"]
@@ -5762,7 +5782,7 @@ def disagg_phase(model, shallow, tok, seed: int, card: str,
                              and v["docs_top5"] for v in leg2.values())
         res["leg2"] = leg2
 
-        # leg 6: the tiers, CUT_LAYERS deep. (a) --kv-offload with a small
+        # leg 6: the tiers. (a) --kv-offload with a small
         # L1: the second pass of the chats re-hits from L2
         from llm_in_practise_tpu_torch.serve.__main__ import (
             build_parser,
@@ -5772,7 +5792,7 @@ def disagg_phase(model, shallow, tok, seed: int, card: str,
         args = build_parser().parse_args(["--tokenizer_path", "-",
                                           "--kv-offload"])
         kw = engine_kw_for(args, "qwen3-8b-nf4")
-        offl = disagg_engine(shallow, tok, seed, kv_layout="contiguous",
+        offl = disagg_engine(model, tok, seed, kv_layout="contiguous",
                              prefix_cache=PrefixCache(
                                  max_tokens=DISAGG_L1_TOKENS, min_prefix=16),
                              **kw)
@@ -5801,7 +5821,7 @@ def disagg_phase(model, shallow, tok, seed: int, card: str,
         tpot = {}
         for name, eng in (("write_through", offl),
                           ("no_tiers", disagg_engine(
-                              shallow, tok, seed, kv_layout="contiguous"))):
+                              model, tok, seed, kv_layout="contiguous"))):
             for _ in range(2):
                 if eng.prefix_cache is not None:
                     eng.prefix_cache.clear()
@@ -5827,7 +5847,7 @@ def disagg_phase(model, shallow, tok, seed: int, card: str,
         for name in ("first", "second"):
             kv = TieredKV(HostKVPool(), RemoteKVClient(
                 address, namespace="qwen3-8b-nf4-cut"))
-            eng = disagg_engine(shallow, tok, seed, kv_pool=kv)
+            eng = disagg_engine(model, tok, seed, kv_pool=kv)
             s0 = pool_stats(address)
             r = eng.submit(prompts[MAX_SLOTS], sp)
             drain(eng)
@@ -6576,7 +6596,7 @@ def sess_fleet_leg(model, tok, seed: int, card: str) -> dict:
 
 def sessions_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
     """serve_sessions: session-native serving, the chat page and the
-    planes, on the full-depth NF4 model (paged, pages of 16, prefix
+    planes, on the NF4 model (paged, pages of 16, prefix
     caching, decode blocks of 8, bf16 KV). Legs: (1) pins under pressure,
     8 sessions of 3 turns from ``serve/arrivals.py::synthesize_sessions``
     one request at a time, ``SESS_FILLERS`` unrelated requests of
@@ -6604,7 +6624,7 @@ def sessions_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
     rounds, suffix, fillers = sess_schedule(tok)
-    res = {"card": card, "layers": N_LAYER_FULL, "max_slots": MAX_SLOTS,
+    res = {"card": card, "layers": N_LAYER, "max_slots": MAX_SLOTS,
            "cache_len": CACHE_LEN, **SESS, "pool_tokens": SESS_POOL,
            "fillers": SESS_FILLERS, "filler_tokens": SESS_FILLER_TOKENS}
     t0 = time.monotonic()
@@ -7230,8 +7250,8 @@ def obs_disagg_leg(model, tok, seed: int) -> dict:
 def obs_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
     """serve_obs: the tracer and the device plane on the full-depth NF4
     model. Leg 1, a server from ``serve.build_server`` with the CLI's
-    defaults and ``--trace-file``, ``--ttft-slo 2.0``, ``--tpot-slo 0.1``:
-    the NF4 cell's 8 chats (4 streamed, 2 with a client ``traceparent``)
+    defaults and ``--trace-file``, ``--ttft-slo 2.0``, ``--tpot-slo
+    0.1``: the NF4 cell's 8 chats (4 streamed, 2 with a client ``traceparent``)
     and a ~700-token document. Checks, each exiting non-zero: (a) each
     request's trace has ``api.chat`` at its root (a client's trace id
     adopted) and the engine's phase spans under it; (b) ``/debug/traces``
@@ -7260,7 +7280,7 @@ def obs_phase(model, tok, seed: int, card: str, nf4_cell: dict) -> dict:
     t_phase = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
-    res = {"card": card, "layers": N_LAYER_FULL, "max_slots": MAX_SLOTS,
+    res = {"card": card, "layers": N_LAYER, "max_slots": MAX_SLOTS,
            "cache_len": CACHE_LEN, "slo": OBS_SLO}
     t0 = time.monotonic()
     res["server"] = obs_server_leg(model, tok, seed)
@@ -7675,13 +7695,14 @@ def check_flash(seed: int, flush) -> dict:
 
 
 def build_qlora(n_layer: int, seed: int, *, fmt: str = "nf4",
-                lora_b_std: float = 0.0):
+                lora_b_std: float = 0.0, with_state: bool = False):
     """QLoRA on a Qwen3-8B-width base with random weights from a seeded
     generator on the card: the block kernels are quantized layer by layer
     (the f32 weights of one layer exist at a time; NF4 through the port's
     ``quantize_base``, int4 and int8 through their codecs as a PTQ export
     holds them), the embedding and norms stay bf16, LoRA factors come from
-    ``init_lora`` (A ~ N(0, 0.02), B zeros unless ``lora_b_std``)."""
+    ``init_lora`` (A ~ N(0, 0.02), B zeros unless ``lora_b_std``). With
+    ``with_state`` also the quantized state the model was built from."""
     import torch
 
     from llm_in_practise_tpu_torch.models.qwen3 import Qwen3, Qwen3Config
@@ -7724,6 +7745,8 @@ def build_qlora(n_layer: int, seed: int, *, fmt: str = "nf4",
             ab["b"].normal_(0.0, lora_b_std, generator=gen)
     model = QLoRAModel(Qwen3(cfg, device="meta"), state, lora, lcfg,
                        device=dev)
+    if with_state:
+        return cfg, model, state
     return cfg, model
 
 
@@ -7881,7 +7904,8 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
 
     from llm_in_practise_tpu_torch.train.step import make_fused_ce_loss
 
-    cfg, model = build_qlora(STEP_LAYERS, seed + 3, fmt=fmt, lora_b_std=0.02)
+    cfg, model, qstate = build_qlora(STEP_LAYERS, seed + 3, fmt=fmt,
+                                     lora_b_std=0.02, with_state=True)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed + 4)
     x = torch.randint(0, cfg.vocab_size, (STEP_BATCH, TRAIN_SEQ),
@@ -7926,6 +7950,9 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
                   f"{STEP_GRAD_TOL} * max|plain|: bf16 activations carry "
                   "the kernels' summation-order differences through both "
                   "layers, forward and backward"}
+    if fmt == "nf4":
+        res["materialized"] = materialized_check(
+            cfg, model, qstate, batch, loss_k, grads_k)
     log("step check:", json.dumps(res))
     if (not all(torch.isfinite(g).all() for g in grads_k)
             or loss_rel > STEP_LOSS_TOL or max(grad_rel) > STEP_GRAD_TOL
@@ -7934,8 +7961,63 @@ def step_check(seed: int, fmt: str = "nf4") -> dict:
         raise SystemExit(f"QLoRA step over {fmt} with kernels disagrees "
                          f"with the plain path (launches wanted {want}, "
                          f"{fmt} forward routes {want_routes}): {res}")
+    mat = res.get("materialized")
+    if mat is not None and not mat["agrees"]:
+        raise SystemExit(f"the materialized-dequant QLoRA loss disagrees "
+                         f"with the fused step: {mat}")
     del model
     return res
+
+
+def materialized_check(cfg, model, qstate, batch, loss_k, grads_k) -> dict:
+    """The JAX recipe path's loss and LoRA gradients on the same NF4 base,
+    factors and batch: ``make_qlora_loss_fn_args`` (every NF4 leaf
+    dequantized to bf16, the delta added to the kernel, plain matmuls)
+    against the fused step's (B1 forward, B2 backward, the delta beside
+    the kernel), at the step's tolerances. Attention runs the flash
+    kernels in both; the NF4 kernels launch no time here."""
+    import torch
+
+    from llm_in_practise_tpu_torch.models.qwen3 import Qwen3
+    from llm_in_practise_tpu_torch.peft.qlora import make_qlora_loss_fn_args
+    from llm_in_practise_tpu_torch.train.losses import (
+        fused_linear_cross_entropy,
+    )
+
+    # no remat: a functional forward's recompute would run after the
+    # state swap has ended (Qwen3.apply raises); 2 layers fit without it
+    plain = Qwen3(cfg.replace(remat=False), device="meta")
+
+    def base_loss(state, batch, _generator):
+        x, y = batch
+        hidden = plain.apply(state, x, return_hidden=True)
+        loss, _ = fused_linear_cross_entropy(
+            hidden, state["tok_embed.weight"], y, transpose_weight=True,
+            chunk=CE_CHUNK, vocab_chunk=CE_VOCAB_CHUNK)
+        return loss
+
+    loss_fn = make_qlora_loss_fn_args(model.lora_cfg, base_loss,
+                                      dtype=torch.bfloat16)
+    lora = {n: {k: v.detach().clone().requires_grad_(True)
+                for k, v in ab.items()}
+            for n, ab in model.lora_state().items()}
+    leaves = [lora[n][k] for n in sorted(lora) for k in ("a", "b")]
+    zero_counters()
+    loss_m = loss_fn(lora, qstate, batch, None)
+    grads_m = torch.autograd.grad(loss_m, leaves)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    loss_rel = abs(loss_m.item() - loss_k.item()) / abs(loss_k.item())
+    grad_rel = [_rel(a, b)[1] for a, b in zip(grads_m, grads_k)]
+    return {"loss": loss_m.item(), "loss_rel_err_vs_fused": loss_rel,
+            "grad_max_rel_err_vs_fused": max(grad_rel),
+            "grads": len(grad_rel),
+            "launches": {k: v for k, v in counts.items() if v},
+            "agrees": (bool(all(torch.isfinite(g).all() for g in grads_m))
+                       and loss_rel <= STEP_LOSS_TOL
+                       and max(grad_rel) <= STEP_GRAD_TOL
+                       and counts["nf4_matmul"] == 0
+                       and counts["nf4_matmul_backward"] == 0)}
 
 
 def flops_per_token(m: int, n_layer: int, seq: int, dim: int,
@@ -8085,18 +8167,56 @@ def train_phase(n_layer: int, seed: int, card: str) -> dict:
                              "flash_bwd_dq_kernel")},
         }
     log("train profile:", json.dumps(out["profile"]))
-    return {"launches": counts, "routes": step_routes, "train": out}
+    out["eval"] = eval_check(state, batch, n_layer)
+    log("train eval step:", json.dumps(out["eval"]))
+    return {"launches": counts, "routes": step_routes, "train": out,
+            "eval_launches": out["eval"]["launches"]}
+
+
+def eval_check(state, batch, n_layer: int) -> dict:
+    """One ``make_eval_step`` (the fused-head loss, no update) on the
+    trained model: under ``no_grad`` the remat blocks run once, so B1
+    launches 7 per layer, every one on the wgmma route, and the flash
+    forward once per layer; no backward kernel."""
+    import torch
+
+    from llm_in_practise_tpu_torch.train.step import (
+        make_eval_step,
+        make_fused_ce_loss,
+    )
+
+    eval_step = make_eval_step(loss_fn=make_fused_ce_loss(
+        chunk=CE_CHUNK, vocab_chunk=CE_VOCAB_CHUNK))
+    step0 = state.step
+    zero_counters()
+    t0 = time.monotonic()
+    metrics = eval_step(state, batch)
+    loss = metrics["loss"].item()
+    wall = time.monotonic() - t0
+    counts = {k: v for k, v in read_counters().items() if v}
+    routes = read_routes()["nf4_matmul"]
+    want = {"nf4_matmul": 7 * n_layer, "flash_forward": n_layer}
+    want_routes = route_launches("nf4", [TRAIN_M], PROJ_SHAPES.values(),
+                                 n_layer)
+    res = {"loss": loss, "n_valid": int(metrics["n_valid"]), "wall_s": wall,
+           "launches": counts, "launches_expected": want,
+           "nf4_routes": routes, "nf4_routes_expected": want_routes}
+    if (not math.isfinite(loss) or counts != want or routes != want_routes
+            or res["n_valid"] != TRAIN_M or state.step != step0):
+        raise SystemExit(f"the eval step is wrong: {res}")
+    return res
 
 
 # ckpt phase: every file of the lifecycle at Qwen3-8B width. The published
 # Qwen/Qwen3-8B checkpoint is five safetensors shards plus an index; its
 # config.json keys below, tied as in the other cells (the published 8B has
-# its own lm_head: the tie is the cells' cut). Depth is cut to 18 of 36
+# its own lm_head: the tie is the cells' cut). Depth is cut to 2 of 36
 # layers: the card's machine takes 45 GiB of disk writes per run, deleted
 # files included (a 36-layer run was stopped at 56.4 GiB), and the phase
 # writes 1.71 GiB per layer (bf16 HF dir and model.msgpack, NF4 and int8
-# exports, f32 HF export) plus 6.96 GiB for the embedding: 37.7 GiB at 18.
-CKPT_LAYERS = 8
+# exports, f32 HF export) plus 6.96 GiB for the embedding: 10.4 GiB at 2,
+# beside the quantize phase's ~18 GiB.
+CKPT_LAYERS = 2
 CKPT_SHARDS = 5
 CKPT_TRAIN_STEPS = 2
 CKPT_HF_CONFIG = {
@@ -8167,10 +8287,12 @@ def ckpt_state(cfg, seed: int) -> dict:
     return state
 
 
-def write_hf_dir(path: str, state: dict) -> None:
+def write_hf_dir(path: str, state: dict,
+                 config: dict | None = None) -> None:
     """``state`` as the published layout: ``CKPT_SHARDS`` bf16 shards of
     about equal size, ``model.safetensors.index.json``, ``config.json``
-    (fixture code: safetensors' own writer, not the port's)."""
+    (``config``, default ``CKPT_HF_CONFIG``; fixture code: safetensors'
+    own writer, not the port's)."""
     import safetensors.torch
 
     from llm_in_practise_tpu_torch.models.hf_loader import _hf_name
@@ -8203,7 +8325,7 @@ def write_hf_dir(path: str, state: dict) -> None:
         json.dump({"metadata": {"total_size": total},
                    "weight_map": weight_map}, f, indent=2)
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(CKPT_HF_CONFIG, f, indent=2)
+        json.dump(config or CKPT_HF_CONFIG, f, indent=2)
 
 
 def ckpt_chats() -> list[list[dict]]:
@@ -8275,6 +8397,15 @@ def served_chats(argv: list[str], tok, timings: dict) -> dict:
         return req
 
     engine.submit = recording_submit
+    prefill_rows = []  # rows of each one-shot prefill pass
+    prefill = engine._prefill_batch
+
+    def recording_prefill(batch):
+        prefill_rows.append(len(batch) * max(len(r.prompt_ids)
+                                             for _, r, _ in batch))
+        return prefill(batch)
+
+    engine._prefill_batch = recording_prefill
     gate = threading.Event()
     gate.set()
     admit = engine._admit
@@ -8307,6 +8438,7 @@ def served_chats(argv: list[str], tok, timings: dict) -> dict:
         gated_batch()   # warm-up: builds and captures
         torch.cuda.synchronize()
         seen.clear()
+        prefill_rows.clear()
         zero_counters()
         replays0 = engine.graphs.replays
         steps0 = (engine.decode_steps_run, engine.prefill_batches_run)
@@ -8318,6 +8450,7 @@ def served_chats(argv: list[str], tok, timings: dict) -> dict:
         prefills = engine.prefill_batches_run - steps0[1]
         replays = engine.graphs.replays - replays0
         reqs = list(seen)
+        passes = list(prefill_rows)
         seen.clear()
         post_chat(base, body(0, False))
         solo = list(seen[0].output_ids)
@@ -8336,6 +8469,7 @@ def served_chats(argv: list[str], tok, timings: dict) -> dict:
             "tokens": [list(r.output_ids) for r in reqs],
             "counts": counts, "routes": routes, "forwards":
             decode_steps + prefills, "decode_steps": decode_steps,
+            "prefill_rows": passes,
             "graph_replays": replays, "wall_s": wall,
             "ttft_p50_s": statistics.median(r.ttft_s for r in reqs),
             "tpot_p50_s": statistics.median(r.tpot_s for r in reqs
@@ -8379,7 +8513,7 @@ def one_slot_chat(model, tok, messages) -> list[int]:
 
 
 def ckpt_phase(seed: int, card: str, tok, nf4_cell: dict) -> dict:
-    """The lifecycle's files at Qwen3-8B width and full depth: an HF
+    """The lifecycle's files at Qwen3-8B width, ``CKPT_LAYERS`` deep: an HF
     directory written from seeded weights, ``convert_hf`` to NF4 and to
     int8 exports served over HTTP (tokens equal to a model quantized in
     memory from the same state), ``train --model_dir --adapter_dir``,
@@ -8631,6 +8765,399 @@ def ckpt_phase(seed: int, card: str, tok, nf4_cell: dict) -> dict:
     return out
 
 
+# quantize phase: the PTQ CLI from calibration to the PPL gate, its exports
+# served, and the recipe SFT CLI. Depth QUANT_LAYERS at Qwen3-8B width: the
+# phase writes a bf16 model (1.25 GB of embedding + 0.39 GB per layer),
+# per method an f32 dequantized model (+ 0.77 GB per layer) and a packed
+# export, and the SFT leg's HF dir and merged model, against the 45 GiB of
+# disk writes per run the card's machine takes (ckpt writes ~10 GiB).
+QUANT_LAYERS = 2
+QUANT_METHODS = (("gptq", ("--group_size", "128")),   # GPTQModel's recipe
+                 ("awq", ()), ("int8", ()))            # the CLI's default g32
+QUANT_MAX_LEN = 128          # the CLI's --max_len default
+# check (f): the GPTQ export's PPL through the serving kernels (B6 on bf16
+# activations) against the CLI's over the dequantized tree (cuBLAS on the
+# same bf16-rounded weights): the logits differ in summation order only
+QUANT_PPL_TOL = 5e-3         # relative
+SFT_STEPS = 4
+SFT_LAYERS = 2
+BLOCK_KERNELS = tuple(("mlp" if n in ("gate_proj", "up_proj", "down_proj")
+                       else "attn", n) for n in PROJ_SHAPES)
+
+
+def calib_error(w, wq, h) -> float:
+    """``tr(A^T H A)`` with ``A = W - W_hat``: the calibration error GPTQ
+    minimizes, in f32 with TF32 off."""
+    import torch
+
+    from llm_in_practise_tpu_torch.core.device import exact_f32
+
+    a = w.float() - wq.float()
+    with exact_f32():
+        return float(torch.sum(a * (h @ a)))
+
+
+def quant_stats_checks(res: dict, n_layer: int) -> dict:
+    """(b): one stats entry per block projection, none for the embedding
+    or the head; the stats' bytes on the card."""
+    want = {f"block_{i}/{sub}/{name}/kernel" for i in range(n_layer)
+            for sub, name in BLOCK_KERNELS}
+    got = set(res["stats"])
+    out = {"entries": len(got), "expected": len(want),
+           "keys_equal": got == want,
+           "stats_bytes": res["stats_bytes"],
+           "gram_tensors": len({id(st.gram) for st in res["stats"].values()}),
+           "calib_s": res["calib_s"],
+           "calib_sequences": res["calib_sequences"]}
+    if not out["keys_equal"]:
+        raise SystemExit(f"quantize: the stats' keys are not the 7 x "
+                         f"{n_layer} block projections: {sorted(got)}")
+    return out
+
+
+def per_shape_seconds(matrix_s: dict) -> dict:
+    """Seconds per projection shape (``K x N``), summed over the layers."""
+    out: dict = {}
+    for key, sec in matrix_s.items():
+        k, n = PROJ_SHAPES[key.split("/")[2]]
+        out[f"{k}x{n}"] = out.get(f"{k}x{n}", 0.0) + sec
+    return out
+
+
+def gptq_vs_rtn(res: dict) -> dict:
+    """(c): GPTQ's calibration error, summed over the model's matrices,
+    below RTN's (the same group size) on the same Hessians; the ratio per
+    projection shape."""
+    from llm_in_practise_tpu_torch.models.convert import port_name
+    from llm_in_practise_tpu_torch.quant import int4
+
+    total = {"gptq": 0.0, "rtn": 0.0}
+    by_shape: dict = {}
+    for key, st in res["stats"].items():
+        name = port_name(key)
+        w = res["fp_state"][name].float()
+        q = res["q_state"][name]
+        h = st.hessian
+        e_g = calib_error(w, int4.decode(q, w.dtype), h)
+        rtn = int4.rtn_quantize(w, group_size=q.group_size)
+        e_r = calib_error(w, int4.decode(rtn, w.dtype), h)
+        total["gptq"] += e_g
+        total["rtn"] += e_r
+        k, n = PROJ_SHAPES[key.split("/")[2]]
+        row = by_shape.setdefault(f"{k}x{n}", {"gptq": 0.0, "rtn": 0.0})
+        row["gptq"] += e_g
+        row["rtn"] += e_r
+    out = {"gptq_error": total["gptq"], "rtn_error": total["rtn"],
+           "ratio": total["gptq"] / total["rtn"],
+           "ratio_by_shape": {s: r["gptq"] / r["rtn"]
+                              for s, r in by_shape.items()}}
+    if not total["gptq"] < total["rtn"]:
+        raise SystemExit(f"quantize: GPTQ's calibration error is not below "
+                         f"RTN's: {out}")
+    return out
+
+
+def awq_vs_alpha0(res: dict, group_size: int) -> dict:
+    """(d): each matrix's chosen loss <= its alpha = 0 loss, exactly;
+    alpha 0 is the grid's first point and its loss equals RTN's,
+    computed apart; the CLI's tensor carries the chosen scale."""
+    import torch
+
+    from llm_in_practise_tpu_torch.models.convert import port_name
+    from llm_in_practise_tpu_torch.quant import int4
+    from llm_in_practise_tpu_torch.quant.awq import (
+        AWQConfig,
+        awq_losses,
+        awq_search_from_stats,
+    )
+
+    awq_cfg = AWQConfig(group_size=group_size)
+    rows, bad = {}, []
+    for key, st in res["stats"].items():
+        name = port_name(key)
+        w = res["fp_state"][name]
+        alphas, losses = awq_losses(w, st.gram, st.mean_abs, awq_cfg)
+        best = int(torch.argmin(losses))
+        rtn = int4.rtn_quantize(w, group_size=group_size)
+        e_r = calib_error(w, int4.decode(rtn, torch.float32), st.gram)
+        scale, _ = awq_search_from_stats(w, st.gram, st.mean_abs, awq_cfg)
+        row = {"alpha": float(alphas[best]), "chosen": float(losses[best]),
+               "alpha0": float(losses[0]), "rtn": e_r,
+               "cli_scale_is_chosen": bool(torch.equal(
+                   res["q_state"][name].inv_scale, 1.0 / scale))}
+        rows[key] = row
+        if (not row["chosen"] <= row["alpha0"] or float(alphas[0]) != 0.0
+                or row["alpha0"] != row["rtn"]
+                or not row["cli_scale_is_chosen"]):
+            bad.append(key)
+    out = {"matrices": len(rows), "alphas_chosen": sorted(
+        {r["alpha"] for r in rows.values()}),
+        "chosen_over_alpha0_max": max(r["chosen"] / r["alpha0"]
+                                      for r in rows.values()),
+        "rows": rows}
+    if bad:
+        raise SystemExit(f"quantize: AWQ's chosen loss exceeds alpha 0's, "
+                         f"or alpha 0 is not RTN: {[rows[k] for k in bad]}")
+    return out
+
+
+def served_export(packed: str, tok_path: str, tok, fmt: str,
+                  n_layer: int) -> dict:
+    """(e): the packed export through ``serve.build_server
+    --quantized_dir``, the 8 chats over HTTP; the format's kernel runs
+    every projection of every forward, on the route ``_route`` picks for
+    each pass's rows."""
+    kernel = SERVE_KERNEL[fmt]
+    t: dict = {}
+    res = served_chats(["--quantized_dir", packed, "--tokenizer_path",
+                        tok_path, "--max_slots", str(MAX_SLOTS),
+                        "--cache_len", str(CACHE_LEN),
+                        "--kv-cache-dtype", "bfloat16"], tok, t)
+    n = res["counts"][kernel]
+    passes = res["prefill_rows"]
+    want = route_launches(fmt, passes + [MAX_SLOTS] * (res["forwards"]
+                                                        - len(passes)),
+                          PROJ_SHAPES.values(), n_layer)
+    out = {k: res[k] for k in ("forwards", "decode_steps", "graph_replays",
+                               "wall_s", "ttft_p50_s", "tpot_p50_s",
+                               "prefill_rows")}
+    out.update(kernel=kernel, launches=n, routes=res["routes"][kernel],
+               routes_expected=want, build_server_s=t["build_server_s"],
+               completion_tokens=sum(len(x) for x in res["tokens"]))
+    if (n == 0 or n != 7 * n_layer * res["forwards"]
+            or sum(res["counts"].values()) != n
+            or res["routes"][kernel] != want):
+        raise SystemExit(f"quantize: the {fmt} export's {kernel} launches "
+                         f"or routes are not as derived: {out}")
+    out["model"] = res["model"]
+    return out
+
+
+def ppl_through_kernels(model, tok, cli_ppl: float, n_layer: int) -> dict:
+    """(f): the GPTQ export's PPL through the serving model's forward (B6,
+    wgmma route at batch x length rows), against the CLI's PPL over the
+    dequantized tree on the same batches."""
+    import torch
+
+    from llm_in_practise_tpu_torch.data.lm_dataset import prepare_data
+    from llm_in_practise_tpu_torch.quant.ppl import evaluate_ppl, make_batches
+    from llm_in_practise_tpu_torch.quantize import eval_sequences
+
+    batches = make_batches(eval_sequences(tok, prepare_data("wikitext-2"),
+                                          QUANT_MAX_LEN),
+                           batch_size=8, max_len=QUANT_MAX_LEN,
+                           device=torch.device("cuda", 0))
+    zero_counters()
+    t0 = time.monotonic()
+    report = evaluate_ppl(lambda _, x: model(x), None, batches)
+    wall = time.monotonic() - t0
+    counts = {k: v for k, v in read_counters().items() if v}
+    routes = read_routes()["int4_matmul"]
+    rows = [int(x.shape[0] * x.shape[1]) for x, _, _ in batches]
+    want = route_launches("int4", rows, PROJ_SHAPES.values(), n_layer)
+    rel = abs(report.mean_ppl - cli_ppl) / cli_ppl
+    out = {"ppl_kernels": report.mean_ppl, "ppl_cli_dequantized": cli_ppl,
+           "rel_diff": rel, "tol": QUANT_PPL_TOL, "batch_rows": rows,
+           "n_tokens": report.n_tokens, "wall_s": wall, "launches": counts,
+           "routes": routes, "routes_expected": want}
+    # the uncached forward: B6 per projection, the flash forward per layer
+    want_counts = {"int4_matmul": 7 * n_layer * len(batches),
+                   "flash_forward": n_layer * len(batches)}
+    if (rel > QUANT_PPL_TOL or counts != want_counts
+            or routes != want or not math.isfinite(report.mean_ppl)):
+        raise SystemExit(f"quantize: the export's PPL through B6 is off "
+                         f"the CLI's, or B6 did not run every projection "
+                         f"on the derived route: {out}")
+    return out
+
+
+def sft_leg(root: str, seed: int) -> dict:
+    """(g): ``sft_recipe`` on the DeepSeek-R1 QLoRA recipe (alpaca data
+    through the registry, NF4 base, LoRA on q/v), ``SFT_STEPS`` steps,
+    ``merge_after``, on an HF dir at Qwen3-8B width and ``SFT_LAYERS``
+    layers written as the ckpt phase writes one."""
+    import torch
+
+    from llm_in_practise_tpu_torch import sft_recipe as sft_mod
+    from llm_in_practise_tpu_torch.ckpt.checkpoint import restore_checkpoint
+    from llm_in_practise_tpu_torch.models.convert import params_from_jax
+    from llm_in_practise_tpu_torch.models.qwen3 import Qwen3Config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    hf_cfg = dict(CKPT_HF_CONFIG, num_hidden_layers=SFT_LAYERS)
+    hf, out_dir = os.path.join(root, "sft_hf"), os.path.join(root, "sft")
+    cfg = Qwen3Config.from_hf_config(hf_cfg)
+    state = ckpt_state(cfg, seed)
+    write_hf_dir(hf, state, hf_cfg)
+    del state
+    with open(os.path.join(here, "examples", "recipes",
+                           "deepseek_r1_qwen3_qlora.json")) as f:
+        recipe = json.load(f)
+    recipe.update(model_dir=hf, output_dir=out_dir, merge_after=True,
+                  num_train_steps=SFT_STEPS, dataset_registry=os.path.join(
+                      here, "examples", "recipes", "datasets.json"))
+    recipe_path = os.path.join(root, "recipe.json")
+    with open(recipe_path, "w") as f:
+        json.dump(recipe, f)
+    losses = []
+    train = sft_mod.train
+
+    def recording_train(*args, **kwargs):
+        lora, ls = train(*args, **kwargs)
+        losses.extend(ls)
+        return lora, ls
+
+    sft_mod.train = recording_train
+    zero_counters()
+    t0 = time.monotonic()
+    try:
+        rc = sft_mod.main(["--recipe", recipe_path])
+    finally:
+        sft_mod.train = train
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = {k: v for k, v in read_counters().items() if v}
+    atree, ameta = restore_checkpoint(os.path.join(out_dir,
+                                                   "adapter.msgpack"))
+    r = ameta["lora_config"]["r"]
+    want_keys = {f"block_{i}/attn/{p}/kernel" for i in range(SFT_LAYERS)
+                 for p in ("q_proj", "v_proj")}
+    shapes_ok = all(
+        tuple(ab["a"].shape) == (PROJ_SHAPES[k.split("/")[2]][0], r)
+        and tuple(ab["b"].shape) == (r, PROJ_SHAPES[k.split("/")[2]][1])
+        and ab["a"].dtype == ab["b"].dtype == torch.float32
+        for k, ab in atree.items())
+    b_nonzero = all(bool(ab["b"].abs().sum() > 0) for ab in atree.values())
+    mtree, mmeta = restore_checkpoint(os.path.join(out_dir, "model.msgpack"))
+    merged = params_from_jax(mtree, Qwen3Config.from_dict(mmeta["config"]))
+    out = {"rc": rc, "steps": len(losses), "losses": losses, "wall_s": wall,
+           "written_bytes": path_bytes(hf) + path_bytes(out_dir),
+           "launches": counts, "adapter_entries": len(atree),
+           "adapter_keys_equal": set(atree) == want_keys,
+           "adapter_shapes_f32": shapes_ok, "adapter_b_nonzero": b_nonzero,
+           "merged_entries": len(merged),
+           "merged_bf16": all(t.dtype == torch.bfloat16
+                              for t in merged.values())}
+    flash = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+    if (rc != 0 or len(losses) != SFT_STEPS
+            or not all(math.isfinite(v) for v in losses)
+            or not out["adapter_keys_equal"] or not shapes_ok
+            or not b_nonzero or not out["merged_bf16"]
+            or any(counts.get(k, 0) == 0 for k in flash)):
+        raise SystemExit(f"quantize: the SFT recipe leg failed: {out}")
+    return out
+
+
+def quantize_phase(seed: int, card: str, tok) -> dict:
+    """The PTQ CLI at Qwen3-8B width, ``QUANT_LAYERS`` deep, on seeded bf16
+    weights written by ``save_named`` as ``model.msgpack`` beside the
+    phase's tokenizer: ``python -m llm_in_practise_tpu_torch.quantize``'s
+    code path (``quantize.run``) for GPTQ (g128), AWQ (the CLI's g32) and
+    int8, checks (a)-(f) of each, then the SFT recipe leg (g). Each file
+    is deleted after its check."""
+    import shutil
+
+    import torch
+
+    from llm_in_practise_tpu_torch import quantize as quantize_mod
+    from llm_in_practise_tpu_torch.ckpt.checkpoint import save_named
+    from llm_in_practise_tpu_torch.models.convert import params_to_jax
+    from llm_in_practise_tpu_torch.models.qwen3 import Qwen3Config
+
+    t_phase = time.monotonic()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "quantize_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tok_path = os.path.join(root, "tok.json")
+    tok.save(tok_path)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = Qwen3Config(n_layer=QUANT_LAYERS, max_seq_len=CACHE_LEN,
+                      **QWEN3_8B)
+    out: dict = {"card": card, "layers": QUANT_LAYERS, "methods": {}}
+    launches: dict = {}
+    written = 0     # bytes of every file the phase writes
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        model_path = save_named(
+            os.path.join(root, "model"),
+            params_to_jax(ckpt_state(cfg, seed), cfg), "model",
+            metadata={"config": cfg.to_dict()})
+        written += path_bytes(os.path.dirname(model_path))
+        free()
+        for method, extra in QUANT_METHODS:
+            t0 = time.monotonic()
+            out_dir = os.path.join(root, method)
+            res = quantize_mod.run(["--method", method, *extra,
+                                    "--model_path", model_path,
+                                    "--tokenizer_path", tok_path,
+                                    "--out_dir", out_dir])
+            row = {"cli_s": time.monotonic() - t0,
+                   "quantize_s": res["quantize_s"],
+                   "fp_ppl": res["fp_ppl"], "quant_ppl": res["quant_ppl"],
+                   "degradation": res["degradation"],
+                   "passed_gate": res["passed"],
+                   "matrix_s_by_shape": per_shape_seconds(res["matrix_s"])}
+            with open(os.path.join(out_dir, "packed", "manifest.json")) as f:
+                meta = json.load(f)["metadata"]
+            row["manifest_metadata"] = {k: meta[k] for k in (
+                "family", "method", "group_size", "ppl")}
+            if method != "int8":
+                row["stats"] = quant_stats_checks(res, QUANT_LAYERS)
+            if method == "gptq":
+                row["gptq_vs_rtn"] = gptq_vs_rtn(res)
+            if method == "awq":
+                row["awq_vs_alpha0"] = awq_vs_alpha0(res, 32)
+            if not all(math.isfinite(res[k]) for k in ("fp_ppl",
+                                                        "quant_ppl")):
+                raise SystemExit(f"quantize: {method} PPL not finite: {row}")
+            qppl = res["quant_ppl"]
+            del res
+            free()
+            fmt = "int8" if method == "int8" else "int4"
+            served = served_export(os.path.join(out_dir, "packed"), tok_path,
+                                   tok, fmt, QUANT_LAYERS)
+            model = served.pop("model")
+            launches[f"serve_{method}"] = served["launches"]
+            row["serve"] = served
+            if method == "gptq":
+                row["ppl_through_kernels"] = ppl_through_kernels(
+                    model, tok, qppl, QUANT_LAYERS)
+                launches["ppl_gptq"] = row["ppl_through_kernels"][
+                    "launches"]["int4_matmul"]
+            del model
+            free()
+            row["written_gb"] = path_bytes(out_dir) / 1e9
+            written += path_bytes(out_dir)
+            shutil.rmtree(out_dir)
+            row["phase_s"] = time.monotonic() - t0
+            out["methods"][method] = row
+            log(f"quantize {method}:", json.dumps(
+                {k: v for k, v in row.items()
+                 if k not in ("awq_vs_alpha0",)}))
+            if method == "awq":
+                log("quantize awq alphas:", json.dumps(
+                    {k: v for k, v in row["awq_vs_alpha0"].items()
+                     if k != "rows"}))
+        t0 = time.monotonic()
+        out["sft"] = sft_leg(root, seed)
+        out["sft"]["leg_s"] = time.monotonic() - t0
+        log("quantize sft:", json.dumps(out["sft"]))
+        launches["sft"] = out["sft"]["launches"]
+        written += out["sft"]["written_bytes"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    out["written_gb"] = written / 1e9
+    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8665,6 +9192,7 @@ def main(argv=None) -> int:
         log(f"flash only: total {time.monotonic() - t_start:.1f}s")
         log(card_line())
         return 0
+    faulthandler.dump_traceback_later(STALL_DUMP_S, repeat=True)
     log(f"build: {_build.build_all():.1f}s (nvcc, sm_90a, "
         f"{len(_build.KERNELS)} sources)")
     resources = qmm_resources()
@@ -8675,7 +9203,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     def phase_time(name, t0):
-        log(f"phase {name}: {time.monotonic() - t0:.1f}s")
+        now = time.monotonic()
+        line = f"phase {name}: {now - t0:.1f}s (at {now - t_start:.1f}s)"
+        log(line)
+        print(line, file=sys.stderr, flush=True)
+        # a phase that stalls dumps every thread's stack to stderr
+        faulthandler.dump_traceback_later(STALL_DUMP_S, repeat=True)
 
     t0 = time.monotonic()
     summary = check_nf4_kernel(args.seed)
@@ -8693,62 +9226,54 @@ def main(argv=None) -> int:
     served = {}
     for fmt in ("nf4", "int4", "int8"):
         t0 = time.monotonic()
-        served[fmt] = serve_phase(fmt, N_LAYER, args.seed, card, tok,
-                                  keep_model=fmt == "nf4")
+        served[fmt] = serve_phase(fmt, N_LAYER, args.seed, card, tok)
         phase_time(f"serve {fmt}", t0)
-        if fmt == "nf4":   # serve_sched reuses the NF4 model
-            model = served[fmt].pop("model")
-            free()         # the serving phase's engine, cache and graphs
-            t0 = time.monotonic()
-            sched = sched_phase(model, tok, args.seed, card)
-            phase_time("serve_sched", t0)
-            free()         # serve_sched's engine, cache and graphs
-            t0 = time.monotonic()
-            paged = paged_phase(model, tok, args.seed, card,
-                                served[fmt]["serve"])
-            phase_time("serve_paged", t0)
-            free()         # serve_paged's engines
-            # serve_spec and serve_struct run at CUT_LAYERS deep (every
-            # check kept), on a model built as the full one is
-            t0 = time.monotonic()
-            set_depth(CUT_LAYERS)
-            _, shallow = build_model("nf4", CUT_LAYERS, args.seed)
-            spec = spec_phase(shallow, tok, args.seed, card,
-                              served[fmt]["serve"])
-            phase_time("serve_spec", t0)
-            free()         # serve_spec's engines and draft
-            t0 = time.monotonic()
-            struct = struct_phase(shallow, tok, args.seed, card,
-                                  served[fmt]["serve"])
-            phase_time("serve_struct", t0)
-            set_depth(N_LAYER_FULL)
-            free()         # serve_struct's engines
-            # serve_disagg: leg 1 on the full-depth model, the cross-layout
-            # and tier legs on the CUT_LAYERS one
-            t0 = time.monotonic()
-            disagg = disagg_phase(model, shallow, tok, args.seed, card,
-                                  served[fmt]["serve"])
-            phase_time("serve_disagg", t0)
-            free()         # serve_disagg's engines
-            # serve_lora at CUT_LAYERS deep too (every check kept)
-            t0 = time.monotonic()
-            set_depth(CUT_LAYERS)
-            lora = lora_phase(shallow, tok, args.seed, card,
-                              served[fmt]["serve"])
-            set_depth(N_LAYER_FULL)
-            del shallow
-            phase_time("serve_lora", t0)
-            free()         # serve_lora's engines and registries
-            t0 = time.monotonic()
-            sessions = sessions_phase(model, tok, args.seed, card,
-                                      served[fmt]["serve"])
-            phase_time("serve_sessions", t0)
-            free()         # serve_sessions' engines and servers
-            t0 = time.monotonic()
-            obs = obs_phase(model, tok, args.seed, card,
-                            served[fmt]["serve"])
-            del model
-            phase_time("serve_obs", t0)
+        free()             # the serving phase's engine, cache and graphs
+        if fmt != "nf4":
+            continue
+        # the serving feature phases run CUT_LAYERS deep (every check
+        # kept), on one NF4 model built as the full one is
+        nf4_cell = served[fmt]["serve"]
+        t0 = time.monotonic()
+        set_depth(CUT_LAYERS)
+        _, model = build_model("nf4", CUT_LAYERS, args.seed)
+        sched = sched_phase(model, tok, args.seed, card)
+        phase_time("serve_sched", t0)
+        free()             # serve_sched's engine, cache and graphs
+        t0 = time.monotonic()
+        paged = paged_phase(model, tok, args.seed, card, nf4_cell)
+        phase_time("serve_paged", t0)
+        free()             # serve_paged's engines
+        t0 = time.monotonic()
+        spec = spec_phase(model, tok, args.seed, card, nf4_cell)
+        phase_time("serve_spec", t0)
+        free()             # serve_spec's engines and draft
+        t0 = time.monotonic()
+        struct = struct_phase(model, tok, args.seed, card, nf4_cell)
+        phase_time("serve_struct", t0)
+        free()             # serve_struct's engines
+        t0 = time.monotonic()
+        disagg = disagg_phase(model, tok, args.seed, card, nf4_cell)
+        phase_time("serve_disagg", t0)
+        free()             # serve_disagg's engines
+        t0 = time.monotonic()
+        lora = lora_phase(model, tok, args.seed, card, nf4_cell)
+        phase_time("serve_lora", t0)
+        free()             # serve_lora's engines and registries
+        t0 = time.monotonic()
+        sessions = sessions_phase(model, tok, args.seed, card, nf4_cell)
+        phase_time("serve_sessions", t0)
+        del model
+        free()             # serve_sessions' engines and servers
+        # serve_obs stays at full depth: its coverage and planes on / off
+        # gates hold for a 36-layer step (an 8-layer one read 0.863 and
+        # 1.057)
+        t0 = time.monotonic()
+        set_depth(N_LAYER_FULL)
+        _, model = build_model("nf4", N_LAYER_FULL, args.seed)
+        obs = obs_phase(model, tok, args.seed, card, nf4_cell)
+        del model
+        phase_time("serve_obs", t0)
         free()
     t0 = time.monotonic()
     awq_res = awq_check(tok, args.seed)
@@ -8775,6 +9300,11 @@ def main(argv=None) -> int:
     ckpt = ckpt_phase(args.seed, card, tok, served["nf4"]["serve"])
     phase_time("ckpt", t0)
     ckpt_train = ckpt["launches"]["ckpt_train"]
+    free()
+    t0 = time.monotonic()
+    quant = quantize_phase(args.seed, card, tok)
+    phase_time("quantize", t0)
+    quant_launches = quant["launches"]
 
     csrc = "llm_in_practise_tpu_torch/csrc/"
 
@@ -8822,6 +9352,7 @@ def main(argv=None) -> int:
                      + struct["launches"] + lora["launches"]
                      + disagg["launches"] + sessions["launches"]
                      + obs["launches"] + launches["nf4_matmul"]
+                     + trained["eval_launches"]["nf4_matmul"]
                      + ckpt["launches"]["ckpt_serve_nf4"]
                      + ckpt_train["nf4_matmul"]),
         "launches_by_path": {"serve_nf4": served["nf4"]["launches"],
@@ -8834,6 +9365,8 @@ def main(argv=None) -> int:
                              "serve_sessions": sessions["launches"],
                              "serve_obs": obs["launches"],
                              "train_nf4": launches["nf4_matmul"],
+                             "train_eval_nf4":
+                                 trained["eval_launches"]["nf4_matmul"],
                              "ckpt_serve_nf4":
                                  ckpt["launches"]["ckpt_serve_nf4"],
                              "ckpt_train": ckpt_train["nf4_matmul"]}})
@@ -8867,6 +9400,9 @@ def main(argv=None) -> int:
         if name == "flash_forward":
             # /v1/embeddings: one uncached forward per input
             by_path["serve_struct_embeddings"] = struct["flash_launches"]
+            by_path["train_eval"] = trained["eval_launches"][name]
+        # the recipe SFT's steps (attention on the flash kernels)
+        by_path["quantize_sft"] = quant_launches["sft"][name]
         table.append({"name": name,
                       "source": csrc + "flash_attention.cu",
                       "replaces": f"llm_in_practise_tpu/ops/"
@@ -8891,8 +9427,14 @@ def main(argv=None) -> int:
             by_path = {f"serve_{fmt}": served[fmt]["launches"], **by_path}
         if name == "int4_matmul":
             by_path["serve_awq"] = awq_res["decode"]["launches"]
+            # the PTQ CLI's GPTQ and AWQ exports served, and the GPTQ
+            # export's PPL through the serving forward
+            by_path["quantize_serve_gptq"] = quant_launches["serve_gptq"]
+            by_path["quantize_serve_awq"] = quant_launches["serve_awq"]
+            by_path["quantize_ppl_gptq"] = quant_launches["ppl_gptq"]
         if name == "int8_matmul":
             by_path["ckpt_serve_int8"] = ckpt["launches"]["ckpt_serve_int8"]
+            by_path["quantize_serve_int8"] = quant_launches["serve_int8"]
             by_path["serve_paged_int8"] = paged["int8_launches"]
             by_path["serve_disagg"] = disagg["int8_launches"]
         row = ptq_summary(ptq_rows, name, case,
@@ -8928,6 +9470,8 @@ def main(argv=None) -> int:
                                     if k != "model_check"}
                                 for f, r in served.items()}))
     log("ckpt summary:", json.dumps(ckpt))
+    log("quantize summary:", json.dumps(
+        {k: v for k, v in quant.items() if k != "methods"}))
     log("serve_paged summary:", json.dumps(
         {k: v for k, v in paged["paged"].items()
          if k in ("profile", "phase_wall_s", "max_memory_allocated_gib",
@@ -8969,6 +9513,7 @@ def main(argv=None) -> int:
         + json.dumps({r["name"]: (r.get("train") or r)["ms"] for r in table
                       if r["name"] in EARLIER_MS}))
     log(json.dumps({"kernels": table}))
+    faulthandler.cancel_dump_traceback_later()
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@ runtime is an error unless ``device="cpu"`` was passed explicitly.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -24,3 +26,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", 0)
     return dev
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """f32 matmuls at full f32 precision on the card (TF32 off) while
+    open; PyTorch's default is off too, so this only guards against a
+    caller that turned it on."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

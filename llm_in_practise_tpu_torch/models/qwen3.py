@@ -289,6 +289,28 @@ class Qwen3(nn.Module):
             setattr(mod, attr, nn.Parameter(value, requires_grad=False))
         self._head_f32 = None
 
+    def apply(self, state: dict[str, torch.Tensor], idx: torch.Tensor,
+              **kwargs):
+        """The forward with every parameter taken from ``state`` (names as
+        in ``named_parameters``), differentiable in its tensors; the
+        module's own parameters stay as they are (flax's
+        ``model.apply({"params": ...})``). The module may live on
+        ``meta``. The tied head's f32 copy is dropped before and after,
+        so it is always the copy of ``state``'s table. Raises under
+        autograd with ``cfg.remat``: the checkpointed blocks would
+        recompute in the backward, after the swap has ended, against the
+        module's own parameters."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            raise ValueError(
+                "Qwen3.apply under autograd needs cfg.remat=False: a "
+                "checkpointed block recomputes outside the state swap")
+        self._head_f32 = None
+        try:
+            return torch.func.functional_call(self, state, (idx,), kwargs,
+                                              strict=True)
+        finally:
+            self._head_f32 = None
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         return init_cache(self.cfg, batch, max_len, dtype, device=self.device)
 

@@ -394,7 +394,7 @@ def _activities():
 
 
 @contextlib.contextmanager
-def profile_trace(log_dir: str | None):
+def profile_trace(log_dir: str | None, quiesce=None):
     """``with profile_trace("/tmp/trace"):`` — a ``torch.profiler`` trace
     (CPU and, with a card, CUDA activities) around the block, written on
     exit as ``<log_dir>/<pid>.trace.json.gz`` (a gzipped Chrome trace that
@@ -405,7 +405,12 @@ def profile_trace(log_dir: str | None):
     ``POST /debug/profile`` races are real), a nested or concurrent entry
     degrades to a no-op (yields None) instead of stopping the outer
     capture. The profiler is stopped on every exit, and a failed export
-    never masks the block's own exception."""
+    never masks the block's own exception.
+
+    ``quiesce``: a context-manager factory entered around the profiler's
+    start and its stop. A server passes one that holds its engines' step
+    locks: CUPTI's start or stop on one thread can deadlock with a CUDA
+    graph launch on another (the engine thread's replay)."""
     if not log_dir:
         yield None
         return
@@ -415,13 +420,16 @@ def profile_trace(log_dir: str | None):
     try:
         from torch.profiler import profile
 
+        quiet = quiesce or contextlib.nullcontext
         prof = profile(activities=_activities())
-        prof.start()
+        with quiet():
+            prof.start()
         try:
             yield prof
         finally:
             try:
-                prof.stop()
+                with quiet():
+                    prof.stop()
                 os.makedirs(log_dir, exist_ok=True)
                 prof.export_chrome_trace(
                     os.path.join(log_dir, f"{os.getpid()}.trace.json.gz"))

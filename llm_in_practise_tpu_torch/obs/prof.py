@@ -59,9 +59,10 @@ class ProfilerCapture:
             self.busy_rejections += 1
         return ProfilerBusyError(message)
 
-    def capture(self, duration_s: float = 2.0) -> dict:
+    def capture(self, duration_s: float = 2.0, quiesce=None) -> dict:
         """Record ``duration_s`` (clamped to [MIN, MAX]) of activity;
         returns ``{"trace_dir", "duration_s", "files", "perfetto"}``.
+        ``quiesce``: as :func:`~.meter.profile_trace` takes it.
         Raises :class:`ProfilerBusyError` when a capture or another
         profiler session of this process is running."""
         duration = min(max(float(duration_s), self.MIN_DURATION_S),
@@ -86,7 +87,7 @@ class ProfilerCapture:
                 self.base_dir,
                 time.strftime("capture-%Y%m%d-%H%M%S") + f"-{n_prior}")
             os.makedirs(out_dir, exist_ok=True)
-            with meter.profile_trace(out_dir) as prof:
+            with meter.profile_trace(out_dir, quiesce) as prof:
                 if prof is None:
                     # the locked() check above raced another session
                     raise self._busy(

@@ -178,6 +178,13 @@ def quantize_tree(state: dict, predicate=None) -> dict:
             for name, leaf in state.items()}
 
 
+def dequantize_tree(state: dict, dtype=torch.bfloat16) -> dict:
+    """Every NF4 leaf of a flat state materialized to ``dtype``; other
+    entries pass through."""
+    return {name: dequantize(leaf, dtype) if isinstance(leaf, NF4Tensor)
+            else leaf for name, leaf in state.items()}
+
+
 def tree_nbytes(tree) -> int:
     """Bytes held by a (possibly nested) dict of tensors and quantized
     leaves (each has ``nbytes``)."""

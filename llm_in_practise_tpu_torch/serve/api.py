@@ -76,6 +76,7 @@ between two steps. The tensor-parallel families (``llm_tp_size``,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import html
 import json
@@ -195,6 +196,22 @@ class OpenAIServer:
             response_format=req.response_format, tools=req.tools,
             tool_choice=req.tool_choice, vocab=self._constraint_vocab(),
             vocab_key=id(self.engine), eos_id=self.engine.eos_id)
+
+    @contextlib.contextmanager
+    def quiesce_engines(self):
+        """Pause every engine this server reaches (``InferenceEngine.
+        paused``, once per engine behind its adapter handles): while open
+        no step, and so no CUDA graph launch from an engine thread, is in
+        flight (``POST /debug/profile`` starts and stops the profiler
+        under it)."""
+        pausers = {}
+        for eng in (self.engine, *self.adapters.values()):
+            if hasattr(eng, "paused"):
+                pausers.setdefault(id(eng._lock), eng.paused)
+        with contextlib.ExitStack() as stack:
+            for _, paused in sorted(pausers.items()):
+                stack.enter_context(paused())
+            yield
 
     def engine_for(self, model: str | None):
         """The engine (or adapter handle) serving ``model``, or None."""
@@ -1025,7 +1042,7 @@ class OpenAIServer:
                 body, err = self._read_json()
                 if err:
                     return self._json(400, err)
-                if serve_obs_post(self, body):
+                if serve_obs_post(self, body, server.quiesce_engines):
                     return None
                 # a client's (or router's) traceparent: the spans minted
                 # here join its trace

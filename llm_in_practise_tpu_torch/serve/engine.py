@@ -101,6 +101,7 @@ does all device work. Tokens stream to per-request queues.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -756,6 +757,8 @@ class InferenceEngine:
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self._uid = itertools.count()
         self._lock = threading.Lock()
+        # taken by paused(); the loop passes through it before each step
+        self._pause = threading.Lock()
         if adapter_registry is not None:
             # bank writes wait for the step in flight (no capture or
             # replay runs while a bank row changes)
@@ -2871,6 +2874,8 @@ class InferenceEngine:
     def _run(self) -> None:
         try:
             while not self._stop.is_set():
+                with self._pause:    # a paused() caller holds the loop here
+                    pass
                 if not self.step():  # idle: wait for a submit
                     self._wake.wait(timeout=0.1)
                     self._wake.clear()
@@ -2903,6 +2908,16 @@ class InferenceEngine:
         unwatch_builds(self.compile_meter)
         if self.paged is not None:
             self.paged.close()
+
+    @contextlib.contextmanager
+    def paused(self):
+        """No step in flight while open. The loop waits at ``_pause``
+        before its next step, so the caller holds the step lock from the
+        end of the step in flight, however busy the engine (a bare
+        ``with engine._lock`` can lose the lock to the loop for as long as
+        work keeps coming)."""
+        with self._pause, self._lock:
+            yield
 
     def is_alive(self) -> bool:
         """True while submitted requests can still make progress."""

@@ -86,7 +86,8 @@ def serve_obs_get(handler: JsonHandler, metrics_text, tracer=None) -> bool:
     return False
 
 
-def obs_profile_response(body: dict | None) -> tuple[int, dict]:
+def obs_profile_response(body: dict | None,
+                         quiesce=None) -> tuple[int, dict]:
     """Handle a ``POST /debug/profile`` body: ``(status, payload)``.
 
     Body: ``{"duration_s": <float, default 2, clamped to the capture's
@@ -94,7 +95,8 @@ def obs_profile_response(body: dict | None) -> tuple[int, dict]:
     gets a 409. The success payload names the capture directory and the
     gzipped Chrome trace (see :mod:`~..obs.prof`); failures are contained
     to this response (a broken profiler must never take a server
-    down)."""
+    down). ``quiesce``: as :meth:`~..obs.prof.ProfilerCapture.capture`
+    takes it."""
     from llm_in_practise_tpu_torch.obs.prof import (
         ProfilerBusyError,
         get_profiler,
@@ -110,7 +112,7 @@ def obs_profile_response(body: dict | None) -> tuple[int, dict]:
         return 422, {"error": {"message": "duration_s must be a number",
                                "type": "invalid_request_error"}}
     try:
-        result = get_profiler().capture(duration)
+        result = get_profiler().capture(duration, quiesce)
     except ProfilerBusyError as e:
         return 409, {"error": {"message": str(e),
                                "type": "conflict_error",
@@ -123,11 +125,12 @@ def obs_profile_response(body: dict | None) -> tuple[int, dict]:
     return 200, result
 
 
-def serve_obs_post(handler: JsonHandler, body: dict | None) -> bool:
+def serve_obs_post(handler: JsonHandler, body: dict | None,
+                   quiesce=None) -> bool:
     """Serve ``POST /debug/profile``; returns True when the path was
     handled."""
     if handler.path != "/debug/profile":
         return False
-    status, payload = obs_profile_response(body)
+    status, payload = obs_profile_response(body, quiesce)
     handler._json(status, payload)
     return True

@@ -145,3 +145,7 @@ def fused_linear_cross_entropy(
     n_valid = torch.clamp(n_valid, min=1)
     return total / n_valid, n_valid
 
+
+
+def perplexity(mean_nll: torch.Tensor) -> torch.Tensor:
+    return torch.exp(mean_nll)

@@ -1,5 +1,5 @@
-"""Train steps: loss -> backward -> clip -> optimizer update (port of
-``llm_in_practise_tpu/train/step.py:35-124``).
+"""Train and eval steps: loss -> backward -> clip -> optimizer update
+(port of ``llm_in_practise_tpu/train/step.py:35-140``).
 
 The JAX package compiles the step with ``jax.jit``; the port runs it
 eagerly. The model holds its parameters (frozen ones with
@@ -101,3 +101,19 @@ def make_train_step(*, loss_fn: Callable | None = None,
 
     return step
 
+
+
+def make_eval_step(*, loss_fn: Callable | None = None) -> Callable:
+    """``step(state, batch) -> {"loss", "n_valid"}`` under
+    ``torch.no_grad()``: the loss of the model as it stands, no update.
+    ``loss_fn(model, batch) -> (loss, aux)`` as for
+    :func:`make_train_step`; default next-token cross-entropy over the
+    full logits (JAX ``make_eval_step``'s default)."""
+    loss_fn = loss_fn or default_loss
+
+    def step(state: TrainState, batch):
+        with torch.no_grad():
+            loss, aux = loss_fn(state.model, batch)
+        return {"loss": loss.detach(), "n_valid": aux["n_valid"]}
+
+    return step

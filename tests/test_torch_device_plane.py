@@ -430,6 +430,75 @@ def test_post_debug_profile_on_model_and_pool_servers(fixture_models,
         pool.stop()
 
 
+def test_post_debug_profile_waits_for_the_engine_step(fixture_models,
+                                                      monkeypatch, tmp_path):
+    """The capture starts (and stops) the profiler only under the engine's
+    step lock: CUPTI's start or stop beside the engine thread's CUDA graph
+    launch can deadlock on the card."""
+    monkeypatch.setattr(prof, "_default_profiler",
+                        prof.ProfilerCapture(base_dir=str(tmp_path)))
+    calls = []
+    for name in ("start", "stop"):
+        real = getattr(torch.profiler.profile, name)
+
+        def wrapped(self, _real=real, _name=name):
+            calls.append(_name)
+            return _real(self)
+        monkeypatch.setattr(torch.profiler.profile, name, wrapped)
+    eng = InferenceEngine(fixture_models[2], max_slots=2, cache_len=64,
+                          cache_dtype=torch.float32)
+    srv = OpenAIServer(eng, _Tok(), model_name="plane")
+    port = srv.serve(host="127.0.0.1", port=0, background=True)
+    results = {}
+    try:
+        with eng._lock:       # a step in flight
+            t = threading.Thread(target=lambda: results.update(
+                post=_post(f"http://127.0.0.1:{port}/debug/profile",
+                           {"duration_s": 0.05})))
+            t.start()
+            deadline = time.monotonic() + 30
+            while not meter._profile_lock.locked():   # the capture began
+                assert time.monotonic() < deadline
+                time.sleep(0.005)
+            time.sleep(0.3)
+            assert calls == []    # the profiler waits for the step's end
+        t.join(timeout=60)
+    finally:
+        srv.shutdown()
+    status, body = results["post"]
+    assert status == 200 and body["perfetto"]
+    assert calls == ["start", "stop"]
+
+
+def test_engine_paused_waits_for_one_step_however_busy(fixture_models):
+    """``paused()`` holds the step lock, taken at the end of the step in
+    flight, even when the loop never idles: the loop waits for it before
+    its next step."""
+    eng = InferenceEngine(fixture_models[2], max_slots=2, cache_len=64,
+                          cache_dtype=torch.float32)
+
+    def busy_step():             # always work to do: 10 ms under the lock
+        with eng._lock:
+            time.sleep(0.01)
+        return True
+    eng.step = busy_step
+    eng.start()
+    held = []
+
+    def pause_often():
+        for _ in range(20):
+            with eng.paused():
+                held.append(eng._lock.locked())
+    t = threading.Thread(target=pause_often, daemon=True)
+    try:
+        t.start()
+        t.join(timeout=20)
+    finally:
+        eng.stop()
+    assert not t.is_alive()
+    assert held == [True] * 20
+
+
 # --- build identity --------------------------------------------------------------
 
 

@@ -26,7 +26,9 @@ for name in ("serve.constrain", "serve.arrivals", "serve.multi_lora",
              "serve.adapters", "serve.kv_pool", "serve.sessions",
              "obs.logging", "obs.registry", "obs.cost", "obs.hbm",
              "obs.trace", "obs.steptrace", "obs.meter", "obs.prof",
-             "obs.buildinfo", "obs.debug"):
+             "obs.buildinfo", "obs.debug", "quant.gptq", "quant.ppl",
+             "data.lm_dataset", "data.loader", "data.converters",
+             "quantize", "sft_recipe"):
     assert "llm_in_practise_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)

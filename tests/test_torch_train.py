@@ -311,7 +311,7 @@ def test_quantize_base_int8_matches_jax_lowmem(tiny_params):
                                    jq_flat[n].scale.numpy(), rtol=2**-23,
                                    atol=0)
     with pytest.raises(ValueError, match="fmt must be one of"):
-        qlora.quantize_base(state, fmt="mixed")
+        qlora.quantize_base(state, fmt="int4")
 
 
 def _step_kernel_calls(monkeypatch, fmt: str, n_layer: int) -> dict:
