@@ -292,7 +292,23 @@ Phases, in order; any failure exits non-zero:
    ``model.msgpack`` reads back, the flash kernels ran. Readings:
    calibration seconds and stats bytes, GPTQ and AWQ seconds per
    projection shape, fp / quantized PPLs, bytes written, card peak.
-11. Print the kernel summary (all nine kernels), the card, and the final
+11. The GPT family (``gpt``), from pretraining to a served GPTQ export:
+   the ``minigpt_train`` CLI at its defaults (f32, head_dim 32: dense
+   attention, no kernel; the loss falls and a greedy sample continues
+   the prompt); the gptlike preset at its published width and depth (6
+   layers, d_model 512, 8 heads, seq 256, tied head) in bf16 on the
+   offline corpus, ``GPT_STEPS`` Trainer steps with its dropout 0.1 (the
+   loss falls, no flash launch: dropout means dense) and with dropout 0
+   (B3 / B4 / B5 launch exactly as derived, one step's loss and
+   gradients match ``attn_impl="dense"``, ``best_model`` reads back
+   with the same logits); GPTQ (g32) of that model, the PPL gate on the
+   held-out blocks, ``save_packed`` with ``family: "gpt"``, and ``serve
+   --quantized_dir`` answering the 8 chats (B6 on every projection on
+   the derived routes, thin in the decode; every greedy token among the
+   top 5 of a teacher-forced forward; TTFT / TPOT); the export's PPL
+   through the served forward (B6 wgmma at 8 x 255 rows, B3) against the
+   gate's; and the ``quantize`` CLI's hermetic branch (2 x 128 GPT).
+12. Print the kernel summary (all nine kernels), the card, and the final
    status line.
 
 Needs the repository checkout beside it (it imports the port) and CUDA.
@@ -8815,11 +8831,12 @@ def quant_stats_checks(res: dict, n_layer: int) -> dict:
     return out
 
 
-def per_shape_seconds(matrix_s: dict) -> dict:
-    """Seconds per projection shape (``K x N``), summed over the layers."""
+def per_shape_seconds(matrix_s: dict, shapes: dict = PROJ_SHAPES) -> dict:
+    """Seconds per projection shape (``K x N``), summed over the layers;
+    ``shapes`` maps a projection's name to its (K, N)."""
     out: dict = {}
     for key, sec in matrix_s.items():
-        k, n = PROJ_SHAPES[key.split("/")[2]]
+        k, n = shapes[key.split("/")[2]]
         out[f"{k}x{n}"] = out.get(f"{k}x{n}", 0.0) + sec
     return out
 
@@ -9158,6 +9175,455 @@ def quantize_phase(seed: int, card: str, tok) -> dict:
     return out
 
 
+# --- the GPT family: pretraining to a served GPTQ export ----------------------
+
+GPT_LINES = 6000        # corpus lines tokenized for the gptlike legs
+GPT_BATCH = 16          # gptlike_wikitext's --batch_size
+GPT_STEPS = 12          # train steps of each gptlike leg
+GPT_LR = 1e-3
+GPT_EVAL_ROWS = 32      # held-out blocks: the eval, the PPL gate and step
+GPT_GS = 32             # the quantize CLI's --group_size
+GPT_LOSS_TOL = 1e-2     # relative: one bf16 step's loss, flash vs dense
+GPT_GRAD_FLOOR = 1e-2   # of the largest gradient entry (gpt_flash_vs_dense)
+GPT_PPL_TOL = QUANT_PPL_TOL
+# the gptlike block's projections (K, N)
+GPT_SHAPES = {"q_proj": (512, 512), "k_proj": (512, 512),
+              "v_proj": (512, 512), "out_proj": (512, 512),
+              "fc_in": (512, 2048), "fc_out": (2048, 512)}
+GPT_PROJ = tuple(GPT_SHAPES.values())
+
+
+def gpt_minigpt(root: str) -> dict:
+    """``python -m llm_in_practise_tpu_torch.minigpt_train`` at its
+    defaults on the card (f32, head_dim 32: dense attention): the loss
+    falls, a greedy sample continues the prompt, no kernel launches."""
+    import torch
+
+    from llm_in_practise_tpu_torch import minigpt_train
+
+    zero_counters()
+    t0 = time.monotonic()
+    res = minigpt_train.run(["--ckpt_dir", os.path.join(root, "minigpt")])
+    torch.cuda.synchronize()
+    out = {"wall_s": time.monotonic() - t0, "losses": res["losses"],
+           "sample": res["sample"], "device": str(res["model"].device),
+           "launches": {k: v for k, v in read_counters().items() if v}}
+    prompt = minigpt_train.build_parser().get_default("prompt")
+    if (res["losses"][-1] >= 0.5 * res["losses"][0] or out["launches"]
+            or not res["sample"].startswith(prompt)
+            or len(res["sample"]) <= len(prompt)
+            or out["device"] != "cuda:0"):
+        raise SystemExit(f"gpt: the minigpt CLI did not learn, sample or "
+                         f"stay off the kernels: {out}")
+    return out
+
+
+def gpt_data(tok) -> tuple:
+    from llm_in_practise_tpu_torch.data.lm_dataset import (
+        block_chunk,
+        prepare_data,
+        tokenize_corpus,
+        train_val_split,
+    )
+
+    lines = prepare_data("wikitext-2")[:GPT_LINES]
+    x, y = block_chunk(tokenize_corpus(lines, tok), 256)
+    tr, va = train_val_split(len(x), val_fraction=0.1, seed=42)
+    n = GPT_STEPS * GPT_BATCH
+    return ((x[tr][:n], y[tr][:n]),
+            (x[va][:GPT_EVAL_ROWS], y[va][:GPT_EVAL_ROWS]))
+
+
+def gpt_train(tok, train, evald, dropout: float, seed: int,
+              ckpt_dir: str | None = None) -> dict:
+    """The gptlike preset at its published width and depth in bf16,
+    ``GPT_STEPS`` steps with the Trainer, the counters zeroed before;
+    with ``ckpt_dir`` an epoch-end eval on ``evald`` and the best /
+    latest checkpoints."""
+    import torch
+
+    from llm_in_practise_tpu_torch.models.gpt import GPT, gptlike_config
+    from llm_in_practise_tpu_torch.train.trainer import (
+        Trainer,
+        TrainerConfig,
+    )
+
+    cfg = gptlike_config(tok.vocab_size, dropout=dropout,
+                         compute_dtype="bfloat16")
+    losses, stamps = [], []
+
+    class Record:
+        def on_step(self, trainer, step, metrics):
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            stamps.append(time.monotonic())
+
+    trainer = Trainer(GPT(cfg), TrainerConfig(
+        lr=GPT_LR, epochs=1, batch_size=GPT_BATCH, log_every_steps=0,
+        seed=seed, ckpt_dir=ckpt_dir, keep_checkpoints=1),
+        callbacks=[Record()], metadata={"config": cfg.to_dict()})
+    zero_counters()
+    t0 = time.monotonic()
+    hist = trainer.train(train, eval_data=evald if ckpt_dir else None)
+    torch.cuda.synchronize()
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]
+    return {"trainer": trainer, "cfg": cfg, "losses": losses,
+            "history": hist, "wall_s": time.monotonic() - t0,
+            "step_ms_p50": 1e3 * statistics.median(steps),
+            "step_ms_first": 1e3 * (stamps[0] - t0),
+            "launches": {k: v for k, v in read_counters().items() if v}}
+
+
+def gpt_flash_vs_dense(leg: dict, evald) -> dict:
+    """One step's loss and gradients of the dropout-0 model on one held-out
+    batch: the flash kernels (``attn_impl="auto"``) against
+    ``attn_impl="dense"``, through ``GPT.apply`` on the same state. The
+    comparison's launches are not counted."""
+    import torch
+
+    from llm_in_practise_tpu_torch.models.gpt import GPT
+    from llm_in_practise_tpu_torch.ops import launch_count
+    from llm_in_practise_tpu_torch.train.losses import cross_entropy
+
+    state = leg["trainer"].params
+    x, y = (torch.from_numpy(a[:GPT_BATCH]).long().cuda() for a in evald)
+    res = {}
+    before = launch_count.snapshot()
+    try:
+        for impl in ("auto", "dense"):
+            s = {n: t.clone().requires_grad_(True) for n, t in state.items()}
+            model = GPT(leg["cfg"].replace(attn_impl=impl), device="meta")
+            flash0 = kernel_counters()["flash_forward"].launches
+            loss, _ = cross_entropy(model.apply(s, x), y)
+            grads = torch.autograd.grad(loss, list(s.values()))
+            res[impl] = (float(loss.detach()), dict(zip(s, grads)),
+                         kernel_counters()["flash_forward"].launches - flash0)
+            del s
+    finally:
+        launch_count.restore(before)
+    (lf, gf, nf), (ld, gd, nd) = res["auto"], res["dense"]
+    # each tensor against the larger of its own largest entry and
+    # GPT_GRAD_FLOOR of the largest entry of any: k_proj's bias has an
+    # analytically zero gradient (softmax ignores a shift every key
+    # shares), so its entries are rounding noise of either path
+    top = max(float(g.abs().max()) for g in gd.values())
+    worst = max((float((gf[n] - gd[n]).abs().max())
+                 / max(float(gd[n].abs().max()), GPT_GRAD_FLOOR * top), n)
+                for n in gd)
+    num = sum(float(((gf[n] - gd[n]).double() ** 2).sum()) for n in gd)
+    den = sum(float((gd[n].double() ** 2).sum()) for n in gd)
+    out = {"loss_flash": lf, "loss_dense": ld,
+           "loss_rel_diff": abs(lf - ld) / abs(ld),
+           "loss_tol": GPT_LOSS_TOL, "grad_global_rel_l2": (num / den) ** 0.5,
+           "grad_worst_rel": worst[0], "grad_worst_param": worst[1],
+           "grad_floor": GPT_GRAD_FLOOR, "grad_tol": STEP_GRAD_TOL,
+           "flash_forwards": nf, "dense_flash_forwards": nd}
+    if (out["loss_rel_diff"] > GPT_LOSS_TOL or worst[0] > STEP_GRAD_TOL
+            or out["grad_global_rel_l2"] > STEP_GRAD_TOL
+            or nf != leg["cfg"].n_layer or nd != 0):
+        raise SystemExit(f"gpt: a flash step is off the dense step: {out}")
+    return out
+
+
+def gpt_best_model(leg: dict, ckpt_dir: str, evald) -> dict:
+    """The Trainer's ``best_model`` read back: the same logits as the
+    trained model (its one eval came after the last step)."""
+    import torch
+
+    from llm_in_practise_tpu_torch.ckpt.checkpoint import (
+        latest_checkpoint,
+        restore_checkpoint,
+    )
+    from llm_in_practise_tpu_torch.models.convert import gpt_params_from_jax
+    from llm_in_practise_tpu_torch.models.gpt import GPT, GPTConfig
+    from llm_in_practise_tpu_torch.ops import launch_count
+
+    path = os.path.join(ckpt_dir, "best_model.msgpack")
+    tree, meta = restore_checkpoint(path)
+    cfg = GPTConfig.from_dict(meta["config"])
+    best = GPT(cfg)
+    best.load_state({n: t.cuda() for n, t in
+                     gpt_params_from_jax(tree, cfg).items()})
+    x = torch.from_numpy(evald[0][:2]).long().cuda()
+    before = launch_count.snapshot()
+    try:
+        with torch.inference_mode():
+            same = torch.equal(best(x), leg["trainer"].model(x))
+    finally:
+        launch_count.restore(before)
+    out = {"path": os.path.basename(path), "bytes": os.path.getsize(path),
+           "eval_loss": meta["eval_loss"], "step": meta["step"],
+           "logits_equal": same,
+           "latest": os.path.basename(latest_checkpoint(ckpt_dir) or "")}
+    if not same or meta["step"] != GPT_STEPS or not out["latest"]:
+        raise SystemExit(f"gpt: best_model does not read back: {out}")
+    return out
+
+
+def gpt_gptq(leg: dict, tok, evald, root: str) -> dict:
+    """GPTQ of the trained dropout-0 gptlike model (every block kernel,
+    group 32, calibrated as the quantize CLI calibrates), the PPL gate on
+    the held-out blocks (fp against the dequantized tree, both through
+    ``GPT.apply``), and ``save_packed`` with ``family: "gpt"``."""
+    import torch
+
+    from llm_in_practise_tpu_torch.data.lm_dataset import prepare_data
+    from llm_in_practise_tpu_torch.models.convert import gpt_params_to_jax
+    from llm_in_practise_tpu_torch.models.gpt import GPT
+    from llm_in_practise_tpu_torch.ops import launch_count
+    from llm_in_practise_tpu_torch.quant import io as quant_io
+    from llm_in_practise_tpu_torch.quant.awq import dequantize_tree
+    from llm_in_practise_tpu_torch.quant.gptq import (
+        GPTQConfig,
+        quantize_model_gptq,
+        sync_clock,
+    )
+    from llm_in_practise_tpu_torch.quant.ppl import compare_quantized
+    from llm_in_practise_tpu_torch.quantize import (
+        block_target,
+        calibration_ids,
+    )
+
+    cfg = leg["cfg"]
+    state = leg["trainer"].params
+    model = GPT(cfg, device="meta")
+    calib = [torch.tensor([c], device="cuda") for c in calibration_ids(
+        tok, prepare_data("wikitext-2"), 16, QUANT_MAX_LEN)]
+    before = launch_count.snapshot()
+    timings: dict = {}
+    try:
+        t0 = sync_clock(state["tok_embed.weight"])
+        qstate = quantize_model_gptq(model, state, calib,
+                                     GPTQConfig(group_size=GPT_GS),
+                                     target=block_target, timings=timings)
+        quant_s = sync_clock(state["tok_embed.weight"]) - t0
+        batches = gpt_ppl_batches(evald)
+        gate = compare_quantized(model.apply, state,
+                                 dequantize_tree(qstate, torch.float32),
+                                 batches)
+    finally:
+        launch_count.restore(before)
+    packed = quant_io.save_packed(
+        os.path.join(root, "packed"), gpt_params_to_jax(qstate, cfg),
+        metadata={"config": cfg.to_dict(), "family": "gpt",
+                  "method": "gptq", "group_size": GPT_GS,
+                  "ppl": gate["quant_ppl"]})
+    quantized = sorted(n for n, t in qstate.items()
+                       if not isinstance(t, torch.Tensor))
+    out = {"quantize_s": quant_s, "calib_sequences": len(calib),
+           "kernels_quantized": len(quantized),
+           "matrix_s_by_shape": per_shape_seconds(timings, GPT_SHAPES),
+           "fp_ppl": gate["fp_ppl"], "quant_ppl": gate["quant_ppl"],
+           "degradation": gate["degradation"], "passed": gate["passed"],
+           "packed": os.path.dirname(packed)}
+    if (len(quantized) != 6 * cfg.n_layer
+            or not all(math.isfinite(out[k]) for k in ("fp_ppl",
+                                                       "quant_ppl"))):
+        raise SystemExit(f"gpt: GPTQ of the gptlike model failed: {out}")
+    return out
+
+
+def gpt_ppl_batches(evald) -> list:
+    """The held-out blocks as PPL batches of 8 x 255 rows (M = 2040: B6's
+    wgmma route)."""
+    import torch
+
+    from llm_in_practise_tpu_torch.quant.ppl import make_batches
+
+    seqs = [list(x) + [int(y[-1])] for x, y in zip(*evald)]
+    return make_batches(seqs, batch_size=8, max_len=255,
+                        device=torch.device("cuda", 0))
+
+
+def gpt_serve(packed: str, tok_path: str, tok, cfg) -> dict:
+    """``serve --quantized_dir`` of the GPT export: the 8 chats over HTTP
+    (``served_chats``), B6 on every projection of every forward on the
+    route ``_route`` picks (thin in the decode), ``cache_len`` clamped to
+    ``seq_len``, and every greedy token among the top 5 of an eager
+    teacher-forced forward of the served model."""
+    t: dict = {}
+    res = served_chats(["--quantized_dir", packed, "--tokenizer_path",
+                        tok_path, "--max_slots", str(MAX_SLOTS),
+                        "--cache_len", str(CACHE_LEN),
+                        "--kv-cache-dtype", "bfloat16"], tok, t)
+    model = res["model"]
+    n = res["counts"]["int4_matmul"]
+    passes = res["prefill_rows"]
+    want = route_launches("int4", passes + [MAX_SLOTS] * (
+        res["forwards"] - len(passes)), GPT_PROJ, cfg.n_layer)
+    prompts = [prompt_ids(tok, m) for m in ckpt_chats()]
+    top5 = teacher_forced(model, prompts, res["tokens"])
+    out = {k: res[k] for k in ("forwards", "decode_steps", "graph_replays",
+                               "wall_s", "ttft_p50_s", "tpot_p50_s",
+                               "prefill_rows")}
+    out.update(launches=n, routes=res["routes"]["int4_matmul"],
+               routes_expected=want, build_server_s=t["build_server_s"],
+               tokens=[len(s) for s in res["tokens"]],
+               top5_agreeing=top5, family=type(
+                   getattr(model, "model", model)).__name__)
+    if (n != 6 * cfg.n_layer * res["forwards"] or out["routes"] != want
+            or out["routes"].get("thin", 0) == 0
+            or sum(res["counts"].values()) != n
+            or top5 != out["tokens"] or out["family"] != "GPT"):
+        raise SystemExit(f"gpt: the served GPT export's B6 launches, "
+                         f"routes or streams are not as derived: {out}")
+    out["model"] = model
+    return out
+
+
+def gpt_ppl_kernels(model, evald, cli_ppl: float, n_layer: int) -> dict:
+    """The export's PPL on the held-out blocks through the served model's
+    uncached forward: B6 on the wgmma route (8 x 255 rows), the flash
+    forward per layer; against the gate's dequantized PPL."""
+    from llm_in_practise_tpu_torch.quant.ppl import evaluate_ppl
+
+    batches = gpt_ppl_batches(evald)
+    zero_counters()
+    t0 = time.monotonic()
+    report = evaluate_ppl(lambda _, x: model(x), None, batches)
+    counts = {k: v for k, v in read_counters().items() if v}
+    routes = read_routes()["int4_matmul"]
+    rows = [int(x.shape[0] * x.shape[1]) for x, _, _ in batches]
+    want = route_launches("int4", rows, GPT_PROJ, n_layer)
+    out = {"ppl_kernels": report.mean_ppl, "ppl_dequantized": cli_ppl,
+           "rel_diff": abs(report.mean_ppl - cli_ppl) / cli_ppl,
+           "tol": GPT_PPL_TOL, "batch_rows": rows,
+           "wall_s": time.monotonic() - t0, "launches": counts,
+           "routes": routes, "routes_expected": want}
+    if (out["rel_diff"] > GPT_PPL_TOL or routes != want
+            or routes.get("wgmma", 0) == 0
+            or counts != {"int4_matmul": 6 * n_layer * len(batches),
+                          "flash_forward": n_layer * len(batches)}):
+        raise SystemExit(f"gpt: the export's PPL through B6 is off, or B6 "
+                         f"/ B3 did not run as derived: {out}")
+    return out
+
+
+def gpt_hermetic(root: str) -> dict:
+    """``python -m llm_in_practise_tpu_torch.quantize`` with no model: the
+    hermetic 2-layer, 128-wide gptlike GPT pretrained by the Trainer, GPTQ,
+    the PPL gate, and its ``family: "gpt"`` export."""
+    from llm_in_practise_tpu_torch import quantize as quantize_mod
+
+    zero_counters()
+    t0 = time.monotonic()
+    res = quantize_mod.run(["--method", "gptq", "--out_dir",
+                            os.path.join(root, "hermetic")])
+    with open(os.path.join(root, "hermetic", "packed",
+                           "manifest.json")) as f:
+        meta = json.load(f)["metadata"]
+    out = {"cli_s": time.monotonic() - t0, "fp_ppl": res["fp_ppl"],
+           "quant_ppl": res["quant_ppl"], "degradation": res["degradation"],
+           "passed": res["passed"], "family": meta["family"],
+           "config": {k: meta["config"][k] for k in (
+               "n_layer", "embed_dim", "n_head", "seq_len")},
+           "launches": {k: v for k, v in read_counters().items() if v}}
+    if (meta["family"] != "gpt" or out["launches"]
+            or not math.isfinite(res["quant_ppl"])):
+        raise SystemExit(f"gpt: the hermetic quantize CLI failed: {out}")
+    return out
+
+
+def gpt_phase(seed: int, card: str, tok) -> dict:
+    """The GPT family from pretraining to a served GPTQ export:
+
+    (a) the ``minigpt_train`` CLI at its defaults (f32, dense);
+    (b) the gptlike preset at its published width and depth (6 x 512, 8
+        heads, seq 256, tied) in bf16 on the offline corpus: with its
+        dropout 0.1 the loss falls and no flash kernel launches (dropout
+        means dense); with dropout 0 the flash forward and both backward
+        kernels run every step, one step's loss and gradients match the
+        dense path's, and the Trainer's ``best_model`` reads back;
+    (c) GPTQ of the dropout-0 model, the PPL gate, ``save_packed`` with
+        ``family: "gpt"``, then ``serve --quantized_dir``: 8 chats, B6
+        thin in the decode, the top-5 teacher-forced check, TTFT / TPOT;
+        the export's PPL through the served forward (B6 wgmma, B3);
+    (d) the ``quantize`` CLI's hermetic branch (2 x 128)."""
+    import shutil
+
+    import torch
+
+    t_phase = time.monotonic()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "gpt_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tok_path = os.path.join(root, "tok.json")
+    tok.save(tok_path)
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {"card": card}
+    launches: dict = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        out["minigpt"] = gpt_minigpt(root)
+        log("gpt minigpt:", json.dumps(out["minigpt"]))
+        train, evald = gpt_data(tok)
+        t0 = time.monotonic()
+        leg = gpt_train(tok, train, evald, 0.1, seed)
+        a = {k: leg[k] for k in ("losses", "wall_s", "step_ms_p50",
+                                 "step_ms_first", "launches")}
+        del leg
+        free()
+        if (a["losses"][-1] >= a["losses"][0] or a["launches"]
+                or len(a["losses"]) != GPT_STEPS):
+            raise SystemExit(f"gpt: the dropout-0.1 leg did not learn, or "
+                             f"launched a kernel: {a}")
+        out["gptlike_dropout"] = a
+        log("gpt gptlike dropout 0.1 (dense):", json.dumps(a))
+        ckpt_dir = os.path.join(root, "gptlike_ckpt")
+        leg = gpt_train(tok, train, evald, 0.0, seed, ckpt_dir)
+        n = leg["cfg"].n_layer
+        b = {k: leg[k] for k in ("losses", "wall_s", "step_ms_p50",
+                                 "step_ms_first", "launches")}
+        evals = -(-GPT_EVAL_ROWS // GPT_BATCH)
+        want = {"flash_forward": n * (GPT_STEPS + evals),
+                "flash_backward_dkv": n * GPT_STEPS,
+                "flash_backward_dq": n * GPT_STEPS}
+        if b["launches"] != want or b["losses"][-1] >= b["losses"][0]:
+            raise SystemExit(f"gpt: the dropout-0 leg's flash launches are "
+                             f"not {want}, or it did not learn: {b}")
+        launches["train_flash"] = b["launches"]
+        b["flash_vs_dense"] = gpt_flash_vs_dense(leg, evald)
+        b["best_model"] = gpt_best_model(leg, ckpt_dir, evald)
+        out["gptlike"] = b
+        log("gpt gptlike dropout 0 (flash):", json.dumps(b))
+        out["train_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        q = gpt_gptq(leg, tok, evald, root)
+        cfg = leg["cfg"]
+        del leg
+        free()
+        served = gpt_serve(q["packed"], tok_path, tok, cfg)
+        model = served.pop("model")
+        launches["serve"] = served["launches"]
+        q["serve"] = served
+        q["ppl_through_kernels"] = gpt_ppl_kernels(model, evald,
+                                                   q["quant_ppl"],
+                                                   cfg.n_layer)
+        launches["ppl"] = q["ppl_through_kernels"]["launches"]
+        launches["serve_routes"] = served["routes"]
+        launches["ppl_routes"] = q["ppl_through_kernels"]["routes"]
+        del model
+        free()
+        q["leg_s"] = time.monotonic() - t0
+        out["gptq"] = q
+        log("gpt gptq + serve:", json.dumps(q))
+        t0 = time.monotonic()
+        out["hermetic"] = gpt_hermetic(root)
+        out["hermetic"]["leg_s"] = time.monotonic() - t0
+        log("gpt hermetic quantize:", json.dumps(out["hermetic"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9305,6 +9771,11 @@ def main(argv=None) -> int:
     quant = quantize_phase(args.seed, card, tok)
     phase_time("quantize", t0)
     quant_launches = quant["launches"]
+    free()
+    t0 = time.monotonic()
+    gpt = gpt_phase(args.seed, card, tok)
+    phase_time("gpt", t0)
+    gpt_launches = gpt["launches"]
 
     csrc = "llm_in_practise_tpu_torch/csrc/"
 
@@ -9403,6 +9874,11 @@ def main(argv=None) -> int:
             by_path["train_eval"] = trained["eval_launches"][name]
         # the recipe SFT's steps (attention on the flash kernels)
         by_path["quantize_sft"] = quant_launches["sft"][name]
+        # the gptlike GPT's dropout-0 training leg, and the PPL step of
+        # its GPTQ export through the served forward
+        by_path["gpt_train"] = gpt_launches["train_flash"][name]
+        if name == "flash_forward":
+            by_path["gpt_ppl"] = gpt_launches["ppl"][name]
         table.append({"name": name,
                       "source": csrc + "flash_attention.cu",
                       "replaces": f"llm_in_practise_tpu/ops/"
@@ -9432,6 +9908,9 @@ def main(argv=None) -> int:
             by_path["quantize_serve_gptq"] = quant_launches["serve_gptq"]
             by_path["quantize_serve_awq"] = quant_launches["serve_awq"]
             by_path["quantize_ppl_gptq"] = quant_launches["ppl_gptq"]
+            # the gptlike GPT's GPTQ export served, and its PPL step
+            by_path["gpt_serve"] = gpt_launches["serve"]
+            by_path["gpt_ppl"] = gpt_launches["ppl"][name]
         if name == "int8_matmul":
             by_path["ckpt_serve_int8"] = ckpt["launches"]["ckpt_serve_int8"]
             by_path["quantize_serve_int8"] = quant_launches["serve_int8"]
@@ -9446,6 +9925,8 @@ def main(argv=None) -> int:
                      f"step_{fmt}": steps[fmt]["launches_by_route"]}
             if fmt == "int4":
                 paths["serve_awq"] = awq_res["decode"]["launches_by_route"]
+                paths["gpt_serve"] = gpt_launches["serve_routes"]
+                paths["gpt_ppl"] = gpt_launches["ppl_routes"]
             else:
                 row["thin_rows"] = thin_checked[fmt]
             row["thin_exactness"] = {k: v for k, v in thin_exact.items()
@@ -9472,6 +9953,18 @@ def main(argv=None) -> int:
     log("ckpt summary:", json.dumps(ckpt))
     log("quantize summary:", json.dumps(
         {k: v for k, v in quant.items() if k != "methods"}))
+    log("gpt summary:", json.dumps(
+        {"phase_s": gpt["phase_s"], "train_s": gpt["train_s"],
+         "max_memory_allocated_gib": gpt["max_memory_allocated_gib"],
+         "minigpt_s": gpt["minigpt"]["wall_s"],
+         "step_ms_p50": {"dense_dropout": gpt["gptlike_dropout"][
+             "step_ms_p50"], "flash": gpt["gptlike"]["step_ms_p50"]},
+         "ppl_gate": {k: gpt["gptq"][k] for k in (
+             "fp_ppl", "quant_ppl", "degradation", "passed")},
+         "serve": {k: gpt["gptq"]["serve"][k] for k in (
+             "ttft_p50_s", "tpot_p50_s", "wall_s")},
+         "hermetic_passed": gpt["hermetic"]["passed"],
+         "launches": gpt_launches}))
     log("serve_paged summary:", json.dumps(
         {k: v for k, v in paged["paged"].items()
          if k in ("profile", "phase_wall_s", "max_memory_allocated_gib",

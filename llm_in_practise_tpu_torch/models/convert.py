@@ -13,7 +13,10 @@ stacked scan-layout tree (``blocks/block/...`` leaves with a leading
 (:func:`unstack_layer_params`): the port runs the unrolled blocks.
 :func:`params_to_jax` and :func:`lora_to_jax` are the inverse carriers,
 whose trees the JAX package's ``restore_checkpoint``, ``merge_lora`` and
-``Qwen3.apply`` take unchanged.
+``Qwen3.apply`` take unchanged. :func:`gpt_params_from_jax` and
+:func:`gpt_params_to_jax` carry a flax ``GPT`` tree (dense or packed) the
+same way: ``pos_embed`` keeps its name, every projection and norm has a
+``bias`` beside its ``kernel`` or ``scale``.
 """
 
 from __future__ import annotations
@@ -175,12 +178,7 @@ def params_from_jax(tree: Mapping, cfg) -> dict:
             for path, leaf in flatten(tree).items()}
     flat = unstack_layer_params(flat, cfg.n_layer)
     state = {port_name(path): leaf for path, leaf in flat.items()}
-    want = expected_names(cfg)
-    unknown, missing = sorted(set(state) - want), sorted(want - set(state))
-    if unknown or missing:
-        raise ValueError(
-            f"param tree does not match the config: unknown {unknown[:8]}, "
-            f"missing {missing[:8]}")
+    _check_names(state, expected_names(cfg), "param tree")
     return state
 
 
@@ -214,7 +212,13 @@ def params_to_jax(state: Mapping, cfg) -> dict:
     """The port's state -> a flax Qwen3 param tree (nested dicts,
     ``block_i/attn/q_proj/kernel``), leaves passed through as they are
     (tensors on any device, or quantized leaves)."""
-    unknown = sorted(set(state) - expected_names(cfg))
+    return _nest(state, expected_names(cfg))
+
+
+def _nest(state: Mapping, names: set[str]) -> dict:
+    """The port's state -> nested dicts under flax paths; every name must
+    be one of ``names``."""
+    unknown = sorted(set(state) - names)
     if unknown:
         raise ValueError(f"state names no parameter of the config: "
                          f"{unknown[:8]}")
@@ -233,3 +237,35 @@ def lora_to_jax(lora: Mapping) -> dict:
     ``{"block_i/attn/q_proj/kernel": {"a", "b"}}`` (detached tensors)."""
     return {flax_path(name): {"a": ab["a"].detach(), "b": ab["b"].detach()}
             for name, ab in lora.items()}
+
+
+def _check_names(state: Mapping, want: set[str], what: str) -> None:
+    unknown, missing = sorted(set(state) - want), sorted(want - set(state))
+    if unknown or missing:
+        raise ValueError(
+            f"{what} does not match the config: unknown {unknown[:8]}, "
+            f"missing {missing[:8]}")
+
+
+def gpt_params_from_jax(tree: Mapping, cfg) -> dict:
+    """Flax GPT param tree (numpy or torch leaves, or quantized leaves of
+    either package) -> the port's :class:`~.gpt.GPT` state, byte for
+    byte. Raises unless the names are exactly those of ``cfg``'s model."""
+    from llm_in_practise_tpu_torch.models.gpt import expected_names as names
+
+    if "params" in tree and len(tree) == 1:
+        tree = tree["params"]
+    state = {port_name(path): quant_from_like(leaf) or to_tensor(leaf)
+             for path, leaf in flatten(tree).items()}
+    _check_names(state, names(cfg), "param tree")
+    return state
+
+
+def gpt_params_to_jax(state: Mapping, cfg) -> dict:
+    """The port's GPT state -> a flax GPT param tree (nested dicts),
+    leaves passed through as they are; the JAX package's
+    ``restore_checkpoint``, ``GPT.apply`` and ``QuantizedModel`` take it
+    unchanged."""
+    from llm_in_practise_tpu_torch.models.gpt import expected_names as names
+
+    return _nest(state, names(cfg))

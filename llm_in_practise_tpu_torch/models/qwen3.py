@@ -35,6 +35,7 @@ from torch import nn
 
 from llm_in_practise_tpu_torch.core.device import resolve_device
 from llm_in_practise_tpu_torch.models import layers
+from llm_in_practise_tpu_torch.models.layers import Dense  # noqa: F401
 from llm_in_practise_tpu_torch.models.convert import expected_names
 from llm_in_practise_tpu_torch.ops import rope as rope_ops
 from llm_in_practise_tpu_torch.ops.attention import dot_product_attention
@@ -121,33 +122,11 @@ class RMSNorm(nn.Module):
         return (xf * self.scale).to(x.dtype)
 
 
-class Dense(nn.Module):
-    """Bias-free projection in the JAX layout: ``kernel`` is ``(in, out)``;
-    input and kernel are cast to ``compute_dtype`` (flax ``Dense(dtype=)``)."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype, *, device=None,
-                 dtype=torch.float32):
-        super().__init__()
-        self.compute_dtype = compute_dtype
-        self.kernel = nn.Parameter(
-            torch.empty(in_features, out_features, device=device, dtype=dtype),
-            requires_grad=False)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.compute_dtype) @ self.kernel.to(self.compute_dtype)
-
-
 def init_cache(cfg: Qwen3Config, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> list[Cache]:
     """Per-layer KV cache holding only the KV heads; slot axis 0."""
-    shape = (batch, max_len, cfg.n_kv_head, cfg.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=dtype, device=device),
-         "v": torch.zeros(shape, dtype=dtype, device=device),
-         "index": 0}
-        for _ in range(cfg.n_layer)
-    ]
+    return layers.init_cache(batch, max_len, cfg.n_kv_head, cfg.head_dim,
+                             cfg.n_layer, dtype, device=device)
 
 
 class Qwen3Attention(nn.Module):
@@ -272,21 +251,7 @@ class Qwen3(nn.Module):
         """Assign every parameter from ``state`` (names as in
         ``named_parameters``), replacing meta placeholders. Raises on a
         missing or unknown name."""
-        have = dict(self.named_parameters())
-        unknown = sorted(set(state) - set(have))
-        missing = sorted(set(have) - set(state))
-        if unknown or missing:
-            raise ValueError(
-                f"state does not match the model: unknown {unknown[:8]}, "
-                f"missing {missing[:8]}")
-        for name, value in state.items():
-            mod_path, _, attr = name.rpartition(".")
-            mod = self.get_submodule(mod_path)
-            old = getattr(mod, attr)
-            if tuple(value.shape) != tuple(old.shape):
-                raise ValueError(f"{name}: shape {tuple(value.shape)} != "
-                                 f"{tuple(old.shape)}")
-            setattr(mod, attr, nn.Parameter(value, requires_grad=False))
+        layers.assign_state(self, state)
         self._head_f32 = None
 
     def apply(self, state: dict[str, torch.Tensor], idx: torch.Tensor,
@@ -296,14 +261,10 @@ class Qwen3(nn.Module):
         module's own parameters stay as they are (flax's
         ``model.apply({"params": ...})``). The module may live on
         ``meta``. The tied head's f32 copy is dropped before and after,
-        so it is always the copy of ``state``'s table. Raises under
-        autograd with ``cfg.remat``: the checkpointed blocks would
-        recompute in the backward, after the swap has ended, against the
-        module's own parameters."""
-        if self.cfg.remat and torch.is_grad_enabled():
-            raise ValueError(
-                "Qwen3.apply under autograd needs cfg.remat=False: a "
-                "checkpointed block recomputes outside the state swap")
+        so it is always the copy of ``state``'s table. With ``cfg.remat``
+        each checkpointed block binds the swapped-in tensors
+        (:func:`~.layers.remat_apply`), so its recompute in the backward
+        differentiates ``state``."""
         self._head_f32 = None
         try:
             return torch.func.functional_call(self, state, (idx,), kwargs,

@@ -21,9 +21,13 @@ the W4A16 and W8A16 kernels. It runs on the card unless ``--device cpu``
 is given; calibration and the PPL run the plain model, the export's
 serving runs the kernels.
 
-Without ``--model_path`` and ``--tokenizer_path`` the JAX example
-pretrains a small GPT first; that model and its trainer are not ported,
-so the port raises.
+Without ``--model_path`` and ``--tokenizer_path`` it runs the example's
+hermetic demo: it trains an 800-token BPE on the first 400 lines of the
+corpus (saved as ``OUT/tokenizer.json``), pretrains a 2-layer, 128-wide
+GPTLike GPT (4 heads, ``seq_len`` 64, dropout 0) for 2 epochs with the
+:class:`~.train.trainer.Trainer`, and quantizes that; its export carries
+``family: "gpt"``, which ``serve --quantized_dir`` builds a
+:class:`~.models.gpt.GPT` for.
 """
 
 from __future__ import annotations
@@ -41,11 +45,17 @@ from llm_in_practise_tpu_torch.ckpt.checkpoint import (
 )
 from llm_in_practise_tpu_torch.core.device import resolve_device
 from llm_in_practise_tpu_torch.data.bpe import BPETokenizer
-from llm_in_practise_tpu_torch.data.lm_dataset import prepare_data
+from llm_in_practise_tpu_torch.data.lm_dataset import (
+    block_chunk,
+    prepare_data,
+    tokenize_corpus,
+)
 from llm_in_practise_tpu_torch.models.convert import (
+    gpt_params_to_jax,
     params_from_jax,
     params_to_jax,
 )
+from llm_in_practise_tpu_torch.models.gpt import GPT, gptlike_config
 from llm_in_practise_tpu_torch.models.qwen3 import Qwen3, Qwen3Config
 from llm_in_practise_tpu_torch.quant import int8
 from llm_in_practise_tpu_torch.quant import io as quant_io
@@ -62,6 +72,7 @@ from llm_in_practise_tpu_torch.quant.gptq import (
     sync_clock,
 )
 from llm_in_practise_tpu_torch.quant.ppl import compare_quantized, make_batches
+from llm_in_practise_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,27 +117,50 @@ def block_target(key: str) -> bool:
     return "lm_head" not in key and "embed" not in key
 
 
+def pretrain_hermetic(device):
+    """The example's hermetic model: ``(tokenizer, GPTConfig, state)`` of
+    a 2-layer gptlike GPT pretrained for 2 epochs on ``device``."""
+    lines = prepare_data("wikitext-2")[:400]
+    tok = BPETokenizer.train(lines, vocab_size=800)
+    x, y = block_chunk(tokenize_corpus(lines, tok), 64)
+    cfg = gptlike_config(tok.vocab_size, seq_len=64, n_layer=2,
+                         embed_dim=128, n_head=4, dropout=0.0)
+    trainer = Trainer(GPT(cfg, device=device),
+                      TrainerConfig(lr=1e-3, epochs=2, batch_size=16,
+                                    strategy="ddp"))
+    trainer.train((x, y))
+    return tok, cfg, trainer.params
+
+
 def run(argv=None) -> dict:
     """The CLI, returning what it measured: ``fp_ppl``, ``quant_ppl``,
     ``degradation``, ``passed``, ``calib_sequences``, ``calib_s``,
     ``stats`` / ``stats_bytes`` (GPTQ and AWQ), ``quantize_s``,
     ``matrix_s`` (seconds per kernel), ``model_path``, ``packed_path``,
-    and the fp and quantized states."""
+    the ``family`` and ``config``, the fp and quantized states, and in
+    the hermetic branch ``tokenizer_path``."""
     args = build_parser().parse_args(argv)
-    if not (args.model_path and args.tokenizer_path):
-        raise NotImplementedError(
-            "without --model_path and --tokenizer_path the example "
-            "pretrains a small GPT with the trainer; models/gpt.py and "
-            "train/trainer.py are not ported (ROADMAP.md queue A item 13)")
     device = resolve_device(args.device)
-    tok = BPETokenizer.load(args.tokenizer_path)
-    tree, meta = restore_checkpoint(args.model_path)
-    cfg_dict = meta["config"]
-    cfg = Qwen3Config.from_dict(cfg_dict)
-    state = {n: t.to(device) for n, t in params_from_jax(tree, cfg).items()}
-    del tree
-    model = Qwen3(cfg, device="meta")
-    out: dict = {"method": args.method, "fp_state": state}
+    out: dict = {"method": args.method}
+    if args.model_path and args.tokenizer_path:
+        tok = BPETokenizer.load(args.tokenizer_path)
+        tree, meta = restore_checkpoint(args.model_path)
+        cfg_dict = meta["config"]
+        cfg = Qwen3Config.from_dict(cfg_dict)
+        state = {n: t.to(device)
+                 for n, t in params_from_jax(tree, cfg).items()}
+        del tree
+        model = Qwen3(cfg, device="meta")
+        family, to_jax = "qwen3", params_to_jax
+    else:
+        tok, cfg, state = pretrain_hermetic(device)
+        cfg_dict = cfg.to_dict()
+        model = GPT(cfg, device="meta")
+        family, to_jax = "gpt", gpt_params_to_jax
+        os.makedirs(args.out_dir, exist_ok=True)
+        out["tokenizer_path"] = os.path.join(args.out_dir, "tokenizer.json")
+        tok.save(out["tokenizer_path"])
+    out.update(family=family, fp_state=state, config=cfg)
 
     lines = prepare_data("wikitext-2")
     calib_batches = [torch.tensor([c], device=device)
@@ -180,15 +214,15 @@ def run(argv=None) -> dict:
     # per-channel int8 has no group dimension: no group_size recorded
     gs = None if args.method == "int8" else args.group_size
     out["model_path"] = save_named(
-        args.out_dir, params_to_jax(deq, cfg),
+        args.out_dir, to_jax(deq, cfg),
         f"model_{args.method}_{wtag.lower()}",
         metadata={"config": cfg_dict, "method": args.method,
                   "group_size": gs, "ppl": result["quant_ppl"]})
     del deq
     print(f"quantized model -> {out['model_path']}")
     out["packed_path"] = quant_io.save_packed(
-        os.path.join(args.out_dir, "packed"), params_to_jax(qstate, cfg),
-        metadata={"config": cfg_dict, "family": "qwen3",
+        os.path.join(args.out_dir, "packed"), to_jax(qstate, cfg),
+        metadata={"config": cfg_dict, "family": family,
                   "method": args.method, "group_size": gs,
                   "ppl": result["quant_ppl"]})
     print(f"packed ({wtag}) export -> {out['packed_path']}")

@@ -17,7 +17,11 @@
 package's exporters write (``quant/io.py``, ``convert_hf``): NF4,
 GPTQ/RTN int4, AWQ, int8, or a tree that mixes them (the ``"mixed"``
 preset: int8 MLP, NF4 attention); each projection runs its format's
-Hopper kernel. Without ``--quantized_dir`` the input is ``--model_path``
+Hopper kernel. An export whose manifest says ``family: "gpt"`` (the
+``quantize`` CLI's hermetic demo) is served as a
+:class:`~..models.gpt.GPT`, each biased projection's bias added after its
+kernel; the engine's ``cache_len`` is clamped to its ``seq_len``.
+Without ``--quantized_dir`` the input is ``--model_path``
 (default ``$TMPDIR/qwen3_merged/model.msgpack``), a merged dense model
 written by either package's ``merge_lora``, served in its own dtype.
 ``--scan-layers`` is accepted: the port runs the unrolled blocks; as in
@@ -318,7 +322,11 @@ def build_server(args, *, model=None, tokenizer=None):
     from llm_in_practise_tpu_torch.data.bpe import BPETokenizer
     from llm_in_practise_tpu_torch.data.sft import IM_END
     from llm_in_practise_tpu_torch.infer.generate import load_model
-    from llm_in_practise_tpu_torch.models.convert import params_from_jax
+    from llm_in_practise_tpu_torch.models.convert import (
+        gpt_params_from_jax,
+        params_from_jax,
+    )
+    from llm_in_practise_tpu_torch.models.gpt import GPT, GPTConfig
     from llm_in_practise_tpu_torch.models.qwen3 import Qwen3, Qwen3Config
     from llm_in_practise_tpu_torch.quant.io import load_packed
     from llm_in_practise_tpu_torch.serve.api import OpenAIServer
@@ -338,16 +346,22 @@ def build_server(args, *, model=None, tokenizer=None):
               flush=True)
     elif args.quantized_dir:
         tree, meta = load_packed(args.quantized_dir)
-        if meta.get("family", "qwen3") != "qwen3":
+        family = meta.get("family", "qwen3")
+        if family not in ("qwen3", "gpt"):
             raise NotImplementedError(
-                f"model family {meta.get('family')!r} is not ported; the "
-                "PyTorch server serves Qwen3 exports")
-        cfg = Qwen3Config.from_dict(meta["config"])
+                f"model family {family!r} is not ported; the PyTorch "
+                "server serves Qwen3 and GPT exports")
         print(f"packed model: {args.quantized_dir} ({meta.get('method')}, "
               f"ppl {meta.get('ppl')})", flush=True)
-        state = params_from_jax(tree, cfg)
-        model = QuantizedModel(Qwen3(cfg, device="meta"), state,
-                               device=device)
+        if family == "gpt":   # the hermetic PTQ demo's model
+            cfg = GPTConfig.from_dict(meta["config"])
+            base, state = GPT(cfg, device="meta"), gpt_params_from_jax(
+                tree, cfg)
+        else:
+            cfg = Qwen3Config.from_dict(meta["config"])
+            base, state = Qwen3(cfg, device="meta"), params_from_jax(tree,
+                                                                     cfg)
+        model = QuantizedModel(base, state, device=device)
     else:
         model = load_model(args.model_path, device)
         print(f"model: {args.model_path}", flush=True)

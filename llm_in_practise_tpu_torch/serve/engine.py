@@ -115,6 +115,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from llm_in_practise_tpu_torch.infer.generate import max_positions
 from llm_in_practise_tpu_torch.infer.sampling import sample_token_batched
 from llm_in_practise_tpu_torch.obs import debug
 from llm_in_practise_tpu_torch.obs.cost import CostModel, tree_bytes
@@ -135,7 +136,7 @@ from llm_in_practise_tpu_torch.serve.disagg import (
     usable_for_engine,
     validate_roles,
 )
-from llm_in_practise_tpu_torch.serve.graphs import StepGraphs
+from llm_in_practise_tpu_torch.serve.graphs import CAPTURE_LOCK, StepGraphs
 from llm_in_practise_tpu_torch.serve.mixed_step import (
     batched_chunk,
     plan_decode_block,
@@ -553,7 +554,9 @@ class InferenceEngine:
         self.model = model
         self.device = model.device
         self.max_slots = max_slots
-        limit = getattr(model.config, "max_seq_len", None)
+        # the model's position table (RoPE's max_seq_len, a GPT's
+        # seq_len): no slot may index past it
+        limit = max_positions(model.config)
         self.cache_len = min(cache_len, limit) if limit else cache_len
         self.eos_id = eos_id
         self.cache_dtype = cache_dtype
@@ -2189,15 +2192,17 @@ class InferenceEngine:
                 if ready is None:
                     host = kvp.entry_to_host(entry)
                 else:
-                    if stream is None:
-                        stream = torch.cuda.Stream(device=self.device)
-                    with torch.cuda.stream(stream):
-                        stream.wait_event(ready)
-                        for layer in entry.rows:
-                            for t in layer.values():
-                                t.record_stream(stream)
-                        entry.last_logits.record_stream(stream)
-                        host = kvp.entry_to_host(entry)
+                    # never while another thread captures a graph
+                    with CAPTURE_LOCK.work():
+                        if stream is None:
+                            stream = torch.cuda.Stream(device=self.device)
+                        with torch.cuda.stream(stream):
+                            stream.wait_event(ready)
+                            for layer in entry.rows:
+                                for t in layer.values():
+                                    t.record_stream(stream)
+                            entry.last_logits.record_stream(stream)
+                            host = kvp.entry_to_host(entry)
                 del entry
                 # ledger account handoff_staging (host plane): the entry's
                 # RAM between the copy to the host and the store's put,
@@ -2774,7 +2779,8 @@ class InferenceEngine:
         only while the tracer has a file sink); an idle poll records
         nothing. While :func:`~..obs.debug.enable_debug` traps NaNs the
         step runs under the trap."""
-        with self._lock, torch.inference_mode(), debug.step_trap():
+        with self._lock, CAPTURE_LOCK.work(), torch.inference_mode(), \
+                debug.step_trap():
             before = self.dispatch_meter.total
             self.steptrace.step_begin(
                 timeline=getattr(self.tracer, "has_file_sink", False))

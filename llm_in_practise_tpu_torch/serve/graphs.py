@@ -72,6 +72,15 @@ it, as :func:`~.mixed_step.plan_decode_block` plans.
   skips: each capture's counter delta is recorded
   (:mod:`~llm_in_practise_tpu_torch.ops.launch_count`) and added on every
   replay.
+- **No garbage collection inside a capture.** Python's cyclic collector
+  is paused while a capture is open: collecting an unreachable engine's
+  graphs on the capturing thread invalidates the capture.
+- **One capture at a time in the process.** :data:`CAPTURE_LOCK` is held
+  across each capture. Every other engine's step (``InferenceEngine.step``)
+  and the handoff and session publishers' device-to-host copies hold it
+  shared (:meth:`CaptureLock.work`), so they wait while a capture on
+  another thread is in flight, and a capture waits for their work in
+  flight to end. With one capturing engine in the process nothing waits.
 
 The chunked-prefill paths outside the fused step (the batched chunk and
 the single-slot chunk), the one-shot prefill and the draft's catch-up
@@ -81,7 +90,11 @@ package compiles its prefill programs apart from the decode programs.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -109,6 +122,91 @@ PAGED_KINDS = ("pdecode", "pmixed", "pspec", "pmdecode", "pmmixed",
 MASKS = ("gmask", "gmasks")
 # the prefix of the adapter twin kinds
 LORA = "l"
+
+
+class CaptureLock:
+    """A process-wide gate between CUDA graph captures and the rest of the
+    process's device work: :meth:`capture` is exclusive, :meth:`work` is
+    shared. A capture runs on a stream of its own in ``thread_local``
+    mode, yet another engine's step or a publisher's copy on another
+    thread can still invalidate it (``cudaErrorStreamCaptureInvalidated``
+    seen with two replicas in one process), so the two never overlap.
+
+    A thread's own work does not block its own capture (an engine
+    captures inside its step), and a thread waiting to capture gives up
+    its shared hold while it waits, so two engines that both capture
+    inside their steps take turns instead of deadlocking. :meth:`work`
+    takes nothing while at most one capturing engine is registered
+    (:meth:`register`): one engine alone never waits."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._owner: int | None = None          # the capturing thread
+        self._shared: dict[int, int] = {}       # thread -> work depth
+        self._users = weakref.WeakSet()
+        self.waits = 0          # work sections that waited on a capture
+        self.captures = 0
+
+    def register(self, user) -> None:
+        """Count ``user`` (a capturing :class:`StepGraphs`) until it is
+        collected."""
+        with self._cv:
+            self._users.add(user)
+
+    @property
+    def contended(self) -> bool:
+        return len(self._users) > 1
+
+    @contextlib.contextmanager
+    def work(self):
+        """Device work of one engine step or one publisher copy: waits
+        while another thread captures."""
+        if not self.contended:
+            yield
+            return
+        me = threading.get_ident()
+        with self._cv:
+            # a nested section never waits: its thread already holds the
+            # gate, and a capture waits for it
+            if self._owner not in (None, me) and not self._shared.get(me):
+                self.waits += 1
+                while self._owner not in (None, me):
+                    self._cv.wait()
+            self._shared[me] = self._shared.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                depth = self._shared.pop(me) - 1
+                if depth:
+                    self._shared[me] = depth
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def capture(self):
+        """One capture: waits for any other capture and for the other
+        threads' work in flight, then holds the gate alone."""
+        me = threading.get_ident()
+        with self._cv:
+            mine = self._shared.pop(me, 0)
+            self._cv.notify_all()
+            while self._owner is not None:
+                self._cv.wait()
+            self._owner = me
+            while self._shared:
+                self._cv.wait()
+            self.captures += 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._owner = None
+                if mine:
+                    self._shared[me] = mine
+                self._cv.notify_all()
+
+
+CAPTURE_LOCK = CaptureLock()
 
 
 class StepGraphs:
@@ -177,6 +275,8 @@ class StepGraphs:
         self._lora_captured: set[tuple] = set()
         self.lora_recaptures = 0
         self.lora_invalidations = 0
+        if capture:
+            CAPTURE_LOCK.register(self)
 
     def _mask_buf(self, name: str) -> torch.Tensor:
         """The static device buffer of ``gmask`` (slots, vocab) or
@@ -352,6 +452,10 @@ class StepGraphs:
         return out
 
     def _capture(self, key: tuple) -> None:
+        with CAPTURE_LOCK.capture():
+            self._capture_locked(key)
+
+    def _capture_locked(self, key: tuple) -> None:
         t0 = time.monotonic()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -360,6 +464,15 @@ class StepGraphs:
         reserved = torch.cuda.memory_reserved()
         before = launch_count.snapshot()
         graph = torch.cuda.CUDAGraph()
+        # no cyclic garbage collection while the capture is open: a
+        # collection inside the body, on this thread, would destroy an
+        # unreachable engine's graphs, which is not permitted while a
+        # stream captures and invalidates the capture
+        # (cudaErrorStreamCaptureInvalidated after "operation not permitted
+        # when stream is capturing (function reset)"). torch.cuda.graph
+        # collects once before it begins the capture
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: the HTTP threads may touch CUDA state (they do
             # not today); only this thread's calls must be capture-safe
@@ -372,6 +485,8 @@ class StepGraphs:
                 f"all_greedy, width, window) failed: "
                 f"{type(e).__name__}: {e}") from e
         finally:
+            if gc_was_enabled:
+                gc.enable()
             after = launch_count.snapshot()
             launch_count.restore(before)   # a capture launches nothing
         self.graphs[key] = (graph, out, launch_count.delta(before, after))

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from llm_in_practise_tpu_torch.core.device import resolve_device
-from llm_in_practise_tpu_torch.models.qwen3 import Dense
+from llm_in_practise_tpu_torch.models.layers import Dense
 from llm_in_practise_tpu_torch.ops.int4_matmul import int4_matmul
 from llm_in_practise_tpu_torch.ops.int8_matmul import int8_matmul
 from llm_in_practise_tpu_torch.ops.nf4_matmul import nf4_matmul
@@ -51,16 +51,21 @@ def fused_kernel_matmul(x: torch.Tensor, t, compute_dtype) -> torch.Tensor:
 
 
 class QuantizedLinear(nn.Module):
-    """``y = fused_kernel_matmul(x.to(compute), W, compute)``, back in x's
-    dtype."""
+    """``y = fused_kernel_matmul(x.to(compute), W, compute)``, plus the
+    ``bias`` of a biased :class:`Dense` in ``compute`` after the kernel's
+    output (JAX ``peft/fused.py:218-220``), back in x's dtype."""
 
     def __init__(self, weight, compute_dtype: torch.dtype):
         super().__init__()
         self.weight = weight
         self.compute_dtype = compute_dtype
+        # a biased Dense's bias, set by swap_quantized_linears
+        self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.project(x.to(self.compute_dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.compute_dtype)
         return y if y.dtype == x.dtype else y.to(x.dtype)
 
     def project(self, xc: torch.Tensor) -> torch.Tensor:
@@ -77,7 +82,10 @@ def swap_quantized_linears(model: nn.Module, state: dict, device,
     """Replace each :class:`Dense` whose ``kernel`` in ``state`` is a
     quantized leaf with ``make_linear(weight_on_device)``; returns the rest
     of ``state``, moved to ``device``, for ``model.load_state``. A
-    quantized leaf that no ``Dense`` consumes raises."""
+    quantized leaf that no ``Dense`` consumes raises. A biased Dense's
+    ``bias`` placeholder moves to its replacement, which ``load_state``
+    then fills from ``state``; a replacement that cannot add a bias
+    raises."""
     dense_state, unconsumed = {}, []
     for name, value in state.items():
         if not isinstance(value, QUANT_LEAVES):
@@ -92,8 +100,14 @@ def swap_quantized_linears(model: nn.Module, state: dict, device,
             unconsumed.append(name)
             continue
         parent_path, _, child = mod_path.rpartition(".")
-        setattr(model.get_submodule(parent_path), child,
-                make_linear(value.to(device)))
+        linear = make_linear(value.to(device))
+        if mod.bias is not None:
+            if not hasattr(linear, "bias"):
+                raise NotImplementedError(
+                    f"{mod_path}: {type(linear).__name__} cannot add the "
+                    "Dense's bias")
+            linear.bias = mod.bias
+        setattr(model.get_submodule(parent_path), child, linear)
     if unconsumed:
         # a quantized leaf with no Dense to serve it would otherwise
         # leave its module computing against a placeholder

@@ -475,6 +475,7 @@ class SessionStore:
             self._pub_thread.start()
 
     def _run_publisher(self) -> None:
+        from llm_in_practise_tpu_torch.serve.graphs import CAPTURE_LOCK
         from llm_in_practise_tpu_torch.serve.kv_pool import entry_to_host
 
         stream = None
@@ -489,15 +490,17 @@ class SessionStore:
                     if ready is None:
                         host = entry_to_host(entry)
                     else:
-                        if stream is None:
-                            stream = torch.cuda.Stream(
-                                device=entry.rows[0]["k"].device)
-                        with torch.cuda.stream(stream):
-                            stream.wait_event(ready)
-                            for layer in entry.rows:
-                                for t in layer.values():
-                                    t.record_stream(stream)
-                            host = entry_to_host(entry)
+                        # never while another thread captures a graph
+                        with CAPTURE_LOCK.work():
+                            if stream is None:
+                                stream = torch.cuda.Stream(
+                                    device=entry.rows[0]["k"].device)
+                            with torch.cuda.stream(stream):
+                                stream.wait_event(ready)
+                                for layer in entry.rows:
+                                    for t in layer.values():
+                                        t.record_stream(stream)
+                                host = entry_to_host(entry)
                     del entry
                     host.token_ids = toks
                     # ledger account handoff_staging (host plane): the

@@ -63,6 +63,7 @@ def fused_linear_cross_entropy(
     labels: torch.Tensor,
     *,
     transpose_weight: bool = False,
+    bias: torch.Tensor | None = None,
     ignore_index: int = IGNORE_INDEX,
     chunk: int = 4096,
     vocab_chunk: int | None = None,
@@ -82,7 +83,9 @@ def fused_linear_cross_entropy(
     save is what the tiles save).
 
     hidden: (..., dim); weight: (dim, vocab), or (vocab, dim) with
-    ``transpose_weight=True`` (tied embedding); labels: (...) ints.
+    ``transpose_weight=True`` (tied embedding); bias: optional (vocab,),
+    added to the f32 logits in f32 (an untied GPT head's); labels: (...)
+    ints.
     Returns (mean_nll, n_valid_tokens).
     """
     dim = hidden.shape[-1]
@@ -101,14 +104,20 @@ def fused_linear_cross_entropy(
                          if vocab % c == 0), 1)
     vtile = vocab // n_vtiles
 
+    b = bias.float() if bias is not None else None
+
     def untiled_nll(w, hc, safe, valid):
         logits = _logits_f32(hc, w)
+        if b is not None:
+            logits = logits + b
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, 1, safe[:, None])[:, 0]
         return ((lse - tgt) * valid).sum()
 
     def tile_stats(w, hc, safe, i):
         logits = _logits_f32(hc, w.narrow(0, i * vtile, vtile))
+        if b is not None:
+            logits = logits + b.narrow(0, i * vtile, vtile)
         tile_max = logits.max(dim=-1).values
         sumexp = torch.exp(logits - tile_max[:, None]).sum(-1)
         local = safe - i * vtile

@@ -75,12 +75,23 @@ class AdamW:
         lr = _lr(self.learning_rate, t - 1)
         bc1 = 1 - self.b1 ** t
         bc2 = 1 - self.b2 ** t
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            update = update + self.weight_decay * p
-            p.add_(update, alpha=-lr)
+        # the per-parameter update as multi-tensor ops: each line is the
+        # same elementwise op over every parameter (one launch per dtype
+        # group on the card, not one per parameter)
+        params, mus, nus = list(params), state["mu"], state["nu"]
+        torch._foreach_mul_(mus, self.b1)
+        torch._foreach_add_(mus, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(nus, self.b2)
+        torch._foreach_add_(nus, torch._foreach_mul(grads, grads),
+                            alpha=1 - self.b2)
+        update = torch._foreach_div(mus, bc1)
+        denom = torch._foreach_div(nus, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(update, denom)
+        torch._foreach_add_(update, torch._foreach_mul(params,
+                                                       self.weight_decay))
+        torch._foreach_add_(params, update, alpha=-lr)
 
 
 @dataclasses.dataclass

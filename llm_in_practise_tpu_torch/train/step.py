@@ -10,6 +10,7 @@ updates them in place.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable
 
 import torch
@@ -43,13 +44,14 @@ def create_train_state(model: torch.nn.Module, tx,
     return TrainState(model, list(params), tx, tx.init(params))
 
 
-def head_weight(model) -> tuple[torch.Tensor, bool]:
-    """(LM-head weight, transpose?): ``lm_head.kernel`` (dim, vocab) when
-    untied, else the tied ``tok_embed.weight`` (vocab, dim). The ported
-    models have no LM-head bias."""
-    if getattr(model, "lm_head", None) is not None:
-        return model.lm_head.kernel, False
-    return model.tok_embed.weight, True
+def head_weight(model) -> tuple[torch.Tensor, bool, torch.Tensor | None]:
+    """(LM-head weight, transpose?, bias): ``lm_head.kernel`` (dim, vocab)
+    and its bias (an untied GPT head has one, Qwen3's has none) when
+    untied, else the tied ``tok_embed.weight`` (vocab, dim) and no bias."""
+    head = getattr(model, "lm_head", None)
+    if head is not None:
+        return head.kernel, False, getattr(head, "bias", None)
+    return model.tok_embed.weight, True, None
 
 
 def make_fused_ce_loss(*, chunk: int = 4096,
@@ -62,9 +64,9 @@ def make_fused_ce_loss(*, chunk: int = 4096,
     def loss(model, batch):
         x, y = batch
         hidden = model(x, return_hidden=True)
-        w, transpose = head_weight(model)
+        w, transpose, bias = head_weight(model)
         loss_val, n_valid = fused_linear_cross_entropy(
-            hidden, w, y, transpose_weight=transpose, chunk=chunk,
+            hidden, w, y, transpose_weight=transpose, bias=bias, chunk=chunk,
             vocab_chunk=vocab_chunk)
         return loss_val, {"n_valid": n_valid}
 
@@ -76,6 +78,24 @@ def default_loss(model, batch):
     x, y = batch
     loss, n_valid = cross_entropy(model(x), y)
     return loss, {"n_valid": n_valid}
+
+
+def make_dropout_loss(generator: torch.Generator | None = None) -> Callable:
+    """Next-token cross-entropy over the full logits with the model in
+    training mode (JAX ``make_train_step``'s default loss, which applies
+    ``deterministic=False``): a model whose forward takes
+    ``deterministic`` (the GPT family) runs with its dropout on, the masks
+    drawn from ``generator``; any other runs as it is."""
+
+    def loss(model, batch):
+        x, y = batch
+        kw = {}
+        if "deterministic" in inspect.signature(model.forward).parameters:
+            kw = dict(deterministic=False, generator=generator)
+        loss_val, n_valid = cross_entropy(model(x, **kw), y)
+        return loss_val, {"n_valid": n_valid}
+
+    return loss
 
 
 def make_train_step(*, loss_fn: Callable | None = None,

@@ -142,12 +142,18 @@ class _OnCuda:
                                             (torch.float32, 128),
                                             (torch.bfloat16, 32)])
 def test_auto_takes_flash_on_cuda_for_every_uncached_call(dtype, head_dim):
+    # every uncached causal call the kernels can take: bf16 at head_dim
+    # 64 or 128; the rule is decided before any launch, so a dtype or
+    # head_dim they cannot take (the GPT family's f32 default, its
+    # head_dim 32) is dense
     q = _OnCuda((1, 16, 4, head_dim), dtype)
     k = _OnCuda((1, 16, 2, head_dim), dtype)
-    assert pick_impl(q, k) == "flash"
+    takes = (dtype, head_dim) == (torch.bfloat16, 128)
+    assert pick_impl(q, k) == ("flash" if takes else "dense")
     assert pick_impl(q, k, q_offset=3) == "dense"  # cached: dense
-    if (dtype, head_dim) != (torch.bfloat16, 128):
-        # what the kernels cannot take raises; it never runs plain
+    if not takes:
+        # asked for explicitly, what the kernels cannot take raises; it
+        # never runs plain
         with pytest.raises((TypeError, ValueError),
                            match="flash kernels take"):
             port_fa.flash_forward(q, k, k, head_dim ** -0.5)

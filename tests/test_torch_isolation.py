@@ -28,7 +28,9 @@ for name in ("serve.constrain", "serve.arrivals", "serve.multi_lora",
              "obs.trace", "obs.steptrace", "obs.meter", "obs.prof",
              "obs.buildinfo", "obs.debug", "quant.gptq", "quant.ppl",
              "data.lm_dataset", "data.loader", "data.converters",
-             "quantize", "sft_recipe"):
+             "quantize", "sft_recipe", "models.gpt", "models.layers",
+             "train.trainer", "data.chardata", "core.config",
+             "minigpt_train", "gptlike_wikitext"):
     assert "llm_in_practise_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)

@@ -10,7 +10,9 @@ reads ``model_{method}_{w4|w8}.msgpack`` (equal to the packed tree
 dequantized to f32), and the PPLs the CLI prints equal JAX's
 ``compare_quantized`` of the fixture against the export's dequantized
 tree on the same batches within 1e-4 relative. Without ``--model_path``
-the CLI raises ``NotImplementedError`` naming queue A item 13.
+the CLI takes the example's hermetic branch: a GPT pretrained with the
+Trainer (stubbed here to a tiny one; ``test_torch_gpt_serve.py`` runs
+the real branch) is quantized and exported with ``family: "gpt"``.
 """
 
 import os
@@ -110,10 +112,25 @@ def test_quantize_cli_export_and_ppl_match_jax(inputs, method, capsys):
     assert isinstance(res["q_state"]["lm_head.kernel"], torch.Tensor)
 
 
-def test_quantize_cli_without_a_model_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        quantize.main(["--method", "gptq", "--out_dir", str(tmp_path),
-                       "--device", "cpu"])
+def test_quantize_cli_without_a_model_raises(tmp_path, monkeypatch):
+    # no longer raises: without a model the hermetic GPT branch runs
+    from llm_in_practise_tpu_torch.models.gpt import gptlike_config
+    from llm_in_practise_tpu_torch.models.gpt import init_params
+
+    def tiny(device):
+        tok = BPETokenizer.train(prepare_data("wikitext-2")[:50],
+                                 vocab_size=160, min_frequency=1)
+        cfg = gptlike_config(tok.vocab_size, seq_len=64, n_layer=1,
+                             embed_dim=64, n_head=2, dropout=0.0)
+        return tok, cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                                     device=device)
+
+    monkeypatch.setattr(quantize, "pretrain_hermetic", tiny)
+    assert quantize.main(["--method", "gptq", "--out_dir", str(tmp_path),
+                          "--device", "cpu", "--n_calib", "4"]) == 0
+    _, meta = jax_quant_io.load_packed(str(tmp_path / "packed"))
+    assert meta["family"] == "gpt" and meta["config"]["n_layer"] == 1
+    assert os.path.exists(tmp_path / "tokenizer.json")
     assert quantize.build_parser().get_default("group_size") == 32
     assert quantize.block_target("block_0/attn/q_proj/kernel")
     assert not quantize.block_target("lm_head/kernel")
